@@ -1,0 +1,105 @@
+"""Adapter API (port of ``repro/core/adapter_api.py``, QR-LoRA mode).
+
+One runtime formula::
+
+    y = x · W  +  ((x · B) * λ) · A · scale
+
+B and A are the frozen pivoted-QR factors and λ trains (init 0); ``adp is
+None`` is the plain ``x · W``.  Adapters live inside the stacked layer tree
+under ``params["groups"]["adapters"][module][proj]``.
+
+Multi-tenant serving: when ``adp`` carries ``"seg"`` (int32 slot ids, per
+sequence or per row), its ``"lam"`` leaf is a packed λ table
+``(n_slots, r)`` and each row applies its own tenant's λ through the
+batched multi-λ kernel (:func:`repro_torch.kernels.ops.qrlora_bgmv`).  The
+reference's sharded branches come with the sharding slice.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import AdapterConfig, ModelConfig
+from repro_torch.core.qr_lora import qr_lora_init_stacked
+from repro_torch.kernels import ops
+
+
+def adapter_scale(cfg: AdapterConfig) -> float:
+    """``α/r`` for the LoRA modes of later slices; QR-LoRA uses 1."""
+    return 1.0
+
+
+def layer_selection_mask(sel, n: int) -> Tuple[bool, ...]:
+    """Which of the n stacked rows get adapters ('all' / 'lastK' / indices)."""
+    if sel == "all":
+        return tuple(True for _ in range(n))
+    if isinstance(sel, str) and sel.startswith("last"):
+        k = int(sel[4:])
+        return tuple(i >= n - k for i in range(n))
+    return tuple(i in sel for i in range(n))
+
+
+def adapted_matmul(
+    x: torch.Tensor,
+    W: torch.Tensor,
+    adp: Optional[Dict[str, torch.Tensor]],
+    scale: float = 1.0,
+) -> torch.Tensor:
+    """``y = x·W + ((x·B)*λ)·A·scale``; with ``adp["seg"]`` the λ leaf is a
+    slot table and every row takes its own slot's λ (BGMV kernel)."""
+    if adp is None:
+        return x @ W
+    seg = adp.get("seg")
+    if seg is not None:
+        return ops.qrlora_bgmv(x, W, adp["B"], adp["A"], adp["lam"], seg, scale=scale)
+    # the reference promotes the bf16 factors to x's dtype; torch needs the
+    # cast spelled out
+    low = ((x @ adp["B"].to(x.dtype)) * adp["lam"].to(x.dtype)) @ adp["A"].to(x.dtype)
+    return x @ W + low * scale
+
+
+def merge_adapter(
+    W: torch.Tensor, adp: Optional[Dict[str, torch.Tensor]], scale: float = 1.0
+) -> torch.Tensor:
+    """Fold the adapter into the weight (the single-tenant deployment),
+    computed in W's dtype as the reference's type promotion does."""
+    if adp is None:
+        return W
+    dt = W.dtype
+    lam = adp["lam"].to(dt)
+    return W + ((adp["B"].to(dt) * lam[..., None, :]) @ adp["A"].to(dt)) * scale
+
+
+def init_adapters(
+    cfg: ModelConfig,
+    stacked: Dict[str, torch.Tensor],
+    dtype=torch.bfloat16,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """QR-LoRA adapters for every ``(n_layers, d_in, d_out)`` projection in
+    ``stacked`` (callers pre-filter targets).  The factors default to
+    bfloat16 whatever the model dtype, as in the reference."""
+    acfg = cfg.adapter
+    if acfg.mode == "none":
+        return {}
+    return {
+        name: qr_lora_init_stacked(
+            W, layer_selection_mask(acfg.layers, W.shape[0]), acfg, dtype
+        )
+        for name, W in sorted(stacked.items())
+    }
+
+
+def count_trainable_params(params, cfg: ModelConfig) -> int:
+    """Trainable λ entries of a QR-LoRA parameter tree.
+
+    Counts every stored λ entry, rank padding included — the figure the
+    reference's ``count_trainable_params`` returns for decoder trees (its
+    ``ranks`` lookup is keyed by module name and never matches a
+    projection, see ROADMAP Queue 3)."""
+    if cfg.adapter.mode != "qr_lora":
+        return 0
+    adapters = params["groups"].get("adapters", {})
+    return sum(
+        leaf["lam"].numel() for projs in adapters.values() for leaf in projs.values()
+    )

@@ -1,0 +1,38 @@
+"""Weights crossing from the JAX reference into the port.
+
+:func:`params_from_jax` turns a parameter tree whose leaves are numpy arrays
+(``jax.device_get(params)`` of a ``repro`` model: decoder params, adapters
+with ``B``/``A``/``lam``/``ranks``, or a bare λ tree) into the same tree of
+torch tensors, leaf for leaf.  The port keeps the reference's layouts, so
+the conversion is a plain copy.  This module imports neither ``jax`` nor
+``ml_dtypes``: bfloat16 leaves cross as their raw 16-bit patterns.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+
+def _leaf_to_torch(leaf, device) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: same bits as torch's
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def params_from_jax(tree: Any, device=None) -> Any:
+    """Convert a nested dict of numpy leaves to torch tensors on ``device``
+    (default ``cuda``; tests pass ``"cpu"``)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf_to_torch(node, dev)
+
+    return conv(tree)
