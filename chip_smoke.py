@@ -7,12 +7,20 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-serving path gives it, then serves full-width smollm-135m (30 layers, random
-weights from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers,
-the default engine config) for 6 tenants through the paged multi-tenant
-engine, counting kernel launches, and checks the served tokens against the
-merged-weight reference.  Without a CUDA card it exits non-zero before
-printing any result.
+serving and training paths give it (and the one-λ matmul's hand-written
+backward against autograd through the plain formula), then drives the two
+paths at the full width of smollm-135m (30 layers, random weights from
+``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers), counting kernel
+launches around each:
+
+* serving: 6 tenants through the paged multi-tenant engine (default
+  config), the served tokens checked against the merged-weight reference;
+* training: 30 λ-only steps at batch 8 × seq 256 through
+  ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
+  held against the same run with the plain version in place of the kernel.
+
+Planted faults check that each check rejects what it targets.  Without a
+CUDA card it exits non-zero before printing any result.
 
 The line before the last holds the card's name and power limit (as
 ``nvidia-smi`` reports them); the one before that a JSON summary of every
@@ -22,7 +30,9 @@ details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,7 +52,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 
 TOL = {
     "bgmv": {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0**-7)},
     "paged": {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2.0**-7)},
+    "matmul": {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0**-7)},
 }
+# one-λ matmul backward (hand-written) vs autograd through the plain formula:
+# both compute in fp32 from the same inputs, in another order.  dx as
+# |Δ| <= atol + rtol·|ref| (bf16: dx rounds to one bf16 ulp); dλ (fp32) as
+# |Δ| <= DLAM_RTOL · max|dλ_ref|.
+DX_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2.0**-7)}
+DLAM_RTOL = 1e-5
 # bf16 serve vs the merged-weight reference, as a fraction of a logits row's
 # largest |logit| (the two paths round at different places in every layer).
 # Set from full-width readings on an H100 at --seed 0: the sound serve's
@@ -225,8 +242,120 @@ def check_paged(gen, details):
     return worst
 
 
+def _matmul_inputs(gen, M, N, x_dtype, K=576, r=128, rank=100):
+    """The training path's adapted projection: x (M,K) and W in the model
+    dtype, bf16 QR factors whose columns past the selected ``rank`` are zero
+    (as ``qr_lora_init_single`` leaves them), λ (r,) fp32."""
+    import torch
+
+    dev = gen.device
+    x = torch.randn((M, K), generator=gen, device=dev).to(x_dtype)
+    W = (torch.randn((K, N), generator=gen, device=dev) * K**-0.5).to(x_dtype)
+    B = torch.randn((K, r), generator=gen, device=dev) * K**-0.5
+    A = torch.randn((r, N), generator=gen, device=dev)
+    B[:, rank:] = 0
+    A[rank:] = 0
+    lam = torch.randn((r,), generator=gen, device=dev) * 0.3
+    return x, W, B.bfloat16(), A.bfloat16(), lam
+
+
+def check_matmul(gen, details):
+    import torch
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
+    from repro_torch.kernels.ref import qrlora_matmul_ref
+
+    worst = {}
+    for x_dt in (torch.bfloat16, torch.float32):
+        name = str(x_dt).split(".")[1]
+        for M in (2048, 37):
+            for N in (576, 192):
+                args = _matmul_inputs(gen, M, N, x_dt)
+                y = qrlora_matmul_cuda(*args, scale=0.7)
+                torch.cuda.synchronize()
+                ref = qrlora_matmul_ref(*args, scale=0.7)
+                err = _max_err(y, ref)
+                ok = _within(y, ref, TOL["matmul"][name]) and bool(torch.isfinite(y).all())
+                details.append({"kernel": "qrlora_matmul", "x": name, "M": M, "N": N,
+                                "max_abs_err": err, "ok": ok})
+                _check(ok, f"qrlora_matmul x={name} M={M} N={N}: "
+                           f"max|Δ|={err:.3e} over tolerance {TOL['matmul'][name]}")
+                worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def matmul_backward_readings(gen, x_dt, N, M=2048, scale=0.7):
+    """The autograd.Function (kernel forward, hand-written backward) against
+    torch.autograd through the plain formula ``qrlora_matmul_ref`` — which
+    shares no code with the hand-written backward — on one random
+    cotangent.  Returns the readings and whether each is within bounds."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import qrlora_matmul_ref
+
+    x, W, B, A, lam = _matmul_inputs(gen, M, N, x_dt)
+    cot = torch.randn((M, N), generator=gen, device=gen.device).to(x_dt)
+    outs = []
+    for fn in (ops.qrlora_matmul, qrlora_matmul_ref):
+        xx = x.clone().requires_grad_(True)
+        ll = lam.clone().requires_grad_(True)
+        y = fn(xx, W, B, A, ll, scale)
+        (y.float() * cot.float()).sum().backward()
+        outs.append((y.detach(), xx.grad, ll.grad))
+    torch.cuda.synchronize()
+    (y, dx, dlam), (y_ref, dx_ref, dlam_ref) = outs
+    name = str(x_dt).split(".")[1]
+    dlam_scale = float(dlam_ref.abs().max())
+    row = {"x": name, "M": M, "N": N, "y_err": _max_err(y, y_ref), "dx_err": _max_err(dx, dx_ref),
+           "dlam_err": _max_err(dlam, dlam_ref), "dlam_scale": dlam_scale}
+    row["dlam_err_over_bound"] = row["dlam_err"] / (DLAM_RTOL * dlam_scale)
+    row["ok"] = (_within(y, y_ref, TOL["matmul"][name]) and _within(dx, dx_ref, DX_TOL[name])
+                 and row["dlam_err"] <= DLAM_RTOL * dlam_scale
+                 and bool(torch.isfinite(dx).all() and torch.isfinite(dlam).all()))
+    return row
+
+
+def check_matmul_backward(gen, details):
+    import torch
+
+    rows = [matmul_backward_readings(gen, x_dt, N)
+            for x_dt in (torch.bfloat16, torch.float32) for N in (576, 192)]
+    details.extend({"kernel": "qrlora_matmul backward", **r} for r in rows)
+    return rows
+
+
+def planted_backward_faults(gen):
+    """Controls for the backward check: the hand-written backward with the
+    low-rank dx term dropped, and with ``scale`` dropped from dλ.  Each must
+    fail :func:`matmul_backward_readings` (scale 0.7, random λ)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    sound = ops.qrlora_matmul_bwd
+
+    def no_lowrank_dx(x, W, B, A, lam, scale, g, need_dx=True, need_dlam=True):
+        dx, dlam = sound(x, W, B, A, lam, scale, g, need_dx, need_dlam)
+        if dx is not None:
+            g2 = g.reshape(-1, g.shape[-1]).float()
+            dx = (g2 @ W.float().T).reshape(x.shape).to(x.dtype)
+        return dx, dlam
+
+    def no_scale_in_dlam(x, W, B, A, lam, scale, g, need_dx=True, need_dlam=True):
+        dx, dlam = sound(x, W, B, A, lam, scale, g, need_dx, need_dlam)
+        return dx, None if dlam is None else dlam / scale
+
+    rows = {}
+    for name, fault in (("bwd_lowrank_dx_dropped", no_lowrank_dx),
+                        ("bwd_scale_dropped_from_dlam", no_scale_in_dlam)):
+        ops.qrlora_matmul_bwd = fault
+        try:
+            rows[name] = matmul_backward_readings(gen, torch.float32, 576)
+        finally:
+            ops.qrlora_matmul_bwd = sound
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# timing at the serving path's decode shapes
+# timing at the serving path's decode shapes and the training path's shapes
 # ---------------------------------------------------------------------------
 
 
@@ -276,6 +405,52 @@ def time_paged(gen, lengths=(64, 48, 33, 17)):
     return res
 
 
+def time_matmul(gen, N: int):
+    """wq (N=576) / wv (N=192) projection of a training step: batch 8 ×
+    seq 256 = 2048 rows, bf16."""
+    import torch
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
+    from repro_torch.kernels.ref import qrlora_matmul_ref
+
+    M, K, r = 2048, 576, 128
+    x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.bfloat16, K, r, rank=r)
+    lam16 = lam.bfloat16()
+    kernel = lambda: qrlora_matmul_cuda(x, W, B, A, lam)
+    res = {"ms": _device_ms(kernel),
+           "plain_ms": _device_ms(lambda: qrlora_matmul_ref(x, W, B, A, lam)),
+           "library_ms": _device_ms(lambda: x @ W + ((x @ B) * lam16) @ A)}
+    res["eager_ms"] = _eager_ms(kernel)
+    n_bytes = 2 * (M * K + K * N + K * r + r * N + M * N) + 4 * r
+    n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
+    res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
+    res["shape"] = {"M": M, "K": K, "N": N, "r": r, "dtype": "bfloat16"}
+    return res
+
+
+def _device_busy(prof, wall_us: float):
+    """Union of the device-kernel intervals of a torch.profiler run: busy
+    time, idle share of ``wall_us``, kernel count and the top kernels by
+    device time."""
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / wall_us, "kernels": len(spans),
+            "top_kernels_ms": [(n, t / 1e3) for n, t in top]}
+
+
 # ---------------------------------------------------------------------------
 # the serving path at full width
 # ---------------------------------------------------------------------------
@@ -316,7 +491,6 @@ def profile_serve(engine, seed: int, n_tenants: int = 6, gen_len: int = 16):
     time) and device time by kernel name."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
 
     rng = np.random.default_rng(seed)
     for i in range(n_tenants):
@@ -329,23 +503,8 @@ def profile_serve(engine, seed: int, n_tenants: int = 6, gen_len: int = 16):
         engine.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        a, b = e.time_range.start, e.time_range.end
-        spans.append((a, b))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1 - busy / wall_us, "kernels": len(spans),
-            "steps": engine.steps - steps0, "tokens": engine.decoded_tokens - toks0,
-            "top_kernels_ms": [(n, t / 1e3) for n, t in top]}
+    return {**_device_busy(prof, wall_us), "steps": engine.steps - steps0,
+            "tokens": engine.decoded_tokens - toks0}
 
 
 def verify(cfg, engine, lams, done, gen_len: int):
@@ -453,6 +612,181 @@ def verify_forced(cfg, engine, lams, done):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the training path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 30, 8, 256, 3e-3
+# A train through the kernel against the same train with the plain version
+# in place of the kernel (same params, batches and backward): the largest
+# per-step |Δloss|, and the largest |Δλ| over the twin's largest |λ|.  Set
+# from full-width readings on an H100 at --seed 0 (PERF.md, Findings):
+#  * float32: the two differ by summation order only — |Δloss| 9.5e-7,
+#    |Δλ| 5.2e-6 of max|λ|.  The planted fault (λ of the last layer's wq left
+#    out of the kernel's forward) reads |Δloss| 4.8e-6 and |Δλ| 1.3e-3 of
+#    max|λ|: the λ bound, 19× above the sound reading, rejects it.
+#  * bfloat16: rounding differences grow through Adam's sign-like early
+#    steps — |Δloss| 1.1e-3, |Δλ| 4.3% of max|λ|; the planted fault reads the
+#    same, so the bf16 twin check bounds drift only, and the float32 check
+#    carries the fault.
+TRAIN_TOL = {"float32": {"dloss": 1e-5, "dlam_rel": 1e-4},
+             "bfloat16": {"dloss": 1e-2, "dlam_rel": 0.25}}
+
+
+def train_model(dtype: str, seed: int):
+    """Full-width smollm-135m and its random params (QR-LoRA init on the
+    card) through the train launcher's own ``build``."""
+    import torch
+    from repro_torch.launch import train as tl
+
+    model = tl.build("smollm-135m", False, "cuda", dtype)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    return model, params, time.perf_counter() - t0
+
+
+def train_run(model, params, seed: int, log_every: int = 0):
+    """TRAIN_STEPS λ-only steps from λ = 0 through the train launcher's
+    functions; returns (state, per-step history)."""
+    from repro_torch.launch import train as tl
+    from repro_torch.training import init_train_state
+
+    state = init_train_state(model, params=params)
+    step_fn = tl.make_step(model, TRAIN_LR, TRAIN_STEPS)
+    data = tl.batches(model.cfg, TRAIN_BATCH, TRAIN_SEQ, seed, model.device)
+    return tl.train(step_fn, state, data, TRAIN_STEPS, log_every=log_every, log=print)
+
+
+def profile_train(model, state, seed: int, steps: int = 3):
+    """Further steps of a trained state under torch.profiler: wall time,
+    device busy time and idle share, device time by kernel."""
+    import torch
+    from repro_torch.launch import train as tl
+
+    step_fn = tl.make_step(model, TRAIN_LR, TRAIN_STEPS)
+    data = tl.batches(model.cfg, TRAIN_BATCH, TRAIN_SEQ, seed + 1, model.device)
+    batches = [next(data) for _ in range(steps)]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            state, m = step_fn(state, b)
+            float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return {**_device_busy(prof, wall_us), "steps": steps}
+
+
+@contextlib.contextmanager
+def matmul_forward(fn):
+    """Run the one-λ matmul's 2-D forward through ``fn`` instead of the
+    wrapper (the backward stays the hand-written one)."""
+    from repro_torch.kernels import qrlora_matmul as mm
+
+    sound = mm.qrlora_matmul
+    mm.qrlora_matmul = fn
+    try:
+        yield
+    finally:
+        mm.qrlora_matmul = sound
+
+
+def plain_forward(x, W, B, A, lam, scale=1.0):
+    from repro_torch.kernels.ref import qrlora_matmul_ref
+
+    return qrlora_matmul_ref(x, W, B, A, lam, scale)
+
+
+def last_wq_lam_dropped(cfg):
+    """Planted fault: the kernel's forward with λ of the last layer's wq
+    left out (layer ``n_layers - 1`` is the λ view at that storage offset of
+    the stacked leaf; wq is the projection of width n_heads · d_head)."""
+    import torch
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul
+
+    last, n_q = cfg.n_layers - 1, cfg.n_heads * cfg.d_head
+
+    def fwd(x, W, B, A, lam, scale=1.0):
+        if lam.storage_offset() == last * lam.shape[0] and W.shape[1] == n_q:
+            lam = torch.zeros_like(lam)
+        return qrlora_matmul(x, W, B, A, lam, scale)
+
+    return fwd
+
+
+def compare_trains(run, twin):
+    from repro_torch.tree import tree_leaves
+
+    (state, hist), (state_t, hist_t) = run, twin
+    lam, lam_t = tree_leaves(state["trainable"]), tree_leaves(state_t["trainable"])
+    scale = max(float(l.detach().abs().max()) for l in lam_t)
+    dlam = max(_max_err(a.detach(), b.detach()) for a, b in zip(lam, lam_t))
+    return {"max_dloss": max(abs(a["loss"] - b["loss"]) for a, b in zip(hist, hist_t)),
+            "max_dlam": dlam, "max_lam": scale, "dlam_rel": dlam / scale,
+            "finite": all(math.isfinite(h["loss"]) for h in hist + hist_t)}
+
+
+def within_train_tol(r, dtype: str) -> bool:
+    tol = TRAIN_TOL[dtype]
+    return r["finite"] and r["max_dloss"] <= tol["dloss"] and r["dlam_rel"] <= tol["dlam_rel"]
+
+
+def lam_outside_selection(params, state):
+    """Nonzero λ entries outside the selected layers and ranks, nonzero
+    entries inside them, and the selected ranks of each projection."""
+    outside = inside = 0
+    ranks = {}
+    for mod, projs in params["groups"]["adapters"].items():
+        for proj, leaf in projs.items():
+            lam = state["trainable"]["groups"]["adapters"][mod][proj]["lam"].detach()
+            ranks[proj] = leaf["ranks"].tolist()
+            for l, r in enumerate(ranks[proj]):
+                outside += int((lam[l, r:] != 0).sum())
+                inside += int((lam[l, :r] != 0).sum())
+    return outside, inside, ranks
+
+
+def train_phase(dtype: str, seed: int, log_every: int = 0):
+    """The train, its plain-version twin and the planted forward fault, at
+    one dtype; the bfloat16 train is also profiled."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.adapter_api import partition
+    from repro_torch.launch import train as tl
+    from repro_torch.tree import tree_leaves
+
+    model, params, t_init = train_model(dtype, seed)
+    frozen = [t.clone() for t in tree_leaves(partition(params, model.trainable_mask(params))[1])]
+    out = {"init_s": t_init}
+    runs = {}
+    for name, fwd in (("kernel", None), ("plain_twin", plain_forward),
+                      ("fault_last_wq_lam_dropped", last_wq_lam_dropped(model.cfg))):
+        kernels.reset_launch_counts()
+        if fwd is None:
+            runs[name] = train_run(model, params, seed, log_every)
+        else:
+            with matmul_forward(fwd):
+                runs[name] = train_run(model, params, seed)
+        torch.cuda.synchronize()
+        out[f"launches_{name}"] = kernels.launch_counts()
+    state, hist = runs["kernel"]
+    out["losses"] = [h["loss"] for h in hist]
+    out.update(tl.summary(hist, TRAIN_BATCH * TRAIN_SEQ))
+    out["twin"] = compare_trains(runs["kernel"], runs["plain_twin"])
+    out["fault_last_wq_lam_dropped"] = compare_trains(runs["fault_last_wq_lam_dropped"],
+                                                      runs["plain_twin"])
+    out["frozen_unchanged"] = all(
+        torch.equal(a, b) for a, b in zip(frozen, tree_leaves(state["frozen"])))
+    (out["lam_nonzero_outside_selection"], out["lam_nonzero_inside_selection"],
+     out["selected_ranks"]) = lam_outside_selection(params, state)
+    out["n_layers"] = model.cfg.n_layers
+    if dtype == "bfloat16":
+        out["profile"] = profile_train(model, state, seed)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -488,11 +822,29 @@ def main(argv=None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bgmv_err = check_bgmv(gen, report["cases"])
     paged_err = check_paged(gen, report["cases"])
+    matmul_err = check_matmul(gen, report["cases"])
     print(f"kernel vs plain: qrlora_bgmv max|Δ| {bgmv_err}, "
-          f"paged_decode_attention max|Δ| {paged_err} (all within tolerance)")
+          f"paged_decode_attention max|Δ| {paged_err}, qrlora_matmul max|Δ| {matmul_err} "
+          f"(all within tolerance)")
+
+    # -- the one-λ matmul's backward against autograd of the plain formula ---
+    bwd_rows = check_matmul_backward(gen, report["cases"])
+    for row in bwd_rows:
+        print(f"  qrlora_matmul backward {row}")
+    bwd_faults = planted_backward_faults(gen)
+    for name, row in bwd_faults.items():
+        print(f"  planted fault {name}: {row}")
+    report["backward_faults"] = bwd_faults
+    _check(all(r["ok"] for r in bwd_rows),
+           "the hand-written backward disagrees with autograd through the plain formula")
+    for name, row in bwd_faults.items():
+        _check(not row["ok"], f"the backward check let the planted fault {name} through")
+    print("qrlora_matmul backward: agrees with autograd of the plain formula; "
+          f"{len(bwd_faults)} planted backward faults rejected")
 
     timings = {"qrlora_bgmv_wq": time_bgmv(gen, 576), "qrlora_bgmv_wv": time_bgmv(gen, 192),
-               "paged_decode_attention": time_paged(gen)}
+               "paged_decode_attention": time_paged(gen),
+               "qrlora_matmul_wq": time_matmul(gen, 576), "qrlora_matmul_wv": time_matmul(gen, 192)}
     for name, t in timings.items():
         print(f"{name}: kernel {t['ms']:.5f} ms (eager call {t['eager_ms']:.5f} ms), plain "
               f"{t['plain_ms']:.5f} ms, library {t['library_ms']} ms, bound "
@@ -508,8 +860,8 @@ def main(argv=None) -> None:
     print(f"serve bf16: init {t_init:.1f} s (random weights + QR-LoRA on the card); "
           f"{n_tok} tokens for {len(done)} tenants in {t_serve:.3f} s = "
           f"{n_tok / t_serve:.1f} tok/s over {engine.steps} decode steps; launches {launches}")
-    for name, n in launches.items():
-        _check(n > 0, f"kernel {name} never launched on the serving path")
+    for name in ("qrlora_bgmv", "paged_decode_attention"):
+        _check(launches[name] > 0, f"kernel {name} never launched on the serving path")
     _check(len(done) == 6 and all(len(r.tokens) == 16 for r in done.values()),
            "not every tenant got its 16 tokens")
     rows_bf16 = verify_forced(cfg, engine, lams, done)
@@ -554,23 +906,66 @@ def main(argv=None) -> None:
                             "tokens": engine.decoded_tokens, "verify": rows_f32}
     _check(all(r["tokens_match"] and r["max_abs_dlogits"] < FP32_LOGIT_TOL for r in rows_f32),
            "fp32 serve diverged from the merged-weight reference")
+    del engine
+    torch.cuda.empty_cache()
+
+    # -- the training path: full-width λ-only trains, launches counted -------
+    want_launches = {name: 0 for name in kernels.KERNEL_WRAPPERS}
+    report["train"] = {}
+    for dtype in ("bfloat16", "float32"):
+        torch.cuda.reset_peak_memory_stats()
+        tr = train_phase(dtype, args.seed, log_every=10 if dtype == "bfloat16" else 0)
+        report["train"][dtype] = tr
+        print(f"train {dtype}: {TRAIN_STEPS} steps at batch {TRAIN_BATCH} × seq {TRAIN_SEQ}, "
+              f"init {tr['init_s']:.1f} s; median step {tr['median_step_ms']:.1f} ms; "
+              f"{tr['tokens_per_s']:.0f} train tokens/s; peak memory {tr['peak_mem_gb']:.2f} GiB; "
+              f"launches {tr['launches_kernel']}")
+        print(f"  loss curve: {' '.join(f'{x:.4f}' for x in tr['losses'])}")
+        print(f"  vs plain twin: {tr['twin']} (bound {TRAIN_TOL[dtype]}); planted fault "
+              f"last_wq_lam_dropped vs twin: {tr['fault_last_wq_lam_dropped']}")
+        print(f"  frozen leaves unchanged: {tr['frozen_unchanged']}; λ nonzero outside the "
+              f"selected layers/ranks: {tr['lam_nonzero_outside_selection']}, inside: "
+              f"{tr['lam_nonzero_inside_selection']} of "
+              f"{sum(sum(r) for r in tr['selected_ranks'].values())} selected "
+              f"(ranks {tr['selected_ranks']})")
+        if "profile" in tr:
+            print(f"  profiled {tr['profile']['steps']} further steps: {tr['profile']}")
+        matmuls = 2 * tr["n_layers"] * TRAIN_STEPS  # wq and wv of every layer, every step
+        _check(tr["launches_kernel"] == {**want_launches, "qrlora_matmul": matmuls},
+               f"train {dtype}: launches {tr['launches_kernel']}, want {matmuls} qrlora_matmul "
+               f"and no other kernel")
+        _check(tr["launches_plain_twin"] == want_launches,
+               f"train {dtype}: the plain twin launched {tr['launches_plain_twin']}")
+        _check(all(math.isfinite(x) for x in tr["losses"]), f"train {dtype}: non-finite loss")
+        _check(tr["frozen_unchanged"], f"train {dtype}: a frozen leaf changed")
+        _check(tr["lam_nonzero_outside_selection"] == 0 and tr["lam_nonzero_inside_selection"] > 0,
+               f"train {dtype}: λ moved outside the selected layers and ranks, or not inside")
+        _check(within_train_tol(tr["twin"], dtype),
+               f"train {dtype} disagrees with its plain-version twin: {tr['twin']}")
+    _check(not within_train_tol(report["train"]["float32"]["fault_last_wq_lam_dropped"],
+                                "float32"),
+           "the float32 train check let the planted fault last_wq_lam_dropped through")
+    train_launches = report["train"]["bfloat16"]["launches_kernel"]
 
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
 
     entries = []
-    for name, key, err, src, replaces in (
+    for name, key, err, src, replaces, n in (
         ("qrlora_bgmv", "qrlora_bgmv_wq", bgmv_err["bfloat16"],
          "src/repro_torch/kernels/csrc/qrlora_bgmv.cu",
-         "src/repro/kernels/qrlora_bgmv.py:172"),
+         "src/repro/kernels/qrlora_bgmv.py:172", launches["qrlora_bgmv"]),
         ("paged_decode_attention", "paged_decode_attention", paged_err["bfloat16"],
          "src/repro_torch/kernels/csrc/paged_attention.cu",
-         "src/repro/kernels/paged_attention.py:116"),
+         "src/repro/kernels/paged_attention.py:116", launches["paged_decode_attention"]),
+        ("qrlora_matmul", "qrlora_matmul_wq", matmul_err["bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:161", train_launches["qrlora_matmul"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": err, "ms": t["ms"],
+                        "launches": n, "max_abs_err": err, "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": entries}))

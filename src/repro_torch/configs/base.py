@@ -1,5 +1,6 @@
 """Model and adapter configuration — the port's copy of
-``repro/configs/base.py``, cut to the fields the dense serving slice reads.
+``repro/configs/base.py``, cut to the fields the dense serving and λ-only
+training slices read.
 
 The dimensions of a published model are plain numbers, so the port keeps its
 own copy instead of importing the JAX package (see ``smollm_135m.py``).
@@ -55,6 +56,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     norm_eps: float = 1e-5
     adapter: AdapterConfig = field(default_factory=AdapterConfig)
+    microbatches: int = 1  # gradient accumulation steps per train step
 
     def __post_init__(self):
         if self.d_head == 0:

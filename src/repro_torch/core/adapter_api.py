@@ -6,7 +6,9 @@ One runtime formula::
 
 B and A are the frozen pivoted-QR factors and λ trains (init 0); ``adp is
 None`` is the plain ``x · W``.  Adapters live inside the stacked layer tree
-under ``params["groups"]["adapters"][module][proj]``.
+under ``params["groups"]["adapters"][module][proj]``.  One λ goes through
+the one-λ matmul kernel (:func:`repro_torch.kernels.ops.qrlora_matmul`),
+whose backward gives x and λ their gradients.
 
 Multi-tenant serving: when ``adp`` carries ``"seg"`` (int32 slot ids, per
 sequence or per row), its ``"lam"`` leaf is a packed λ table
@@ -23,6 +25,7 @@ import torch
 from repro_torch.configs.base import AdapterConfig, ModelConfig
 from repro_torch.core.qr_lora import qr_lora_init_stacked
 from repro_torch.kernels import ops
+from repro_torch.tree import Tree, tree_map
 
 
 def adapter_scale(cfg: AdapterConfig) -> float:
@@ -46,17 +49,16 @@ def adapted_matmul(
     adp: Optional[Dict[str, torch.Tensor]],
     scale: float = 1.0,
 ) -> torch.Tensor:
-    """``y = x·W + ((x·B)*λ)·A·scale``; with ``adp["seg"]`` the λ leaf is a
-    slot table and every row takes its own slot's λ (BGMV kernel)."""
+    """``y = x·W + ((x·B)*λ)·A·scale``.  One λ goes through the one-λ
+    kernel (differentiable in x and λ, products in fp32, result in x's
+    dtype); with ``adp["seg"]`` the λ leaf is a slot table and every row
+    takes its own slot's λ (BGMV kernel)."""
     if adp is None:
         return x @ W
     seg = adp.get("seg")
     if seg is not None:
         return ops.qrlora_bgmv(x, W, adp["B"], adp["A"], adp["lam"], seg, scale=scale)
-    # the reference promotes the bf16 factors to x's dtype; torch needs the
-    # cast spelled out
-    low = ((x @ adp["B"].to(x.dtype)) * adp["lam"].to(x.dtype)) @ adp["A"].to(x.dtype)
-    return x @ W + low * scale
+    return ops.qrlora_matmul(x, W, adp["B"], adp["A"], adp["lam"], scale=scale)
 
 
 def merge_adapter(
@@ -103,3 +105,40 @@ def count_trainable_params(params, cfg: ModelConfig) -> int:
     return sum(
         leaf["lam"].numel() for projs in adapters.values() for leaf in projs.values()
     )
+
+
+# ---------------------------------------------------------------------------
+# Trainability masks and partitioning
+# ---------------------------------------------------------------------------
+
+_QR_TRAINABLE = ("lam",)
+
+
+def trainable_mask(params: Tree, cfg: ModelConfig) -> Tree:
+    """Tree of bools beside ``params``: which leaves train.  In qr_lora mode
+    only the λ leaves under ``adapters`` do (the reference's mask with no
+    extra trainable paths)."""
+    train_lam = cfg.adapter.mode == "qr_lora"
+
+    def decide(tree, in_adapters):
+        return {
+            k: decide(v, in_adapters or k == "adapters") if isinstance(v, dict)
+            else train_lam and in_adapters and k in _QR_TRAINABLE
+            for k, v in tree.items()
+        }
+
+    return decide(params, False)
+
+
+def partition(params: Tree, mask: Tree) -> Tuple[Tree, Tree]:
+    """Split params into (trainable, frozen); the other side holds None."""
+    train = tree_map(lambda p, m: p if m else None, params, mask)
+    frozen = tree_map(lambda p, m: None if m else p, params, mask)
+    return train, frozen
+
+
+def merge(trainable: Tree, frozen: Tree) -> Tree:
+    """Inverse of :func:`partition`."""
+    if isinstance(frozen, dict):
+        return {k: merge(trainable[k], frozen[k]) for k in frozen}
+    return trainable if frozen is None else frozen

@@ -7,11 +7,13 @@ its path really went through.
 """
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
+from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
 
 #: kernel name → the wrapper that launches it and holds its count
 KERNEL_WRAPPERS = {
     "qrlora_bgmv": qrlora_bgmv_cuda,
     "paged_decode_attention": paged_decode_attention_cuda,
+    "qrlora_matmul": qrlora_matmul_cuda,
 }
 
 

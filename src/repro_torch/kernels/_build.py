@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = {
     "qrlora_bgmv": "qrlora_bgmv.cu",
     "paged_attention": "paged_attention.cu",
+    "qrlora_matmul": "qrlora_matmul.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,13 +1,57 @@
-"""Model-facing wrappers around the port's kernels (port of the serving half
-of ``repro/kernels/ops.py``): batching conventions on top of the 2-D/3-D
+"""Model-facing wrappers around the port's kernels (port of
+``repro/kernels/ops.py``): batching conventions on top of the 2-D/3-D
 kernel wrappers, which pick the kernel (CUDA tensors) or its plain version
-(CPU tensors)."""
+(CPU tensors), and the autograd rule of the trainable one-λ matmul."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import qrlora_bgmv as _bgmv
+from repro_torch.kernels import qrlora_matmul as _mm
+
+
+def qrlora_matmul_bwd(x, W, B, A, lam, scale, g, need_dx: bool = True, need_dlam: bool = True):
+    """The reference's ``_qrlora_bwd`` term for term, in fp32: with
+    ``gA = g·Aᵀ``, ``dx = g·Wᵀ + ((gA·λ)·Bᵀ)·scale`` and
+    ``dλ = Σ_m (x·B) ⊙ gA · scale``; dx in x's dtype, dλ in λ's.  W, B and
+    A are frozen and get no gradient.  Returns ``(dx, dλ)``, None where not
+    needed."""
+    g2 = g.reshape(-1, g.shape[-1]).float()
+    gA = g2 @ A.float().T  # (M, r)
+    dx = dlam = None
+    if need_dx:
+        dx = g2 @ W.float().T + ((gA * lam.float()) @ B.float().T) * scale
+        dx = dx.reshape(x.shape).to(x.dtype)
+    if need_dlam:
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        dlam = (((x2 @ B.float()) * gA).sum(0) * scale).to(lam.dtype)
+    return dx, dlam
+
+
+class _QRLoRAMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, W, B, A, lam, scale):
+        ctx.save_for_backward(x, W, B, A, lam)
+        ctx.scale = scale
+        y = _mm.qrlora_matmul(x.reshape(-1, x.shape[-1]).contiguous(), W, B, A, lam, scale)
+        return y.reshape(*x.shape[:-1], W.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, W, B, A, lam = ctx.saved_tensors
+        dx, dlam = qrlora_matmul_bwd(x, W, B, A, lam, ctx.scale, g,
+                                     ctx.needs_input_grad[0], ctx.needs_input_grad[4])
+        return dx, None, None, None, dlam, None
+
+
+def qrlora_matmul(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
+    """``y = x·W + ((x·B) * λ)·A·scale`` for ``x (..., K)`` and one λ (r,),
+    differentiable in x and λ (the reference's custom VJP): the forward is
+    the kernel for CUDA tensors and its plain version for CPU tensors; the
+    backward is :func:`qrlora_matmul_bwd` on either.  ``scale`` is a
+    constant.  Rows are not padded: the kernel masks its ragged last tile."""
+    return _QRLoRAMatmul.apply(x, W, B, A, lam, scale)
 
 
 def qrlora_bgmv(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:

@@ -47,15 +47,15 @@ def _library():
     return _lib
 
 
-def _check(name, t, dtypes, shape, device):
+def _check(name, t, dtypes, shape, device, kernel="qrlora_bgmv"):
     if t.device != device:
-        raise ValueError(f"qrlora_bgmv: {name} on {t.device}, x on {device}")
+        raise ValueError(f"{kernel}: {name} on {t.device}, x on {device}")
     if t.dtype not in dtypes:
-        raise TypeError(f"qrlora_bgmv: {name} dtype {t.dtype} not in {dtypes}")
+        raise TypeError(f"{kernel}: {name} dtype {t.dtype} not in {dtypes}")
     if tuple(t.shape) != shape:
-        raise ValueError(f"qrlora_bgmv: {name} shape {tuple(t.shape)} != {shape}")
+        raise ValueError(f"{kernel}: {name} shape {tuple(t.shape)} != {shape}")
     if not t.is_contiguous():
-        raise ValueError(f"qrlora_bgmv: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def qrlora_bgmv_cuda(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:

@@ -6,6 +6,18 @@ from __future__ import annotations
 import torch
 
 
+def qrlora_matmul_ref(x, W, B, A, lam, scale: float = 1.0):
+    """One-λ adapter matmul: ``y = x·W + ((x·B) * λ)·A·scale``.
+
+    x (M,K); W (K,N); B (K,r); A (r,N); λ (r,).  Products and sums in fp32,
+    result in x's dtype.
+    """
+    xf = x.float()
+    y = xf @ W.float()
+    low = ((xf @ B.float()) * lam.float()) @ A.float()
+    return (y + low * scale).to(x.dtype)
+
+
 def qrlora_bgmv_ref(x, W, B, A, lam_table, seg, scale: float = 1.0):
     """Batched multi-λ adapter matmul: ``y_m = x_m·W + ((x_m·B) * Λ[seg_m])·A``.
 

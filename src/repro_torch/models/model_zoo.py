@@ -1,6 +1,7 @@
 """Public model API: :class:`Model` (port of ``repro/models/model_zoo.py``
-for the dense family): init with QR-LoRA adapters, forward, prefill and
-decode over the paged or lock-step dense cache, and the parameter count."""
+for the dense family): init with QR-LoRA adapters, forward (logits, or
+``(logits, aux)`` for the trainer), prefill and decode over the paged or
+lock-step dense cache, the trainable mask and the parameter count."""
 from __future__ import annotations
 
 import dataclasses
@@ -58,8 +59,14 @@ class Model:
     # ---- forward ---------------------------------------------------------
     # ``seg_ids`` (int32 (batch,)) selects a per-sequence adapter slot when
     # the params carry a packed multi-tenant λ table (see repro_torch.serving).
-    def apply(self, params, tokens, seg_ids=None) -> torch.Tensor:
-        return tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids)
+    def apply(self, params, tokens, seg_ids=None, train: bool = False):
+        """Full-sequence forward → fp32 logits (B, S, V); with ``train=True``
+        ``(logits, aux)`` as the reference's trainer takes them (``aux``, the
+        MoE balance loss, is 0 for the dense family)."""
+        logits = tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids)
+        if not train:
+            return logits
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
     def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16,
                           paged: bool = False, block_size: int = 16,
@@ -90,6 +97,9 @@ class Model:
         )
 
     # ---- PEFT helpers ------------------------------------------------------
+    def trainable_mask(self, params) -> Dict:
+        return adapter_api.trainable_mask(params, self.cfg)
+
     def count_trainable(self, params) -> int:
         return adapter_api.count_trainable_params(params, self.cfg)
 

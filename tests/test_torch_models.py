@@ -143,3 +143,27 @@ def test_paged_prefill_and_decode_with_seg_match_jax(models):
 def test_paged_cache_lane_axes_match_jax(models):
     jm, _, tm, _ = models
     assert tm.lane_axes() == jm.lane_axes(paged=True)
+
+
+def test_apply_bf16_logits_match_jax_within_rounding():
+    """bfloat16, with nonzero λ so every adapted projection takes the one-λ
+    matmul route.  The port keeps (x·B)⊙λ in fp32 there (the reference's
+    kernel oracle), where the reference's XLA training path rounds it to
+    bf16; with the other rounding points of a bf16 forward, logits of 3
+    layers read max|Δ| 0.046 at max|logit| 3.7.  Bound: 2^-5 of the largest
+    |logit|."""
+    jm = jax_build(jax_reduced("smollm-135m"))
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(1)))
+    for projs in params["groups"]["adapters"].values():
+        for leaf in projs.values():
+            leaf["lam"] = (rng.standard_normal(leaf["lam"].shape) * 0.3).astype(np.float32)
+    toks = _tokens((2, 11), seed=3)
+    want, _ = jm.apply(jax.tree_util.tree_map(jnp.asarray, params), tokens=jnp.asarray(toks),
+                       train=False)
+    got = build_model(get_reduced("smollm-135m"), "cpu").apply(
+        params_from_jax(params, device="cpu"), torch.from_numpy(toks))
+    want = np.asarray(want, np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    print(f"[parity] bf16 apply logits: max|Δ| {err:.2e} (max|logit| {np.abs(want).max():.2f})")
+    assert err <= 2**-5 * np.abs(want).max()
