@@ -15,6 +15,13 @@ launches around each:
 
 * serving: 6 tenants through the paged multi-tenant engine (default
   config), the served tokens checked against the merged-weight reference;
+* serving on a quantized base: the same weights, tenants and traffic with
+  ``base_dtype="int8"`` and ``"fp8"`` (bf16 model) through the quantized
+  BGMV kernel, checked against the quantized merged-weight reference, and
+  each served stream scored again by the single-tenant forward
+  (``Model.apply`` with one λ: the quantized one-λ kernel); in float32 on an
+  int8 base, held against the same serve with the plain version in place
+  of the kernel;
 * training: 30 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
   held against the same run with the plain version in place of the kernel.
@@ -71,6 +78,24 @@ BF16_DRIFT = 14 * 2.0**-9
 # fp32 serve vs the merged-weight reference: the bar of the reference's own
 # serve_multi driver (tokens must match exactly as well).
 FP32_LOGIT_TOL = 1e-3
+# The same for a quantized base: the reference dequantizes the engine's
+# {q, scale} weights to bf16 and merges there (every wq/wv of all 30 layers
+# rounds), the engine scales the x·q sum in fp32.  Set from full-width
+# readings on an H100 at --seed 0, in units of 2^-9: int8 sound serve 14.5,
+# planted faults 18.6 (decode seg sent to slot 0), 44.2 (dequant scale on the
+# adapter term), 81.4 (w_scale dropped for one wq); fp8 sound 16.7, faults
+# 17.9, 43.4, 72.1.  Each bound sits between its sound serve and its smallest
+# fault (fp8: by 3% either side), and every run plants all three on both.
+QUANT_BF16_DRIFT = {"int8": 16 * 2.0**-9, "fp8": 17.25 * 2.0**-9}
+# float32 quantized serve vs the quantized merged-weight reference: the bar
+# of the reference's serve_multi for a quantized base.  Its merged
+# weights are bf16 (dequantized to the factors' dtype), so at full width a
+# greedy stream may part where the reference's lead is below this bar (one
+# tenant of 6 at --seed 0, lead 0.0052); tokens are exact up to there.
+QUANT_FP32_LOGIT_TOL = 5e-2
+# rows of a single-tenant scoring forward (a 16-48 token prompt and 15 of
+# the served tokens): the quantized one-λ kernel's timed shape
+SCORE_ROWS = 64
 
 
 def _fail(msg: str) -> None:
@@ -283,6 +308,76 @@ def check_matmul(gen, details):
     return worst
 
 
+def _quantized(W, base_dtype):
+    from repro_torch.core.quantize import quantize_weight
+
+    qW = quantize_weight(W.float(), base_dtype)
+    return qW["q"], qW["scale"]
+
+
+def check_bgmv_quant(gen, details):
+    """Quantized BGMV against its plain version: int8 and fp8 q, bf16 and
+    float32 x, decode (M=4) and prefill-bucket (M=64) rows, seg ids over
+    every slot (0 included).  Widening q is exact and so are the products,
+    so the two differ by summation order only: the BGMV tolerance."""
+    import torch
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_quant_cuda
+    from repro_torch.kernels.ref import qrlora_bgmv_quant_ref
+
+    K, r, n_slots = 576, 128, 8
+    worst = {}
+    for base in ("int8", "fp8"):
+        for x_dt in (torch.bfloat16, torch.float32):
+            name = str(x_dt).split(".")[1]
+            for M in (4, 64):
+                for N in (576, 192):
+                    x, W, B, A, lam, _ = _bgmv_inputs(gen, M, K, N, r, n_slots, x_dt)
+                    seg = torch.arange(M, device=x.device, dtype=torch.int32) % n_slots
+                    q, ws = _quantized(W, base)
+                    args = (x, q, ws, B, A, lam, seg)
+                    y = qrlora_bgmv_quant_cuda(*args, scale=0.7)
+                    torch.cuda.synchronize()
+                    ref = qrlora_bgmv_quant_ref(*args, scale=0.7)
+                    err = _max_err(y, ref)
+                    ok = _within(y, ref, TOL["bgmv"][name]) and bool(torch.isfinite(y).all())
+                    details.append({"kernel": "qrlora_bgmv_quant", "q": base, "x": name, "M": M,
+                                    "N": N, "max_abs_err": err, "ok": ok})
+                    _check(ok, f"qrlora_bgmv_quant q={base} x={name} M={M} N={N}: "
+                               f"max|Δ|={err:.3e} over tolerance {TOL['bgmv'][name]}")
+                    worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def check_matmul_quant(gen, details):
+    """Quantized one-λ matmul against its plain version at the training
+    and a ragged row count, int8 and fp8 q, bf16 and float32 x; the one-λ
+    matmul tolerance (exact products, another summation order)."""
+    import torch
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_quant_cuda
+    from repro_torch.kernels.ref import qrlora_matmul_quant_ref
+
+    worst = {}
+    for base in ("int8", "fp8"):
+        for x_dt in (torch.bfloat16, torch.float32):
+            name = str(x_dt).split(".")[1]
+            for M in (2048, 37):
+                for N in (576, 192):
+                    x, W, B, A, lam = _matmul_inputs(gen, M, N, x_dt)
+                    q, ws = _quantized(W, base)
+                    args = (x, q, ws, B, A, lam)
+                    y = qrlora_matmul_quant_cuda(*args, scale=0.7)
+                    torch.cuda.synchronize()
+                    ref = qrlora_matmul_quant_ref(*args, scale=0.7)
+                    err = _max_err(y, ref)
+                    ok = _within(y, ref, TOL["matmul"][name]) and bool(torch.isfinite(y).all())
+                    details.append({"kernel": "qrlora_matmul_quant", "q": base, "x": name,
+                                    "M": M, "N": N, "max_abs_err": err, "ok": ok})
+                    _check(ok, f"qrlora_matmul_quant q={base} x={name} M={M} N={N}: "
+                               f"max|Δ|={err:.3e} over tolerance {TOL['matmul'][name]}")
+                    worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
 def matmul_backward_readings(gen, x_dt, N, M=2048, scale=0.7):
     """The autograd.Function (kernel forward, hand-written backward) against
     torch.autograd through the plain formula ``qrlora_matmul_ref`` — which
@@ -427,6 +522,55 @@ def time_matmul(gen, N: int):
     return res
 
 
+def time_bgmv_quant(gen, N: int, base: str):
+    """wq (N=576) / wv (N=192) decode projection on a quantized base: 4
+    lanes, bf16 x, int8 or fp8 q.  Bytes count q at one byte an element."""
+    import torch
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_quant_cuda
+    from repro_torch.kernels.ref import qrlora_bgmv_quant_ref
+
+    M, K, r, n_slots = 4, 576, 128, 8
+    x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, torch.bfloat16)
+    q, ws = _quantized(W, base)
+    seg64, ws16 = seg.long(), ws.bfloat16()
+    kernel = lambda: qrlora_bgmv_quant_cuda(x, q, ws, B, A, lam, seg)
+    res = {"ms": _device_ms(kernel),
+           "plain_ms": _device_ms(lambda: qrlora_bgmv_quant_ref(x, q, ws, B, A, lam, seg)),
+           # the widening cast is part of each call: torch has no int8/fp8 × bf16 product
+           "library_ms": _device_ms(
+               lambda: (x @ q.to(x.dtype)) * ws16 + ((x @ B) * lam[seg64].to(x.dtype)) @ A)}
+    res["eager_ms"] = _eager_ms(kernel)
+    n_bytes = 2 * (M * K + K * r + r * N + M * N) + K * N + 4 * (N + n_slots * r + M)
+    n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
+    res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
+    res["shape"] = {"M": M, "K": K, "N": N, "r": r, "n_slots": n_slots, "x": "bfloat16",
+                    "q": base}
+    return res
+
+
+def time_matmul_quant(gen, M: int, N: int, base: str):
+    """The one-λ projection on a quantized base: M rows (a scoring forward's
+    sequence, or 2048), bf16 x, int8 or fp8 q."""
+    import torch
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_quant_cuda
+    from repro_torch.kernels.ref import qrlora_matmul_quant_ref
+
+    K, r = 576, 128
+    x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.bfloat16, K, r, rank=r)
+    q, ws = _quantized(W, base)
+    lam16, ws16 = lam.bfloat16(), ws.bfloat16()
+    kernel = lambda: qrlora_matmul_quant_cuda(x, q, ws, B, A, lam)
+    res = {"ms": _device_ms(kernel),
+           "plain_ms": _device_ms(lambda: qrlora_matmul_quant_ref(x, q, ws, B, A, lam)),
+           "library_ms": _device_ms(lambda: (x @ q.to(x.dtype)) * ws16 + ((x @ B) * lam16) @ A)}
+    res["eager_ms"] = _eager_ms(kernel)
+    n_bytes = 2 * (M * K + K * r + r * N + M * N) + K * N + 4 * (N + r)
+    n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
+    res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
+    res["shape"] = {"M": M, "K": K, "N": N, "r": r, "x": "bfloat16", "q": base}
+    return res
+
+
 def _device_busy(prof, wall_us: float):
     """Union of the device-kernel intervals of a torch.profiler run: busy
     time, idle share of ``wall_us``, kernel count and the top kernels by
@@ -456,9 +600,12 @@ def _device_busy(prof, wall_us: float):
 # ---------------------------------------------------------------------------
 
 
-def serve(dtype: str, seed: int, n_tenants: int = 6, gen_len: int = 16):
-    """Serve one request per tenant through the default engine; returns the
-    engine, the tenants' λ trees and timings."""
+def serve(dtype: str, seed: int, n_tenants: int = 6, gen_len: int = 16,
+          base_dtype: str = "bf16", params=None):
+    """Serve one request per tenant through the default engine (with
+    ``base_dtype``, on ``params`` when given); returns the engine, the
+    tenants' λ trees and timings.  The tenants and the traffic depend on
+    ``seed`` only."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -466,7 +613,8 @@ def serve(dtype: str, seed: int, n_tenants: int = 6, gen_len: int = 16):
 
     cfg = get_config("smollm-135m").replace(dtype=dtype)
     t0 = time.perf_counter()
-    engine = MultiTenantEngine(cfg, EngineConfig(seed=seed, collect_logits=True))
+    engine = MultiTenantEngine(
+        cfg, EngineConfig(seed=seed, collect_logits=True, base_dtype=base_dtype), params=params)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     gen = torch.Generator(device="cuda")
@@ -507,13 +655,13 @@ def profile_serve(engine, seed: int, n_tenants: int = 6, gen_len: int = 16):
             "tokens": engine.decoded_tokens - toks0}
 
 
-def verify(cfg, engine, lams, done, gen_len: int):
+def verify(cfg, engine, lams, done, gen_len: int, drift: float = BF16_DRIFT):
     """Free-running check: every tenant's tokens and logits against greedy
     decoding of the merged-weight reference.  ``parted_at`` is the first
     position where the two token streams differ (None: identical); logits
     are compared up to and including it, where both saw the same context.
     ``parting_margin`` is the reference's lead of its own token over the
-    engine's there, ``parting_bound`` BF16_DRIFT of that row's largest
+    engine's there, ``parting_bound`` ``drift`` of that row's largest
     |logit|."""
     import numpy as np
     from repro_torch.serving import reference_decode
@@ -530,9 +678,20 @@ def verify(cfg, engine, lams, done, gen_len: int):
                "max_abs_dlogits": float(np.abs(np.stack(req.logits)[:upto] - logits[:upto]).max())}
         if t is not None:
             row["parting_margin"] = float(logits[t].max() - logits[t][req.tokens[t]])
-            row["parting_bound"] = float(BF16_DRIFT * np.abs(logits[t]).max())
+            row["parting_bound"] = float(drift * np.abs(logits[t]).max())
         rows.append(row)
     return rows
+
+
+@contextlib.contextmanager
+def swapped(module, attr: str, fn):
+    """Run with ``module.attr`` replaced by ``fn``."""
+    sound = getattr(module, attr)
+    setattr(module, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(module, attr, sound)
 
 
 def planted_faults(cfg, engine, lams, done):
@@ -566,21 +725,19 @@ def planted_faults(cfg, engine, lams, done):
     rows["lam_of_last_layer_left_out"] = serve_one("fault_lam")
     # the decode attend misses the newest token's K/V
     paged = ops.paged_decode_attention
-    ops.paged_decode_attention = lambda q, kp, vp, tbl, lens: paged(q, kp, vp, tbl, lens - 1)
-    try:
+    with swapped(ops, "paged_decode_attention",
+                 lambda q, kp, vp, tbl, lens: paged(q, kp, vp, tbl, lens - 1)):
         rows["attend_misses_newest_kv"] = serve_one("tenant0")
-    finally:
-        ops.paged_decode_attention = paged
     return rows
 
 
-def verify_forced(cfg, engine, lams, done):
+def verify_forced(cfg, engine, lams, done, drift: float = BF16_DRIFT):
     """Teacher-forced check for bfloat16, where merged weights round
     differently from the fused adapter path and greedy streams may part at
     near-ties: the merged-weight reference runs one forward over each
     tenant's prompt plus the engine's own tokens, so both see the same
     context.  At every generated position the engine's logits must agree
-    with the reference's within BF16_DRIFT of the row's largest |logit|, and
+    with the reference's within ``drift`` of the row's largest |logit|, and
     the engine's token must be within that margin of the reference's best."""
     import numpy as np
     import torch
@@ -598,7 +755,7 @@ def verify_forced(cfg, engine, lams, done):
             ref = model.apply(merged, torch.from_numpy(seq).to(engine.device)[None])[0, P - 1:]
         ref = ref.float().cpu().numpy()
         got = np.stack(req.logits)
-        bound = BF16_DRIFT * np.abs(ref).max(axis=1)
+        bound = drift * np.abs(ref).max(axis=1)
         margin = ref.max(axis=1) - ref[np.arange(len(req.tokens)), req.tokens]
         dlog = np.abs(got - ref).max(axis=1)
         rows.append({"tenant": req.tenant, "prompt_len": int(P),
@@ -610,6 +767,221 @@ def verify_forced(cfg, engine, lams, done):
                      "ok": bool(np.isfinite(got).all() and (dlog <= bound).all()
                                 and (margin <= bound).all())})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the quantized base on the serving path at full width
+# ---------------------------------------------------------------------------
+
+
+def planted_quant_faults(cfg, engine, lams, done, drift: float):
+    """Controls for the quantized serve's teacher-forced check: tenant0's
+    request served again under three faults, each of which must be
+    rejected — w_scale dropped for the last layer's wq, the dequant scale
+    applied to the adapter term as well (``(acc + P·A·s)·w_scale``), and
+    the decode step's seg sent to slot 0."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import qrlora_bgmv as bg
+
+    req0 = next(r for r in done.values() if r.tenant == "tenant0")
+    lam0 = lams["tenant0"]
+    sound = bg.qrlora_bgmv_quant
+    last, n_q = cfg.n_layers - 1, cfg.n_heads * cfg.d_head
+
+    def serve_one():
+        engine.submit("tenant0", req0.prompt, len(req0.tokens))
+        return verify_forced(cfg, engine, {"tenant0": lam0}, engine.run(), drift)[0]
+
+    def no_scale_last_wq(x, q, ws, B, A, lam, seg, scale=1.0):
+        # layer l's scale is the view at storage offset l·N of the stacked leaf
+        if q.shape[1] == n_q and ws.storage_offset() == last * ws.shape[0]:
+            ws = torch.ones_like(ws)
+        return sound(x, q, ws, B, A, lam, seg, scale)
+
+    def scale_on_adapter_term(x, q, ws, B, A, lam, seg, scale=1.0):
+        xf = x.float()
+        low = ((xf @ B.float()) * lam[seg.long()]) @ A.float()
+        return ((xf @ q.float() + low * scale) * ws).to(x.dtype)
+
+    rows = {}
+    for name, fn in (("w_scale_dropped_last_wq", no_scale_last_wq),
+                     ("dequant_scale_on_adapter_term", scale_on_adapter_term)):
+        with swapped(bg, "qrlora_bgmv_quant", fn):
+            rows[name] = serve_one()
+    engine.scheduler.batch_composition = lambda: np.zeros((engine.n_lanes,), np.int32)
+    try:
+        rows["decode_seg_to_slot0"] = serve_one()
+    finally:
+        del engine.scheduler.batch_composition
+    return rows
+
+
+def matched_context_drift(done, done_ref):
+    """Largest |Δlogits| of each tenant's stream against another serve of the
+    same request (by tenant), over the positions whose contexts agree: up to
+    and including the first position where the two token streams part."""
+    import numpy as np
+
+    ref = {r.tenant: r for r in done_ref.values()}
+    rows = {}
+    for req in done.values():
+        other = ref[req.tenant]
+        t = next((i for i, (a, b) in enumerate(zip(req.tokens, other.tokens)) if a != b), None)
+        upto = len(req.tokens) if t is None else t + 1
+        rows[req.tenant] = {"parted_at": t, "max_abs_dlogits": float(
+            np.abs(np.stack(req.logits)[:upto] - np.stack(other.logits)[:upto]).max())}
+    return rows
+
+
+def tenant_params(params, lam_tree):
+    """The engine's params with one tenant's λ in every adapter: the
+    single-tenant deployment without merging (the one-λ path)."""
+    groups = dict(params["groups"])
+    groups["adapters"] = {
+        mod: {proj: {**leaf, "lam": lam_tree[mod][proj]} for proj, leaf in projs.items()}
+        for mod, projs in params["groups"]["adapters"].items()}
+    return {**params, "groups": groups}
+
+
+def score_forward(engine, lams, done, drift=None, atol=None):
+    """The single-tenant forward on the engine's quantized params: each
+    served stream scored teacher-forced by ``Model.apply`` with its tenant's
+    λ (the quantized one-λ kernel), against the logits the engine collected
+    (the quantized BGMV kernel).  bf16 rows must agree within ``drift`` of
+    their largest |logit|; float32 within ``atol``.  Launches are counted
+    per forward."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+
+    rows, total = [], {name: 0 for name in kernels.KERNEL_WRAPPERS}
+    for uid in sorted(done):
+        req = done[uid]
+        P = req.prompt.size
+        seq = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+        view = tenant_params(engine.params, lams[req.tenant])
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            out = engine.model.apply(view, torch.from_numpy(seq).to(engine.device)[None])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        total = {k: total[k] + v for k, v in counts.items()}
+        got = out[0, P - 1:].float().cpu().numpy()
+        want = np.stack(req.logits)
+        dlog = np.abs(got - want).max(axis=1)
+        row = {"tenant": req.tenant, "rows": int(seq.size), "launches": counts,
+               "adapted_projections": 2 * engine.cfg.n_layers,
+               "max_abs_dlogits": float(dlog.max()), "finite": bool(np.isfinite(got).all())}
+        if drift is not None:
+            row["max_dlogits_over_bound"] = float((dlog / (drift * np.abs(want).max(axis=1))).max())
+            row["ok"] = row["finite"] and row["max_dlogits_over_bound"] <= 1
+        else:
+            row["ok"] = row["finite"] and row["max_abs_dlogits"] <= atol
+        rows.append(row)
+    return rows, total
+
+
+def quant_serve_phase(base: str, seed: int, params, done_unquantized):
+    """The bf16 serve on a ``base``-quantized copy of ``params`` (the bf16
+    serve's weights), launches counted around it; teacher-forced and
+    free-running checks against the quantized merged-weight reference, the
+    drift against the unquantized serve (reported), planted faults, and the
+    single-tenant forward on the same quantized params."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.quantize import resident_base_bytes
+
+    kernels.reset_launch_counts()
+    cfg, engine, lams, done, t_init, t_serve = serve("bfloat16", seed, base_dtype=base,
+                                                     params=params)
+    out = {"init_s": t_init, "serve_s": t_serve, "tokens": engine.decoded_tokens,
+           "steps": engine.steps, "tok_per_s": engine.decoded_tokens / t_serve,
+           "launches": kernels.launch_counts()}
+    out["resident_bytes"], out["resident_bytes_bf16"] = resident_base_bytes(engine.params)
+    _check(engine.base_dtype == base, f"serve {base}: engine base_dtype {engine.base_dtype}")
+    _check(len(done) == 6 and all(len(r.tokens) == 16 for r in done.values()),
+           f"serve {base}: not every tenant got its 16 tokens")
+    drift = QUANT_BF16_DRIFT[base]
+    out["verify_forced"] = verify_forced(cfg, engine, lams, done, drift)
+    out["verify_free"] = verify(cfg, engine, lams, done, 16, drift)
+    out["drift_vs_unquantized"] = matched_context_drift(done, done_unquantized)
+    out["planted_faults"] = planted_quant_faults(cfg, engine, lams, done, drift)
+    out["score_forward"], out["score_launches"] = score_forward(engine, lams, done, drift=drift)
+    return engine, out
+
+
+def check_quant_serve(base: str, out: dict) -> None:
+    launches = out["launches"]
+    _check(launches["qrlora_bgmv_quant"] > 0 and launches["paged_decode_attention"] > 0,
+           f"serve {base}: the quantized BGMV or the paged kernel never launched: {launches}")
+    _check(launches["qrlora_bgmv"] == 0,
+           f"serve {base}: an adapted projection went through the unquantized BGMV: {launches}")
+    _check(all(r["ok"] for r in out["verify_forced"]),
+           f"serve {base} disagrees with the teacher-forced quantized merged-weight reference")
+    for r in out["verify_free"]:
+        _check(r["tokens_match"] or r["parting_margin"] <= r["parting_bound"],
+               f"serve {base}: {r['tenant']} parts from the quantized merged-weight reference "
+               f"at position {r['parted_at']}, where the reference's lead is above the bound")
+    for name, row in out["planted_faults"].items():
+        _check(not row["ok"], f"serve {base}: the check let the planted fault {name} through")
+    for r in out["score_forward"]:
+        _check(r["launches"]["qrlora_matmul_quant"] == r["adapted_projections"]
+               and r["launches"]["qrlora_matmul"] == 0,
+               f"serve {base}: a single-tenant forward launched {r['launches']}, want "
+               f"{r['adapted_projections']} qrlora_matmul_quant (wq, wv of every layer) and no "
+               "qrlora_matmul")
+        _check(r["ok"], f"serve {base}: the single-tenant forward disagrees with the served "
+                        f"logits: {r}")
+
+
+def quant_fp32_phase(seed: int, params):
+    """The float32 int8 serve, against a twin engine that runs the plain
+    version in place of the quantized BGMV kernel (tokens identical, logits
+    within FP32_LOGIT_TOL), against the quantized merged-weight reference at
+    serve_multi's bar (free-running, up to a parting at a near-tie below the
+    bar), and scored by the single-tenant forward."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.kernels import qrlora_bgmv as bg
+    from repro_torch.kernels.ref import qrlora_bgmv_quant_ref
+
+    kernels.reset_launch_counts()
+    cfg, engine, lams, done, t_init, t_serve = serve("float32", seed, base_dtype="int8",
+                                                     params=params)
+    out = {"serve_s": t_serve, "tokens": engine.decoded_tokens, "launches": kernels.launch_counts()}
+    kernels.reset_launch_counts()
+    with swapped(bg, "qrlora_bgmv_quant", qrlora_bgmv_quant_ref):
+        _, _, _, twin, _, _ = serve("float32", seed, base_dtype="int8", params=params)
+    out["twin_launches"] = kernels.launch_counts()
+    twin = {r.tenant: r for r in twin.values()}
+    out["twin"] = [{"tenant": r.tenant, "tokens_match": r.tokens == twin[r.tenant].tokens,
+                    "max_abs_dlogits": float(np.abs(np.stack(r.logits)
+                                                    - np.stack(twin[r.tenant].logits)).max())}
+                   for r in done.values()]
+    out["verify"] = verify(cfg, engine, lams, done, 16)
+    out["score_forward"], out["score_launches"] = score_forward(
+        engine, lams, done, atol=FP32_LOGIT_TOL)
+    return out
+
+
+def check_quant_fp32(out: dict) -> None:
+    _check(out["launches"]["qrlora_bgmv_quant"] > 0 and out["launches"]["qrlora_bgmv"] == 0,
+           f"fp32 int8 serve: launches {out['launches']}")
+    _check(out["twin_launches"]["qrlora_bgmv_quant"] == 0,
+           f"fp32 int8 twin launched the quantized kernel: {out['twin_launches']}")
+    _check(all(r["tokens_match"] and r["max_abs_dlogits"] <= FP32_LOGIT_TOL for r in out["twin"]),
+           f"fp32 int8 serve disagrees with its plain-version twin: {out['twin']}")
+    for r in out["verify"]:
+        _check(r["max_abs_dlogits"] < QUANT_FP32_LOGIT_TOL
+               and (r["tokens_match"] or r["parting_margin"] <= QUANT_FP32_LOGIT_TOL),
+               f"fp32 int8 serve diverged from the quantized merged-weight reference: {r}")
+    for r in out["score_forward"]:
+        _check(r["launches"]["qrlora_matmul_quant"] == r["adapted_projections"]
+               and r["launches"]["qrlora_matmul"] == 0,
+               f"fp32 int8: a single-tenant forward launched {r['launches']}")
+        _check(r["ok"], f"fp32 int8: the single-tenant forward disagrees with the served "
+                        f"logits: {r}")
 
 
 # ---------------------------------------------------------------------------
@@ -678,20 +1050,6 @@ def profile_train(model, state, seed: int, steps: int = 3):
     return {**_device_busy(prof, wall_us), "steps": steps}
 
 
-@contextlib.contextmanager
-def matmul_forward(fn):
-    """Run the one-λ matmul's 2-D forward through ``fn`` instead of the
-    wrapper (the backward stays the hand-written one)."""
-    from repro_torch.kernels import qrlora_matmul as mm
-
-    sound = mm.qrlora_matmul
-    mm.qrlora_matmul = fn
-    try:
-        yield
-    finally:
-        mm.qrlora_matmul = sound
-
-
 def plain_forward(x, W, B, A, lam, scale=1.0):
     from repro_torch.kernels.ref import qrlora_matmul_ref
 
@@ -753,6 +1111,7 @@ def train_phase(dtype: str, seed: int, log_every: int = 0):
     import torch
     from repro_torch import kernels
     from repro_torch.core.adapter_api import partition
+    from repro_torch.kernels import qrlora_matmul as mm
     from repro_torch.launch import train as tl
     from repro_torch.tree import tree_leaves
 
@@ -766,7 +1125,7 @@ def train_phase(dtype: str, seed: int, log_every: int = 0):
         if fwd is None:
             runs[name] = train_run(model, params, seed, log_every)
         else:
-            with matmul_forward(fwd):
+            with swapped(mm, "qrlora_matmul", fwd):  # the backward stays the hand-written one
                 runs[name] = train_run(model, params, seed)
         torch.cuda.synchronize()
         out[f"launches_{name}"] = kernels.launch_counts()
@@ -823,9 +1182,12 @@ def main(argv=None) -> None:
     bgmv_err = check_bgmv(gen, report["cases"])
     paged_err = check_paged(gen, report["cases"])
     matmul_err = check_matmul(gen, report["cases"])
+    bgmv_quant_err = check_bgmv_quant(gen, report["cases"])
+    matmul_quant_err = check_matmul_quant(gen, report["cases"])
     print(f"kernel vs plain: qrlora_bgmv max|Δ| {bgmv_err}, "
-          f"paged_decode_attention max|Δ| {paged_err}, qrlora_matmul max|Δ| {matmul_err} "
-          f"(all within tolerance)")
+          f"paged_decode_attention max|Δ| {paged_err}, qrlora_matmul max|Δ| {matmul_err}, "
+          f"qrlora_bgmv_quant max|Δ| {bgmv_quant_err}, qrlora_matmul_quant max|Δ| "
+          f"{matmul_quant_err} (int8 and fp8; all within tolerance)")
 
     # -- the one-λ matmul's backward against autograd of the plain formula ---
     bwd_rows = check_matmul_backward(gen, report["cases"])
@@ -845,6 +1207,12 @@ def main(argv=None) -> None:
     timings = {"qrlora_bgmv_wq": time_bgmv(gen, 576), "qrlora_bgmv_wv": time_bgmv(gen, 192),
                "paged_decode_attention": time_paged(gen),
                "qrlora_matmul_wq": time_matmul(gen, 576), "qrlora_matmul_wv": time_matmul(gen, 192)}
+    for base in ("int8", "fp8"):
+        for proj, N in (("wq", 576), ("wv", 192)):
+            timings[f"qrlora_bgmv_quant_{proj}_{base}"] = time_bgmv_quant(gen, N, base)
+            for M in (SCORE_ROWS, 2048):
+                timings[f"qrlora_matmul_quant_{proj}_M{M}_{base}"] = time_matmul_quant(
+                    gen, M, N, base)
     for name, t in timings.items():
         print(f"{name}: kernel {t['ms']:.5f} ms (eager call {t['eager_ms']:.5f} ms), plain "
               f"{t['plain_ms']:.5f} ms, library {t['library_ms']} ms, bound "
@@ -894,8 +1262,38 @@ def main(argv=None) -> None:
                             "steps": n_steps, "tok_per_s": n_tok / t_serve,
                             "launches": launches, "verify_forced": rows_bf16,
                             "verify_free": free_bf16, "planted_faults": faults}
+    params_bf16, done_bf16 = engine.params, done
     del engine
     torch.cuda.empty_cache()
+
+    # -- the quantized base: the bf16 serve's weights in int8, then fp8 ------
+    report["serve_quant"] = {}
+    for base in ("int8", "fp8"):
+        engine, qs = quant_serve_phase(base, args.seed, params_bf16, done_bf16)
+        report["serve_quant"][base] = qs
+        print(f"serve bf16 on a {base} base: {qs['tokens']} tokens in {qs['serve_s']:.3f} s = "
+              f"{qs['tok_per_s']:.1f} tok/s over {qs['steps']} decode steps; launches "
+              f"{qs['launches']}; adapted projections resident at {qs['resident_bytes']} B "
+              f"(bf16: {qs['resident_bytes_bf16']} B)")
+        for row, free in zip(qs["verify_forced"], qs["verify_free"]):
+            print(f"  {base} {row} free-running: {free}")
+        sound_q = max(r["max_dlogits_over_bound"] for r in qs["verify_forced"])
+        print(f"{base} drift readings (|Δlogits| over the bound {QUANT_BF16_DRIFT[base] / 2**-9:.1f}"
+              f"·2^-9 of each row's max): sound serve {sound_q:.4f}"
+              + "".join(f", planted fault {n} {r['max_dlogits_over_bound']:.4f}"
+                        for n, r in qs["planted_faults"].items()))
+        print(f"  {base} vs the unquantized bf16 serve at matched context (reported, no bound): "
+              f"{qs['drift_vs_unquantized']}")
+        print(f"  {base} single-tenant forward (Model.apply, one λ) vs served logits: "
+              f"{qs['score_forward']}")
+        if base == "int8":
+            qs["profile"] = profile_serve(engine, args.seed + 1)
+            print(f"profiled {base} serve: {qs['profile']}")
+        check_quant_serve(base, qs)
+        del engine
+        torch.cuda.empty_cache()
+    del params_bf16
+    score_launches = report["serve_quant"]["int8"]["score_launches"]
 
     # -- the same path in float32: token-identical to the merged reference ---
     cfg, engine, lams, done, t_init, t_serve = serve("float32", args.seed)
@@ -906,7 +1304,19 @@ def main(argv=None) -> None:
                             "tokens": engine.decoded_tokens, "verify": rows_f32}
     _check(all(r["tokens_match"] and r["max_abs_dlogits"] < FP32_LOGIT_TOL for r in rows_f32),
            "fp32 serve diverged from the merged-weight reference")
+    params_f32 = engine.params
     del engine
+    torch.cuda.empty_cache()
+
+    # -- float32 on an int8 base: the plain-version twin and the reference ---
+    q32 = quant_fp32_phase(args.seed, params_f32)
+    report["serve_fp32_int8"] = q32
+    print(f"serve fp32 on an int8 base: launches {q32['launches']} (twin {q32['twin_launches']})")
+    for name in ("twin", "verify", "score_forward"):
+        for row in q32[name]:
+            print(f"  fp32 int8 {name} {row}")
+    check_quant_fp32(q32)
+    del params_f32
     torch.cuda.empty_cache()
 
     # -- the training path: full-width λ-only trains, launches counted -------
@@ -952,6 +1362,7 @@ def main(argv=None) -> None:
         json.dump(report, f, indent=1, default=str)
 
     entries = []
+    quant_launches = report["serve_quant"]["int8"]["launches"]
     for name, key, err, src, replaces, n in (
         ("qrlora_bgmv", "qrlora_bgmv_wq", bgmv_err["bfloat16"],
          "src/repro_torch/kernels/csrc/qrlora_bgmv.cu",
@@ -962,6 +1373,12 @@ def main(argv=None) -> None:
         ("qrlora_matmul", "qrlora_matmul_wq", matmul_err["bfloat16"],
          "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
          "src/repro/kernels/qrlora_matmul.py:161", train_launches["qrlora_matmul"]),
+        ("qrlora_matmul_quant", f"qrlora_matmul_quant_wq_M{SCORE_ROWS}_int8",
+         matmul_quant_err["bfloat16"], "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:110", score_launches["qrlora_matmul_quant"]),
+        ("qrlora_bgmv_quant", "qrlora_bgmv_quant_wq_int8", bgmv_quant_err["bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:270",
+         quant_launches["qrlora_bgmv_quant"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

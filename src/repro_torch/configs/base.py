@@ -1,6 +1,6 @@
 """Model and adapter configuration — the port's copy of
-``repro/configs/base.py``, cut to the fields the dense serving and λ-only
-training slices read.
+``repro/configs/base.py``, cut to the fields the dense serving, λ-only
+training and quantized-base slices read.
 
 The dimensions of a published model are plain numbers, so the port keeps its
 own copy instead of importing the JAX package (see ``smollm_135m.py``).
@@ -13,6 +13,11 @@ from typing import Tuple
 
 # LoRA / SVD-LoRA / full fine-tuning come with later slices of the port.
 ADAPTER_MODES = ("none", "qr_lora")
+
+# Frozen-base weight dtypes ("bf16" = the model's native dtype, unquantized;
+# int8/fp8 = per-output-channel symmetric quantization of every adapted base
+# projection at install time — see core/quantize.py).
+BASE_DTYPES = ("bf16", "int8", "fp8")
 
 
 @dataclass(frozen=True)
@@ -57,6 +62,10 @@ class ModelConfig:
     norm_eps: float = 1e-5
     adapter: AdapterConfig = field(default_factory=AdapterConfig)
     microbatches: int = 1  # gradient accumulation steps per train step
+    # Frozen-base weight dtype: "bf16" keeps W in the model dtype; "int8"/
+    # "fp8" replace every adapted base projection with a per-output-channel
+    # symmetric {q, scale} pair at install time (core/quantize.py).
+    base_dtype: str = "bf16"
 
     def __post_init__(self):
         if self.d_head == 0:
@@ -69,6 +78,10 @@ class ModelConfig:
         if self.adapter.mode not in ADAPTER_MODES:
             raise NotImplementedError(
                 f"adapter mode {self.adapter.mode!r}: the port has {ADAPTER_MODES}"
+            )
+        if self.base_dtype not in BASE_DTYPES:
+            raise ValueError(
+                f"{self.name}: base_dtype={self.base_dtype!r} not in {BASE_DTYPES}"
             )
 
     def replace(self, **kw) -> "ModelConfig":

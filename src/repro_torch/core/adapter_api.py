@@ -15,6 +15,11 @@ sequence or per row), its ``"lam"`` leaf is a packed λ table
 ``(n_slots, r)`` and each row applies its own tenant's λ through the
 batched multi-λ kernel (:func:`repro_torch.kernels.ops.qrlora_bgmv`).  The
 reference's sharded branches come with the sharding slice.
+
+Quantized base: a W that is the ``{"q", "scale"}`` dict of
+:mod:`repro_torch.core.quantize` goes through the quantized twins of the
+two kernels (dequantized in their epilogue), or, with no adapter, through
+:func:`_quant_base_matmul`.
 """
 from __future__ import annotations
 
@@ -24,8 +29,26 @@ import torch
 
 from repro_torch.configs.base import AdapterConfig, ModelConfig
 from repro_torch.core.qr_lora import qr_lora_init_stacked
+from repro_torch.core.quantize import dequantize_weight, is_quantized
 from repro_torch.kernels import ops
 from repro_torch.tree import Tree, tree_map
+
+
+def _quant_base_matmul(x: torch.Tensor, W: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``(x·q)·w_scale`` in fp32, in x's dtype: the per-output-channel scale
+    multiplies after the contraction, as in the kernels' epilogue.  A plain
+    product outside any kernel, as the reference leaves it to XLA."""
+    return ((x.float() @ W["q"].float()) * W["scale"].float()).to(x.dtype)
+
+
+def _plain_matmul(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``x @ W`` in the promoted dtype of the two, as the reference's type
+    promotion gives it (a merged quantized weight is in the factors' dtype,
+    bf16, under a float32 model)."""
+    if W.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, W.dtype)
+        return x.to(dt) @ W.to(dt)
+    return x @ W
 
 
 def adapter_scale(cfg: AdapterConfig) -> float:
@@ -52,20 +75,32 @@ def adapted_matmul(
     """``y = x·W + ((x·B)*λ)·A·scale``.  One λ goes through the one-λ
     kernel (differentiable in x and λ, products in fp32, result in x's
     dtype); with ``adp["seg"]`` the λ leaf is a slot table and every row
-    takes its own slot's λ (BGMV kernel)."""
+    takes its own slot's λ (BGMV kernel).  A quantized W takes the
+    quantized kernels (forward only)."""
+    quant = is_quantized(W)
     if adp is None:
-        return x @ W
+        return _quant_base_matmul(x, W) if quant else _plain_matmul(x, W)
     seg = adp.get("seg")
+    B, A, lam = adp["B"], adp["A"], adp["lam"]
     if seg is not None:
-        return ops.qrlora_bgmv(x, W, adp["B"], adp["A"], adp["lam"], seg, scale=scale)
-    return ops.qrlora_matmul(x, W, adp["B"], adp["A"], adp["lam"], scale=scale)
+        if quant:
+            return ops.qrlora_bgmv_quant(x, W["q"], W["scale"], B, A, lam, seg, scale=scale)
+        return ops.qrlora_bgmv(x, W, B, A, lam, seg, scale=scale)
+    if quant:
+        return ops.qrlora_matmul_quant(x, W["q"], W["scale"], B, A, lam, scale=scale)
+    return ops.qrlora_matmul(x, W, B, A, lam, scale=scale)
 
 
 def merge_adapter(
     W: torch.Tensor, adp: Optional[Dict[str, torch.Tensor]], scale: float = 1.0
 ) -> torch.Tensor:
     """Fold the adapter into the weight (the single-tenant deployment),
-    computed in W's dtype as the reference's type promotion does."""
+    computed in W's dtype as the reference's type promotion does.  A
+    quantized base is dequantized first, to the factors' dtype (float32
+    without an adapter), so a merged reference built from a quantized
+    engine's params shares its quantization."""
+    if is_quantized(W):
+        W = dequantize_weight(W, adp["B"].dtype if adp is not None else torch.float32)
     if adp is None:
         return W
     dt = W.dtype

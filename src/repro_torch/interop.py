@@ -4,8 +4,10 @@
 (``jax.device_get(params)`` of a ``repro`` model: decoder params, adapters
 with ``B``/``A``/``lam``/``ranks``, or a bare λ tree) into the same tree of
 torch tensors, leaf for leaf.  The port keeps the reference's layouts, so
-the conversion is a plain copy.  This module imports neither ``jax`` nor
-``ml_dtypes``: bfloat16 leaves cross as their raw 16-bit patterns.
+the conversion is a plain copy, quantized ``{"q", "scale"}`` leaves
+included.  This module imports neither ``jax`` nor ``ml_dtypes``: bfloat16
+and float8_e4m3fn leaves cross as their raw bit patterns (torch cannot
+read an ml_dtypes array itself).
 """
 from __future__ import annotations
 
@@ -14,14 +16,23 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import FP8_DTYPE
 from repro_torch.device import resolve_device
+
+
+#: ml_dtypes name → (numpy view of the same width, torch dtype of the same bits)
+_BIT_PATTERNS = {
+    "bfloat16": (np.int16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, FP8_DTYPE),
+}
 
 
 def _leaf_to_torch(leaf, device) -> torch.Tensor:
     arr = np.asarray(leaf)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: same bits as torch's
-        bits = np.ascontiguousarray(arr).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    if arr.dtype.name in _BIT_PATTERNS:
+        view, dtype = _BIT_PATTERNS[arr.dtype.name]
+        bits = np.ascontiguousarray(arr).view(view)
+        return torch.from_numpy(bits.copy()).view(dtype).to(device)
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 

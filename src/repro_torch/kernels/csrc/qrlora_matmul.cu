@@ -30,18 +30,38 @@
 // are never written: a ragged M needs no padded copy of x.  The bf16 path
 // needs K, N and r to be multiples of 8 and 16-byte aligned operands (one
 // copy is 8 elements); the wrapper checks both.
+//
+// Quantized base (replaces repro/kernels/qrlora_matmul.py::
+// qrlora_matmul_quant_kernel, _kernel_q): the main pass streams q (K, N)
+// int8 or fp8-e4m3 instead of W and computes
+//   y[m, n] = (Σ_k x[m,k]·q[k,n]) · w_scale[n] + scale · Σ_j P[m,j]·A[j,n],
+// the dequant multiply rounded in fp32 before the adapter term is added
+// (__fmul_rn / __fadd_rn: no FMA contraction, the reference's order); the
+// scale never touches the adapter term.  Widening int8 or fp8-e4m3 to bf16
+// is exact, and a bf16 × bf16 product is exact in fp32, so the tensor cores
+// form the reference's products: a q tile arrives by cp.async in 16-byte
+// copies of 16 elements (K and N multiples of 16, q 16-byte aligned; the
+// wrapper checks), is widened to bf16 in shared memory, and goes through the
+// same wmma loop.  float32 x widens q to fp32 on the CUDA cores.  At M =
+// 2048 rows of K = N = 576 the q bytes halve W's; the work stays bound by
+// operations (≈ 2.0 µs at 989 TFLOP/s).  Forward only, as in the reference.
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+#include <stdint.h>
 
 #include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using fp8 = __nv_fp8_e4m3;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f(fp8 v) { return static_cast<float>(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -65,9 +85,12 @@ static_assert(BM * BK % THREADS == 0 && BK * BN % THREADS == 0 && BM * RC % THRE
 
 constexpr int cmax(int a, int b) { return a > b ? a : b; }
 // One shared buffer, reused phase by phase: the bf16 main loop's two
-// stages of x and W tiles (or the fp32 loop's one stage), then the
+// stages of x and W tiles (quantized W: two stages of x and raw q tiles
+// and one widened bf16 W tile; or the fp32 loop's one stage), then the
 // accumulator tile, then the epilogue's P and A chunks.
-constexpr int SMEM_BYTES = cmax(cmax(2 * (BM * XLD16 + BK * WLD16) * 2, (BM * XLD32 + BK * BN) * 4),
+constexpr int SMEM_BF16 = 2 * (BM * XLD16 + BK * WLD16) * 2;
+constexpr int SMEM_WIDEN = (2 * BM * XLD16 + BK * WLD16) * 2 + 2 * BK * BN;
+constexpr int SMEM_BYTES = cmax(cmax(cmax(SMEM_BF16, SMEM_WIDEN), (BM * XLD32 + BK * BN) * 4),
                                 cmax(BM * CLD * 4, (RC * PTLD + RC * BN) * 4));
 
 // Stage a (ROWS × COLS) tile of a row-major (rows × cols) matrix starting
@@ -103,18 +126,21 @@ __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// The same for bf16 → bf16 with cp.async: 16-byte copies of 8 elements
-// (cols is a multiple of 8, so a copy lies wholly inside or outside the
-// matrix; outside ones zero-fill).  Completes at cp_async_wait.
-template <int ROWS, int COLS, int LD>
-__device__ __forceinline__ void stage_async(bf16* dst, const bf16* __restrict__ src, int r0,
-                                            int c0, int rows, int cols) {
+// The same without conversion, by cp.async: 16-byte copies of E = 16 /
+// sizeof(T) elements (8 bf16, 16 int8 or fp8; cols is a multiple of E, so
+// a copy lies wholly inside or outside the matrix; outside ones
+// zero-fill).  Completes at cp_async_wait.
+template <int ROWS, int COLS, int LD, typename T>
+__device__ __forceinline__ void stage_async(T* dst, const T* __restrict__ src, int r0, int c0,
+                                            int rows, int cols) {
+  constexpr int E = 16 / sizeof(T);
+  static_assert(ROWS * COLS / E % THREADS == 0, "copies split evenly over the block's threads");
 #pragma unroll
-  for (int t = 0; t < ROWS * COLS / 8 / THREADS; ++t) {
+  for (int t = 0; t < ROWS * COLS / E / THREADS; ++t) {
     const int i = t * THREADS + threadIdx.x;
-    const int rr = i / (COLS / 8), cc = i % (COLS / 8) * 8, gr = r0 + rr, gc = c0 + cc;
+    const int rr = i / (COLS / E), cc = i % (COLS / E) * E, gr = r0 + rr, gc = c0 + cc;
     const bool inside = gr < rows && gc < cols;
-    const bf16* g = inside ? src + (size_t)gr * cols + gc : src;
+    const T* g = inside ? src + (size_t)gr * cols + gc : src;
     const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(dst + rr * LD + cc));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa), "l"(g),
                  "r"(inside ? 16 : 0)
@@ -130,6 +156,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
 }
 
+// Widen a (BK × BN) tile of 1-byte q from shared memory (row stride BN) to
+// bf16 (row stride WLD16): each thread converts 16 consecutive elements.
+template <typename TW>
+__device__ __forceinline__ void widen_tile(bf16* dst, const TW* src) {
+  static_assert(BK * BN == 16 * THREADS, "one 16-element run per thread");
+  const int rr = threadIdx.x / (BN / 16), cc = threadIdx.x % (BN / 16) * 16;
+  const uint4 raw = *reinterpret_cast<const uint4*>(src + rr * BN + cc);
+  const TW* v = reinterpret_cast<const TW*>(&raw);
+  __align__(16) bf16 w[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) w[e] = __float2bfloat16(to_f(v[e]));  // exact
+  uint4* d = reinterpret_cast<uint4*>(dst + rr * WLD16 + cc);
+  d[0] = reinterpret_cast<const uint4*>(w)[0];
+  d[1] = reinterpret_cast<const uint4*>(w)[1];
+}
+
 enum Epilogue {
   kScaleColumns = 0,  // out[m,n] = (x·W)[m,n] · v[n]                      (pass 1: P)
   kAddLowRank = 1,    // out[m,n] = (x·W)[m,n] + scale · Σ_j P[m,j]·A[j,n]  (pass 2: y)
@@ -137,15 +179,21 @@ enum Epilogue {
 
 // C = x·W for one (BM × BN) tile of the (M × N) output, x (M × K), W (K × N),
 // then the epilogue EPI.  `aux` is v (N,) for kScaleColumns and P (M × r)
-// for kAddLowRank.  When x and W are both bf16 the products run on the
-// tensor cores; otherwise the tiles are widened to fp32 in shared memory
-// and multiplied on the CUDA cores.
+// for kAddLowRank.  When x is bf16 and W bf16 (or 1-byte q, widened to
+// bf16 in shared memory) the products run on the tensor cores; otherwise
+// the tiles are widened to fp32 in shared memory and multiplied on the CUDA
+// cores.  A 1-byte W is quantized: its kAddLowRank epilogue multiplies the
+// x·q sum by w_scale[n] before adding the adapter term.
 template <typename TX, typename TW, typename TO, int EPI>
 __global__ void __launch_bounds__(THREADS)
 tile_kernel(const TX* __restrict__ x, const TW* __restrict__ W, const float* __restrict__ aux,
-            const bf16* __restrict__ A, TO* __restrict__ out, int M, int K, int N, int r,
-            float scale) {
-  constexpr bool kTensor = std::is_same<TX, bf16>::value && std::is_same<TW, bf16>::value;
+            const bf16* __restrict__ A, const float* __restrict__ w_scale, TO* __restrict__ out,
+            int M, int K, int N, int r, float scale) {
+  constexpr bool kQuant = sizeof(TW) == 1;
+  constexpr bool kWiden = std::is_same<TX, bf16>::value && kQuant;
+  constexpr bool kTensor =
+      std::is_same<TX, bf16>::value && (std::is_same<TW, bf16>::value || kWiden);
+  static_assert(!kQuant || EPI == kAddLowRank, "q only streams through the main pass");
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
 
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -154,9 +202,24 @@ tile_kernel(const TX* __restrict__ x, const TW* __restrict__ W, const float* __r
 
   if constexpr (kTensor) {
     namespace wmma = nvcuda::wmma;
-    bf16* xs[2] = {reinterpret_cast<bf16*>(smem),
-                   reinterpret_cast<bf16*>(smem) + BM * XLD16 + BK * WLD16};
-    bf16* ws[2] = {xs[0] + BM * XLD16, xs[1] + BM * XLD16};
+    // bf16 W: two stages of (x, W) tiles.  Quantized W: two stages of x
+    // tiles, one widened W tile, two stages of raw q tiles; the W tile that
+    // wmma reads is then the widened one at either stage.
+    bf16* xs[2];
+    bf16* ws[2];
+    TW* qs[2] = {nullptr, nullptr};
+    if constexpr (kWiden) {
+      xs[0] = reinterpret_cast<bf16*>(smem);
+      xs[1] = xs[0] + BM * XLD16;
+      ws[0] = ws[1] = xs[1] + BM * XLD16;
+      qs[0] = reinterpret_cast<TW*>(ws[0] + BK * WLD16);
+      qs[1] = qs[0] + BK * BN;
+    } else {
+      xs[0] = reinterpret_cast<bf16*>(smem);
+      ws[0] = xs[0] + BM * XLD16;
+      xs[1] = ws[0] + BK * WLD16;
+      ws[1] = xs[1] + BM * XLD16;
+    }
     const int warp = threadIdx.x / 32, wm = (warp / 2) * 32, wn = (warp % 2) * 32;
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[2][2];
 #pragma unroll
@@ -166,20 +229,30 @@ tile_kernel(const TX* __restrict__ x, const TW* __restrict__ W, const float* __r
     const int nk = (K + BK - 1) / BK;
     if (nk > 0) {
       stage_async<BM, BK, XLD16>(xs[0], x, m0, 0, M, K);
-      stage_async<BK, BN, WLD16>(ws[0], W, 0, n0, K, N);
+      if constexpr (kWiden)
+        stage_async<BK, BN, BN>(qs[0], W, 0, n0, K, N);
+      else
+        stage_async<BK, BN, WLD16>(ws[0], W, 0, n0, K, N);
       cp_async_commit();
     }
     for (int kt = 0; kt < nk; ++kt) {
       const int cur = kt & 1;
       if (kt + 1 < nk) {  // the next step's tiles load while this one multiplies
         stage_async<BM, BK, XLD16>(xs[cur ^ 1], x, m0, (kt + 1) * BK, M, K);
-        stage_async<BK, BN, WLD16>(ws[cur ^ 1], W, (kt + 1) * BK, n0, K, N);
+        if constexpr (kWiden)
+          stage_async<BK, BN, BN>(qs[cur ^ 1], W, (kt + 1) * BK, n0, K, N);
+        else
+          stage_async<BK, BN, WLD16>(ws[cur ^ 1], W, (kt + 1) * BK, n0, K, N);
         cp_async_commit();
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
+      if constexpr (kWiden) {
+        widen_tile(ws[cur], qs[cur]);
+        __syncthreads();
+      }
 #pragma unroll
       for (int kk = 0; kk < BK; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
@@ -266,6 +339,12 @@ tile_kernel(const TX* __restrict__ x, const TW* __restrict__ W, const float* __r
       }
       __syncthreads();
     }
+    float dq[COLS_PER_T];  // the columns' dequant scales
+#pragma unroll
+    for (int c = 0; c < COLS_PER_T; ++c) {
+      const int n = n0 + 4 * tx + c;
+      dq[c] = kQuant && n < N ? w_scale[n] : 1.f;
+    }
 #pragma unroll
     for (int i = 0; i < ROWS_PER_T; ++i) {
       const int m = m0 + 8 * ty + i;
@@ -273,28 +352,36 @@ tile_kernel(const TX* __restrict__ x, const TW* __restrict__ W, const float* __r
 #pragma unroll
       for (int c = 0; c < COLS_PER_T; ++c) {
         const int n = n0 + 4 * tx + c;
-        if (n < N) out[(size_t)m * N + n] = from_f<TO>(acc[i][c] + low[i][c] * scale);
+        if (n >= N) continue;
+        if constexpr (kQuant)  // dequant rounded first, then the adapter term
+          out[(size_t)m * N + n] = from_f<TO>(
+              __fadd_rn(__fmul_rn(acc[i][c], dq[c]), __fmul_rn(low[i][c], scale)));
+        else
+          out[(size_t)m * N + n] = from_f<TO>(acc[i][c] + low[i][c] * scale);
       }
     }
   }
 }
 
-template <typename TX>
-int launch(const void* x, const void* W, const void* B, const void* A, const float* lam,
-           float* P, void* y, int M, int K, int N, int r, float scale, cudaStream_t stream) {
+// W is TW (K, N): TX for the bf16/float32 base, int8 or fp8 for a
+// quantized one, whose per-column w_scale (N,) the main pass applies.
+template <typename TX, typename TW>
+int launch(const void* x, const void* W, const float* w_scale, const void* B, const void* A,
+           const float* lam, float* P, void* y, int M, int K, int N, int r, float scale,
+           cudaStream_t stream) {
   if (M == 0 || N == 0) return 0;
   const int row_tiles = (M + BM - 1) / BM;
   if (r > 0) {
     tile_kernel<TX, bf16, float, kScaleColumns>
         <<<dim3((r + BN - 1) / BN, row_tiles), THREADS, 0, stream>>>(
-            static_cast<const TX*>(x), static_cast<const bf16*>(B), lam, nullptr, P, M, K, r,
-            r, 1.f);
+            static_cast<const TX*>(x), static_cast<const bf16*>(B), lam, nullptr, nullptr, P,
+            M, K, r, r, 1.f);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  tile_kernel<TX, TX, TX, kAddLowRank><<<dim3((N + BN - 1) / BN, row_tiles), THREADS, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TX*>(W), P, static_cast<const bf16*>(A),
-      static_cast<TX*>(y), M, K, N, r, scale);
+  tile_kernel<TX, TW, TX, kAddLowRank><<<dim3((N + BN - 1) / BN, row_tiles), THREADS, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(W), P, static_cast<const bf16*>(A),
+      w_scale, static_cast<TX*>(y), M, K, N, r, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,8 +393,25 @@ int launch(const void* x, const void* W, const void* B, const void* A, const flo
 extern "C" int qrlora_matmul_launch(const void* x, const void* W, const void* B, const void* A,
                                     const float* lam, float* P, void* y, int M, int K, int N,
                                     int r, float scale, int x_bf16, cudaStream_t stream) {
-  if (x_bf16) return launch<bf16>(x, W, B, A, lam, P, y, M, K, N, r, scale, stream);
-  return launch<float>(x, W, B, A, lam, P, y, M, K, N, r, scale, stream);
+  if (x_bf16) return launch<bf16, bf16>(x, W, nullptr, B, A, lam, P, y, M, K, N, r, scale, stream);
+  return launch<float, float>(x, W, nullptr, B, A, lam, P, y, M, K, N, r, scale, stream);
+}
+
+// The quantized base: q (K, N) int8 (q_fp8 = 0) or fp8-e4m3 (q_fp8 = 1)
+// with w_scale (N,) float32; x and y bfloat16 (x_bf16 = 1) or float32, the
+// rest as qrlora_matmul_launch.  Returns the CUDA error code (0 on success).
+extern "C" int qrlora_matmul_quant_launch(const void* x, const void* q, const float* w_scale,
+                                          const void* B, const void* A, const float* lam,
+                                          float* P, void* y, int M, int K, int N, int r,
+                                          float scale, int x_bf16, int q_fp8,
+                                          cudaStream_t stream) {
+  if (x_bf16 && q_fp8)
+    return launch<bf16, fp8>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, scale, stream);
+  if (x_bf16)
+    return launch<bf16, int8_t>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, scale, stream);
+  if (q_fp8)
+    return launch<float, fp8>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, scale, stream);
+  return launch<float, int8_t>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, scale, stream);
 }
 
 extern "C" const char* qrlora_matmul_error_string(int err) {

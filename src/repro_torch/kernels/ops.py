@@ -1,7 +1,8 @@
 """Model-facing wrappers around the port's kernels (port of
 ``repro/kernels/ops.py``): batching conventions on top of the 2-D/3-D
 kernel wrappers, which pick the kernel (CUDA tensors) or its plain version
-(CPU tensors), and the autograd rule of the trainable one-λ matmul."""
+(CPU tensors), the autograd rule of the trainable one-λ matmul, and the
+forward-only quantized-base variants."""
 from __future__ import annotations
 
 import torch
@@ -54,6 +55,33 @@ def qrlora_matmul(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
     return _QRLoRAMatmul.apply(x, W, B, A, lam, scale)
 
 
+def qrlora_matmul_quant(x, q, w_scale, B, A, lam, scale: float = 1.0) -> torch.Tensor:
+    """Quantized-base ``y = (x·q)·w_scale + ((x·B) * λ)·A·scale`` for
+    ``x (..., K)``, q (K, N) int8/fp8-e4m3 and w_scale (N,) fp32.
+    Inference only, as the reference's: the quantized base sits behind
+    frozen-W serving and training keeps the bf16 base, so there is no
+    backward — a call that autograd would have to differentiate (x or λ
+    requiring grad) raises instead of returning a detached result."""
+    if torch.is_grad_enabled() and (x.requires_grad or lam.requires_grad):
+        raise NotImplementedError(
+            "qrlora_matmul_quant is forward only (inference on a quantized base); "
+            "train λ on the unquantized base"
+        )
+    y = _mm.qrlora_matmul_quant(x.reshape(-1, x.shape[-1]).contiguous(), q, w_scale, B, A,
+                                lam, scale)
+    return y.reshape(*x.shape[:-1], q.shape[1])
+
+
+def _seg_rows(seg, x2, ndim: int) -> torch.Tensor:
+    """Per-sequence slot ids → per-row ids (tokens inherit their sequence's
+    slot); per-row ids pass through."""
+    seg = seg.to(torch.int32)
+    M = x2.shape[0]
+    if ndim >= 3 and seg.shape[0] != M:
+        seg = seg.repeat_interleave(M // seg.shape[0])
+    return seg.contiguous()
+
+
 def qrlora_bgmv(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
     """``y[m] = x[m]·W + ((x[m]·B) * Λ[seg[m]])·A·scale``.
 
@@ -64,14 +92,19 @@ def qrlora_bgmv(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
     slot 0; the kernel masks its ragged last row tile the same way (rows past
     M read as zeros in slot 0), so no padded copy of x is made here.
     """
-    orig_shape = x.shape
     x2 = x.reshape(-1, x.shape[-1])
-    M = x2.shape[0]
-    seg = seg.to(torch.int32)
-    if x.ndim >= 3 and seg.shape[0] != M:
-        seg = seg.repeat_interleave(M // seg.shape[0])  # tokens inherit their sequence's slot
-    y = _bgmv.qrlora_bgmv(x2.contiguous(), W, B, A, lam_table, seg.contiguous(), scale)
-    return y.reshape(*orig_shape[:-1], W.shape[1])
+    y = _bgmv.qrlora_bgmv(x2.contiguous(), W, B, A, lam_table, _seg_rows(seg, x2, x.ndim), scale)
+    return y.reshape(*x.shape[:-1], W.shape[1])
+
+
+def qrlora_bgmv_quant(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
+    """Quantized-base BGMV ``y[m] = (x[m]·q)·w_scale + ((x[m]·B) *
+    Λ[seg[m]])·A·scale``, q (K, N) int8/fp8-e4m3, w_scale (N,) fp32; x and
+    seg as :func:`qrlora_bgmv`."""
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _bgmv.qrlora_bgmv_quant(x2.contiguous(), q, w_scale, B, A, lam_table,
+                                _seg_rows(seg, x2, x.ndim), scale)
+    return y.reshape(*x.shape[:-1], q.shape[1])
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths) -> torch.Tensor:

@@ -15,8 +15,16 @@ bound by reading W once (0.66 MB for the 576×576 ``wq`` in bf16, ≈ 0.2 µs
 at 3.35 TB/s); this version is a plain tiled kernel on the CUDA cores, far
 from that bound (PERF.md has its times).
 
-CPU tensors take the plain version (:func:`repro_torch.kernels.ref.
-qrlora_bgmv_ref`); CUDA tensors launch the kernel or raise.
+The quantized base (:func:`qrlora_bgmv_quant_cuda`, replacing
+``qrlora_bgmv_quant_kernel``) is the same kernel with W as int8 or fp8-e4m3
+q (K, N), widened as it is staged, and a per-column ``w_scale`` (N,)
+multiplying the x·q sum before the adapter term is added:
+
+    y[m] = (x[m]·q)·w_scale + ((x[m]·B) * Λ[seg[m]]) · A · scale
+
+CPU tensors take the plain versions (:func:`repro_torch.kernels.ref.
+qrlora_bgmv_ref`, :func:`~repro_torch.kernels.ref.qrlora_bgmv_quant_ref`);
+CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -24,10 +32,13 @@ import ctypes
 
 import torch
 
+from repro_torch.core.quantize import FP8_DTYPE
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import qrlora_bgmv_ref
+from repro_torch.kernels.ref import qrlora_bgmv_quant_ref, qrlora_bgmv_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+#: quantized-weight dtypes the kernels take
+Q_DTYPES = (torch.int8, FP8_DTYPE)
 _MAX_K = 11776  # pass 1 stages one row of x (fp32) beside 1 KB of partial sums in 48 KB
 _lib = None
 
@@ -41,6 +52,11 @@ def _library():
             + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_bgmv_launch.restype = ctypes.c_int
+        lib.qrlora_bgmv_quant_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.qrlora_bgmv_quant_launch.restype = ctypes.c_int
         lib.qrlora_bgmv_error_string.argtypes = [ctypes.c_int]
         lib.qrlora_bgmv_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -101,3 +117,52 @@ def qrlora_bgmv(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
     if x.device.type == "cuda":
         return qrlora_bgmv_cuda(x, W, B, A, lam_table, seg, scale)
     raise NotImplementedError(f"qrlora_bgmv: no kernel for device {x.device}")
+
+
+def qrlora_bgmv_quant_cuda(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
+    """Launch the quantized-base BGMV kernel on CUDA tensors: x (M,K) in
+    float32/bfloat16, q (K,N) int8 or float8_e4m3fn, w_scale (N,) float32,
+    B (K,r) and A (r,N) bfloat16, Λ (n_slots,r) float32, seg (M,) int32; all
+    contiguous.  Returns (M,N) in x's dtype.  Adds one to
+    ``qrlora_bgmv_quant_cuda.launches`` per launch."""
+    M, K = x.shape
+    N, r, n_slots = q.shape[1], B.shape[1], lam_table.shape[0]
+    dev, name = x.device, "qrlora_bgmv_quant"
+    for arg, t, dtypes, shape in (
+        ("x", x, _DTYPES, (M, K)),
+        ("q", q, Q_DTYPES, (K, N)),
+        ("w_scale", w_scale, (torch.float32,), (N,)),
+        ("B", B, (torch.bfloat16,), (K, r)),
+        ("A", A, (torch.bfloat16,), (r, N)),
+        ("lam_table", lam_table, (torch.float32,), (n_slots, r)),
+        ("seg", seg, (torch.int32,), (M,)),
+    ):
+        _check(arg, t, dtypes, shape, dev, kernel=name)
+    if K > _MAX_K:
+        raise ValueError(f"{name}: K={K} exceeds {_MAX_K}")
+    lib = _library()
+    P = torch.empty((M, r), dtype=torch.float32, device=dev)
+    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    err = lib.qrlora_bgmv_quant_launch(
+        x.data_ptr(), q.data_ptr(), w_scale.data_ptr(), B.data_ptr(), A.data_ptr(),
+        lam_table.data_ptr(), seg.data_ptr(), P.data_ptr(), y.data_ptr(), M, K, N, r, n_slots,
+        float(scale), int(x.dtype == torch.bfloat16), int(q.dtype != torch.int8),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{name} launch failed: {lib.qrlora_bgmv_error_string(err).decode()}")
+    qrlora_bgmv_quant_cuda.launches += 1
+    return y
+
+
+qrlora_bgmv_quant_cuda.launches = 0
+
+
+def qrlora_bgmv_quant(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
+    """2-D quantized-base BGMV: the plain version for CPU tensors, the
+    kernel for CUDA tensors (no fallback between the two)."""
+    if x.device.type == "cpu":
+        return qrlora_bgmv_quant_ref(x, q, w_scale, B, A, lam_table, seg, scale)
+    if x.device.type == "cuda":
+        return qrlora_bgmv_quant_cuda(x, q, w_scale, B, A, lam_table, seg, scale)
+    raise NotImplementedError(f"qrlora_bgmv_quant: no kernel for device {x.device}")

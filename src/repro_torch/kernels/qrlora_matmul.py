@@ -15,9 +15,20 @@ x's dtype.  At the training shapes (M = 2048,
 K = 576, N = 576, r = 128) the bound is ≈ 2.0 µs of bf16 tensor-core
 operations; PERF.md has the kernel's times.
 
-CPU tensors take the plain version (:func:`repro_torch.kernels.ref.
-qrlora_matmul_ref`); CUDA tensors launch the kernel or raise.  The backward
-lives in :mod:`repro_torch.kernels.ops`.
+The quantized base (:func:`qrlora_matmul_quant_cuda`, replacing
+``qrlora_matmul_quant_kernel``) is the same kernel whose main pass streams
+int8 or fp8-e4m3 q (K, N) instead of W (widened to bf16 in shared memory,
+exactly, for the tensor cores) and multiplies the x·q sum by a per-column
+``w_scale`` (N,) before adding the adapter term:
+
+    y = (x·q)·w_scale + ((x·B) * λ) · A · scale
+
+It is forward only, as the reference's: training keeps the bf16 base.
+
+CPU tensors take the plain versions (:func:`repro_torch.kernels.ref.
+qrlora_matmul_ref`, :func:`~repro_torch.kernels.ref.qrlora_matmul_quant_ref`);
+CUDA tensors launch the kernel or raise.  The backward of the bf16/float32
+kernel lives in :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
 
@@ -26,8 +37,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.qrlora_bgmv import _check
-from repro_torch.kernels.ref import qrlora_matmul_ref
+from repro_torch.kernels.qrlora_bgmv import Q_DTYPES, _check
+from repro_torch.kernels.ref import qrlora_matmul_quant_ref, qrlora_matmul_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _lib = None
@@ -42,6 +53,11 @@ def _library():
             + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_matmul_launch.restype = ctypes.c_int
+        lib.qrlora_matmul_quant_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.qrlora_matmul_quant_launch.restype = ctypes.c_int
         lib.qrlora_matmul_error_string.argtypes = [ctypes.c_int]
         lib.qrlora_matmul_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -98,3 +114,57 @@ def qrlora_matmul(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
     if x.device.type == "cuda":
         return qrlora_matmul_cuda(x, W, B, A, lam, scale)
     raise NotImplementedError(f"qrlora_matmul: no kernel for device {x.device}")
+
+
+def qrlora_matmul_quant_cuda(x, q, w_scale, B, A, lam, scale: float = 1.0) -> torch.Tensor:
+    """Launch the quantized-base one-λ kernel on CUDA tensors: x (M,K) in
+    float32/bfloat16, q (K,N) int8 or float8_e4m3fn, w_scale (N,) float32,
+    B (K,r) and A (r,N) bfloat16, λ (r,) float32; all contiguous, and for
+    bfloat16 x with K and N multiples of 16, r a multiple of 8, and x, q, B
+    16-byte aligned.  Returns (M,N) in x's dtype.  Adds one to
+    ``qrlora_matmul_quant_cuda.launches`` per launch."""
+    M, K = x.shape
+    N, r = q.shape[1], B.shape[1]
+    dev, name = x.device, "qrlora_matmul_quant"
+    for arg, t, dtypes, shape in (
+        ("x", x, _DTYPES, (M, K)),
+        ("q", q, Q_DTYPES, (K, N)),
+        ("w_scale", w_scale, (torch.float32,), (N,)),
+        ("B", B, (torch.bfloat16,), (K, r)),
+        ("A", A, (torch.bfloat16,), (r, N)),
+        ("lam", lam, (torch.float32,), (r,)),
+    ):
+        _check(arg, t, dtypes, shape, dev, kernel=name)
+    if x.dtype == torch.bfloat16:  # q tiles travel in 16-byte copies of 16 elements
+        if K % 16 or N % 16 or r % 8:
+            raise ValueError(
+                f"{name}: bf16 needs K, N multiples of 16 and r of 8, got {K}, {N}, {r}"
+            )
+        if any(t.data_ptr() % 16 for t in (x, q, B)):
+            raise ValueError(f"{name}: bf16 x, q, B must be 16-byte aligned")
+    lib = _library()
+    P = torch.empty((M, r), dtype=torch.float32, device=dev)
+    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    err = lib.qrlora_matmul_quant_launch(
+        x.data_ptr(), q.data_ptr(), w_scale.data_ptr(), B.data_ptr(), A.data_ptr(),
+        lam.data_ptr(), P.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
+        int(x.dtype == torch.bfloat16), int(q.dtype != torch.int8),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{name} launch failed: {lib.qrlora_matmul_error_string(err).decode()}")
+    qrlora_matmul_quant_cuda.launches += 1
+    return y
+
+
+qrlora_matmul_quant_cuda.launches = 0
+
+
+def qrlora_matmul_quant(x, q, w_scale, B, A, lam, scale: float = 1.0) -> torch.Tensor:
+    """2-D quantized-base one-λ matmul: the plain version for CPU tensors,
+    the kernel for CUDA tensors (no fallback between the two)."""
+    if x.device.type == "cpu":
+        return qrlora_matmul_quant_ref(x, q, w_scale, B, A, lam, scale)
+    if x.device.type == "cuda":
+        return qrlora_matmul_quant_cuda(x, q, w_scale, B, A, lam, scale)
+    raise NotImplementedError(f"qrlora_matmul_quant: no kernel for device {x.device}")

@@ -32,6 +32,32 @@ def qrlora_bgmv_ref(x, W, B, A, lam_table, seg, scale: float = 1.0):
     return (y + low * scale).to(x.dtype)
 
 
+def qrlora_matmul_quant_ref(x, q, w_scale, B, A, lam, scale: float = 1.0):
+    """Quantized-base one-λ matmul: ``y = (x·q)·w_scale + ((x·B)·λ)·A·scale``.
+
+    q (K,N) int8/float8_e4m3fn; w_scale (N,) fp32 per output channel.  The
+    dequant multiply comes after the contraction and is rounded in fp32
+    before the adapter term is added (multiply, then add: the order the
+    reference pins with ``optimization_barrier``; eager PyTorch never fuses
+    the two into one FMA).  Result in x's dtype.
+    """
+    xf = x.float()
+    y = (xf @ q.float()) * w_scale.float()
+    low = ((xf @ B.float()) * lam.float()) @ A.float()
+    return (y + low * scale).to(x.dtype)
+
+
+def qrlora_bgmv_quant_ref(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.0):
+    """Quantized-base batched multi-λ matmul:
+    ``y_m = (x_m·q)·w_scale + ((x_m·B) * Λ[seg_m])·A·scale``, with the
+    epilogue of :func:`qrlora_matmul_quant_ref`."""
+    lam_rows = lam_table[seg.long()].float()  # (M, r)
+    xf = x.float()
+    y = (xf @ q.float()) * w_scale.float()
+    low = ((xf @ B.float()) * lam_rows) @ A.float()
+    return (y + low * scale).to(x.dtype)
+
+
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tbl, lengths):
     """Paged decode attention via a plain block-table gather.
 

@@ -11,6 +11,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from repro_torch.configs.base import BASE_DTYPES
+from repro_torch.core.quantize import FP8_SUPPORTED
+
 LAYOUTS = ("auto", "paged", "oracle_dense")
 
 #: field → (its disabled default, the slice of the port that brings it)
@@ -26,7 +29,6 @@ LATER_SLICES = {
     "cold_path": (None, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
     "shard_lam": (False, "sharding (ROADMAP Queue 1 item 14)"),
     "shard_ba": (False, "sharding (ROADMAP Queue 1 item 14)"),
-    "base_dtype": ("bf16", "the quantized base (ROADMAP Queue 1 item 11)"),
 }
 
 
@@ -42,6 +44,13 @@ class EngineConfig:
     seed: int = 0
     block_size: int = 16
     n_blocks: Optional[int] = None
+    #: Frozen-base weight dtype: "bf16" leaves the model's native weights
+    #: alone; "int8"/"fp8" quantize every adapted base projection
+    #: per-output-channel at engine construction (``core/quantize.py``) and
+    #: dequantize in the kernels' epilogue — λ, B, A stay full precision.
+    #: "fp8" needs torch.float8_e4m3fn (validated here, before any device
+    #: memory is touched).
+    base_dtype: str = "bf16"
     # -- later slices: must stay at their defaults (see LATER_SLICES) --------
     share_prefix: bool = False
     watermark: int = 0
@@ -54,7 +63,6 @@ class EngineConfig:
     cold_path: Optional[str] = None
     shard_lam: bool = False
     shard_ba: bool = False
-    base_dtype: str = "bf16"
 
     def __post_init__(self):
         if self.layout not in LAYOUTS:
@@ -75,6 +83,13 @@ class EngineConfig:
                 raise ValueError(f"{name}={getattr(self, name)} must be >= 1")
         if self.n_slots < 2:
             raise ValueError("n_slots must hold slot 0 (base) plus one tenant")
+        if self.base_dtype not in BASE_DTYPES:
+            raise ValueError(f"base_dtype={self.base_dtype!r} must be one of {BASE_DTYPES}")
+        if self.base_dtype == "fp8" and not FP8_SUPPORTED:
+            raise ValueError(
+                "base_dtype='fp8' needs torch.float8_e4m3fn, which this torch build "
+                "does not provide — use base_dtype='int8'"
+            )
 
     def resolved_layout(self, family: str) -> str:
         """Concrete layout for ``family``: paged, the only layout served."""

@@ -21,6 +21,11 @@ block size) with the true length masking the tail, and the decode attend is
 bounded by the decoding lanes' planned final lengths, bucketed to powers of
 two — the reference's padding, so both engines compute the same numbers.
 
+A quantized frozen base (``EngineConfig.base_dtype`` "int8"/"fp8", or the
+model config's) replaces every adapted projection's W with its int8/fp8
+``{"q", "scale"}`` dict at construction; the engine's projections then go
+through the quantized BGMV kernel.
+
 The engine is greedy and host-driven: ``step()`` = admit + grow + one
 decode step; ``run()`` loops until queue and lanes drain.
 """
@@ -33,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adapter_api
+from repro_torch.core.quantize import quantize_base_params
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.lane_state import extract_lane, reset_lane
@@ -75,7 +81,11 @@ class MultiTenantEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
             params = self.model.init(gen)
-        self.params = params
+        # Quantized frozen base: the engine knob wins over the model config
+        # (serving decides the deployment dtype); "bf16" is a no-op, and so
+        # is passing a tree that is already quantized.
+        self.base_dtype = config.base_dtype if config.base_dtype != "bf16" else cfg.base_dtype
+        self.params = params = quantize_base_params(params, self.base_dtype)
         self.lam_store = LamStore.from_params(params, n_slots=config.n_slots)
         self.scheduler = ContinuousBatchScheduler(config.n_lanes)
         self.n_lanes, self.max_len = config.n_lanes, config.max_len
@@ -304,7 +314,9 @@ class MultiTenantEngine:
 
 def merge_tenant_params(params, cfg: ModelConfig, lam_tree):
     """Single-tenant params with λ folded into the weights and adapters
-    stripped — the classic one-adapter deployment."""
+    stripped — the classic one-adapter deployment.  Quantized projections
+    are dequantized first (to the factors' dtype), so the reference shares
+    the engine's quantization."""
     scale = adapter_api.adapter_scale(cfg.adapter)
     groups = dict(params["groups"])
     for mod, projs in groups.get("adapters", {}).items():

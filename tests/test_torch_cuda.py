@@ -13,11 +13,14 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 from repro_torch.kernels import ops
-from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
-from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
+from repro_torch.core.quantize import quantize_weight
+from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda, qrlora_bgmv_quant_cuda
+from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_quant_cuda
 from repro_torch.kernels.ref import (
     paged_decode_attention_ref,
+    qrlora_bgmv_quant_ref,
     qrlora_bgmv_ref,
+    qrlora_matmul_quant_ref,
     qrlora_matmul_ref,
 )
 
@@ -176,5 +179,77 @@ def test_train_step_launches_the_matmul_kernel(gen):
     state, met = step(state, {"tokens": tokens})
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"qrlora_bgmv": 0, "paged_decode_attention": 0,
-                                       "qrlora_matmul": 2 * cfg.n_layers}
+                                       "qrlora_matmul": 2 * cfg.n_layers,
+                                       "qrlora_bgmv_quant": 0, "qrlora_matmul_quant": 0}
     assert torch.isfinite(met["loss"])
+
+
+# ---------------------------------------------------------------------------
+# the quantized base: int8 / fp8-e4m3 q with per-column scales
+# ---------------------------------------------------------------------------
+# Widening q to bf16 or fp32 is exact and so are the products, so kernel and
+# plain version differ by summation order only: the TOL above.
+
+
+def _quantized(W, base_dtype):
+    qW = quantize_weight(W.float(), base_dtype)
+    return qW["q"], qW["scale"]
+
+
+@pytest.mark.parametrize("base_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,r", [(4, 576, 576, 128), (64, 576, 192, 128), (37, 96, 80, 24)])
+def test_bgmv_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K, N, r):
+    dev, n_slots = "cuda", 8
+    x = torch.randn((M, K), generator=gen, device=dev).to(x_dtype)
+    q, ws = _quantized(torch.randn((K, N), generator=gen, device=dev) * K**-0.5, base_dtype)
+    B = (torch.randn((K, r), generator=gen, device=dev) * K**-0.5).bfloat16()
+    A = torch.randn((r, N), generator=gen, device=dev).bfloat16()
+    lam = torch.randn((n_slots, r), generator=gen, device=dev)
+    lam[0] = 0
+    seg = torch.arange(M, device=dev, dtype=torch.int32) % n_slots  # every slot, 0 included
+    before = qrlora_bgmv_quant_cuda.launches
+    y = qrlora_bgmv_quant_cuda(x, q, ws, B, A, lam, seg, scale=0.7)
+    torch.cuda.synchronize()
+    assert qrlora_bgmv_quant_cuda.launches == before + 1
+    assert y.dtype == x_dtype and y.shape == (M, N)
+    assert _close(y, qrlora_bgmv_quant_ref(x, q, ws, B, A, lam, seg, 0.7), x_dtype)
+
+
+@pytest.mark.parametrize("base_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,r", [(2048, 576, 576, 128), (37, 576, 192, 128),
+                                     (130, 112, 80, 40)])
+def test_qrlora_matmul_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K, N, r):
+    x, W, B, A, lam = _matmul_inputs(gen, M, K, N, r, x_dtype, rank=r // 2)
+    q, ws = _quantized(W, base_dtype)
+    before = qrlora_matmul_quant_cuda.launches
+    y = qrlora_matmul_quant_cuda(x, q, ws, B, A, lam, scale=0.7)
+    torch.cuda.synchronize()
+    assert qrlora_matmul_quant_cuda.launches == before + 1
+    assert y.dtype == x_dtype and y.shape == (M, N)
+    assert _close(y, qrlora_matmul_quant_ref(x, q, ws, B, A, lam, 0.7), x_dtype)
+
+
+def test_quantized_serve_and_forward_launch_the_quantized_kernels(gen):
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving import EngineConfig, MultiTenantEngine, random_lambda
+
+    cfg = get_reduced("smollm-135m")
+    eng = MultiTenantEngine(cfg, EngineConfig(max_len=64, base_dtype="int8"))
+    lam = random_lambda(gen, eng.params, 0.3)
+    eng.add_tenant("a", lam)
+    eng.submit("a", list(range(2, 20)), 4)
+    kernels.reset_launch_counts()
+    eng.run()
+    counts = kernels.launch_counts()
+    assert counts["qrlora_bgmv_quant"] == 2 * cfg.n_layers * 4  # 1 prefill + 3 decode steps
+    assert counts["qrlora_bgmv"] == 0
+    view = {**eng.params, "groups": {**eng.params["groups"], "adapters": {
+        mod: {p: {**leaf, "lam": lam[mod][p]} for p, leaf in projs.items()}
+        for mod, projs in eng.params["groups"]["adapters"].items()}}}
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        eng.model.apply(view, torch.arange(2, 20, device="cuda")[None])
+    counts = kernels.launch_counts()
+    assert counts["qrlora_matmul_quant"] == 2 * cfg.n_layers and counts["qrlora_matmul"] == 0

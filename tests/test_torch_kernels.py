@@ -149,7 +149,8 @@ def test_cpu_path_counts_no_launches():
     q, kp, vp, tbl, lens = (torch.from_numpy(a) for a in _paged_np((1, 2)))
     tpaged.paged_decode_attention(q, kp, vp, tbl, lens)
     assert kernels.launch_counts() == {"qrlora_bgmv": 0, "paged_decode_attention": 0,
-                                      "qrlora_matmul": 0}
+                                      "qrlora_matmul": 0, "qrlora_bgmv_quant": 0,
+                                      "qrlora_matmul_quant": 0}
 
 
 def test_build_names_libraries_by_source_hash():
@@ -188,7 +189,8 @@ def test_kernel_wrappers_validate_before_launching():
     with pytest.raises(ValueError):
         tpaged.paged_decode_attention_cuda(q, kp, vp[:, :2], tbl, lens)
     assert kernels.launch_counts() == {"qrlora_bgmv": 0, "paged_decode_attention": 0,
-                                      "qrlora_matmul": 0}
+                                      "qrlora_matmul": 0, "qrlora_bgmv_quant": 0,
+                                      "qrlora_matmul_quant": 0}
 
 
 # ---------------------------------------------------------------------------

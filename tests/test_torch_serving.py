@@ -39,6 +39,15 @@ from repro_torch.serving import engine as tengine_mod
 LOGIT_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches():
+    """Leave no compiled JAX executables behind: the JAX engines here share
+    jit caches with other test files in the same worker process (the
+    λ-store's slot-write compile count in ``tests/test_lam_store.py``)."""
+    yield
+    jax.clear_caches()
+
+
 # ---------------------------------------------------------------------------
 # the engine, end to end
 # ---------------------------------------------------------------------------
@@ -132,7 +141,7 @@ def test_bucket_len_matches_jax(floor):
 _LATER = {
     "share_prefix": True, "quantum": 4, "prefill_chunk": 32, "speculate_k": 2,
     "draft_lam_rank": 2, "telemetry": True, "cold_slots": 4, "cold_path": "/x",
-    "shard_lam": True, "shard_ba": True, "base_dtype": "int8", "watermark": 1,
+    "shard_lam": True, "shard_ba": True, "watermark": 1,
 }
 
 
@@ -141,6 +150,60 @@ def test_engine_config_refuses_later_slice_fields(field):
     assert set(_LATER) == set(tconfig.LATER_SLICES)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         EngineConfig(**{field: _LATER[field]})
+
+
+@pytest.mark.parametrize("base_dtype", ["bf16", "int8", "fp8"])
+def test_engine_config_accepts_base_dtypes(base_dtype):
+    assert EngineConfig(base_dtype=base_dtype).base_dtype == base_dtype
+    assert JEngineConfig(base_dtype=base_dtype).base_dtype == base_dtype
+
+
+@pytest.mark.parametrize("base_dtype", ["int4", "float16", "BF16"])
+def test_engine_config_rejects_unknown_base_dtypes(base_dtype):
+    with pytest.raises(ValueError, match="base_dtype"):
+        EngineConfig(base_dtype=base_dtype)
+    with pytest.raises(ValueError, match="base_dtype"):
+        JEngineConfig(base_dtype=base_dtype)
+
+
+def test_engine_config_rejects_fp8_without_support(monkeypatch):
+    monkeypatch.setattr(tconfig, "FP8_SUPPORTED", False)
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        EngineConfig(base_dtype="fp8")
+    assert EngineConfig(base_dtype="int8").base_dtype == "int8"
+
+
+def test_model_config_validates_base_dtype():
+    cfg = get_reduced("smollm-135m")
+    assert cfg.base_dtype == "bf16" and cfg.replace(base_dtype="fp8").base_dtype == "fp8"
+    with pytest.raises(ValueError, match="base_dtype"):
+        cfg.replace(base_dtype="int4")
+
+
+def test_engine_base_dtype_knob_wins_over_the_model_config():
+    """The engine knob decides the deployment dtype; with the knob at bf16
+    the model config's base_dtype applies; a quantized tree passes through."""
+    from repro_torch.core.quantize import is_quantized
+
+    cfg = get_reduced("smollm-135m").replace(dtype="float32", base_dtype="fp8")
+    small = dict(n_lanes=1, n_slots=2, max_len=16)
+    eng = MultiTenantEngine(cfg, EngineConfig(**small), device="cpu")
+    assert eng.base_dtype == "fp8"
+    assert eng.params["groups"]["attn"]["wq"]["q"].dtype == torch.float8_e4m3fn
+    eng2 = MultiTenantEngine(cfg, EngineConfig(base_dtype="int8", **small), device="cpu")
+    assert eng2.base_dtype == "int8" and eng2.params["groups"]["attn"]["wq"]["q"].dtype == torch.int8
+    again = MultiTenantEngine(cfg, EngineConfig(base_dtype="int8", **small),
+                              params=eng2.params, device="cpu")
+    assert again.params["groups"]["attn"]["wq"] is eng2.params["groups"]["attn"]["wq"]
+    assert not is_quantized(again.params["groups"]["attn"]["wk"])
+
+
+@pytest.mark.parametrize("base_dtype", ["int8", "fp8"])
+def test_serve_multi_verifies_a_quantized_base(base_dtype):
+    done = serve_multi.main(["--reduced", "--device", "cpu", "--base-dtype", base_dtype,
+                             "--tenants", "3", "--lanes", "2", "--gen-len", "5",
+                             "--prompt-len", "9", "--max-len", "32"])
+    assert len(done) == 3 and all(len(r.tokens) == 5 for r in done.values())
 
 
 def test_engine_config_defaults_and_layout():
