@@ -7,11 +7,11 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-serving and training paths give it (and the one-λ matmul's hand-written
-backward against autograd through the plain formula), then drives the two
-paths at the full width of smollm-135m (30 layers, random weights from
-``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers), counting kernel
-launches around each:
+serving, training and kernel-bench paths give it (and the one-λ matmul's
+hand-written backward against autograd through the plain formula), then
+drives the paths at the full width of smollm-135m (30 layers, random weights
+from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers), counting
+kernel launches around each:
 
 * serving: 6 tenants through the paged multi-tenant engine (default
   config), the served tokens checked against the merged-weight reference;
@@ -24,7 +24,12 @@ launches around each:
   of the kernel;
 * training: 30 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
-  held against the same run with the plain version in place of the kernel.
+  held against the same run with the plain version in place of the kernel;
+* the kernel bench (``repro_torch.benchmarks.run --only kernel``, in
+  process): pivoted QR against SVD, the fused adapter against ΔW, and the
+  flash-attention, dense decode-attention and one-λ kernels against their
+  plain versions at the reference's shapes and smollm-135m's attention
+  width, every row within its tolerance.
 
 Planted faults check that each check rejects what it targets.  Without a
 CUDA card it exits non-zero before printing any result.
@@ -61,6 +66,9 @@ TOL = {
     "paged": {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2.0**-7)},
     "matmul": {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0**-7)},
 }
+# The flash and dense decode attention kernels are held to the kernel bench's
+# limits (repro_torch.benchmarks.kernel_bench.TOL), which add a term for the
+# rounding of probabilities that scales with P·|v| and have no absolute term.
 # one-λ matmul backward (hand-written) vs autograd through the plain formula:
 # both compute in fp32 from the same inputs, in another order.  dx as
 # |Δ| <= atol + rtol·|ref| (bf16: dx rounds to one bf16 ulp); dλ (fp32) as
@@ -378,6 +386,126 @@ def check_matmul_quant(gen, details):
     return worst
 
 
+def _attention_inputs(gen, q_shape, kv_shape, dtype, scale=0.5):
+    import torch
+
+    return tuple((torch.randn(s, generator=gen, device=gen.device) * scale).to(dtype)
+                 for s in (q_shape, kv_shape, kv_shape))
+
+
+# (B, Sq, Sk, H, KV, dh, causal): the kernel bench's cases — the reference's
+# (1, 256, 8/2 heads, 64), smollm-135m's train shape and its published
+# context length — plus a non-causal and a Sq ≠ Sk case
+FLASH_CASES = ((1, 256, 256, 8, 2, 64, True), (8, 256, 256, 9, 3, 64, True),
+               (1, 2048, 2048, 9, 3, 64, True), (8, 256, 256, 9, 3, 64, False),
+               (2, 100, 300, 9, 3, 64, True))
+# (B, S, H, KV, dh, length): the bench's cases, a length of one and of zero
+DECODE_CASES = ((2, 512, 8, 2, 64, 300), (4, 2048, 9, 3, 64, 1000), (4, 2048, 9, 3, 64, 1),
+                (4, 128, 9, 3, 64, 0))
+
+
+def _worst(details, kernel: str) -> dict:
+    """dtype → the largest max|Δ| and |Δ|/bound of a kernel's checked cases."""
+    rows = [d for d in details if d["kernel"] == kernel and "dtype" in d]
+    return {dt: {key: max(d[key] for d in rows if d["dtype"] == dt)
+                 for key in ("max_abs_err", "err_over_bound")}
+            for dt in dict.fromkeys(d["dtype"] for d in rows)}
+
+
+def _dropped_tile_delta(q, k, v, tile: int = 64):
+    """fp32 change of causal attention when keys S−2·tile … S−tile−1 are
+    hidden from the last ``tile`` query rows: what a flash kernel that skips
+    the last KV tile below the diagonal of its last query tile (the
+    tensor-core P·V path, with no mask) would give instead."""
+    import torch
+
+    B, S, H, dh = q.shape
+    rep = H // k.shape[2]
+    kk, vv = (t.float().repeat_interleave(rep, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * dh**-0.5
+    pos = torch.arange(S, device=q.device)
+    seen = pos[None, :] <= pos[:, None]
+    hidden = ((pos[None, :] >= S - 2 * tile) & (pos[None, :] < S - tile)
+              & (pos[:, None] >= S - tile))
+
+    def attend(mask):
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vv)
+
+    return attend(seen & ~hidden) - attend(seen)
+
+
+def check_flash(gen, details):
+    """Each case against the plain version within the bench's limits; at
+    S = 2048 in bf16 the kernel's own output, with one KV tile's share taken
+    out of its last query tile (:func:`_dropped_tile_delta`), must fail
+    them.  Returns the worst |Δ| and |Δ|/bound of each dtype and the planted
+    fault's |Δ|/bound."""
+    import torch
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_attention
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    fault = None
+    for dtype in (torch.bfloat16, torch.float32):
+        name, tol = str(dtype).split(".")[1], BENCH_TOL["flash_attention"][dtype]
+        for B, Sq, Sk, H, KV, dh, causal in FLASH_CASES:
+            q, k, v = _attention_inputs(gen, (B, Sq, H, dh), (B, Sk, KV, dh), dtype)
+            o = flash_attention_cuda(q, k, v, causal)
+            torch.cuda.synchronize()
+            ref = flash_attention_ref(q, k, v, causal=causal)
+            pv = abs_v_attention(q, k, v, causal)
+            err, over = _max_err(o, ref), err_over_bound(o, ref, tol, pv)
+            ok = over <= 1.0 and bool(torch.isfinite(o).all())
+            details.append({"kernel": "flash_attention", "dtype": name, "B": B, "Sq": Sq,
+                            "Sk": Sk, "H": H, "KV": KV, "dh": dh, "causal": causal,
+                            "max_abs_err": err, "err_over_bound": over, "ok": ok})
+            _check(ok, f"flash_attention {name} {(B, Sq, Sk, H, KV, dh, causal)}: "
+                       f"max|Δ|={err:.3e}, {over:.3f} of the bound {tol}")
+            if dtype == torch.bfloat16 and Sq == Sk == 2048:
+                planted = (o.float() + _dropped_tile_delta(q, k, v)).to(dtype)
+                fault = {"max_abs_err": _max_err(planted, ref),
+                         "err_over_bound": err_over_bound(planted, ref, tol, pv)}
+                details.append({"kernel": "flash_attention", "planted_fault":
+                                "last_kv_tile_dropped_from_last_q_tile", "S": Sq, **fault})
+    _check(fault is not None and fault["err_over_bound"] > 1.0,
+           f"flash_attention bf16: the check let a dropped KV tile through: {fault}")
+    return _worst(details, "flash_attention"), fault
+
+
+def check_decode(gen, details):
+    """Each case twice: the length as a Python int and as an int32 scalar on
+    the card; positions past it hold 1e4 and must never count.  Returns the
+    worst |Δ| and |Δ|/bound of each dtype."""
+    import torch
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_attention
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name, tol = str(dtype).split(".")[1], BENCH_TOL["decode_attention"][dtype]
+        for B, S, H, KV, dh, L in DECODE_CASES:
+            q, kc, vc = _attention_inputs(gen, (B, H, dh), (B, S, KV, dh), dtype)
+            kc[:, L:] = vc[:, L:] = 1e4
+            for length in (L, torch.tensor(L, dtype=torch.int32, device=q.device)):
+                o = decode_attention_cuda(q, kc, vc, length)
+                torch.cuda.synchronize()
+                ref = decode_attention_ref(q, kc, vc, length)
+                err = _max_err(o, ref)
+                over = err_over_bound(o, ref, tol, abs_v_attention(q, kc, vc, length))
+                ok = (over <= 1.0 and bool(torch.isfinite(o).all())
+                      and (L > 0 or bool((o == 0).all())))
+                details.append({"kernel": "decode_attention", "dtype": name, "B": B, "S": S,
+                                "H": H, "KV": KV, "dh": dh, "length": L,
+                                "length_on_card": isinstance(length, torch.Tensor),
+                                "max_abs_err": err, "err_over_bound": over, "ok": ok})
+                _check(ok, f"decode_attention {name} {(B, S, H, KV, dh, L)}: max|Δ|={err:.3e}, "
+                           f"{over:.3f} of the bound {tol} (or a length-0 row not zeros)")
+    return _worst(details, "decode_attention")
+
+
 def matmul_backward_readings(gen, x_dt, N, M=2048, scale=0.7):
     """The autograd.Function (kernel forward, hand-written backward) against
     torch.autograd through the plain formula ``qrlora_matmul_ref`` — which
@@ -568,6 +696,62 @@ def time_matmul_quant(gen, M: int, N: int, base: str):
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
     res["shape"] = {"M": M, "K": K, "N": N, "r": r, "x": "bfloat16", "q": base}
+    return res
+
+
+def time_flash(gen, B: int, S: int):
+    """Causal flash attention at smollm-135m's heads (9 over 3, dh 64), bf16:
+    B=8 × S=256 (the train shape) or B=1 × S=2048.  The library yardstick is
+    ``scaled_dot_product_attention`` on the same values in its own (B,H,S,dh)
+    layout, made before the timed calls."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    H, KV, dh = 9, 3, 64
+    q, k, v = _attention_inputs(gen, (B, S, H, dh), (B, S, KV, dh), torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kernel = lambda: flash_attention_cuda(q, k, v, True)
+    res = {"ms": _device_ms(kernel),
+           "plain_ms": _device_ms(lambda: flash_attention_ref(q, k, v, causal=True)),
+           "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True, enable_gqa=True))}
+    res["eager_ms"] = _eager_ms(kernel)
+    pairs = S * (S + 1) // 2  # (query, key) pairs under the causal mask
+    n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    n_ops = 4 * B * H * dh * pairs
+    res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
+    res["shape"] = {"B": B, "S": S, "H": H, "KV": KV, "dh": dh, "causal": True,
+                    "dtype": "bfloat16"}
+    return res
+
+
+def time_decode(gen, B: int = 4, S: int = 2048, L: int = 1000):
+    """One decode step over a dense cache at smollm-135m's heads, bf16, the
+    length an int32 scalar on the card.  The library yardstick is
+    ``scaled_dot_product_attention`` with a length mask over all S positions."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    H, KV, dh = 9, 3, 64
+    q, kc, vc = _attention_inputs(gen, (B, H, dh), (B, S, KV, dh), torch.bfloat16)
+    length = torch.tensor(L, dtype=torch.int32, device=q.device)
+    q4, kt, vt = q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device=q.device) < length)[None, None, None, :]
+    kernel = lambda: decode_attention_cuda(q, kc, vc, length)
+    res = {"ms": _device_ms(kernel),
+           "plain_ms": _device_ms(lambda: decode_attention_ref(q, kc, vc, length)),
+           "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+               q4, kt, vt, attn_mask=mask, enable_gqa=True))}
+    res["eager_ms"] = _eager_ms(kernel)
+    n_bytes = 2 * (2 * q.numel() + 2 * B * L * KV * dh) + 4
+    n_ops = 4 * B * H * L * dh
+    res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
+    res["shape"] = {"B": B, "S": S, "length": L, "H": H, "KV": KV, "dh": dh,
+                    "dtype": "bfloat16"}
     return res
 
 
@@ -911,8 +1095,16 @@ def quant_serve_phase(base: str, seed: int, params, done_unquantized):
     return engine, out
 
 
+def _check_no_bench_kernels(launches: dict, where: str) -> None:
+    """The flash and dense decode attention kernels are the kernel bench's
+    alone: no serve, forward or train path may launch either."""
+    _check(launches["flash_attention"] == launches["decode_attention"] == 0,
+           f"{where}: an attention kernel of the kernel bench launched: {launches}")
+
+
 def check_quant_serve(base: str, out: dict) -> None:
     launches = out["launches"]
+    _check_no_bench_kernels(launches, f"serve {base}")
     _check(launches["qrlora_bgmv_quant"] > 0 and launches["paged_decode_attention"] > 0,
            f"serve {base}: the quantized BGMV or the paged kernel never launched: {launches}")
     _check(launches["qrlora_bgmv"] == 0,
@@ -926,6 +1118,7 @@ def check_quant_serve(base: str, out: dict) -> None:
     for name, row in out["planted_faults"].items():
         _check(not row["ok"], f"serve {base}: the check let the planted fault {name} through")
     for r in out["score_forward"]:
+        _check_no_bench_kernels(r["launches"], f"serve {base}: a single-tenant forward")
         _check(r["launches"]["qrlora_matmul_quant"] == r["adapted_projections"]
                and r["launches"]["qrlora_matmul"] == 0,
                f"serve {base}: a single-tenant forward launched {r['launches']}, want "
@@ -966,6 +1159,8 @@ def quant_fp32_phase(seed: int, params):
 
 
 def check_quant_fp32(out: dict) -> None:
+    _check_no_bench_kernels(out["launches"], "fp32 int8 serve")
+    _check_no_bench_kernels(out["twin_launches"], "fp32 int8 twin")
     _check(out["launches"]["qrlora_bgmv_quant"] > 0 and out["launches"]["qrlora_bgmv"] == 0,
            f"fp32 int8 serve: launches {out['launches']}")
     _check(out["twin_launches"]["qrlora_bgmv_quant"] == 0,
@@ -977,6 +1172,7 @@ def check_quant_fp32(out: dict) -> None:
                and (r["tokens_match"] or r["parting_margin"] <= QUANT_FP32_LOGIT_TOL),
                f"fp32 int8 serve diverged from the quantized merged-weight reference: {r}")
     for r in out["score_forward"]:
+        _check_no_bench_kernels(r["launches"], "fp32 int8: a single-tenant forward")
         _check(r["launches"]["qrlora_matmul_quant"] == r["adapted_projections"]
                and r["launches"]["qrlora_matmul"] == 0,
                f"fp32 int8: a single-tenant forward launched {r['launches']}")
@@ -1146,6 +1342,26 @@ def train_phase(dtype: str, seed: int, log_every: int = 0):
     return out
 
 
+def kernel_bench_phase():
+    """The port's kernel bench on the card, in process, launches counted
+    around it; its rows go into the report."""
+    import io
+    from repro_torch import kernels
+    from repro_torch.benchmarks import common, run
+
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            errors = run.main(["--only", "kernel"])
+    except SystemExit:
+        sys.stdout.write(buf.getvalue())
+        _fail(f"the kernel bench failed or a row is over its tolerance: {common.errors()}")
+    return {"launches": kernels.launch_counts(), "errors": errors, "rows": common.rows(),
+            "s": time.perf_counter() - t0}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1184,10 +1400,15 @@ def main(argv=None) -> None:
     matmul_err = check_matmul(gen, report["cases"])
     bgmv_quant_err = check_bgmv_quant(gen, report["cases"])
     matmul_quant_err = check_matmul_quant(gen, report["cases"])
+    flash_err, flash_fault = check_flash(gen, report["cases"])
+    decode_err = check_decode(gen, report["cases"])
     print(f"kernel vs plain: qrlora_bgmv max|Δ| {bgmv_err}, "
           f"paged_decode_attention max|Δ| {paged_err}, qrlora_matmul max|Δ| {matmul_err}, "
           f"qrlora_bgmv_quant max|Δ| {bgmv_quant_err}, qrlora_matmul_quant max|Δ| "
-          f"{matmul_quant_err} (int8 and fp8; all within tolerance)")
+          f"{matmul_quant_err} (int8 and fp8), flash_attention {flash_err}, "
+          f"decode_attention {decode_err} (all within tolerance)")
+    print(f"flash_attention bf16: a KV tile dropped from the last query tile at S=2048 reads "
+          f"{flash_fault} (rejected: over 1 of the bound)")
 
     # -- the one-λ matmul's backward against autograd of the plain formula ---
     bwd_rows = check_matmul_backward(gen, report["cases"])
@@ -1213,12 +1434,28 @@ def main(argv=None) -> None:
             for M in (SCORE_ROWS, 2048):
                 timings[f"qrlora_matmul_quant_{proj}_M{M}_{base}"] = time_matmul_quant(
                     gen, M, N, base)
+    for B, S in ((8, 256), (1, 2048)):
+        timings[f"flash_attention_B{B}_S{S}"] = time_flash(gen, B, S)
+    timings["decode_attention"] = time_decode(gen)
     for name, t in timings.items():
         print(f"{name}: kernel {t['ms']:.5f} ms (eager call {t['eager_ms']:.5f} ms), plain "
               f"{t['plain_ms']:.5f} ms, library {t['library_ms']} ms, bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']}) at {t['shape']} on {smi}; "
               f"timed by CUDA-graph replay")
     report["timings"] = timings
+
+    # -- the kernel bench: flash and dense decode attention's path ----------
+    kb = kernel_bench_phase()
+    report["kernel_bench"] = kb
+    for row in kb["rows"]:
+        print(f"  bench {row}")
+    print(f"kernel bench: {len(kb['rows'])} rows in {kb['s']:.1f} s, every error row within "
+          f"tolerance; launches {kb['launches']}")
+    for name in ("flash_attention", "decode_attention", "qrlora_matmul"):
+        _check(kb["launches"][name] > 0, f"kernel bench: {name} never launched: {kb['launches']}")
+    _check(len(kb["errors"]) == len(kb["rows"]) - 2  # every row but pivoted QR's two
+           and all(e["ok"] for e in kb["errors"].values()),
+           f"kernel bench: error rows {kb['errors']}")
 
     # -- the main path: full-width bf16 serve, launches counted -------------
     kernels.reset_launch_counts()
@@ -1230,6 +1467,7 @@ def main(argv=None) -> None:
           f"{n_tok / t_serve:.1f} tok/s over {engine.steps} decode steps; launches {launches}")
     for name in ("qrlora_bgmv", "paged_decode_attention"):
         _check(launches[name] > 0, f"kernel {name} never launched on the serving path")
+    _check_no_bench_kernels(launches, "serve bf16")
     _check(len(done) == 6 and all(len(r.tokens) == 16 for r in done.values()),
            "not every tenant got its 16 tokens")
     rows_bf16 = verify_forced(cfg, engine, lams, done)
@@ -1296,7 +1534,9 @@ def main(argv=None) -> None:
     score_launches = report["serve_quant"]["int8"]["score_launches"]
 
     # -- the same path in float32: token-identical to the merged reference ---
+    kernels.reset_launch_counts()
     cfg, engine, lams, done, t_init, t_serve = serve("float32", args.seed)
+    _check_no_bench_kernels(kernels.launch_counts(), "serve fp32")
     rows_f32 = verify(cfg, engine, lams, done, 16)
     for row in rows_f32:
         print(f"  fp32 {row}")
@@ -1379,6 +1619,12 @@ def main(argv=None) -> None:
         ("qrlora_bgmv_quant", "qrlora_bgmv_quant_wq_int8", bgmv_quant_err["bfloat16"],
          "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:270",
          quant_launches["qrlora_bgmv_quant"]),
+        ("flash_attention", "flash_attention_B8_S256", flash_err["bfloat16"]["max_abs_err"],
+         "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:69", kb["launches"]["flash_attention"]),
+        ("decode_attention", "decode_attention", decode_err["bfloat16"]["max_abs_err"],
+         "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "src/repro/kernels/decode_attention.py:68", kb["launches"]["decode_attention"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

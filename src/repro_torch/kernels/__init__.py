@@ -5,6 +5,8 @@ Each kernel wrapper counts its own launches (``<wrapper>.launches``); a run
 that resets the counts before it and reads them after shows which kernels
 its path really went through.
 """
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda, qrlora_bgmv_quant_cuda
 from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_quant_cuda
@@ -16,6 +18,8 @@ KERNEL_WRAPPERS = {
     "qrlora_matmul": qrlora_matmul_cuda,
     "qrlora_bgmv_quant": qrlora_bgmv_quant_cuda,
     "qrlora_matmul_quant": qrlora_matmul_quant_cuda,
+    "flash_attention": flash_attention_cuda,
+    "decode_attention": decode_attention_cuda,
 }
 
 

@@ -28,6 +28,8 @@ SOURCES = {
     "qrlora_bgmv": "qrlora_bgmv.cu",
     "paged_attention": "paged_attention.cu",
     "qrlora_matmul": "qrlora_matmul.cu",
+    "flash_attention": "flash_attention.cu",
+    "decode_attention": "decode_attention.cu",
 }
 
 NVCC_FLAGS = (

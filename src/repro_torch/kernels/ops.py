@@ -1,12 +1,15 @@
 """Model-facing wrappers around the port's kernels (port of
 ``repro/kernels/ops.py``): batching conventions on top of the 2-D/3-D
 kernel wrappers, which pick the kernel (CUDA tensors) or its plain version
-(CPU tensors), the autograd rule of the trainable one-λ matmul, and the
-forward-only quantized-base variants."""
+(CPU tensors), the autograd rule of the trainable one-λ matmul, the
+forward-only quantized-base variants, and the model-layout attention
+wrappers (forward only, as the reference's)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import qrlora_bgmv as _bgmv
 from repro_torch.kernels import qrlora_matmul as _mm
@@ -114,4 +117,33 @@ def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths) -> torch.Tenso
     if squeeze:
         q = q[:, 0]
     o = _paged.paged_decode_attention(q.contiguous(), k_pool, v_pool, block_tbl, lengths)
+    return o[:, None] if squeeze else o
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """The reference's attention kernels have no VJP: a call that autograd
+    would have to differentiate raises, on the CPU as on the card."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} is forward only (the reference kernel has no VJP)")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, bq: int = 512, bk: int = 512):
+    """q (B,Sq,H,dh); k,v (B,Sk,KV,dh) → (B,Sq,H,dh).  ``bq``/``bk`` are the
+    TPU kernel's tiling, accepted so that calls match the reference; the
+    Hopper kernel picks its own tiles and reads the model layout by strides,
+    so no transposes are made here."""
+    _refuse_grad("flash_attention", q, k, v)
+    return _flash.flash_attention(q, k, v, causal)
+
+
+def decode_attention(q, k_cache, v_cache, length, *, bk: int = 512):
+    """q (B,1,H,dh) or (B,H,dh); caches (B,S,KV,dh); ``length`` valid leading
+    positions (an int, or a one-element int32 tensor on q's device, read by
+    the kernel without a host sync) → same rank as q.  ``bk`` is the TPU
+    kernel's block, accepted so that calls match the reference."""
+    _refuse_grad("decode_attention", q, k_cache, v_cache)
+    squeeze = q.ndim == 4
+    if squeeze:
+        q = q[:, 0]
+    o = _decode.decode_attention(q.contiguous(), k_cache, v_cache, length)
     return o[:, None] if squeeze else o

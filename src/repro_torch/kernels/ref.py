@@ -58,6 +58,47 @@ def qrlora_bgmv_quant_ref(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.
     return (y + low * scale).to(x.dtype)
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Attention over a sequence in the model layout: q (B,Sq,H,dh); k, v
+    (B,Sk,KV,dh) → (B,Sq,H,dh).  Query head h reads kv head h // (H/KV);
+    scores in fp32 scaled by dh^-0.5; the causal mask is top-left
+    (``kpos <= qpos``, also when Sq ≠ Sk); probabilities are cast to v's
+    dtype before P·V."""
+    B, Sq, H, dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * dh**-0.5
+    if causal:
+        kpos, qpos = torch.arange(Sk, device=q.device), torch.arange(Sq, device=q.device)
+        s = s.masked_fill(~(kpos[None, :] <= qpos[:, None])[None, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return o.to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, length):
+    """One query per batch row over a dense cache: q (B,H,dh); caches
+    (B,S,KV,dh); ``length`` (an int or a one-element tensor) valid leading
+    positions, shared by the batch → (B,H,dh).  A length of 0 gives zeros
+    (the kernel's convention; the JAX reference gives NaN there)."""
+    B, H, dh = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    rep = H // KV
+    k = k_cache.repeat_interleave(rep, dim=2)
+    v = v_cache.repeat_interleave(rep, dim=2)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * dh**-0.5
+    if isinstance(length, torch.Tensor):
+        length = length.reshape(())
+    valid = torch.arange(S, device=q.device) < length
+    s = s.masked_fill(~valid[None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bhk,bkhd->bhd", p.float(), v.float())
+    o = torch.where(valid.any(), o, torch.zeros_like(o))
+    return o.to(q.dtype)
+
+
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tbl, lengths):
     """Paged decode attention via a plain block-table gather.
 

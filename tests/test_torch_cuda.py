@@ -11,12 +11,18 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.benchmarks.common import err_over_bound
+from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_attention
+from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 from repro_torch.kernels import ops
 from repro_torch.core.quantize import quantize_weight
 from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda, qrlora_bgmv_quant_cuda
 from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_quant_cuda
 from repro_torch.kernels.ref import (
+    decode_attention_ref,
+    flash_attention_ref,
     paged_decode_attention_ref,
     qrlora_bgmv_quant_ref,
     qrlora_bgmv_ref,
@@ -180,7 +186,8 @@ def test_train_step_launches_the_matmul_kernel(gen):
     torch.cuda.synchronize()
     assert kernels.launch_counts() == {"qrlora_bgmv": 0, "paged_decode_attention": 0,
                                        "qrlora_matmul": 2 * cfg.n_layers,
-                                       "qrlora_bgmv_quant": 0, "qrlora_matmul_quant": 0}
+                                       "qrlora_bgmv_quant": 0, "qrlora_matmul_quant": 0,
+                                       "flash_attention": 0, "decode_attention": 0}
     assert torch.isfinite(met["loss"])
 
 
@@ -253,3 +260,94 @@ def test_quantized_serve_and_forward_launch_the_quantized_kernels(gen):
         eng.model.apply(view, torch.arange(2, 20, device="cuda")[None])
     counts = kernels.launch_counts()
     assert counts["qrlora_matmul_quant"] == 2 * cfg.n_layers and counts["qrlora_matmul"] == 0
+
+
+# ---------------------------------------------------------------------------
+# flash and dense decode attention (the kernel bench's path)
+# ---------------------------------------------------------------------------
+# Both sides take fp32 scores and an fp32 softmax.  The plain versions round
+# the normalised probabilities to the value dtype before P·V (the
+# reference's order); the flash kernel rounds its unnormalised ones in bf16,
+# the decode kernel keeps them in fp32.  Both are held to the kernel bench's
+# limits, whose bf16 term for that rounding scales with P·|v|.
+
+
+def _attention_close(kind, got, want, q, k, v, arg):
+    return err_over_bound(got, want, BENCH_TOL[kind][got.dtype], abs_v_attention(q, k, v, arg)) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dh", [
+    (2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 8, 32), (2, 96, 96, 6, 3, 16),  # the reference's
+    (2, 200, 200, 9, 3, 64),  # smollm-135m's heads, a ragged last query tile
+    (1, 64, 130, 4, 2, 128), (1, 130, 64, 4, 2, 32),  # Sq ≠ Sk
+])
+def test_flash_kernel_matches_plain(gen, dtype, causal, B, Sq, Sk, H, KV, dh):
+    dev = "cuda"
+    q = (torch.randn((B, Sq, H, dh), generator=gen, device=dev) * 0.5).to(dtype)
+    k = (torch.randn((B, Sk, KV, dh), generator=gen, device=dev) * 0.5).to(dtype)
+    v = (torch.randn((B, Sk, KV, dh), generator=gen, device=dev) * 0.5).to(dtype)
+    before = flash_attention_cuda.launches
+    o = flash_attention_cuda(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert o.dtype == dtype and o.shape == (B, Sq, H, dh) and torch.isfinite(o).all()
+    assert _attention_close("flash_attention", o, flash_attention_ref(q, k, v, causal=causal),
+                            q, k, v, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pad", [0, 1], ids=["aligned_strides", "odd_strides"])
+def test_flash_kernel_reads_strided_layouts(gen, dtype, pad):
+    """Views in the model layout: q from a (B,H,S,dh) tensor, k and v as
+    slices of one packed (B,S,2·KV,dh+pad) buffer (odd strides: no 16-byte
+    copies)."""
+    dev, B, S, H, KV, dh = "cuda", 2, 100, 6, 2, 32
+    q = (torch.randn((B, H, S, dh), generator=gen, device=dev) * 0.5).to(dtype).transpose(1, 2)
+    kv = (torch.randn((B, S, 2 * KV, dh + pad), generator=gen, device=dev) * 0.5).to(dtype)
+    k, v = kv[:, :, :KV, :dh], kv[:, :, KV:, :dh]
+    o = flash_attention_cuda(q, k, v, True)
+    torch.cuda.synchronize()
+    assert _attention_close("flash_attention", o, flash_attention_ref(q, k, v, causal=True),
+                            q, k, v, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["int_length", "device_length"])
+@pytest.mark.parametrize("B,S,H,KV,dh,L", [
+    (2, 256, 4, 2, 64, 100), (1, 512, 8, 8, 32, 512), (3, 128, 6, 3, 16, 1),
+    (2, 128, 4, 4, 32, 127),  # the reference's
+    (4, 2048, 9, 3, 64, 1000), (2, 64, 8, 2, 128, 33), (2, 64, 9, 3, 64, 0),
+])
+def test_decode_kernel_matches_plain(gen, dtype, as_tensor, B, S, H, KV, dh, L):
+    dev = "cuda"
+    q = (torch.randn((B, H, dh), generator=gen, device=dev) * 0.5).to(dtype)
+    kc = (torch.randn((B, S, KV, dh), generator=gen, device=dev) * 0.5).to(dtype)
+    vc = (torch.randn((B, S, KV, dh), generator=gen, device=dev) * 0.5).to(dtype)
+    kc[:, L:] = vc[:, L:] = 1e4  # past the length: must never contribute
+    length = torch.tensor(L, dtype=torch.int32, device=dev) if as_tensor else L
+    before = decode_attention_cuda.launches
+    o = decode_attention_cuda(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1
+    assert o.dtype == dtype and o.shape == (B, H, dh) and torch.isfinite(o).all()
+    assert _attention_close("decode_attention", o, decode_attention_ref(q, kc, vc, length),
+                            q, kc, vc, length)
+    if L == 0:
+        assert (o == 0).all()
+
+
+def test_attention_ops_launch_the_kernels(gen):
+    """The model-layout wrappers go through the kernels on the card, the
+    (B,1,H,dh) decode query included."""
+    dev = "cuda"
+    q = torch.randn((2, 64, 9, 64), generator=gen, device=dev).bfloat16()
+    k = torch.randn((2, 64, 3, 64), generator=gen, device=dev).bfloat16()
+    kernels.reset_launch_counts()
+    o = ops.flash_attention(q, k, k, causal=True, bq=128, bk=128)
+    od = ops.decode_attention(q[:, :1], k, k, torch.tensor(40, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and od.shape == (2, 1, 9, 64)
+    assert kernels.launch_counts() == {**{n: 0 for n in kernels.KERNEL_WRAPPERS},
+                                       "flash_attention": 1, "decode_attention": 1}

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing ``repro_torch`` and every module
 under it, or running ``chip_smoke.py``, loads neither ``jax`` nor anything of
-the JAX package ``repro``; and ``chip_smoke.py`` refuses to report without a
-card."""
+the JAX package ``repro`` or the reference's ``benchmarks``; and
+``chip_smoke.py`` refuses to report without a card."""
 import ast
 import os
 import shutil
@@ -20,7 +20,7 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"))
 print(len(names), bad)
 """
 
@@ -53,7 +53,7 @@ def _imported_roots(path: Path):
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_the_reference(path):
     roots = set(_imported_roots(path))
-    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, roots
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes", "benchmarks"}, roots
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in_checkout", "alone"])

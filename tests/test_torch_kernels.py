@@ -150,7 +150,8 @@ def test_cpu_path_counts_no_launches():
     tpaged.paged_decode_attention(q, kp, vp, tbl, lens)
     assert kernels.launch_counts() == {"qrlora_bgmv": 0, "paged_decode_attention": 0,
                                       "qrlora_matmul": 0, "qrlora_bgmv_quant": 0,
-                                      "qrlora_matmul_quant": 0}
+                                      "qrlora_matmul_quant": 0, "flash_attention": 0,
+                                      "decode_attention": 0}
 
 
 def test_build_names_libraries_by_source_hash():
@@ -190,7 +191,8 @@ def test_kernel_wrappers_validate_before_launching():
         tpaged.paged_decode_attention_cuda(q, kp, vp[:, :2], tbl, lens)
     assert kernels.launch_counts() == {"qrlora_bgmv": 0, "paged_decode_attention": 0,
                                       "qrlora_matmul": 0, "qrlora_bgmv_quant": 0,
-                                      "qrlora_matmul_quant": 0}
+                                      "qrlora_matmul_quant": 0, "flash_attention": 0,
+                                      "decode_attention": 0}
 
 
 # ---------------------------------------------------------------------------
