@@ -28,6 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 BASE_TENANT = "__base__"
 
 Key = Tuple[str, str]
@@ -89,7 +91,8 @@ def random_lambda(gen: torch.Generator, params, scale: float = 0.05):
 
 class LamStore:
     """Hot-tier λ pool: packed device tables, slot 0 base, LRU with pins
-    and residency protects, in-place slot writes."""
+    and residency protects, in-place slot writes.  The tables live on
+    ``device``: ``cuda`` unless the caller names another (``"cpu"``)."""
 
     def __init__(self, lam_shapes: Dict[Key, Tuple[int, ...]], n_slots: int = 8, *,
                  device=None):
@@ -97,6 +100,7 @@ class LamStore:
             raise ValueError("need slot 0 (base) plus at least one tenant slot")
         self._lam_shapes = {k: tuple(s) for k, s in lam_shapes.items()}
         self.n_slots = n_slots
+        device = resolve_device(device)
         # (module, proj) → (*lead, n_slots, cap) fp32, zeros: every unused
         # slot (and slot 0) is the base model
         self._tables: Dict[Key, torch.Tensor] = {

@@ -233,7 +233,7 @@ def _lam_tree(value):
 
 
 def test_lam_store_slot0_lru_and_pins():
-    reg = LamStore(SHAPES, n_slots=3)  # slots 1, 2 usable
+    reg = LamStore(SHAPES, n_slots=3, device="cpu")  # slots 1, 2 usable
     assert BASE_TENANT in reg and reg.lookup(BASE_TENANT) == 0
     sa = reg.register("a", _lam_tree(1.0))
     sb = reg.register("b", _lam_tree(2.0))
@@ -252,11 +252,21 @@ def test_lam_store_slot0_lru_and_pins():
         reg.register(BASE_TENANT, _lam_tree(1.0))
 
 
+def test_lam_store_defaults_to_the_card():
+    """A store built without a device puts its tables on ``cuda``, like every
+    other entry point of the port; without a card that raises."""
+    if torch.cuda.is_available():
+        assert LamStore(SHAPES, n_slots=3).tables[("attn", "wq")].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LamStore(SHAPES, n_slots=3)
+
+
 def test_lam_store_protect_is_a_count():
     """Two protects need two unprotects before the tenant can go (the
     reference store counts too; its property test models a set — ROADMAP
     Queue 3)."""
-    reg = LamStore(SHAPES, n_slots=3)
+    reg = LamStore(SHAPES, n_slots=3, device="cpu")
     reg.register("a", _lam_tree(1.0))
     reg.protect("a")
     reg.protect("a")
@@ -269,7 +279,7 @@ def test_lam_store_protect_is_a_count():
 
 
 def test_lam_store_hot_swap_install_and_digest():
-    reg = LamStore(SHAPES, n_slots=3)
+    reg = LamStore(SHAPES, n_slots=3, device="cpu")
     s = reg.register("a", _lam_tree(1.0))
     assert reg.register("a", _lam_tree(9.0)) == s  # hot-swap in place
     assert (reg.tables[("attn", "wv")][s] == 9).all()
