@@ -22,6 +22,10 @@ kernel launches around each:
   (``Model.apply`` with one λ: the quantized one-λ kernel); in float32 on an
   int8 base, held against the same serve with the plain version in place
   of the kernel;
+* the sharded serve: ``shard_lam`` on the bf16, int8 and (with
+  ``shard_ba``) float32 serves' weights, tenants and traffic, in a NCCL
+  world of one, through the rows BGMV kernel — token-identical to the
+  replicated serves, float32 logits bit for bit;
 * training: 30 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
   held against the same run with the plain version in place of the kernel;
@@ -55,25 +59,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
 
-# kernel-vs-plain tolerance, |kernel - plain| <= atol + rtol·|plain|:
-#  * float32 out: both sum fp32 products, in different orders — ~1e-6 here.
-#  * bfloat16 out: both round an fp32 result to bf16; values straddling a
-#    rounding boundary split by one bf16 ulp (≤ 2^-7 relative).  The paged
-#    plain version also rounds probabilities to bf16 before P·V (the
-#    reference's order), the kernel keeps them in fp32: ≤ 2^-8 of |v|.
-TOL = {
-    "bgmv": {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0**-7)},
-    "paged": {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 2.0**-7)},
-    "matmul": {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0**-7)},
-}
-# The flash and dense decode attention kernels are held to the kernel bench's
-# limits (repro_torch.benchmarks.kernel_bench.TOL), which add a term for the
-# rounding of probabilities that scales with P·|v| and have no absolute term.
+# Kernel-vs-plain limits, |kernel - plain| <= atol + rtol·|plain| (+ a
+# probability-rounding term for attention), are stated once, in
+# repro_torch.benchmarks.kernel_bench.TOL, and read through _tol; the card
+# tests read the same table.
 # one-λ matmul backward (hand-written) vs autograd through the plain formula:
-# both compute in fp32 from the same inputs, in another order.  dx as
-# |Δ| <= atol + rtol·|ref| (bf16: dx rounds to one bf16 ulp); dλ (fp32) as
-# |Δ| <= DLAM_RTOL · max|dλ_ref|.
-DX_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2.0**-7)}
+# both compute in fp32 from the same inputs, in another order; dx is held to
+# TOL["qrlora_matmul_dx"], dλ (fp32) as |Δ| <= DLAM_RTOL · max|dλ_ref|.
 DLAM_RTOL = 1e-5
 # bf16 serve vs the merged-weight reference, as a fraction of a logits row's
 # largest |logit| (the two paths round at different places in every layer).
@@ -170,6 +162,16 @@ def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
+def _tol(kind: str, dtype) -> tuple:
+    """(atol, rtol) of ``kind``'s kernel-vs-plain limit at ``dtype`` (a
+    torch dtype or its name), from kernel_bench.TOL."""
+    import torch
+    from repro_torch.benchmarks.kernel_bench import TOL
+
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return TOL[kind][dtype][:2]
+
+
 def _within(kernel, plain, tol) -> bool:
     atol, rtol = tol
     return bool(((kernel.float() - plain.float()).abs()
@@ -218,11 +220,11 @@ def check_bgmv(gen, details):
                 ref = qrlora_bgmv_ref(*args)
                 name = str(x_dt).split(".")[1]
                 err = _max_err(y, ref)
-                ok = _within(y, ref, TOL["bgmv"][name])
+                ok = _within(y, ref, _tol("qrlora_bgmv", x_dt))
                 details.append({"kernel": "qrlora_bgmv", "x": name, "M": M, "N": N,
                                 "max_abs_err": err, "ok": ok})
                 _check(ok, f"qrlora_bgmv x={x_dt} M={M} N={N}: "
-                           f"max|Δ|={err:.3e} over tolerance {TOL['bgmv'][name]}")
+                           f"max|Δ|={err:.3e} over tolerance {_tol('qrlora_bgmv', x_dt)}")
                 worst[name] = max(worst.get(name, 0.0), err)
     return worst
 
@@ -263,13 +265,13 @@ def check_paged(gen, details):
             torch.cuda.synchronize()
             ref = paged_decode_attention_ref(*args)
             err = _max_err(o, ref)
-            ok = _within(o, ref, TOL["paged"][name]) and bool(torch.isfinite(o).all())
+            ok = _within(o, ref, _tol("paged_decode_attention", dtype)) and bool(torch.isfinite(o).all())
             zero_ok = all(bool((o[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
             details.append({"kernel": "paged_decode_attention", "dtype": name,
                             "lengths": list(lengths), "max_abs_err": err,
                             "ok": ok and zero_ok})
             _check(ok, f"paged_decode_attention {name} lengths={lengths}: max|Δ|={err:.3e} "
-                       f"over tolerance {TOL['paged'][name]}")
+                       f"over tolerance {_tol('paged_decode_attention', dtype)}")
             _check(zero_ok, f"paged_decode_attention {name}: a length-0 lane is not zeros")
             worst[name] = max(worst.get(name, 0.0), err)
     return worst
@@ -307,11 +309,11 @@ def check_matmul(gen, details):
                 torch.cuda.synchronize()
                 ref = qrlora_matmul_ref(*args, scale=0.7)
                 err = _max_err(y, ref)
-                ok = _within(y, ref, TOL["matmul"][name]) and bool(torch.isfinite(y).all())
+                ok = _within(y, ref, _tol("qrlora_matmul", x_dt)) and bool(torch.isfinite(y).all())
                 details.append({"kernel": "qrlora_matmul", "x": name, "M": M, "N": N,
                                 "max_abs_err": err, "ok": ok})
                 _check(ok, f"qrlora_matmul x={name} M={M} N={N}: "
-                           f"max|Δ|={err:.3e} over tolerance {TOL['matmul'][name]}")
+                           f"max|Δ|={err:.3e} over tolerance {_tol('qrlora_matmul', x_dt)}")
                 worst[name] = max(worst.get(name, 0.0), err)
     return worst
 
@@ -347,11 +349,69 @@ def check_bgmv_quant(gen, details):
                     torch.cuda.synchronize()
                     ref = qrlora_bgmv_quant_ref(*args, scale=0.7)
                     err = _max_err(y, ref)
-                    ok = _within(y, ref, TOL["bgmv"][name]) and bool(torch.isfinite(y).all())
+                    ok = _within(y, ref, _tol("qrlora_bgmv_quant", x_dt)) and bool(torch.isfinite(y).all())
                     details.append({"kernel": "qrlora_bgmv_quant", "q": base, "x": name, "M": M,
                                     "N": N, "max_abs_err": err, "ok": ok})
                     _check(ok, f"qrlora_bgmv_quant q={base} x={name} M={M} N={N}: "
-                               f"max|Δ|={err:.3e} over tolerance {TOL['bgmv'][name]}")
+                               f"max|Δ|={err:.3e} over tolerance {_tol('qrlora_bgmv_quant', x_dt)}")
+                    worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def check_bgmv_rows(gen, details):
+    """The rows kernel against its plain version for W in x's dtype (bf16
+    or float32) and int8/fp8 q, bf16 and float32 x, decode (M=4), ragged
+    (M=37) and prefill-bucket (M=256) rows, within the BGMV limit; with
+    rows = Λ[seg] bitwise equal to the BGMV kernel or its quantized twin;
+    and one λ row sent to slot 0 (the base model) rejected by the limit.
+    Returns the worst max|Δ| of each x dtype."""
+    import torch
+    from repro_torch.kernels.qrlora_bgmv import (
+        qrlora_bgmv_cuda,
+        qrlora_bgmv_quant_cuda,
+        qrlora_bgmv_rows_cuda,
+    )
+    from repro_torch.kernels.ref import qrlora_bgmv_rows_ref
+
+    K, r, n_slots = 576, 128, 8
+    worst = {}
+    for w_kind in ("x", "int8", "fp8"):
+        for x_dt in (torch.bfloat16, torch.float32):
+            name, tol = str(x_dt).split(".")[1], _tol("qrlora_bgmv_rows", x_dt)
+            for M in (4, 37, 256):
+                for N in (576, 192):
+                    x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, x_dt)
+                    seg[1] = n_slots - 1  # the row the planted fault sends to slot 0
+                    if w_kind == "x":
+                        ws = torch.ones((N,), dtype=torch.float32, device=x.device)
+                        twin = qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+                    else:
+                        W, ws = _quantized(W, w_kind)
+                        twin = qrlora_bgmv_quant_cuda(x, W, ws, B, A, lam, seg, 0.7)
+                    rows = lam[seg.long()]
+                    y = qrlora_bgmv_rows_cuda(x, W, ws, B, A, rows, 0.7)
+                    planted = rows.clone()
+                    planted[1] = lam[0]
+                    y_fault = qrlora_bgmv_rows_cuda(x, W, ws, B, A, planted, 0.7)
+                    torch.cuda.synchronize()
+                    ref = qrlora_bgmv_rows_ref(x, W, ws, B, A, rows, 0.7)
+                    err = _max_err(y, ref)
+                    row = {"kernel": "qrlora_bgmv_rows", "W": w_kind, "x": name, "M": M,
+                           "N": N, "max_abs_err": err,
+                           "within": _within(y, ref, tol) and bool(torch.isfinite(y).all()),
+                           "bitwise_bgmv": torch.equal(y, twin),
+                           "planted_row_to_slot0_err": _max_err(y_fault, ref),
+                           "planted_rejected": not _within(y_fault, ref, tol)}
+                    row["ok"] = row["within"] and row["bitwise_bgmv"] and row["planted_rejected"]
+                    details.append(row)
+                    _check(row["within"], f"qrlora_bgmv_rows W={w_kind} x={name} M={M} N={N}: "
+                                          f"max|Δ|={err:.3e} over tolerance {tol}")
+                    _check(row["bitwise_bgmv"], f"qrlora_bgmv_rows W={w_kind} x={name} M={M} "
+                                                f"N={N}: not bitwise the BGMV kernel with "
+                                                f"rows = Λ[seg] (max|Δ| {_max_err(y, twin):.3e})")
+                    _check(row["planted_rejected"], f"qrlora_bgmv_rows W={w_kind} x={name} "
+                                                    f"M={M} N={N}: the check let a λ row sent "
+                                                    "to slot 0 through")
                     worst[name] = max(worst.get(name, 0.0), err)
     return worst
 
@@ -377,11 +437,11 @@ def check_matmul_quant(gen, details):
                     torch.cuda.synchronize()
                     ref = qrlora_matmul_quant_ref(*args, scale=0.7)
                     err = _max_err(y, ref)
-                    ok = _within(y, ref, TOL["matmul"][name]) and bool(torch.isfinite(y).all())
+                    ok = _within(y, ref, _tol("qrlora_matmul_quant", x_dt)) and bool(torch.isfinite(y).all())
                     details.append({"kernel": "qrlora_matmul_quant", "q": base, "x": name,
                                     "M": M, "N": N, "max_abs_err": err, "ok": ok})
                     _check(ok, f"qrlora_matmul_quant q={base} x={name} M={M} N={N}: "
-                               f"max|Δ|={err:.3e} over tolerance {TOL['matmul'][name]}")
+                               f"max|Δ|={err:.3e} over tolerance {_tol('qrlora_matmul_quant', x_dt)}")
                     worst[name] = max(worst.get(name, 0.0), err)
     return worst
 
@@ -531,7 +591,8 @@ def matmul_backward_readings(gen, x_dt, N, M=2048, scale=0.7):
     row = {"x": name, "M": M, "N": N, "y_err": _max_err(y, y_ref), "dx_err": _max_err(dx, dx_ref),
            "dlam_err": _max_err(dlam, dlam_ref), "dlam_scale": dlam_scale}
     row["dlam_err_over_bound"] = row["dlam_err"] / (DLAM_RTOL * dlam_scale)
-    row["ok"] = (_within(y, y_ref, TOL["matmul"][name]) and _within(dx, dx_ref, DX_TOL[name])
+    row["ok"] = (_within(y, y_ref, _tol("qrlora_matmul", x_dt))
+                 and _within(dx, dx_ref, _tol("qrlora_matmul_dx", x_dt))
                  and row["dlam_err"] <= DLAM_RTOL * dlam_scale
                  and bool(torch.isfinite(dx).all() and torch.isfinite(dlam).all()))
     return row
@@ -676,6 +737,38 @@ def time_bgmv_quant(gen, N: int, base: str):
     return res
 
 
+def time_bgmv_rows(gen, N: int, base: str):
+    """The sharded serve's decode projection: 4 lanes, bf16 x, pre-gathered
+    fp32 λ rows, W bf16 (``base`` "bf16", w_scale all ones) or int8/fp8 q.
+    The library yardstick is ``x@W·ws + ((x@B)*rows)@A`` (q widened in the
+    call)."""
+    import torch
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_rows_cuda
+    from repro_torch.kernels.ref import qrlora_bgmv_rows_ref
+
+    M, K, r, n_slots = 4, 576, 128, 8
+    x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, torch.bfloat16)
+    rows = lam[seg.long()]
+    if base == "bf16":
+        ws = torch.ones((N,), dtype=torch.float32, device=x.device)
+    else:
+        W, ws = _quantized(W, base)
+    ws16, rows16 = ws.bfloat16(), rows.bfloat16()
+    kernel = lambda: qrlora_bgmv_rows_cuda(x, W, ws, B, A, rows)
+    res = {"ms": _device_ms(kernel),
+           "plain_ms": _device_ms(lambda: qrlora_bgmv_rows_ref(x, W, ws, B, A, rows)),
+           # W.to is a no-op for bf16 W, the widening cast for q
+           "library_ms": _device_ms(
+               lambda: (x @ W.to(x.dtype)) * ws16 + ((x @ B) * rows16) @ A)}
+    res["eager_ms"] = _eager_ms(kernel)
+    n_bytes = (2 * (M * K + K * r + r * N + M * N) + K * N * W.element_size()
+               + 4 * (N + M * r))
+    n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
+    res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
+    res["shape"] = {"M": M, "K": K, "N": N, "r": r, "x": "bfloat16", "W": base}
+    return res
+
+
 def time_matmul_quant(gen, M: int, N: int, base: str):
     """The one-λ projection on a quantized base: M rows (a scoring forward's
     sequence, or 2048), bf16 x, int8 or fp8 q."""
@@ -757,13 +850,16 @@ def time_decode(gen, B: int = 4, S: int = 2048, L: int = 1000):
 
 def _device_busy(prof, wall_us: float):
     """Union of the device-kernel intervals of a torch.profiler run: busy
-    time, idle share of ``wall_us``, kernel count and the top kernels by
-    device time."""
+    time, idle share of ``wall_us``, kernel count, the top kernels by device
+    time, and the top host operations by self time (ms, calls): where a
+    host-bound run spends its host."""
     from torch.autograd import DeviceType
 
-    spans, by_name = [], {}
+    spans, by_name, host = [], {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            t, n = host.get(e.name, (0.0, 0))
+            host[e.name] = (t + e.self_cpu_time_total, n + 1)
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
@@ -774,9 +870,11 @@ def _device_busy(prof, wall_us: float):
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1 - busy / wall_us, "kernels": len(spans),
-            "top_kernels_ms": [(n, t / 1e3) for n, t in top]}
+            "top_kernels_ms": [(n, t / 1e3) for n, t in top],
+            "top_host_ops_ms": [(n, t / 1e3, c) for n, (t, c) in top_host]}
 
 
 # ---------------------------------------------------------------------------
@@ -785,11 +883,11 @@ def _device_busy(prof, wall_us: float):
 
 
 def serve(dtype: str, seed: int, n_tenants: int = 6, gen_len: int = 16,
-          base_dtype: str = "bf16", params=None):
+          base_dtype: str = "bf16", params=None, **shard):
     """Serve one request per tenant through the default engine (with
-    ``base_dtype``, on ``params`` when given); returns the engine, the
-    tenants' λ trees and timings.  The tenants and the traffic depend on
-    ``seed`` only."""
+    ``base_dtype`` and the ``shard_lam``/``shard_ba`` flags in ``shard``, on
+    ``params`` when given); returns the engine, the tenants' λ trees and
+    timings.  The tenants and the traffic depend on ``seed`` only."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -798,7 +896,8 @@ def serve(dtype: str, seed: int, n_tenants: int = 6, gen_len: int = 16,
     cfg = get_config("smollm-135m").replace(dtype=dtype)
     t0 = time.perf_counter()
     engine = MultiTenantEngine(
-        cfg, EngineConfig(seed=seed, collect_logits=True, base_dtype=base_dtype), params=params)
+        cfg, EngineConfig(seed=seed, collect_logits=True, base_dtype=base_dtype, **shard),
+        params=params)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     gen = torch.Generator(device="cuda")
@@ -1092,7 +1191,7 @@ def quant_serve_phase(base: str, seed: int, params, done_unquantized):
     out["drift_vs_unquantized"] = matched_context_drift(done, done_unquantized)
     out["planted_faults"] = planted_quant_faults(cfg, engine, lams, done, drift)
     out["score_forward"], out["score_launches"] = score_forward(engine, lams, done, drift=drift)
-    return engine, out
+    return engine, out, done
 
 
 def _check_no_bench_kernels(launches: dict, where: str) -> None:
@@ -1178,6 +1277,72 @@ def check_quant_fp32(out: dict) -> None:
                f"fp32 int8: a single-tenant forward launched {r['launches']}")
         _check(r["ok"], f"fp32 int8: the single-tenant forward disagrees with the served "
                         f"logits: {r}")
+
+
+# ---------------------------------------------------------------------------
+# the sharded serve (shard_lam, shard_ba) in a world of one
+# ---------------------------------------------------------------------------
+
+
+def sharded_serve_phase(dtype: str, seed: int, params, done_ref, base_dtype: str = "bf16",
+                        shard_ba: bool = False, profile: bool = False):
+    """The serve with ``shard_lam`` (and ``shard_ba``) on the default process
+    group — a world of one on the card, so the all-reduce and all-gather are
+    exact copies and the rows kernel does all the work — on a replicated
+    phase's ``params``, tenants and traffic, with launches and collectives
+    counted around it; each stream held against the replicated serve's
+    (``done_ref``)."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.kernels import qrlora_bgmv as bg
+
+    kernels.reset_launch_counts()
+    bg.reset_collective_counts()
+    cfg, engine, lams, done, t_init, t_serve = serve(dtype, seed, base_dtype=base_dtype,
+                                                     params=params, shard_lam=True,
+                                                     shard_ba=shard_ba)
+    out = {"dtype": dtype, "base_dtype": base_dtype, "shard_ba": shard_ba, "serve_s": t_serve,
+           "tokens": engine.decoded_tokens, "steps": engine.steps,
+           "tok_per_s": engine.decoded_tokens / t_serve, "launches": kernels.launch_counts(),
+           "collectives": dict(bg.COLLECTIVES),
+           "forwards": engine.steps + len(done) + engine.preemptions,
+           "adapted_projections": 2 * cfg.n_layers,
+           "table_bytes_per_rank": engine.lam_store.table_bytes(per_rank=True),
+           "table_bytes": engine.lam_store.table_bytes(),
+           "factor_rank_local": int(engine.params["groups"]["adapters"]["attn"]["wq"]["B"]
+                                    .shape[-1])}
+    ref = {r.tenant: r for r in done_ref.values()}
+    out["streams"] = []
+    for r in done.values():
+        got, want = np.stack(r.logits), np.stack(ref[r.tenant].logits)
+        out["streams"].append({"tenant": r.tenant, "tokens_match": r.tokens == ref[r.tenant].tokens,
+                               "logits_bitwise": bool(np.array_equal(got, want)),
+                               "max_abs_dlogits": float(np.abs(got - want).max())})
+    if profile:
+        out["profile"] = profile_serve(engine, seed + 1)
+    return out
+
+
+def check_sharded(label: str, out: dict, bitwise: bool) -> None:
+    """Launches: the rows kernel once per adapted projection of every
+    forward, no BGMV kernel; collectives: one all-reduce per projection, and
+    two all-gathers under shard_ba; every stream token-identical to the
+    replicated serve (and, with ``bitwise``, logits bit for bit)."""
+    launches, coll = out["launches"], out["collectives"]
+    per_fwd = out["adapted_projections"]
+    want_rows = per_fwd * out["forwards"]
+    _check_no_bench_kernels(launches, label)
+    _check(launches["qrlora_bgmv_rows"] == want_rows and launches["qrlora_bgmv"] == 0
+           and launches["qrlora_bgmv_quant"] == 0 and launches["paged_decode_attention"] > 0,
+           f"{label}: launches {launches}, want {want_rows} qrlora_bgmv_rows "
+           f"({per_fwd} × {out['forwards']} forwards) and no BGMV kernel")
+    want_coll = {"all_reduce": want_rows, "all_gather": 2 * want_rows * out["shard_ba"]}
+    _check(coll == want_coll, f"{label}: collectives {coll}, want {want_coll}")
+    _check(all(r["tokens_match"] for r in out["streams"]),
+           f"{label}: a stream differs from the replicated serve: {out['streams']}")
+    if bitwise:
+        _check(all(r["logits_bitwise"] for r in out["streams"]),
+               f"{label}: logits not bitwise the replicated serve's: {out['streams']}")
 
 
 # ---------------------------------------------------------------------------
@@ -1376,6 +1541,7 @@ def main(argv=None) -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import kernels
     from repro_torch.kernels import _build
+    from repro_torch.launch.serve_multi import process_group
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1400,13 +1566,16 @@ def main(argv=None) -> None:
     matmul_err = check_matmul(gen, report["cases"])
     bgmv_quant_err = check_bgmv_quant(gen, report["cases"])
     matmul_quant_err = check_matmul_quant(gen, report["cases"])
+    bgmv_rows_err = check_bgmv_rows(gen, report["cases"])
     flash_err, flash_fault = check_flash(gen, report["cases"])
     decode_err = check_decode(gen, report["cases"])
     print(f"kernel vs plain: qrlora_bgmv max|Δ| {bgmv_err}, "
           f"paged_decode_attention max|Δ| {paged_err}, qrlora_matmul max|Δ| {matmul_err}, "
           f"qrlora_bgmv_quant max|Δ| {bgmv_quant_err}, qrlora_matmul_quant max|Δ| "
-          f"{matmul_quant_err} (int8 and fp8), flash_attention {flash_err}, "
-          f"decode_attention {decode_err} (all within tolerance)")
+          f"{matmul_quant_err} (int8 and fp8), qrlora_bgmv_rows max|Δ| {bgmv_rows_err} (W in "
+          f"x's dtype, int8 and fp8; bitwise the BGMV kernels with rows = Λ[seg], a λ row sent "
+          f"to slot 0 rejected), flash_attention {flash_err}, decode_attention {decode_err} "
+          f"(all within tolerance)")
     print(f"flash_attention bf16: a KV tile dropped from the last query tile at S=2048 reads "
           f"{flash_fault} (rejected: over 1 of the bound)")
 
@@ -1434,6 +1603,8 @@ def main(argv=None) -> None:
             for M in (SCORE_ROWS, 2048):
                 timings[f"qrlora_matmul_quant_{proj}_M{M}_{base}"] = time_matmul_quant(
                     gen, M, N, base)
+    for base in ("bf16", "int8"):
+        timings[f"qrlora_bgmv_rows_wq_{base}"] = time_bgmv_rows(gen, 576, base)
     for B, S in ((8, 256), (1, 2048)):
         timings[f"flash_attention_B{B}_S{S}"] = time_flash(gen, B, S)
     timings["decode_attention"] = time_decode(gen)
@@ -1456,6 +1627,13 @@ def main(argv=None) -> None:
     _check(len(kb["errors"]) == len(kb["rows"]) - 2  # every row but pivoted QR's two
            and all(e["ok"] for e in kb["errors"].values()),
            f"kernel bench: error rows {kb['errors']}")
+
+    # the sharded serves' default process group: NCCL, a world of one on card
+    # 0; one collective now creates the communicator outside the timed serves
+    group = contextlib.ExitStack()
+    group.enter_context(process_group("cuda"))
+    torch.distributed.all_reduce(torch.zeros(1, device="cuda"))
+    torch.cuda.synchronize()
 
     # -- the main path: full-width bf16 serve, launches counted -------------
     kernels.reset_launch_counts()
@@ -1504,10 +1682,21 @@ def main(argv=None) -> None:
     del engine
     torch.cuda.empty_cache()
 
+    # -- the sharded serve: shard_lam on the same weights and traffic --------
+    sh = sharded_serve_phase("bfloat16", args.seed, params_bf16, done_bf16, profile=True)
+    report["serve_sharded"] = {"bf16": sh}
+    print(f"serve bf16 shard_lam (world of one): {sh['tokens']} tokens in {sh['serve_s']:.3f} s "
+          f"= {sh['tok_per_s']:.1f} tok/s over {sh['steps']} decode steps; launches "
+          f"{sh['launches']}; collectives {sh['collectives']} over {sh['forwards']} forwards; "
+          f"λ tables {sh['table_bytes_per_rank']} B/rank of {sh['table_bytes']} B")
+    print(f"  vs the replicated bf16 serve: {sh['streams']}")
+    print(f"profiled sharded bf16 serve: {sh['profile']}")
+    check_sharded("serve bf16 shard_lam", sh, bitwise=False)
+
     # -- the quantized base: the bf16 serve's weights in int8, then fp8 ------
     report["serve_quant"] = {}
     for base in ("int8", "fp8"):
-        engine, qs = quant_serve_phase(base, args.seed, params_bf16, done_bf16)
+        engine, qs, done_q = quant_serve_phase(base, args.seed, params_bf16, done_bf16)
         report["serve_quant"][base] = qs
         print(f"serve bf16 on a {base} base: {qs['tokens']} tokens in {qs['serve_s']:.3f} s = "
               f"{qs['tok_per_s']:.1f} tok/s over {qs['steps']} decode steps; launches "
@@ -1530,6 +1719,13 @@ def main(argv=None) -> None:
         check_quant_serve(base, qs)
         del engine
         torch.cuda.empty_cache()
+        if base == "int8":
+            sh = sharded_serve_phase("bfloat16", args.seed, params_bf16, done_q, base_dtype=base)
+            report["serve_sharded"][base] = sh
+            print(f"serve bf16 on an {base} base, shard_lam: {sh['tok_per_s']:.1f} tok/s; "
+                  f"launches {sh['launches']}; collectives {sh['collectives']}; vs the "
+                  f"replicated {base} serve: {sh['streams']}")
+            check_sharded(f"serve {base} shard_lam", sh, bitwise=False)
     del params_bf16
     score_launches = report["serve_quant"]["int8"]["score_launches"]
 
@@ -1544,9 +1740,18 @@ def main(argv=None) -> None:
                             "tokens": engine.decoded_tokens, "verify": rows_f32}
     _check(all(r["tokens_match"] and r["max_abs_dlogits"] < FP32_LOGIT_TOL for r in rows_f32),
            "fp32 serve diverged from the merged-weight reference")
-    params_f32 = engine.params
+    params_f32, done_f32 = engine.params, done
     del engine
     torch.cuda.empty_cache()
+    sh = sharded_serve_phase("float32", args.seed, params_f32, done_f32, shard_ba=True)
+    report["serve_sharded"]["fp32"] = sh
+    print(f"serve fp32 shard_lam + shard_ba: {sh['tok_per_s']:.1f} tok/s; launches "
+          f"{sh['launches']}; collectives {sh['collectives']}; factor rank dim "
+          f"{sh['factor_rank_local']} a rank; vs the replicated fp32 serve: {sh['streams']}")
+    check_sharded("serve fp32 shard_lam + shard_ba", sh, bitwise=True)
+    group.close()
+    print("sharded serves: token-identical to the replicated serves (float32 logits bitwise), "
+          "the rows kernel on every adapted projection")
 
     # -- float32 on an int8 base: the plain-version twin and the reference ---
     q32 = quant_fp32_phase(args.seed, params_f32)
@@ -1625,6 +1830,9 @@ def main(argv=None) -> None:
         ("decode_attention", "decode_attention", decode_err["bfloat16"]["max_abs_err"],
          "src/repro_torch/kernels/csrc/decode_attention.cu",
          "src/repro/kernels/decode_attention.py:68", kb["launches"]["decode_attention"]),
+        ("qrlora_bgmv_rows", "qrlora_bgmv_rows_wq_bf16", bgmv_rows_err["bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:375",
+         report["serve_sharded"]["bf16"]["launches"]["qrlora_bgmv_rows"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

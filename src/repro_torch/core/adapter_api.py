@@ -13,8 +13,12 @@ whose backward gives x and λ their gradients.
 Multi-tenant serving: when ``adp`` carries ``"seg"`` (int32 slot ids, per
 sequence or per row), its ``"lam"`` leaf is a packed λ table
 ``(n_slots, r)`` and each row applies its own tenant's λ through the
-batched multi-λ kernel (:func:`repro_torch.kernels.ops.qrlora_bgmv`).  The
-reference's sharded branches come with the sharding slice.
+batched multi-λ kernel (:func:`repro_torch.kernels.ops.qrlora_bgmv`).
+Under the serve's sharding rules (:mod:`repro_torch.sharding.rules`) the
+shared factors B/A, sharded over their rank dim (``qr_rank``), are first
+all-gathered whole; a λ table sharded over its slot axis (``lam_slots``)
+goes through the local gather, an all-reduce of the λ rows and the rows
+kernel (:func:`repro_torch.kernels.ops.qrlora_bgmv_sharded`).
 
 Quantized base: a W that is the ``{"q", "scale"}`` dict of
 :mod:`repro_torch.core.quantize` goes through the quantized twins of the
@@ -31,6 +35,8 @@ from repro_torch.configs.base import AdapterConfig, ModelConfig
 from repro_torch.core.qr_lora import qr_lora_init_stacked
 from repro_torch.core.quantize import dequantize_weight, is_quantized
 from repro_torch.kernels import ops
+from repro_torch.kernels.qrlora_bgmv import ba_gather_sharded
+from repro_torch.sharding.rules import lam_slot_group, qr_rank_group
 from repro_torch.tree import Tree, tree_map
 
 
@@ -75,14 +81,24 @@ def adapted_matmul(
     """``y = x·W + ((x·B)*λ)·A·scale``.  One λ goes through the one-λ
     kernel (differentiable in x and λ, products in fp32, result in x's
     dtype); with ``adp["seg"]`` the λ leaf is a slot table and every row
-    takes its own slot's λ (BGMV kernel).  A quantized W takes the
-    quantized kernels (forward only)."""
+    takes its own slot's λ (BGMV kernel; under ``lam_slots`` rules the
+    table is this rank's slot shard and the rows kernel applies the
+    all-reduced rows; under ``qr_rank`` B and A are rank shards, gathered
+    first).  A quantized W takes the quantized kernels (forward only)."""
     quant = is_quantized(W)
     if adp is None:
         return _quant_base_matmul(x, W) if quant else _plain_matmul(x, W)
     seg = adp.get("seg")
     B, A, lam = adp["B"], adp["A"], adp["lam"]
     if seg is not None:
+        ba_group = qr_rank_group()
+        if ba_group is not None:  # an exact concatenation: bitwise the replicated factors
+            B, A = ba_gather_sharded(B, A, ba_group)
+        lam_group = lam_slot_group()
+        if lam_group is not None:
+            return ops.qrlora_bgmv_sharded(
+                x, W["q"] if quant else W, B, A, lam, seg, group=lam_group, scale=scale,
+                w_scale=W["scale"] if quant else None)
         if quant:
             return ops.qrlora_bgmv_quant(x, W["q"], W["scale"], B, A, lam, seg, scale=scale)
         return ops.qrlora_bgmv(x, W, B, A, lam, seg, scale=scale)

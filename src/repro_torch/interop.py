@@ -8,6 +8,11 @@ the conversion is a plain copy, quantized ``{"q", "scale"}`` leaves
 included.  This module imports neither ``jax`` nor ``ml_dtypes``: bfloat16
 and float8_e4m3fn leaves cross as their raw bit patterns (torch cannot
 read an ml_dtypes array itself).
+
+:func:`shard_ba_params` (the engine's own
+:func:`repro_torch.sharding.rules.shard_factors`, re-exported) cuts a
+converted tree to one rank's ``shard_ba`` share of the QR factors, so a test
+can build each rank's tree from the JAX one.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 
 from repro_torch.core.quantize import FP8_DTYPE
 from repro_torch.device import resolve_device
+from repro_torch.sharding.rules import shard_factors as shard_ba_params  # noqa: F401
 
 
 #: ml_dtypes name → (numpy view of the same width, torch dtype of the same bits)

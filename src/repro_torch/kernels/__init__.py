@@ -8,7 +8,11 @@ its path really went through.
 from repro_torch.kernels.decode_attention import decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
-from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda, qrlora_bgmv_quant_cuda
+from repro_torch.kernels.qrlora_bgmv import (
+    qrlora_bgmv_cuda,
+    qrlora_bgmv_quant_cuda,
+    qrlora_bgmv_rows_cuda,
+)
 from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_quant_cuda
 
 #: kernel name → the wrapper that launches it and holds its count
@@ -20,6 +24,7 @@ KERNEL_WRAPPERS = {
     "qrlora_matmul_quant": qrlora_matmul_quant_cuda,
     "flash_attention": flash_attention_cuda,
     "decode_attention": decode_attention_cuda,
+    "qrlora_bgmv_rows": qrlora_bgmv_rows_cuda,
 }
 
 

@@ -37,6 +37,19 @@
 // decode (M = 4, K = N = 576) the bound is reading q, the factors and the
 // scales once — ≈ 0.64 MB, ≈ 0.19 µs at 3.35 TB/s, against ≈ 0.29 µs for
 // the bf16 W.
+//
+// Pre-gathered λ rows (replaces repro/kernels/qrlora_bgmv.py::
+// qrlora_bgmv_rows_kernel, _kernel_rows): the sharded-λ serve all-reduces
+// each row's λ (M, r) fp32 before the kernel, so pass 1 reads rows[m]
+// where the BGMV kernel reads Λ[seg[m]], and computes
+//   y[m, n] = (Σ_k x[m,k]·W[k,n]) · w_scale[n] + scale · Σ_j P[m,j]·A[j,n]
+// for W in x's dtype (w_scale all ones: ×1.0 is exact, so with
+// rows = Λ[seg] the result is bitwise the BGMV kernel's) or int8/fp8 q (the
+// quantized main pass, bitwise the quantized BGMV kernel's).  Both passes
+// are the BGMV kernel's own instantiations, so the summation order is
+// shared.  Bound at decode: reading x, W, B, A, rows and w_scale once and
+// writing y, ≈ 0.97 MB (bf16 W) or ≈ 0.64 MB (int8/fp8 q) at K = N = 576,
+// r = 128: ≈ 0.29 / 0.19 µs at 3.35 TB/s.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -59,10 +72,11 @@ constexpr int LR_COLS = 32, LR_SLICES = 8;  // 256 threads: 8 K-slices × 32 ran
 
 // Pass 1: block (m, y) computes P[m, 32y … 32y+31].  The row of x is staged
 // in shared memory; warp s walks its slice of K over 32 consecutive columns
-// of B (coalesced), and the 8 partial sums are added in a fixed order.  A
-// slot id outside [0, n_slots) gives a zero row rather than an
-// out-of-bounds read.
-template <typename TX>
+// of B (coalesced), and the 8 partial sums are added in a fixed order.  λ
+// comes from the table row Λ[seg[m]] or, with kRows, from lam = rows (M, r)
+// at row m (seg unused).  A slot id outside [0, n_slots) gives a zero row
+// rather than an out-of-bounds read.
+template <typename TX, bool kRows>
 __global__ void __launch_bounds__(LR_COLS * LR_SLICES)
 lowrank_kernel(const TX* __restrict__ x, const __nv_bfloat16* __restrict__ B,
                const float* __restrict__ lam, const int* __restrict__ seg,
@@ -87,8 +101,12 @@ lowrank_kernel(const TX* __restrict__ x, const __nv_bfloat16* __restrict__ B,
     float sum = 0.f;
 #pragma unroll
     for (int s = 0; s < LR_SLICES; ++s) sum += part[s][lane];
-    const int sg = seg[m];
-    P[(size_t)m * r + j] = (sg >= 0 && sg < n_slots) ? sum * lam[(size_t)sg * r + j] : 0.f;
+    if constexpr (kRows) {
+      P[(size_t)m * r + j] = sum * lam[(size_t)m * r + j];
+    } else {
+      const int sg = seg[m];
+      P[(size_t)m * r + j] = (sg >= 0 && sg < n_slots) ? sum * lam[(size_t)sg * r + j] : 0.f;
+    }
   }
 }
 
@@ -127,8 +145,10 @@ __device__ __forceinline__ void stage_cols(float (*dst)[BN], const T* __restrict
 
 // Pass 2: one block per (BM × BN) output tile; thread t owns row t / 16 and
 // the CPT columns CPT·(t % 16) … of the tile.  W is TX, or 1-byte q whose
-// columns w_scale dequantizes in the epilogue.
-template <typename TX, typename TW>
+// columns w_scale dequantizes in the epilogue.  kWs multiplies a TX W's sum
+// by w_scale too (the rows kernel's epilogue), rounded before the FMA that
+// adds the adapter term.
+template <typename TX, typename TW, bool kWs>
 __global__ void __launch_bounds__(MAIN_THREADS)
 bgmv_main_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
                  const float* __restrict__ w_scale, const float* __restrict__ P,
@@ -178,23 +198,27 @@ bgmv_main_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
       y[(size_t)m * N + n] =
           from_f<TX>(__fadd_rn(__fmul_rn(acc[c], w_scale[n]), __fmul_rn(low[c], scale)));
     else
-      y[(size_t)m * N + n] = from_f<TX>(acc[c] + low[c] * scale);
+      y[(size_t)m * N + n] =
+          from_f<TX>(fmaf(low[c], scale, kWs ? __fmul_rn(acc[c], w_scale[n]) : acc[c]));
   }
 }
 
-template <typename TX, typename TW>
+// kRows: λ comes as pre-gathered rows (M, r) in lam, and a TX W's sum is
+// scaled by w_scale; a 1-byte q takes the quantized main pass either way.
+template <typename TX, typename TW, bool kRows = false>
 int launch(const void* x, const void* W, const float* w_scale, const void* B, const void* A,
            const float* lam, const int* seg, float* P, void* y, int M, int K, int N, int r,
            int n_slots, float scale, cudaStream_t stream) {
   if (M == 0) return 0;
+  constexpr bool kWs = kRows && sizeof(TW) != 1;
   const dim3 lr_grid(M, (r + LR_COLS - 1) / LR_COLS);
-  lowrank_kernel<TX><<<lr_grid, LR_COLS * LR_SLICES, K * sizeof(float), stream>>>(
+  lowrank_kernel<TX, kRows><<<lr_grid, LR_COLS * LR_SLICES, K * sizeof(float), stream>>>(
       static_cast<const TX*>(x), static_cast<const __nv_bfloat16*>(B), lam, seg, P, K, r,
       n_slots);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  bgmv_main_kernel<TX, TW><<<grid, MAIN_THREADS, 0, stream>>>(
+  bgmv_main_kernel<TX, TW, kWs><<<grid, MAIN_THREADS, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(W), w_scale, P,
       static_cast<const __nv_bfloat16*>(A), static_cast<TX*>(y), M, K, N, r, scale);
   return static_cast<int>(cudaGetLastError());
@@ -237,6 +261,36 @@ extern "C" int qrlora_bgmv_quant_launch(const void* x, const void* q, const floa
                               stream);
   return launch<float, int8_t>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots, scale,
                                stream);
+}
+
+// Pre-gathered λ: rows (M, r) float32 in place of Λ and seg; W (K, N) in
+// x's dtype (w_kind = 0, w_scale all ones) or int8 (1) or fp8-e4m3 (2) q with
+// its w_scale (N,) float32; x and y bfloat16 (x_bf16 = 1) or float32, B and A
+// bfloat16.  Returns the CUDA error code (0 on success).
+extern "C" int qrlora_bgmv_rows_launch(const void* x, const void* W, const float* w_scale,
+                                       const void* B, const void* A, const float* rows, float* P,
+                                       void* y, int M, int K, int N, int r, float scale,
+                                       int x_bf16, int w_kind, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  using fp8 = __nv_fp8_e4m3;
+  if (x_bf16) {
+    if (w_kind == 1)
+      return launch<bf16, int8_t, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
+                                        scale, stream);
+    if (w_kind == 2)
+      return launch<bf16, fp8, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
+                                     scale, stream);
+    return launch<bf16, bf16, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
+                                    scale, stream);
+  }
+  if (w_kind == 1)
+    return launch<float, int8_t, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
+                                       scale, stream);
+  if (w_kind == 2)
+    return launch<float, fp8, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
+                                    scale, stream);
+  return launch<float, float, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
+                                    scale, stream);
 }
 
 extern "C" const char* qrlora_bgmv_error_string(int err) {

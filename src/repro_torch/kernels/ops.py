@@ -110,6 +110,21 @@ def qrlora_bgmv_quant(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.0) -
     return y.reshape(*x.shape[:-1], q.shape[1])
 
 
+def qrlora_bgmv_sharded(x, W, B, A, lam_local, seg, *, group, scale: float = 1.0,
+                        w_scale=None) -> torch.Tensor:
+    """BGMV with the λ table sharded over its slot axis across ``group``
+    (``lam_local`` is this rank's ``(n_slots / world, r)`` shard): the local
+    masked gather, an all-reduce of the (M, r) rows, and the rows kernel
+    (:func:`repro_torch.kernels.qrlora_bgmv.qrlora_bgmv_fused_sharded`).  W
+    may be int8/fp8 q with ``w_scale``; x and seg as :func:`qrlora_bgmv`.
+    Every rank of the group must call it, in the same order."""
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _bgmv.qrlora_bgmv_fused_sharded(x2.contiguous(), W, B, A, lam_local,
+                                        _seg_rows(seg, x2, x.ndim), group=group, scale=scale,
+                                        w_scale=w_scale)
+    return y.reshape(*x.shape[:-1], W.shape[1])
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tbl, lengths) -> torch.Tensor:
     """q (B,1,H,dh) or (B,H,dh); pools (n_blocks, bs, KV, dh); block_tbl
     (B, max_blocks) int32; lengths (B,) int32 → same rank as q."""

@@ -22,19 +22,38 @@ multiplying the x·q sum before the adapter term is added:
 
     y[m] = (x[m]·q)·w_scale + ((x[m]·B) * Λ[seg[m]]) · A · scale
 
+Sharded λ tables (the serve's ``shard_lam``): each rank of a
+``torch.distributed`` group holds n_slots / world rows of every table.
+:func:`qrlora_bgmv_fused_sharded` gathers a batch's rows from the local
+shard (out-of-shard slots as exact zeros, :func:`local_lam_rows`),
+all-reduces the (M, r) fp32 rows — one owned row plus zeros, so bitwise the
+replicated ``Λ[seg]`` — and feeds them to the rows kernel
+(:func:`qrlora_bgmv_rows_cuda`, replacing ``qrlora_bgmv_rows_kernel``),
+which reads ``rows[m]`` where the BGMV kernel reads ``Λ[seg[m]]``:
+
+    y[m] = (x[m]·W)·w_scale + ((x[m]·B) * rows[m]) · A · scale
+
+The all-reduce comes before the kernel: summing partial products after
+``(x·B)·λ·A`` would reassociate the float sum and lose bit-identity with
+the replicated engine.  :func:`ba_gather_sharded` reassembles rank-dim
+shards of B and A (``shard_ba``) by an exact all-gather.  Collectives run on
+the group's backend (gloo for CPU tensors, NCCL for CUDA tensors).
+
 CPU tensors take the plain versions (:func:`repro_torch.kernels.ref.
-qrlora_bgmv_ref`, :func:`~repro_torch.kernels.ref.qrlora_bgmv_quant_ref`);
-CUDA tensors launch the kernel or raise.
+qrlora_bgmv_ref`, :func:`~repro_torch.kernels.ref.qrlora_bgmv_quant_ref`,
+:func:`~repro_torch.kernels.ref.qrlora_bgmv_rows_ref`); CUDA tensors launch
+the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.quantize import FP8_DTYPE
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import qrlora_bgmv_quant_ref, qrlora_bgmv_ref
+from repro_torch.kernels.ref import qrlora_bgmv_quant_ref, qrlora_bgmv_ref, qrlora_bgmv_rows_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 #: quantized-weight dtypes the kernels take
@@ -57,6 +76,11 @@ def _library():
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_bgmv_quant_launch.restype = ctypes.c_int
+        lib.qrlora_bgmv_rows_launch.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.qrlora_bgmv_rows_launch.restype = ctypes.c_int
         lib.qrlora_bgmv_error_string.argtypes = [ctypes.c_int]
         lib.qrlora_bgmv_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -166,3 +190,114 @@ def qrlora_bgmv_quant(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.0) -
     if x.device.type == "cuda":
         return qrlora_bgmv_quant_cuda(x, q, w_scale, B, A, lam_table, seg, scale)
     raise NotImplementedError(f"qrlora_bgmv_quant: no kernel for device {x.device}")
+
+
+def qrlora_bgmv_rows_cuda(x, W, w_scale, B, A, lam_rows, scale: float = 1.0) -> torch.Tensor:
+    """Launch the rows kernel on CUDA tensors: x (M,K) float32/bfloat16, W
+    (K,N) in x's dtype or int8/float8_e4m3fn q, w_scale (N,) float32 (all
+    ones for a W in x's dtype), B (K,r) and A (r,N) bfloat16, lam_rows (M,r)
+    float32; all contiguous.  Returns (M,N) in x's dtype.  Adds one to
+    ``qrlora_bgmv_rows_cuda.launches`` per launch."""
+    M, K = x.shape
+    N, r = W.shape[1], B.shape[1]
+    dev, name = x.device, "qrlora_bgmv_rows"
+    for arg, t, dtypes, shape in (
+        ("x", x, _DTYPES, (M, K)),
+        ("W", W, (x.dtype, *Q_DTYPES), (K, N)),
+        ("w_scale", w_scale, (torch.float32,), (N,)),
+        ("B", B, (torch.bfloat16,), (K, r)),
+        ("A", A, (torch.bfloat16,), (r, N)),
+        ("lam_rows", lam_rows, (torch.float32,), (M, r)),
+    ):
+        _check(arg, t, dtypes, shape, dev, kernel=name)
+    if K > _MAX_K:
+        raise ValueError(f"{name}: K={K} exceeds {_MAX_K}")
+    lib = _library()
+    P = torch.empty((M, r), dtype=torch.float32, device=dev)
+    y = torch.empty((M, N), dtype=x.dtype, device=dev)
+    w_kind = 0 if W.dtype == x.dtype else 1 if W.dtype == torch.int8 else 2
+    err = lib.qrlora_bgmv_rows_launch(
+        x.data_ptr(), W.data_ptr(), w_scale.data_ptr(), B.data_ptr(), A.data_ptr(),
+        lam_rows.data_ptr(), P.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
+        int(x.dtype == torch.bfloat16), w_kind, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"{name} launch failed: {lib.qrlora_bgmv_error_string(err).decode()}")
+    qrlora_bgmv_rows_cuda.launches += 1
+    return y
+
+
+qrlora_bgmv_rows_cuda.launches = 0
+
+
+def qrlora_bgmv_rows(x, W, w_scale, B, A, lam_rows, scale: float = 1.0) -> torch.Tensor:
+    """2-D BGMV over pre-gathered λ rows: the plain version for CPU tensors,
+    the kernel for CUDA tensors (no fallback between the two)."""
+    if x.device.type == "cpu":
+        return qrlora_bgmv_rows_ref(x, W, w_scale, B, A, lam_rows, scale)
+    if x.device.type == "cuda":
+        return qrlora_bgmv_rows_cuda(x, W, w_scale, B, A, lam_rows, scale)
+    raise NotImplementedError(f"qrlora_bgmv_rows: no kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# collectives of the sharded serve
+# ---------------------------------------------------------------------------
+
+#: collective → calls issued by this process (reset with
+#: :func:`reset_collective_counts`), so a run can show what it exchanged
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+
+
+def reset_collective_counts() -> None:
+    for name in COLLECTIVES:
+        COLLECTIVES[name] = 0
+
+
+def local_lam_rows(tab_local, seg, rank: int) -> torch.Tensor:
+    """This rank's contribution to a batch's λ rows: ``tab_local`` holds the
+    global slots ``rank·n_local … rank·n_local + n_local − 1``; a row whose
+    slot lives here gets its λ, every other row exact zeros (the reference's
+    masked, clipped ``take``)."""
+    n_local = tab_local.shape[0]
+    local = seg.long() - rank * n_local
+    idx = local.clamp(0, n_local - 1)  # == local exactly where the slot lives here
+    return torch.where((idx == local)[:, None], tab_local[idx], 0.0)
+
+
+def lam_gather_sharded(tab_local, seg, group) -> torch.Tensor:
+    """A batch's λ rows (M, r) fp32 from slot tables sharded over ``group``:
+    the local masked gather, then an all-reduce.  Every slot lives on one
+    rank, so each sum is one row plus exact zeros: bitwise ``Λ[seg]`` of the
+    replicated table."""
+    rows = local_lam_rows(tab_local, seg, dist.get_rank(group)).float().contiguous()
+    dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
+    COLLECTIVES["all_reduce"] += 1
+    return rows
+
+
+def _all_gather_cat(t, dim: int, group) -> torch.Tensor:
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    COLLECTIVES["all_gather"] += 1
+    return torch.cat(parts, dim=dim)
+
+
+def ba_gather_sharded(B, A, group):
+    """The shared QR factors whole again from rank-dim shards (B (..., K,
+    r/world), A (..., r/world, N) on each rank of ``group``): an all-gather
+    and a concatenation in rank order, no arithmetic, so every contraction
+    downstream is bitwise the replicated engine's."""
+    return _all_gather_cat(B, B.ndim - 1, group), _all_gather_cat(A, A.ndim - 2, group)
+
+
+def qrlora_bgmv_fused_sharded(x, W, B, A, tab_local, seg, *, group, scale: float = 1.0,
+                              w_scale=None) -> torch.Tensor:
+    """Sharded-λ BGMV: :func:`lam_gather_sharded` on this rank's slot
+    shard, then the rows kernel (plain version for CPU tensors).  x (M,K),
+    W (K,N) in x's dtype or int8/fp8 q with ``w_scale`` (N,), B and A whole
+    (replicated, or gathered first), seg (M,) global slot ids."""
+    if w_scale is None:
+        w_scale = torch.ones((W.shape[1],), dtype=torch.float32, device=W.device)
+    rows = lam_gather_sharded(tab_local, seg, group)
+    return qrlora_bgmv_rows(x, W, w_scale, B, A, rows, scale)

@@ -58,6 +58,22 @@ def qrlora_bgmv_quant_ref(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.
     return (y + low * scale).to(x.dtype)
 
 
+def qrlora_bgmv_rows_ref(x, W, w_scale, B, A, lam_rows, scale: float = 1.0):
+    """Batched adapter matmul over pre-gathered λ rows:
+    ``y_m = (x_m·W)·w_scale + ((x_m·B) * lam_rows_m)·A·scale``.
+
+    :func:`qrlora_bgmv_quant_ref` term for term with ``Λ[seg]`` replaced by
+    ``lam_rows (M, r)`` fp32 (the sharded serve's all-reduced rows).  W is in
+    x's dtype with ``w_scale`` all ones (×1.0 is exact, so this is then
+    :func:`qrlora_bgmv_ref` bit for bit), or int8/float8_e4m3fn q with its
+    per-output-channel ``w_scale (N,)``.  Result in x's dtype.
+    """
+    xf = x.float()
+    y = (xf @ W.float()) * w_scale.float()
+    low = ((xf @ B.float()) * lam_rows.float()) @ A.float()
+    return (y + low * scale).to(x.dtype)
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True):
     """Attention over a sequence in the model layout: q (B,Sq,H,dh); k, v
     (B,Sk,KV,dh) → (B,Sq,H,dh).  Query head h reads kv head h // (H/KV);

@@ -11,6 +11,16 @@ logit for logit.
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_multi          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --base-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu --shard-lam --shard-ba
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve_multi \
+        --reduced --device cpu --shard-lam --shard-ba
+
+``--shard-lam`` shards the packed λ tables' slot axis and ``--shard-ba`` the
+QR factors' rank dim over a ``torch.distributed`` process group: the one
+torchrun describes in the environment, else a world of one started here
+(NCCL on ``cuda``, gloo on ``cpu``).  Rank i serves on ``cuda:i``; every rank
+runs the whole engine, and rank 0 verifies against the merged-weight
+reference built from the gathered factors.
 
 The comparison needs ``--dtype float32`` (the default): in bfloat16 the
 merged weights round differently from the fused adapter path.  With a
@@ -22,11 +32,16 @@ reference multiplies by the dequantized weight, so the logit bar loosens to
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import BASE_DTYPES
@@ -44,6 +59,45 @@ from repro_torch.serving import (
 
 def _say(msg: str) -> None:
     sys.stdout.write(f"[serve_multi] {msg}\n")
+
+
+@contextlib.contextmanager
+def process_group(device: str):
+    """Start the default process group of a sharded serve and yield this
+    rank's device: from torchrun's environment (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``) when it is set, else a world of one through a file
+    store in a temporary directory.  The backend is NCCL for ``cuda`` and
+    gloo for ``cpu``; rank i takes ``cuda:i``.  The group is destroyed on
+    exit."""
+    cuda = torch.device(device).type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    tmp = None
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        tmp = tempfile.mkdtemp(prefix="serve_multi_")
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+    try:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if cuda:
+            if world > torch.cuda.device_count():
+                raise RuntimeError(
+                    f"a world of {world} ranks needs {world} cards (NCCL puts one rank on a "
+                    f"card), {torch.cuda.device_count()} visible")
+            torch.cuda.set_device(rank)
+            device = f"cuda:{rank}"
+        yield device
+    finally:
+        dist.destroy_process_group()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _factor_bytes(params) -> int:
+    return sum(leaf[k].numel() * leaf[k].element_size()
+               for projs in params["groups"].get("adapters", {}).values()
+               for leaf in projs.values() for k in ("A", "B"))
 
 
 def main(argv=None):
@@ -68,8 +122,22 @@ def main(argv=None):
                     help="frozen-base dtype of the adapted projections (int8/fp8: "
                     "per-output-channel quantized, dequantized in the kernels)")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--shard-lam", action="store_true",
+                    help="shard the packed λ tables' slot axis over the process group "
+                    "(bitwise the replicated serve)")
+    ap.add_argument("--shard-ba", action="store_true",
+                    help="shard the QR factors B/A over their rank dim across the process "
+                    "group, all-gathered before each contraction (bitwise the replicated serve)")
     args = ap.parse_args(argv)
+    if not (args.shard_lam or args.shard_ba):
+        return serve(args, args.device)
+    with process_group(args.device) as device:
+        return serve(args, device)
 
+
+def serve(args, device):
+    """Build the engine on ``device``, serve one request per tenant and
+    verify every stream on rank 0 (rank 0 alone when unsharded)."""
     cfg = (get_reduced if args.reduced else get_config)(args.arch).replace(dtype=args.dtype)
     # the store must hold every tenant the driver submits for at once
     n_slots = max(args.slots, args.tenants + 1)
@@ -78,15 +146,25 @@ def main(argv=None):
     econf = EngineConfig(
         n_lanes=args.lanes, n_slots=n_slots, max_len=args.max_len,
         collect_logits=True, seed=args.seed, block_size=args.block_size,
-        base_dtype=args.base_dtype,
+        base_dtype=args.base_dtype, shard_lam=args.shard_lam, shard_ba=args.shard_ba,
     )
-    engine = MultiTenantEngine(cfg, econf, device=args.device)
+    engine = MultiTenantEngine(cfg, econf, device=device)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     _say(f"arch={cfg.name} layout={engine.layout} device={engine.device} "
          f"pool={engine.allocator.capacity} blocks of {args.block_size}")
     if engine.base_dtype != "bf16":
         qb, fb = resident_base_bytes(engine.params)
         _say(f"quantized base ({engine.base_dtype}): adapted projections resident at "
              f"{qb} B vs {fb} B bf16-equivalent ({fb / max(qb, 1):.2f}x)")
+    store = engine.lam_store
+    if args.shard_lam:
+        _say(f"λ tables sharded over {store.world} rank(s): {store.n_slots} slots, "
+             f"{store.table_bytes(per_rank=True)} B/rank (replicated would be "
+             f"{store.table_bytes()} B)")
+    if args.shard_ba:
+        full = _factor_bytes(engine.gathered_params())
+        _say(f"QR factors B/A rank-sharded over {dist.get_world_size()} rank(s): "
+             f"{_factor_bytes(engine.params)} B/rank (replicated would be {full} B)")
 
     gen = torch.Generator(device=engine.device)
     lams = {BASE_TENANT: base_lambda(engine.params)}
@@ -113,12 +191,15 @@ def main(argv=None):
          f"steps, pool peak={engine.allocator.peak_in_use}/{engine.allocator.capacity} "
          f"blocks, preemptions={engine.preemptions}")
 
+    params = engine.gathered_params()  # a collective under --shard-ba: every rank
+    if not lead:
+        return done
     tol = 1e-3 if engine.base_dtype == "bf16" else 5e-2
     worst = 0.0
     for uid in sorted(done):
         req = done[uid]
         ref_toks, ref_logits = reference_decode(
-            cfg, engine.params, lams[req.tenant], req.prompt, args.gen_len, args.max_len
+            cfg, params, lams[req.tenant], req.prompt, args.gen_len, args.max_len
         )
         err = float(np.abs(np.stack(req.logits) - ref_logits).max())
         worst = max(worst, err)

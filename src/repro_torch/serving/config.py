@@ -27,8 +27,6 @@ LATER_SLICES = {
     "telemetry": (False, "telemetry (ROADMAP Queue 1 item 10)"),
     "cold_slots": (0, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
     "cold_path": (None, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
-    "shard_lam": (False, "sharding (ROADMAP Queue 1 item 14)"),
-    "shard_ba": (False, "sharding (ROADMAP Queue 1 item 14)"),
 }
 
 
@@ -51,6 +49,15 @@ class EngineConfig:
     #: "fp8" needs torch.float8_e4m3fn (validated here, before any device
     #: memory is touched).
     base_dtype: str = "bf16"
+    #: Shard every packed λ table's slot axis over the default
+    #: torch.distributed process group (each rank holds n_slots / world
+    #: slots, n_slots padded up to a multiple of the world); bitwise the
+    #: replicated engine.
+    shard_lam: bool = False
+    #: Shard the shared QR factors B/A over their rank dim across the same
+    #: group (when the world divides the rank cap), all-gathered whole before
+    #: each contraction; bitwise the replicated engine.
+    shard_ba: bool = False
     # -- later slices: must stay at their defaults (see LATER_SLICES) --------
     share_prefix: bool = False
     watermark: int = 0
@@ -61,8 +68,6 @@ class EngineConfig:
     telemetry: bool = False
     cold_slots: int = 0
     cold_path: Optional[str] = None
-    shard_lam: bool = False
-    shard_ba: bool = False
 
     def __post_init__(self):
         if self.layout not in LAYOUTS:

@@ -26,6 +26,17 @@ model config's) replaces every adapted projection's W with its int8/fp8
 ``{"q", "scale"}`` dict at construction; the engine's projections then go
 through the quantized BGMV kernel.
 
+Sharding (``EngineConfig.shard_lam`` / ``shard_ba``) runs one engine on
+every rank of the default ``torch.distributed`` process group — scheduler,
+paging and model replicated and deterministic, so every rank issues the same
+collectives in the same order.  ``shard_lam`` keeps n_slots / world slots of
+every λ table on each rank (``lam_slots``); ``shard_ba`` keeps r / world of
+each QR factor's rank dim (``qr_rank``).  The forward runs under those
+rules (:mod:`repro_torch.sharding.rules`), where the adapted projections
+all-gather the factors and all-reduce the batch's λ rows before the rows
+kernel — bitwise the replicated engine.  The group's backend must suit the
+device: NCCL for ``cuda``, gloo for ``cpu``.
+
 The engine is greedy and host-driven: ``step()`` = admit + grow + one
 decode step; ``run()`` loops until queue and lanes drain.
 """
@@ -35,11 +46,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adapter_api
 from repro_torch.core.quantize import quantize_base_params
 from repro_torch.device import resolve_device
+from repro_torch.kernels.qrlora_bgmv import ba_gather_sharded
 from repro_torch.models import build_model
 from repro_torch.models.lane_state import extract_lane, reset_lane
 from repro_torch.models.transformer import torch_dtype
@@ -47,6 +60,7 @@ from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.lam_store import LamStore, extract_lambda
 from repro_torch.serving.paging import BlockAllocator, PoolExhausted
 from repro_torch.serving.scheduler import ContinuousBatchScheduler, Request
+from repro_torch.sharding.rules import axis_rules, default_group, rank_divides, shard_factors
 
 _MIN_PREFILL_BUCKET = 8
 
@@ -85,8 +99,26 @@ class MultiTenantEngine:
         # (serving decides the deployment dtype); "bf16" is a no-op, and so
         # is passing a tree that is already quantized.
         self.base_dtype = config.base_dtype if config.base_dtype != "bf16" else cfg.base_dtype
-        self.params = params = quantize_base_params(params, self.base_dtype)
-        self.lam_store = LamStore.from_params(params, n_slots=config.n_slots)
+        params = quantize_base_params(params, self.base_dtype)
+        # sharding: the default process group carries the opted-in logical
+        # axes; B/A are cut to this rank's share of their rank dim here
+        self._group, self._rules = None, {}
+        if config.shard_lam or config.shard_ba:
+            self._group = default_group()
+            backend = dist.get_backend(self._group)
+            want = "nccl" if self.device.type == "cuda" else "gloo"
+            if backend != want:
+                raise ValueError(f"shard_lam/shard_ba on {self.device.type} need a {want!r} "
+                                 f"process group, not {backend!r}")
+            world, rank = dist.get_world_size(self._group), dist.get_rank(self._group)
+            if config.shard_lam:
+                self._rules["lam_slots"] = "model"
+            if config.shard_ba and rank_divides(params, world):
+                self._rules["qr_rank"] = "model"
+                params = shard_factors(params, rank, world)
+        self.params = params
+        self.lam_store = LamStore.from_params(
+            params, n_slots=config.n_slots, group=self._group if config.shard_lam else None)
         self.scheduler = ContinuousBatchScheduler(config.n_lanes)
         self.n_lanes, self.max_len = config.n_lanes, config.max_len
         self.collect_logits = config.collect_logits
@@ -126,6 +158,27 @@ class MultiTenantEngine:
 
     def _params_view(self):
         return self.lam_store.install(self.params)
+
+    def _rules_ctx(self):
+        """The sharding rules every forward runs under (none unsharded)."""
+        return axis_rules(self._group, self._rules)
+
+    def gathered_params(self):
+        """The engine's params with every QR factor whole: under ``shard_ba``
+        an all-gather of each (every rank must call it, as for a forward),
+        otherwise ``self.params`` itself.  The merged-weight reference and
+        anything else that reads B/A outside a forward needs this."""
+        if "qr_rank" not in self._rules:
+            return self.params
+
+        def whole(leaf):
+            B, A = ba_gather_sharded(leaf["B"], leaf["A"], self._group)
+            return {**leaf, "B": B, "A": A}
+
+        groups = dict(self.params["groups"])
+        groups["adapters"] = {mod: {proj: whole(leaf) for proj, leaf in projs.items()}
+                              for mod, projs in groups["adapters"].items()}
+        return {**self.params, "groups": groups}
 
     # -- requests -----------------------------------------------------------
 
@@ -238,9 +291,11 @@ class MultiTenantEngine:
         pview = self.model.paged_prefill_view(self.cache, torch.from_numpy(write_ids).to(dev))
         seg = torch.full((1,), req.slot, dtype=torch.int32, device=dev)
         length = torch.full((1,), P, dtype=torch.int32, device=dev)
-        logits, filled = self.model.prefill(
-            view, pview, torch.from_numpy(padded).to(dev)[None, :], seg_ids=seg, length=length
-        )
+        with self._rules_ctx():
+            logits, filled = self.model.prefill(
+                view, pview, torch.from_numpy(padded).to(dev)[None, :], seg_ids=seg,
+                length=length,
+            )
         self.model.commit_paged_prefill(
             self.cache, filled, req.lane, torch.from_numpy(table_row).to(dev), P
         )
@@ -288,10 +343,11 @@ class MultiTenantEngine:
             tok[req.lane, 0] = req.tokens[-1]
         dev = self.device
         seg = torch.from_numpy(self.scheduler.batch_composition()).to(dev)
-        logits, self.cache = self.model.decode_step(
-            self._params_view(), self.cache, torch.from_numpy(tok).to(dev),
-            seg_ids=seg, attend_blocks=self._attend_blocks(decoding),
-        )
+        with self._rules_ctx():
+            logits, self.cache = self.model.decode_step(
+                self._params_view(), self.cache, torch.from_numpy(tok).to(dev),
+                seg_ids=seg, attend_blocks=self._attend_blocks(decoding),
+            )
         logits_np = logits.float().cpu().numpy()  # host sync: the step ran
         self.steps += 1
         for req in decoding:

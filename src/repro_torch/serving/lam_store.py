@@ -1,6 +1,6 @@
 """λ-store for multi-tenant QR-LoRA serving, hot tier (port of
-``repro/serving/lam_store.py``; the cold tier, batch register and sharded
-tables come with later slices).
+``repro/serving/lam_store.py``; the cold tier and batch register come with
+later slices).
 
 Every QR-LoRA adapter of a layer shares the frozen pivoted-QR factors
 (B, A), so a tenant is its λ tree ``{module: {proj: λ (n_layers,
@@ -18,6 +18,14 @@ hot-swap or eviction writes one λ row across all tables in place.
 ``install(params)`` returns a parameter view whose adapter ``lam`` leaves
 *are* the tables, so a layer's slice is the ``(n_slots, rank_cap)`` table
 the BGMV kernel reads; every other leaf is shared with ``params``.
+
+Sharded tables (the serve's ``shard_lam``): given a ``torch.distributed``
+``group`` of ``world`` ranks, ``n_slots`` is padded up to a multiple of
+``world`` and each rank allocates only its ``n_slots / world`` consecutive
+slots (rank i holds slots ``i·n_local …``).  The bookkeeping — LRU order,
+pins, protects, the free list — stays global and identical on every rank
+(every rank sees the same calls), and a slot write lands only on the rank
+that owns the slot.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -95,16 +104,21 @@ class LamStore:
     ``device``: ``cuda`` unless the caller names another (``"cpu"``)."""
 
     def __init__(self, lam_shapes: Dict[Key, Tuple[int, ...]], n_slots: int = 8, *,
-                 device=None):
+                 device=None, group=None):
         if n_slots < 2:
             raise ValueError("need slot 0 (base) plus at least one tenant slot")
         self._lam_shapes = {k: tuple(s) for k, s in lam_shapes.items()}
+        self.world, self.rank = 1, 0
+        if group is not None:
+            self.world, self.rank = dist.get_world_size(group), dist.get_rank(group)
+            n_slots = -(-n_slots // self.world) * self.world  # pad to an even shard
         self.n_slots = n_slots
+        self.n_local = n_slots // self.world
         device = resolve_device(device)
-        # (module, proj) → (*lead, n_slots, cap) fp32, zeros: every unused
+        # (module, proj) → (*lead, n_local, cap) fp32, zeros: every unused
         # slot (and slot 0) is the base model
         self._tables: Dict[Key, torch.Tensor] = {
-            key: torch.zeros((*shape[:-1], n_slots, shape[-1]), dtype=torch.float32,
+            key: torch.zeros((*shape[:-1], self.n_local, shape[-1]), dtype=torch.float32,
                              device=device)
             for key, shape in self._lam_shapes.items()
         }
@@ -165,9 +179,13 @@ class LamStore:
     # -- slot writes ----------------------------------------------------------
 
     def _write_slot(self, slot: int, rows: Dict[Key, np.ndarray]) -> None:
-        """Every table gets its row at ``slot`` overwritten in place."""
+        """Every table gets its row at ``slot`` overwritten in place, on the
+        rank that owns the slot."""
+        owner, local = divmod(slot, self.n_local)
+        if owner != self.rank:
+            return
         for key, tab in self._tables.items():
-            tab[..., slot, :] = torch.from_numpy(rows[key]).to(tab.device)
+            tab[..., local, :] = torch.from_numpy(rows[key]).to(tab.device)
 
     def _zero_rows(self) -> Dict[Key, np.ndarray]:
         return {k: np.zeros(s, np.float32) for k, s in self._lam_shapes.items()}
@@ -239,9 +257,16 @@ class LamStore:
 
     @property
     def tables(self) -> Dict[Key, torch.Tensor]:
-        """Slot-major ``(n_slots, *lead, cap)`` copies of the tables
-        (introspection; the serving path reads the install layout)."""
+        """Slot-major ``(n_local, *lead, cap)`` views of this rank's tables
+        (all ``n_slots`` unsharded; introspection — the serving path reads
+        the install layout)."""
         return {key: torch.movedim(tab, -2, 0) for key, tab in self._tables.items()}
+
+    def table_bytes(self, per_rank: bool = False) -> int:
+        """Device bytes of the packed tables: all slots over the group, or
+        (``per_rank``) the slots this rank holds."""
+        per_slot = 4 * sum(int(np.prod(s)) for s in self._lam_shapes.values())
+        return per_slot * (self.n_local if per_rank else self.n_slots)
 
     def install(self, params):
         """Params view whose adapter λ leaves are the packed slot tables.

@@ -18,7 +18,11 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 from repro_torch.kernels import ops
 from repro_torch.core.quantize import quantize_weight
-from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda, qrlora_bgmv_quant_cuda
+from repro_torch.kernels.qrlora_bgmv import (
+    qrlora_bgmv_cuda,
+    qrlora_bgmv_quant_cuda,
+    qrlora_bgmv_rows_cuda,
+)
 from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_quant_cuda
 from repro_torch.kernels.ref import (
     decode_attention_ref,
@@ -26,14 +30,16 @@ from repro_torch.kernels.ref import (
     paged_decode_attention_ref,
     qrlora_bgmv_quant_ref,
     qrlora_bgmv_ref,
+    qrlora_bgmv_rows_ref,
     qrlora_matmul_quant_ref,
     qrlora_matmul_ref,
 )
 
-# |kernel − plain| ≤ atol + rtol·|plain|: float32 differs by summation order
-# only; bfloat16 outputs may split by one bf16 ulp (2^-7 relative), and the
-# plain paged version rounds probabilities to bf16 before P·V.
-TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2.0**-7)}
+# |kernel − plain| ≤ atol + rtol·|plain|, each kernel's limit from the one
+# table chip_smoke.py reads too (kernel_bench.TOL): float32 differs by
+# summation order only; bfloat16 outputs may split by one bf16 ulp (2^-7
+# relative), and the plain paged version rounds probabilities to bf16
+# before P·V.
 
 
 @pytest.fixture
@@ -46,8 +52,8 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def _close(got, want, dtype):
-    atol, rtol = TOL[dtype]
+def _close(got, want, kind):
+    atol, rtol, _ = BENCH_TOL[kind][got.dtype]
     return bool(((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
 
 
@@ -68,7 +74,7 @@ def test_bgmv_kernel_matches_plain(gen, x_dtype, M, K, N, r):
     torch.cuda.synchronize()
     assert qrlora_bgmv_cuda.launches == before + 1
     assert y.dtype == x_dtype and y.shape == (M, N)
-    assert _close(y, qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7), x_dtype)
+    assert _close(y, qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7), "qrlora_bgmv")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -90,7 +96,7 @@ def test_paged_kernel_matches_plain(gen, dtype, lengths):
         lens_w = torch.clamp(lens, max=width * bs)
         o = paged_decode_attention_cuda(q, kp, vp, t, lens_w)
         torch.cuda.synchronize()
-        assert _close(o, paged_decode_attention_ref(q, kp, vp, t, lens_w), dtype)
+        assert _close(o, paged_decode_attention_ref(q, kp, vp, t, lens_w), "paged_decode_attention")
         for b, n in enumerate(lengths):
             if n == 0:
                 assert (o[b] == 0).all()
@@ -138,14 +144,13 @@ def test_qrlora_matmul_kernel_matches_plain(gen, x_dtype, M, K, N, r):
     torch.cuda.synchronize()
     assert qrlora_matmul_cuda.launches == before + 1
     assert y.dtype == x_dtype and y.shape == (M, N)
-    assert _close(y, qrlora_matmul_ref(*args, 0.7), x_dtype)
+    assert _close(y, qrlora_matmul_ref(*args, 0.7), "qrlora_matmul")
 
 
 # Gradients of the autograd.Function (kernel forward, hand-written backward)
 # against torch.autograd through the plain formula: both backwards compute
 # in fp32 from the same inputs, in another order (~1e-6 relative); dx is
-# then rounded to x's dtype (one bf16 ulp).
-GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2.0**-7)}
+# then rounded to x's dtype (one bf16 ulp): kernel_bench.TOL["qrlora_matmul_dx"].
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
@@ -162,8 +167,8 @@ def test_qrlora_matmul_grads_match_autograd_of_plain(gen, x_dtype, N):
         outs.append((y.detach(), xx.grad, ll.grad))
     torch.cuda.synchronize()
     (y, dx, dlam), (y_ref, dx_ref, dlam_ref) = outs
-    assert _close(y, y_ref, x_dtype)
-    atol, rtol = GRAD_TOL[x_dtype]
+    assert _close(y, y_ref, "qrlora_matmul")
+    atol, rtol, _ = BENCH_TOL["qrlora_matmul_dx"][x_dtype]
     assert bool(((dx.float() - dx_ref.float()).abs() <= atol + rtol * dx_ref.float().abs()).all())
     scale = float(dlam_ref.abs().max())
     assert bool(((dlam - dlam_ref).abs() <= 1e-5 * scale).all())
@@ -184,10 +189,8 @@ def test_train_step_launches_the_matmul_kernel(gen):
     kernels.reset_launch_counts()
     state, met = step(state, {"tokens": tokens})
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"qrlora_bgmv": 0, "paged_decode_attention": 0,
-                                       "qrlora_matmul": 2 * cfg.n_layers,
-                                       "qrlora_bgmv_quant": 0, "qrlora_matmul_quant": 0,
-                                       "flash_attention": 0, "decode_attention": 0}
+    assert kernels.launch_counts() == {**{n: 0 for n in kernels.KERNEL_WRAPPERS},
+                                       "qrlora_matmul": 2 * cfg.n_layers}
     assert torch.isfinite(met["loss"])
 
 
@@ -220,7 +223,7 @@ def test_bgmv_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K, N, r):
     torch.cuda.synchronize()
     assert qrlora_bgmv_quant_cuda.launches == before + 1
     assert y.dtype == x_dtype and y.shape == (M, N)
-    assert _close(y, qrlora_bgmv_quant_ref(x, q, ws, B, A, lam, seg, 0.7), x_dtype)
+    assert _close(y, qrlora_bgmv_quant_ref(x, q, ws, B, A, lam, seg, 0.7), "qrlora_bgmv_quant")
 
 
 @pytest.mark.parametrize("base_dtype", ["int8", "fp8"])
@@ -235,7 +238,7 @@ def test_qrlora_matmul_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K
     torch.cuda.synchronize()
     assert qrlora_matmul_quant_cuda.launches == before + 1
     assert y.dtype == x_dtype and y.shape == (M, N)
-    assert _close(y, qrlora_matmul_quant_ref(x, q, ws, B, A, lam, 0.7), x_dtype)
+    assert _close(y, qrlora_matmul_quant_ref(x, q, ws, B, A, lam, 0.7), "qrlora_matmul_quant")
 
 
 def test_quantized_serve_and_forward_launch_the_quantized_kernels(gen):
@@ -260,6 +263,71 @@ def test_quantized_serve_and_forward_launch_the_quantized_kernels(gen):
         eng.model.apply(view, torch.arange(2, 20, device="cuda")[None])
     counts = kernels.launch_counts()
     assert counts["qrlora_matmul_quant"] == 2 * cfg.n_layers and counts["qrlora_matmul"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the rows kernel: pre-gathered λ rows of the sharded serve
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("w_kind", ["x", "int8", "fp8"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,r", [(4, 576, 576, 128), (64, 576, 192, 128), (37, 96, 80, 24)])
+def test_bgmv_rows_kernel_matches_plain_and_bgmv(gen, w_kind, x_dtype, M, K, N, r):
+    """W in x's dtype (w_scale all ones) or int8/fp8 q: within the limit of
+    its plain version; with rows = Λ[seg] bitwise the BGMV kernel (or its
+    quantized twin); one λ row sent to slot 0 is rejected by the limit."""
+    dev, n_slots = "cuda", 8
+    x = torch.randn((M, K), generator=gen, device=dev).to(x_dtype)
+    W = (torch.randn((K, N), generator=gen, device=dev) * K**-0.5).to(x_dtype)
+    B = (torch.randn((K, r), generator=gen, device=dev) * K**-0.5).bfloat16()
+    A = torch.randn((r, N), generator=gen, device=dev).bfloat16()
+    lam = torch.randn((n_slots, r), generator=gen, device=dev)
+    lam[0] = 0
+    seg = (torch.arange(M, device=dev, dtype=torch.int32) + 1) % n_slots  # row 0 off slot 0
+    if w_kind == "x":
+        ws = torch.ones((N,), dtype=torch.float32, device=dev)
+        twin = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
+    else:
+        W, ws = _quantized(W.float(), w_kind)
+        twin = qrlora_bgmv_quant_cuda(x, W, ws, B, A, lam, seg, scale=0.7)
+    rows = lam[seg.long()]
+    before = qrlora_bgmv_rows_cuda.launches
+    y = qrlora_bgmv_rows_cuda(x, W, ws, B, A, rows, scale=0.7)
+    torch.cuda.synchronize()
+    assert qrlora_bgmv_rows_cuda.launches == before + 1
+    assert y.dtype == x_dtype and y.shape == (M, N)
+    want = qrlora_bgmv_rows_ref(x, W, ws, B, A, rows, 0.7)
+    assert _close(y, want, "qrlora_bgmv_rows")
+    assert torch.equal(y, twin)
+    planted = rows.clone()
+    planted[0] = lam[0]
+    assert not _close(qrlora_bgmv_rows_cuda(x, W, ws, B, A, planted, scale=0.7), want,
+                      "qrlora_bgmv_rows")
+
+
+def test_sharded_serve_launches_the_rows_kernel(gen, tmp_path):
+    """shard_lam in a NCCL world of one: every adapted projection goes
+    through the rows kernel, none through the BGMV kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving import EngineConfig, MultiTenantEngine, random_lambda
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        cfg = get_reduced("smollm-135m")
+        eng = MultiTenantEngine(cfg, EngineConfig(max_len=64, shard_lam=True, shard_ba=True))
+        eng.add_tenant("a", random_lambda(gen, eng.params, 0.3))
+        eng.submit("a", list(range(2, 20)), 4)
+        kernels.reset_launch_counts()
+        eng.run()
+        counts = kernels.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert counts["qrlora_bgmv_rows"] == 2 * cfg.n_layers * 4  # 1 prefill + 3 decode steps
+    assert counts["qrlora_bgmv"] == counts["qrlora_bgmv_quant"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"))
-print(len(names), bad)
+print(len(names), ",".join(names), bad)
 """
 
 
@@ -35,8 +35,9 @@ def test_importing_every_port_module_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
                          env=_env(), cwd=ROOT, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    n, names, bad = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20 and bad == "[]", out.stdout
+    assert "repro_torch.sharding.rules" in names.split(","), names
 
 
 def _imported_roots(path: Path):

@@ -151,7 +151,7 @@ def test_cpu_path_counts_no_launches():
     assert kernels.launch_counts() == {"qrlora_bgmv": 0, "paged_decode_attention": 0,
                                       "qrlora_matmul": 0, "qrlora_bgmv_quant": 0,
                                       "qrlora_matmul_quant": 0, "flash_attention": 0,
-                                      "decode_attention": 0}
+                                      "decode_attention": 0, "qrlora_bgmv_rows": 0}
 
 
 def test_build_names_libraries_by_source_hash():
@@ -192,7 +192,7 @@ def test_kernel_wrappers_validate_before_launching():
     assert kernels.launch_counts() == {"qrlora_bgmv": 0, "paged_decode_attention": 0,
                                       "qrlora_matmul": 0, "qrlora_bgmv_quant": 0,
                                       "qrlora_matmul_quant": 0, "flash_attention": 0,
-                                      "decode_attention": 0}
+                                      "decode_attention": 0, "qrlora_bgmv_rows": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -141,7 +141,7 @@ def test_bucket_len_matches_jax(floor):
 _LATER = {
     "share_prefix": True, "quantum": 4, "prefill_chunk": 32, "speculate_k": 2,
     "draft_lam_rank": 2, "telemetry": True, "cold_slots": 4, "cold_path": "/x",
-    "shard_lam": True, "shard_ba": True, "watermark": 1,
+    "watermark": 1,
 }
 
 
@@ -150,6 +150,14 @@ def test_engine_config_refuses_later_slice_fields(field):
     assert set(_LATER) == set(tconfig.LATER_SLICES)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         EngineConfig(**{field: _LATER[field]})
+
+
+@pytest.mark.parametrize("field", ["shard_lam", "shard_ba"])
+def test_engine_config_accepts_sharding(field):
+    """Sharding is served (``tests/test_torch_sharding.py``), as in the
+    reference's config."""
+    assert getattr(EngineConfig(**{field: True}), field) is True
+    assert getattr(JEngineConfig(**{field: True}), field) is True
 
 
 @pytest.mark.parametrize("base_dtype", ["bf16", "int8", "fp8"])
