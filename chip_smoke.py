@@ -252,29 +252,50 @@ def _paged_inputs(gen, lengths, dtype, H=9, KV=3, dh=64, bs=16, max_blocks=8):
 
 
 def check_paged(gen, details):
+    """Each case against the plain version within the bench's attention-form
+    limit (2⁻⁷·|ref| + 2⁻⁸·P·|v| in bf16); in bf16 the kernel with the
+    longest lane's last block dropped (its length cut to the block before)
+    must fail it.  Returns the worst |Δ| of each dtype and the planted
+    fault's |Δ|/bound."""
     import torch
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_paged
     from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
     from repro_torch.kernels.ref import paged_decode_attention_ref
 
-    worst = {}
+    worst, faults = {}, []
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
+        name, tol = str(dtype).split(".")[1], BENCH_TOL["paged_decode_attention"][dtype]
         for lengths in ((0, 1, 16, 17), (100, 17, 1, 16)):
             args = _paged_inputs(gen, lengths, dtype)
             o = paged_decode_attention_cuda(*args)
             torch.cuda.synchronize()
             ref = paged_decode_attention_ref(*args)
-            err = _max_err(o, ref)
-            ok = _within(o, ref, _tol("paged_decode_attention", dtype)) and bool(torch.isfinite(o).all())
+            pv = abs_v_paged(*args)
+            err, over = _max_err(o, ref), err_over_bound(o, ref, tol, pv)
+            ok = over <= 1.0 and bool(torch.isfinite(o).all())
             zero_ok = all(bool((o[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
             details.append({"kernel": "paged_decode_attention", "dtype": name,
                             "lengths": list(lengths), "max_abs_err": err,
-                            "ok": ok and zero_ok})
-            _check(ok, f"paged_decode_attention {name} lengths={lengths}: max|Δ|={err:.3e} "
-                       f"over tolerance {_tol('paged_decode_attention', dtype)}")
+                            "err_over_bound": over, "ok": ok and zero_ok})
+            _check(ok, f"paged_decode_attention {name} lengths={lengths}: max|Δ|={err:.3e}, "
+                       f"{over:.3f} of the bound {tol}")
             _check(zero_ok, f"paged_decode_attention {name}: a length-0 lane is not zeros")
             worst[name] = max(worst.get(name, 0.0), err)
-    return worst
+            if dtype == torch.bfloat16:
+                q, kp, vp, tbl, lens = args
+                b = max(range(len(lengths)), key=lambda i: lengths[i])
+                cut = lens.clone()
+                cut[b] = (lengths[b] - 1) // kp.shape[1] * kp.shape[1]
+                planted = paged_decode_attention_cuda(q, kp, vp, tbl, cut)
+                torch.cuda.synchronize()
+                faults.append(err_over_bound(planted, ref, tol, pv))
+                details.append({"kernel": "paged_decode_attention", "planted_fault":
+                                "last_block_of_longest_lane_dropped", "lengths": list(lengths),
+                                "err_over_bound": faults[-1]})
+    _check(min(faults) > 1.0,
+           f"paged_decode_attention bf16: the check let a dropped block through: {faults}")
+    return worst, min(faults)
 
 
 def _matmul_inputs(gen, M, N, x_dtype, K=576, r=128, rank=100):
@@ -455,13 +476,24 @@ def _attention_inputs(gen, q_shape, kv_shape, dtype, scale=0.5):
 
 # (B, Sq, Sk, H, KV, dh, causal): the kernel bench's cases — the reference's
 # (1, 256, 8/2 heads, 64), smollm-135m's train shape and its published
-# context length — plus a non-causal and a Sq ≠ Sk case
+# context length — plus a non-causal and a Sq ≠ Sk case, sequences that are
+# not a multiple of the 64-row tiles, and head dims 16, 32 and 128, each
+# with walks under 8 KV tiles (one warp group a block) and from 8 on (two)
 FLASH_CASES = ((1, 256, 256, 8, 2, 64, True), (8, 256, 256, 9, 3, 64, True),
                (1, 2048, 2048, 9, 3, 64, True), (8, 256, 256, 9, 3, 64, False),
-               (2, 100, 300, 9, 3, 64, True))
-# (B, S, H, KV, dh, length): the bench's cases, a length of one and of zero
+               (2, 100, 300, 9, 3, 64, True), (2, 300, 100, 9, 3, 64, True),
+               (2, 333, 333, 9, 3, 64, True), (2, 100, 600, 9, 3, 64, False),
+               (1, 200, 200, 8, 2, 16, True), (1, 520, 520, 8, 2, 16, False),
+               (1, 200, 200, 8, 2, 32, False), (1, 700, 700, 8, 2, 32, True),
+               (1, 333, 333, 8, 2, 128, True), (1, 600, 600, 8, 2, 128, False))
+# (B, S, H, KV, dh, length): the bench's cases, a length of one and of
+# zero, both sides of the split kernel's 64-position chunk edges (bf16, dh
+# 64), the last position and the whole cache
 DECODE_CASES = ((2, 512, 8, 2, 64, 300), (4, 2048, 9, 3, 64, 1000), (4, 2048, 9, 3, 64, 1),
-                (4, 128, 9, 3, 64, 0))
+                (4, 128, 9, 3, 64, 0), (4, 2048, 9, 3, 64, 63), (4, 2048, 9, 3, 64, 64),
+                (4, 2048, 9, 3, 64, 65), (4, 2048, 9, 3, 64, 2047), (4, 2048, 9, 3, 64, 2048))
+# graph replays of one captured decode call: the device length between them
+DECODE_REPLAY_LENGTHS = (1000, 37, 0, 2048)
 
 
 def _worst(details, kernel: str) -> dict:
@@ -495,12 +527,25 @@ def _dropped_tile_delta(q, k, v, tile: int = 64):
     return attend(seen & ~hidden) - attend(seen)
 
 
+def _strided_flash_inputs(gen, dtype, pad: int, B=2, S=300, H=9, KV=3, dh=64):
+    """Views in the model layout: q from a (B,H,S,dh) tensor, k and v slices
+    of one packed (B,S,2·KV,dh+pad) buffer; pad 1 makes every stride odd, so
+    the kernel stages its tiles element by element (no 16-byte copies)."""
+    import torch
+
+    dev = gen.device
+    q = (torch.randn((B, H, S, dh), generator=gen, device=dev) * 0.5).to(dtype).transpose(1, 2)
+    kv = (torch.randn((B, S, 2 * KV, dh + pad), generator=gen, device=dev) * 0.5).to(dtype)
+    return q, kv[:, :, :KV, :dh], kv[:, :, KV:, :dh]
+
+
 def check_flash(gen, details):
-    """Each case against the plain version within the bench's limits; at
-    S = 2048 in bf16 the kernel's own output, with one KV tile's share taken
-    out of its last query tile (:func:`_dropped_tile_delta`), must fail
-    them.  Returns the worst |Δ| and |Δ|/bound of each dtype and the planted
-    fault's |Δ|/bound."""
+    """Each case, and the strided layouts with and without 16-byte copies,
+    against the plain version within the bench's limits; at S = 2048 in bf16
+    the kernel's own output, with one KV tile's share taken out of its last
+    query tile (:func:`_dropped_tile_delta`), must fail them.  Returns the
+    worst |Δ| and |Δ|/bound of each dtype and the planted fault's
+    |Δ|/bound."""
     import torch
     from repro_torch.benchmarks.common import err_over_bound
     from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_attention
@@ -510,8 +555,13 @@ def check_flash(gen, details):
     fault = None
     for dtype in (torch.bfloat16, torch.float32):
         name, tol = str(dtype).split(".")[1], BENCH_TOL["flash_attention"][dtype]
-        for B, Sq, Sk, H, KV, dh, causal in FLASH_CASES:
-            q, k, v = _attention_inputs(gen, (B, Sq, H, dh), (B, Sk, KV, dh), dtype)
+        cases = [(c, _attention_inputs(gen, (c[0], c[1], c[3], c[5]), (c[0], c[2], c[4], c[5]),
+                                       dtype)) for c in FLASH_CASES]
+        cases += [((2, S, S, 9, 3, 64, True, f"strided_pad{pad}"),
+                   _strided_flash_inputs(gen, dtype, pad, S=S)) for pad in (0, 1)
+                  for S in (300, 600)]
+        for case, (q, k, v) in cases:
+            B, Sq, Sk, H, KV, dh, causal = case[:7]
             o = flash_attention_cuda(q, k, v, causal)
             torch.cuda.synchronize()
             ref = flash_attention_ref(q, k, v, causal=causal)
@@ -520,8 +570,9 @@ def check_flash(gen, details):
             ok = over <= 1.0 and bool(torch.isfinite(o).all())
             details.append({"kernel": "flash_attention", "dtype": name, "B": B, "Sq": Sq,
                             "Sk": Sk, "H": H, "KV": KV, "dh": dh, "causal": causal,
+                            "layout": case[7] if len(case) > 7 else "contiguous",
                             "max_abs_err": err, "err_over_bound": over, "ok": ok})
-            _check(ok, f"flash_attention {name} {(B, Sq, Sk, H, KV, dh, causal)}: "
+            _check(ok, f"flash_attention {name} {case}: "
                        f"max|Δ|={err:.3e}, {over:.3f} of the bound {tol}")
             if dtype == torch.bfloat16 and Sq == Sk == 2048:
                 planted = (o.float() + _dropped_tile_delta(q, k, v)).to(dtype)
@@ -534,16 +585,54 @@ def check_flash(gen, details):
     return _worst(details, "flash_attention"), fault
 
 
-def check_decode(gen, details):
-    """Each case twice: the length as a Python int and as an int32 scalar on
-    the card; positions past it hold 1e4 and must never count.  Returns the
-    worst |Δ| and |Δ|/bound of each dtype."""
+def _decode_replays(gen, dtype, tol, B=4, S=2048, H=9, KV=3, dh=64):
+    """One decode call captured in a CUDA graph, replayed after each length
+    of DECODE_REPLAY_LENGTHS is written into the device length tensor; each
+    replay's |Δ|/bound against the plain version at that length."""
     import torch
     from repro_torch.benchmarks.common import err_over_bound
-    from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_attention
+    from repro_torch.benchmarks.kernel_bench import abs_v_attention
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.ref import decode_attention_ref
 
+    q, kc, vc = _attention_inputs(gen, (B, H, dh), (B, S, KV, dh), dtype)
+    length = torch.tensor(DECODE_REPLAY_LENGTHS[0], dtype=torch.int32, device=q.device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_cuda(q, kc, vc, length)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_cuda(q, kc, vc, length)
+    overs = {}
+    for L in DECODE_REPLAY_LENGTHS:
+        length.fill_(L)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(q, kc, vc, L)
+        overs[L] = err_over_bound(out, ref, tol, abs_v_attention(q, kc, vc, L))
+        if L == 0 and not bool((out == 0).all()):
+            overs[L] = float("inf")
+    return overs
+
+
+def check_decode(gen, details):
+    """Each case twice: the length as a Python int and as an int32 scalar on
+    the card; positions past it hold 1e4 and must never count.  Then one
+    captured call replayed with new device lengths (:func:`_decode_replays`),
+    and in bf16 at L = 1000 the planted fault of a merge that drops the last
+    valid chunk: the kernel at the length cut back to that chunk's start
+    computes exactly that, and must fail the limit at the full length.
+    Returns the worst |Δ| and |Δ|/bound of each dtype, the replays' and the
+    planted fault's |Δ|/bound."""
+    import torch
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_attention
+    from repro_torch.kernels.decode_attention import decode_attention_chunk, decode_attention_cuda
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    replays, fault = {}, None
     for dtype in (torch.bfloat16, torch.float32):
         name, tol = str(dtype).split(".")[1], BENCH_TOL["decode_attention"][dtype]
         for B, S, H, KV, dh, L in DECODE_CASES:
@@ -563,7 +652,24 @@ def check_decode(gen, details):
                                 "max_abs_err": err, "err_over_bound": over, "ok": ok})
                 _check(ok, f"decode_attention {name} {(B, S, H, KV, dh, L)}: max|Δ|={err:.3e}, "
                            f"{over:.3f} of the bound {tol} (or a length-0 row not zeros)")
-    return _worst(details, "decode_attention")
+                if dtype == torch.bfloat16 and (S, L) == (2048, 1000) and fault is None:
+                    chunk = decode_attention_chunk(dh, dtype)
+                    dropped = decode_attention_cuda(q, kc, vc, (L - 1) // chunk * chunk)
+                    torch.cuda.synchronize()
+                    fault = {"max_abs_err": _max_err(dropped, ref), "chunk": chunk,
+                             "err_over_bound": err_over_bound(dropped, ref, tol,
+                                                              abs_v_attention(q, kc, vc, L))}
+                    details.append({"kernel": "decode_attention", "planted_fault":
+                                    "last_valid_chunk_dropped_by_the_merge", "length": L, **fault})
+        replays[name] = _decode_replays(gen, dtype, tol)
+        details.append({"kernel": "decode_attention", "graph_replays": name,
+                        "err_over_bound": replays[name]})
+        _check(all(o <= 1.0 for o in replays[name].values()),
+               f"decode_attention {name}: a graph replay after a new device length disagrees "
+               f"with the plain version: {replays[name]} of the bound")
+    _check(fault is not None and fault["err_over_bound"] > 1.0,
+           f"decode_attention bf16: the check let a dropped chunk through: {fault}")
+    return _worst(details, "decode_attention"), replays, fault
 
 
 def matmul_backward_readings(gen, x_dt, N, M=2048, scale=0.7):
@@ -1562,13 +1668,13 @@ def main(argv=None) -> None:
     report = {"card": smi, "cases": []}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bgmv_err = check_bgmv(gen, report["cases"])
-    paged_err = check_paged(gen, report["cases"])
+    paged_err, paged_fault = check_paged(gen, report["cases"])
     matmul_err = check_matmul(gen, report["cases"])
     bgmv_quant_err = check_bgmv_quant(gen, report["cases"])
     matmul_quant_err = check_matmul_quant(gen, report["cases"])
     bgmv_rows_err = check_bgmv_rows(gen, report["cases"])
     flash_err, flash_fault = check_flash(gen, report["cases"])
-    decode_err = check_decode(gen, report["cases"])
+    decode_err, decode_replays, decode_fault = check_decode(gen, report["cases"])
     print(f"kernel vs plain: qrlora_bgmv max|Δ| {bgmv_err}, "
           f"paged_decode_attention max|Δ| {paged_err}, qrlora_matmul max|Δ| {matmul_err}, "
           f"qrlora_bgmv_quant max|Δ| {bgmv_quant_err}, qrlora_matmul_quant max|Δ| "
@@ -1578,6 +1684,11 @@ def main(argv=None) -> None:
           f"(all within tolerance)")
     print(f"flash_attention bf16: a KV tile dropped from the last query tile at S=2048 reads "
           f"{flash_fault} (rejected: over 1 of the bound)")
+    print(f"decode_attention: one captured call replayed at device lengths "
+          f"{DECODE_REPLAY_LENGTHS} reads {decode_replays} of the bound; a merge that drops the "
+          f"last valid chunk at L=1000 (bf16) reads {decode_fault} (rejected)")
+    print(f"paged_decode_attention bf16: the longest lane's last block dropped reads at least "
+          f"{paged_fault:.3f} of the attention-form bound (rejected)")
 
     # -- the one-λ matmul's backward against autograd of the plain formula ---
     bwd_rows = check_matmul_backward(gen, report["cases"])

@@ -32,24 +32,21 @@ from repro_torch.kernels import ops, ref
 
 # (atol, rtol, ptol): |kernel − plain| ≤ atol + rtol·|plain| + ptol·(P·|v|),
 # elementwise, where P·|v| is the plain attention of |v| in fp32
-# (:func:`abs_v_attention`).  This is the one statement of how close each
-# kernel must be to its plain version; ``chip_smoke.py`` and the card tests
-# read it from here.
+# (:func:`abs_v_attention`, :func:`abs_v_paged`).  This is the one statement
+# of how close each kernel must be to its plain version; ``chip_smoke.py``
+# and the card tests read it from here.
 #  * float32: the same fp32 arithmetic in another order.
 #  * bfloat16: each side rounds its fp32 output to bf16, one ulp apart at most
 #    (≤ 2^-7·|plain|, the rtol), and rounds some probabilities to bf16 before
 #    P·V, each by at most 2^-8 of itself, which moves the output by at most
 #    2^-8 of P·|v|.  The plain versions round the normalised probabilities;
 #    the flash kernel rounds its unnormalised ones as well (2 · 2^-8), the
-#    decode kernel none (2^-8).  There is no absolute term: late in a long
-#    sequence |o| and P·|v| are small, and so is the bound.
+#    dense and paged decode kernels none (2^-8).  There is no absolute term:
+#    late in a long sequence |o| and P·|v| are small, and so is the bound.
 #  * the linear kernels (BGMV in its three forms, the one-λ matmul and its
 #    quantized twin) and the one-λ backward's dx: float32 the same exact
 #    products summed in another order; bfloat16 one ulp where a value
 #    straddles a rounding boundary, plus 1e-3 for sums near zero.
-#  * paged decode: its plain version rounds probabilities to bf16 before
-#    P·V, the kernel keeps them in fp32 — still an absolute bf16 term
-#    (ROADMAP Queue 2, "Open on ported kernels").
 _LINEAR = {torch.float32: (1e-4, 1e-5, 0.0), torch.bfloat16: (1e-3, 2.0**-7, 0.0)}
 TOL = {
     "flash_attention": {torch.float32: (2e-5, 1e-5, 0.0),
@@ -57,7 +54,7 @@ TOL = {
     "decode_attention": {torch.float32: (2e-5, 1e-5, 0.0),
                          torch.bfloat16: (0.0, 2.0**-7, 2.0**-8)},
     "paged_decode_attention": {torch.float32: (2e-5, 1e-5, 0.0),
-                               torch.bfloat16: (2e-2, 2.0**-7, 0.0)},
+                               torch.bfloat16: (0.0, 2.0**-7, 2.0**-8)},
     **{kind: _LINEAR for kind in ("qrlora_matmul", "qrlora_matmul_quant", "qrlora_matmul_dx",
                                   "qrlora_bgmv", "qrlora_bgmv_quant", "qrlora_bgmv_rows")},
 }
@@ -72,6 +69,13 @@ def abs_v_attention(q, k, v, arg) -> torch.Tensor:
     if q.dim() == 4:
         return ref.flash_attention_ref(q, k, v, causal=arg)
     return ref.decode_attention_ref(q, k, v, arg)
+
+
+def abs_v_paged(q, k_pool, v_pool, block_tbl, lengths) -> torch.Tensor:
+    """P·|v| in fp32 for the paged decode kernel: the plain paged attention
+    of |v| through the same block table and lengths."""
+    return ref.paged_decode_attention_ref(q.float(), k_pool.float(), v_pool.float().abs(),
+                                          block_tbl, lengths)
 
 
 def _time(fn, device) -> float:

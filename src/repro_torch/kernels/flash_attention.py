@@ -5,13 +5,22 @@ Causal or full GQA attention over a sequence in the model layout: q
 h // (H/KV); the causal mask is top-left (``kpos <= qpos``, also when
 Sq ≠ Sk).
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention_kernel``.  The
-CUDA source is ``csrc/flash_attention.cu``: one block per (64-row query
-tile, head, batch row) walks its KV tiles with an online softmax in fp32,
-skipping tiles wholly above the diagonal; bf16 runs Q·Kᵀ and P·V on the
-tensor cores (wmma, fp32 accumulators), float32 on the CUDA cores.  It
-reads q, k and v through their strides, so the model layout needs no
-transposes.  PERF.md has its times beside its bound.
+Replaces ``repro/kernels/flash_attention.py::flash_attention_kernel``.  By
+the H100 SXM data sheet the bf16 work is bound by the tensor cores at long
+sequences (≈ 4.9 µs at B=1 × S=2048, smollm-135m's heads) and by reading
+q, k, v once at the train shape (≈ 1.9 µs at B=8 × S=256); with few query
+rows for the card, the longest block's walk sets the time.  So the CUDA
+source (``csrc/flash_attention.cu``) keeps the products on the tensor cores
+with nothing but registers between them: one block per (64-row query tile,
+head, batch row), longest causal walks first, walks its KV tiles behind a
+2-stage ``cp.async`` ring in shared memory; Q·Kᵀ and P·V run as
+``mma.sync`` m16n8k16 from ``ldmatrix`` fragments, the online softmax runs
+on the fp32 accumulators, P goes to bf16 in registers, and O is written
+once; where walks are long, two warp groups split a block's KV tiles and
+merge at the end.  KV tiles wholly above the diagonal are never loaded.
+float32 runs the first design on the CUDA cores.  The kernel reads q, k and v through
+their strides, so the model layout needs no transposes.  PERF.md has its
+times beside its bound.
 
 CPU tensors take the plain version (:func:`repro_torch.kernels.ref.
 flash_attention_ref`); CUDA tensors launch the kernel or raise.

@@ -115,6 +115,35 @@ def decode_attention_ref(q, k_cache, v_cache, length):
     return o.to(q.dtype)
 
 
+def decode_attention_split_ref(q, k_cache, v_cache, length, chunk: int):
+    """The decode kernel's split-and-merge arithmetic in plain PyTorch, for
+    the tests: each ``chunk`` of valid positions keeps its fp32 max m, sum
+    l and unnormalised accumulator Σ e^{s−m}·v (probabilities unrounded);
+    the merge rescales each by e^{m−M} under the global max M and divides
+    the summed accumulators by the summed sums.  Arguments and result as
+    :func:`decode_attention_ref`; a length of 0 gives zeros."""
+    B, H, dh = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    rep = H // KV
+    length = min(max(int(length), 0), S)
+    if length == 0:
+        return torch.zeros_like(q)
+    qf = q.float()
+    parts = []
+    for t0 in range(0, length, chunk):
+        k = k_cache[:, t0:min(t0 + chunk, length)].float().repeat_interleave(rep, dim=2)
+        v = v_cache[:, t0:min(t0 + chunk, length)].float().repeat_interleave(rep, dim=2)
+        s = torch.einsum("bhd,bkhd->bhk", qf, k) * dh**-0.5
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        parts.append((m, p.sum(dim=-1), torch.einsum("bhk,bkhd->bhd", p, v)))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    w = [torch.exp(m - M) for m, _, _ in parts]
+    l = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+    o = sum(wi[..., None] * acc for wi, (_, _, acc) in zip(w, parts))
+    return (o / l[..., None]).to(q.dtype)
+
+
 def paged_decode_attention_ref(q, k_pool, v_pool, block_tbl, lengths):
     """Paged decode attention via a plain block-table gather.
 

@@ -181,6 +181,10 @@ def test_attention_kernel_wrappers_validate_before_launching():
         tdecode.decode_attention_cuda(qd, kc, kc, torch.tensor(4))  # int64 length
     with pytest.raises(ValueError):
         tdecode.decode_attention_cuda(qd, kc.transpose(0, 1).contiguous().transpose(0, 1), kc, 4)
-    with pytest.raises(ValueError):
-        tdecode.decode_attention_cuda(torch.zeros((2, 40, 32)), kc, kc, 4)  # group too large
+    with pytest.raises(ValueError):  # head dim not instantiated
+        tdecode.decode_attention_cuda(torch.zeros((2, 4, 48)), torch.zeros((2, 16, 2, 48)),
+                                      torch.zeros((2, 16, 2, 48)), 4)
+    with pytest.raises(ValueError):  # contiguous, but off the 16-byte grid of the 16-byte loads
+        kc_off = torch.zeros(kc.numel() + 1)[1:].view(kc.shape)
+        tdecode.decode_attention_cuda(qd, kc_off, kc_off, 4)
     assert all(v == 0 for v in kernels.launch_counts().values())

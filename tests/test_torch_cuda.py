@@ -12,8 +12,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.benchmarks.common import err_over_bound
-from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_attention
-from repro_torch.kernels.decode_attention import decode_attention_cuda
+from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_attention, abs_v_paged
+from repro_torch.kernels.decode_attention import decode_attention_chunk, decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 from repro_torch.kernels import ops
@@ -35,11 +35,11 @@ from repro_torch.kernels.ref import (
     qrlora_matmul_ref,
 )
 
-# |kernel − plain| ≤ atol + rtol·|plain|, each kernel's limit from the one
-# table chip_smoke.py reads too (kernel_bench.TOL): float32 differs by
-# summation order only; bfloat16 outputs may split by one bf16 ulp (2^-7
-# relative), and the plain paged version rounds probabilities to bf16
-# before P·V.
+# |kernel − plain| ≤ atol + rtol·|plain| (+ ptol·P·|v| for attention), each
+# kernel's limit from the one table chip_smoke.py reads too
+# (kernel_bench.TOL): float32 differs by summation order only; bfloat16
+# outputs may split by one bf16 ulp (2^-7 relative), and the plain attention
+# versions round probabilities to bf16 before P·V.
 
 
 @pytest.fixture
@@ -91,15 +91,27 @@ def test_paged_kernel_matches_plain(gen, dtype, lengths):
     for b, n in enumerate(lengths):
         tbl[b, -(-n // bs)::2] = 0
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tol = BENCH_TOL["paged_decode_attention"][dtype]
     for width in (mb, 7):  # whole table, and a column slice of it
         t = tbl[:, :width]
         lens_w = torch.clamp(lens, max=width * bs)
         o = paged_decode_attention_cuda(q, kp, vp, t, lens_w)
         torch.cuda.synchronize()
-        assert _close(o, paged_decode_attention_ref(q, kp, vp, t, lens_w), "paged_decode_attention")
+        want = paged_decode_attention_ref(q, kp, vp, t, lens_w)
+        pv = abs_v_paged(q, kp, vp, t, lens_w)
+        assert err_over_bound(o, want, tol, pv) <= 1
         for b, n in enumerate(lengths):
             if n == 0:
                 assert (o[b] == 0).all()
+    # planted: the longest lane's last block dropped (its length cut to the
+    # block before) must be rejected by the same limit
+    longest = max(range(B), key=lambda b: lengths[b])
+    cut = lens.clone()
+    cut[longest] = (lengths[longest] - 1) // bs * bs
+    o = paged_decode_attention_cuda(q, kp, vp, tbl, cut)
+    torch.cuda.synchronize()
+    assert err_over_bound(o, paged_decode_attention_ref(q, kp, vp, tbl, lens), tol,
+                          abs_v_paged(q, kp, vp, tbl, lens)) > 1
 
 
 def test_serving_step_launches_both_kernels(gen):
@@ -350,6 +362,9 @@ def _attention_close(kind, got, want, q, k, v, arg):
     (2, 128, 128, 4, 2, 64), (1, 256, 256, 8, 8, 32), (2, 96, 96, 6, 3, 16),  # the reference's
     (2, 200, 200, 9, 3, 64),  # smollm-135m's heads, a ragged last query tile
     (1, 64, 130, 4, 2, 128), (1, 130, 64, 4, 2, 32),  # Sq ≠ Sk
+    # many KV tiles through the cp.async ring, ragged edges, every head dim
+    (1, 333, 333, 9, 3, 128), (1, 100, 600, 4, 2, 16), (1, 600, 100, 4, 2, 32),
+    (2, 520, 520, 9, 3, 64), (1, 600, 600, 4, 2, 32),  # from 8 tiles on: two warp groups
 ])
 def test_flash_kernel_matches_plain(gen, dtype, causal, B, Sq, Sk, H, KV, dh):
     dev = "cuda"
@@ -387,6 +402,10 @@ def test_flash_kernel_reads_strided_layouts(gen, dtype, pad):
     (2, 256, 4, 2, 64, 100), (1, 512, 8, 8, 32, 512), (3, 128, 6, 3, 16, 1),
     (2, 128, 4, 4, 32, 127),  # the reference's
     (4, 2048, 9, 3, 64, 1000), (2, 64, 8, 2, 128, 33), (2, 64, 9, 3, 64, 0),
+    # both sides of the split kernel's 64-position chunk edges (bf16, dh 64),
+    # the last position and the whole cache
+    *[(4, 2048, 9, 3, 64, L) for L in (63, 64, 65, 2047, 2048)],
+    (2, 256, 16, 2, 64, 200),  # a GQA group of 8: two blocks of 4 heads a chunk
 ])
 def test_decode_kernel_matches_plain(gen, dtype, as_tensor, B, S, H, KV, dh, L):
     dev = "cuda"
@@ -404,6 +423,50 @@ def test_decode_kernel_matches_plain(gen, dtype, as_tensor, B, S, H, KV, dh, L):
                             q, kc, vc, length)
     if L == 0:
         assert (o == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_graph_replays_follow_the_device_length(gen, dtype):
+    """One call captured in a CUDA graph, replayed after new values are
+    written into the length tensor: both launches read it on the card, so
+    each replay matches the plain version at the new length."""
+    dev, B, S, H, KV, dh = "cuda", 4, 2048, 9, 3, 64
+    q = (torch.randn((B, H, dh), generator=gen, device=dev) * 0.5).to(dtype)
+    kc = (torch.randn((B, S, KV, dh), generator=gen, device=dev) * 0.5).to(dtype)
+    vc = (torch.randn((B, S, KV, dh), generator=gen, device=dev) * 0.5).to(dtype)
+    length = torch.tensor(1000, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_cuda(q, kc, vc, length)  # warm-up: builds and loads the library
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_cuda(q, kc, vc, length)
+    for L in (1000, 37, 0, 2048):
+        length.fill_(L)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _attention_close("decode_attention", out, decode_attention_ref(q, kc, vc, L),
+                                q, kc, vc, L), L
+        if L == 0:
+            assert (out == 0).all()
+
+
+def test_decode_check_rejects_a_dropped_chunk(gen):
+    """Planted fault: a merge that loses the last valid chunk.  The kernel
+    at the length cut back to the start of that chunk computes exactly it;
+    held against the plain version at the full length, it is over the
+    bf16 limit."""
+    dev, B, S, H, KV, dh, L = "cuda", 4, 2048, 9, 3, 64, 1000
+    q = (torch.randn((B, H, dh), generator=gen, device=dev) * 0.5).bfloat16()
+    kc = (torch.randn((B, S, KV, dh), generator=gen, device=dev) * 0.5).bfloat16()
+    vc = (torch.randn((B, S, KV, dh), generator=gen, device=dev) * 0.5).bfloat16()
+    chunk = decode_attention_chunk(dh, torch.bfloat16)
+    dropped = decode_attention_cuda(q, kc, vc, (L - 1) // chunk * chunk)
+    torch.cuda.synchronize()
+    assert not _attention_close("decode_attention", dropped, decode_attention_ref(q, kc, vc, L),
+                                q, kc, vc, L)
 
 
 def test_attention_ops_launch_the_kernels(gen):

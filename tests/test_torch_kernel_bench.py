@@ -135,26 +135,41 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("kind", ["flash_attention", "decode_attention"])
+@pytest.mark.parametrize("kind", ["flash_attention", "decode_attention",
+                                  "paged_decode_attention"])
 def test_bf16_attention_limits_hold_a_sound_variant_and_reject_a_dropped_tile(kind):
     """At smollm-135m's heads, late in a long sequence where |o| is small:
-    the plain version with unrounded probabilities (the decode kernel's
+    the plain version with unrounded probabilities (the decode kernels'
     numerics) is within the bench's bf16 limit, and the plain version with
     one tile of keys left out of the last query rows is not — for flash,
     the KV tile that ``chip_smoke.py`` plants on the card's output; for
-    decode, the last 32 positions before the length (one step of the
-    kernel's walk)."""
+    decode, the last 32 positions before the length (half of one of the
+    split kernel's 64-position chunks); for paged decode, the last block
+    (16 positions) of the longest lane."""
     from repro_torch.kernels import ref
 
     gen = torch.Generator().manual_seed(3)
     H, KV, dh = 9, 3, 64
-    if kind == "flash_attention":
+    if kind == "paged_decode_attention":
+        bs, width = 16, 64
+        pool = (1 + 4 * width, bs, KV, dh)
+        q, kp, vp = ((torch.randn(s, generator=gen) * 0.5).bfloat16()
+                     for s in ((4, H, dh), pool, pool))
+        tbl = (torch.randperm(4 * width, generator=gen) + 1).to(torch.int32).reshape(4, width)
+        lens = torch.tensor([1008, 700, 300, 17], dtype=torch.int32)
+        plain = ref.paged_decode_attention_ref(q, kp, vp, tbl, lens)
+        unrounded = ref.paged_decode_attention_ref(q.float(), kp.float(), vp.float(), tbl, lens)
+        faulty = ref.paged_decode_attention_ref(q.float(), kp.float(), vp.float(), tbl,
+                                                lens - torch.tensor([bs, 0, 0, 0]).int())
+        pv = kernel_bench.abs_v_paged(q, kp, vp, tbl, lens)
+    elif kind == "flash_attention":
         S = 1024
         q, k, v = ((torch.randn(s, generator=gen) * 0.5).bfloat16()
                    for s in ((1, S, H, dh), (1, S, KV, dh), (1, S, KV, dh)))
         arg, plain = True, ref.flash_attention_ref(q, k, v, causal=True)
         unrounded = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
         faulty = unrounded + _chip_smoke()._dropped_tile_delta(q, k, v)
+        pv = kernel_bench.abs_v_attention(q, k, v, arg)
     else:
         L = 1000
         q, k, v = ((torch.randn(s, generator=gen) * 0.5).bfloat16()
@@ -162,7 +177,7 @@ def test_bf16_attention_limits_hold_a_sound_variant_and_reject_a_dropped_tile(ki
         arg, plain = L, ref.decode_attention_ref(q, k, v, L)
         unrounded = ref.decode_attention_ref(q.float(), k.float(), v.float(), L)
         faulty = ref.decode_attention_ref(q.float(), k.float(), v.float(), L - 32)
+        pv = kernel_bench.abs_v_attention(q, k, v, arg)
     tol = kernel_bench.TOL[kind][torch.bfloat16]
-    pv = kernel_bench.abs_v_attention(q, k, v, arg)
     assert common.err_over_bound(unrounded.bfloat16(), plain, tol, pv) <= 1.0
     assert common.err_over_bound(faulty.bfloat16(), plain, tol, pv) > 1.0
