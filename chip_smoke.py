@@ -108,48 +108,20 @@ def _check(cond: bool, msg: str) -> None:
         _fail(msg)
 
 
-def _device_ms(fn, iters: int = 50, reps: int = 5) -> float:
-    """Device time of one call: ``iters`` back-to-back calls captured in a
-    CUDA graph, replayed ``reps`` times between CUDA events.  Replaying a
-    graph takes the host's launch overhead out, so this is the card's time
-    (with warm L2: the operands are the same every call).  A call that
-    cannot be captured fails the run."""
-    import torch
-
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the default stream, as capture needs
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
-
-
-def _eager_ms(fn, iters: int = 100) -> float:
-    """Wall time of one eager call, host launch overhead included."""
-    import torch
-
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / iters
+def _kernel_name(nvcc: str, mangled: str) -> str:
+    """A kernel's name with its template arguments and without its
+    parameters, demangled by the toolkit's ``cu++filt`` (the mangled name
+    where that fails)."""
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    try:
+        name = subprocess.run([filt, mangled], capture_output=True, text=True,
+                              check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return mangled
+    for long, short in (("void ", ""), ("<unnamed>::", ""), ("(anonymous namespace)::", ""),
+                        ("(int)", ""), ("(bool)0", "false"), ("(bool)1", "true")):
+        name = name.replace(long, short)
+    return name[:name.find(">(") + 1] if ">(" in name else name.split("(")[0]
 
 
 def _bound_ms(n_bytes: float, n_ops: float, dtype: str):
@@ -315,27 +287,55 @@ def _matmul_inputs(gen, M, N, x_dtype, K=576, r=128, rank=100):
     return x, W, B.bfloat16(), A.bfloat16(), lam
 
 
-def check_matmul(gen, details):
+# (M, K, N, r) of the one-λ checks besides the training step's: the 64-row
+# scoring forward, a ragged M and M = 1 (few output tiles: K split over a
+# cluster), the kernel bench's fused adapter, and K = 208, whose last K step
+# is partial and whose steps divide unevenly over the cluster's ranks.
+MATMUL_SHAPES = [(M, 576, N, 128) for M in (2048, 64, 37, 1) for N in (576, 192)] + [
+    (512, 768, 768, 160), (64, 208, 192, 24)]
+
+
+def _matmul_case(gen, kind, x_dt, M, K, N, r, base=None):
+    """One one-λ case: the kernel twice (bitwise the same), against the
+    plain version within the unchanged limit.  Returns the details row."""
     import torch
-    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
-    from repro_torch.kernels.ref import qrlora_matmul_ref
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_quant_cuda
+    from repro_torch.kernels.ref import qrlora_matmul_quant_ref, qrlora_matmul_ref
+
+    x, W, B, A, lam = _matmul_inputs(gen, M, N, x_dt, K=K, r=r, rank=min(100, r))
+    if base is None:
+        args, kernel, plain = (x, W, B, A, lam), qrlora_matmul_cuda, qrlora_matmul_ref
+    else:
+        q, ws = _quantized(W, base)
+        args, kernel, plain = (x, q, ws, B, A, lam), qrlora_matmul_quant_cuda, qrlora_matmul_quant_ref
+    y, y2 = kernel(*args, scale=0.7), kernel(*args, scale=0.7)
+    torch.cuda.synchronize()
+    ref = plain(*args, scale=0.7)
+    tol = _tol(kind, x_dt)
+    row = {"kernel": kind, "x": str(x_dt).split(".")[1], "M": M, "K": K, "N": N, "r": r,
+           "max_abs_err": _max_err(y, ref), "err_over_bound": err_over_bound(y, ref, (*tol, 0.0)),
+           "bitwise_repeat": torch.equal(y, y2)}
+    if base is not None:
+        row["q"] = base
+    row["ok"] = (_within(y, ref, tol) and bool(torch.isfinite(y).all()) and row["bitwise_repeat"])
+    return row
+
+
+def check_matmul(gen, details):
+    """The one-λ kernel against its plain version at the shapes above, bf16
+    and float32 x; every case also bitwise the same on a second call."""
+    import torch
 
     worst = {}
     for x_dt in (torch.bfloat16, torch.float32):
-        name = str(x_dt).split(".")[1]
-        for M in (2048, 37):
-            for N in (576, 192):
-                args = _matmul_inputs(gen, M, N, x_dt)
-                y = qrlora_matmul_cuda(*args, scale=0.7)
-                torch.cuda.synchronize()
-                ref = qrlora_matmul_ref(*args, scale=0.7)
-                err = _max_err(y, ref)
-                ok = _within(y, ref, _tol("qrlora_matmul", x_dt)) and bool(torch.isfinite(y).all())
-                details.append({"kernel": "qrlora_matmul", "x": name, "M": M, "N": N,
-                                "max_abs_err": err, "ok": ok})
-                _check(ok, f"qrlora_matmul x={name} M={M} N={N}: "
-                           f"max|Δ|={err:.3e} over tolerance {_tol('qrlora_matmul', x_dt)}")
-                worst[name] = max(worst.get(name, 0.0), err)
+        for M, K, N, r in MATMUL_SHAPES:
+            row = _matmul_case(gen, "qrlora_matmul", x_dt, M, K, N, r)
+            details.append(row)
+            _check(row["ok"], f"qrlora_matmul x={row['x']} M={M} K={K} N={N} r={r}: "
+                              f"max|Δ|={row['max_abs_err']:.3e} ({row['err_over_bound']:.3f} of "
+                              f"the bound), bitwise on a second call: {row['bitwise_repeat']}")
+            worst[row["x"]] = max(worst.get(row["x"], 0.0), row["max_abs_err"])
     return worst
 
 
@@ -438,33 +438,111 @@ def check_bgmv_rows(gen, details):
 
 
 def check_matmul_quant(gen, details):
-    """Quantized one-λ matmul against its plain version at the training
-    and a ragged row count, int8 and fp8 q, bf16 and float32 x; the one-λ
-    matmul tolerance (exact products, another summation order)."""
+    """Quantized one-λ matmul against its plain version at the training, the
+    scoring and ragged row counts, int8 and fp8 q, bf16 and float32 x, the
+    one-λ matmul tolerance (exact products, another summation order); every
+    case also bitwise the same on a second call."""
     import torch
-    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_quant_cuda
-    from repro_torch.kernels.ref import qrlora_matmul_quant_ref
 
     worst = {}
     for base in ("int8", "fp8"):
         for x_dt in (torch.bfloat16, torch.float32):
-            name = str(x_dt).split(".")[1]
-            for M in (2048, 37):
-                for N in (576, 192):
-                    x, W, B, A, lam = _matmul_inputs(gen, M, N, x_dt)
-                    q, ws = _quantized(W, base)
-                    args = (x, q, ws, B, A, lam)
-                    y = qrlora_matmul_quant_cuda(*args, scale=0.7)
-                    torch.cuda.synchronize()
-                    ref = qrlora_matmul_quant_ref(*args, scale=0.7)
-                    err = _max_err(y, ref)
-                    ok = _within(y, ref, _tol("qrlora_matmul_quant", x_dt)) and bool(torch.isfinite(y).all())
-                    details.append({"kernel": "qrlora_matmul_quant", "q": base, "x": name,
-                                    "M": M, "N": N, "max_abs_err": err, "ok": ok})
-                    _check(ok, f"qrlora_matmul_quant q={base} x={name} M={M} N={N}: "
-                               f"max|Δ|={err:.3e} over tolerance {_tol('qrlora_matmul_quant', x_dt)}")
-                    worst[name] = max(worst.get(name, 0.0), err)
+            for M, K, N, r in MATMUL_SHAPES[:8] + MATMUL_SHAPES[9:]:
+                row = _matmul_case(gen, "qrlora_matmul_quant", x_dt, M, K, N, r, base)
+                details.append(row)
+                _check(row["ok"], f"qrlora_matmul_quant q={base} x={row['x']} M={M} K={K} N={N} "
+                                  f"r={r}: max|Δ|={row['max_abs_err']:.3e} "
+                                  f"({row['err_over_bound']:.3f} of the bound), bitwise on a "
+                                  f"second call: {row['bitwise_repeat']}")
+                worst[row["x"]] = max(worst.get(row["x"], 0.0), row["max_abs_err"])
     return worst
+
+
+def check_matmul_replay(gen):
+    """A captured one-λ call (the main pass a programmatic dependent of the
+    P pass in the graph too) replayed, bitwise the eager call, for bf16,
+    int8 and fp8 at the training and scoring row counts.  Returns the rows."""
+    import torch
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_quant_cuda
+
+    rows = []
+    for base in ("bf16", "int8", "fp8"):
+        for M, N in ((2048, 576), (SCORE_ROWS, 576), (SCORE_ROWS, 192)):
+            x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.bfloat16)
+            if base == "bf16":
+                fn = lambda: qrlora_matmul_cuda(x, W, B, A, lam, 0.7)
+            else:
+                q, ws = _quantized(W, base)
+                fn = lambda: qrlora_matmul_quant_cuda(x, q, ws, B, A, lam, 0.7)
+            eager = fn()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn()
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            rows.append({"base": base, "M": M, "N": N, "bitwise": torch.equal(out, eager)})
+    return rows
+
+
+def _rank_steps(plan, K: int, r: int, rank: int):
+    """The K-loop steps that cluster rank ``rank`` runs under ``plan``
+    (``qrlora_matmul_plan``): x·W steps stride over the first ``ranks_x``
+    ranks, the P steps (P_hi's, then P_lo's) over the rest."""
+    nkx, nkr = -(-K // 64), -(-r // 64)
+    if rank < plan["ranks_x"]:
+        return tuple(range(rank, nkx, plan["ranks_x"]))
+    return tuple(range(nkx + rank - plan["ranks_x"], nkx + 2 * nkr,
+                       plan["cluster"] - plan["ranks_x"]))
+
+
+def planted_matmul_faults(gen):
+    """Controls for the one-λ checks, each what a kernel that drops part of
+    its K loop would give (``ref.qrlora_matmul_split_ref`` with those steps
+    left out), read as a fraction of the bf16 bound against the plain
+    version; each must be rejected (> 1).  One x·W step of the training
+    wq projection; the last P step of each half at full rank; at 64 rows
+    on an int8 base, every step of one cluster rank (rank 1, an x·q rank)."""
+    import torch
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_plan
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_quant_cuda
+    from repro_torch.kernels.ref import (
+        qrlora_matmul_quant_ref,
+        qrlora_matmul_ref,
+        qrlora_matmul_split_ref,
+    )
+
+    K, r = 576, 128
+    nkx, nkr = K // 64, r // 64
+    out = {}
+    x, W, B, A, lam = _matmul_inputs(gen, 2048, 576, torch.bfloat16, K, r, rank=r)
+    ref = qrlora_matmul_ref(x, W, B, A, lam, 0.7)
+    tol = (*_tol("qrlora_matmul", torch.bfloat16), 0.0)
+    out["sound_wq"] = err_over_bound(qrlora_matmul_cuda(x, W, B, A, lam, 0.7), ref, tol)
+    for name, skip in (("x_step_dropped", (3,)),
+                       ("last_p_step_dropped", (nkx + nkr - 1, nkx + 2 * nkr - 1))):
+        out[name] = err_over_bound(
+            qrlora_matmul_split_ref(x, W, None, B, A, lam, 0.7, skip_steps=skip), ref, tol)
+    x, W, B, A, lam = _matmul_inputs(gen, SCORE_ROWS, 576, torch.bfloat16, K, r, rank=r)
+    q, ws = _quantized(W, "int8")
+    ref = qrlora_matmul_quant_ref(x, q, ws, B, A, lam, 0.7)
+    tol = (*_tol("qrlora_matmul_quant", torch.bfloat16), 0.0)
+    plan = qrlora_matmul_plan(SCORE_ROWS, K, 576, r)
+    _check(plan["cluster"] > 1, f"the 64-row projection does not split K: {plan}")
+    skip = _rank_steps(plan, K, r, 1)
+    out["sound_int8_M64"] = err_over_bound(qrlora_matmul_quant_cuda(x, q, ws, B, A, lam, 0.7),
+                                           ref, tol)
+    out["split_rank_dropped"] = err_over_bound(
+        qrlora_matmul_split_ref(x, q, ws, B, A, lam, 0.7, skip_steps=skip), ref, tol)
+    out["plan_M64"], out["rank1_steps"] = plan, skip
+    torch.cuda.synchronize()
+    return out
 
 
 def _attention_inputs(gen, q_shape, kv_shape, dtype, scale=0.5):
@@ -752,6 +830,7 @@ def planted_backward_faults(gen):
 def time_bgmv(gen, N: int):
     """wq (N=576) / wv (N=192) decode projection: 4 lanes, bf16."""
     import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_ref
 
@@ -759,10 +838,10 @@ def time_bgmv(gen, N: int):
     x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, torch.bfloat16)
     seg64 = seg.long()
     kernel = lambda: qrlora_bgmv_cuda(x, W, B, A, lam, seg)
-    res = {"ms": _device_ms(kernel),
-           "plain_ms": _device_ms(lambda: qrlora_bgmv_ref(x, W, B, A, lam, seg)),
-           "library_ms": _device_ms(lambda: x @ W + ((x @ B) * lam[seg64].to(x.dtype)) @ A)}
-    res["eager_ms"] = _eager_ms(kernel)
+    res = {"ms": graph_ms(kernel),
+           "plain_ms": graph_ms(lambda: qrlora_bgmv_ref(x, W, B, A, lam, seg)),
+           "library_ms": graph_ms(lambda: x @ W + ((x @ B) * lam[seg64].to(x.dtype)) @ A)}
+    res["eager_ms"] = eager_ms(kernel)
     n_bytes = 2 * (M * K + K * N + K * r + r * N + M * N) + 4 * (n_slots * r + M)
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
@@ -774,6 +853,7 @@ def time_paged(gen, lengths=(64, 48, 33, 17)):
     """One decode attend of the serving shapes: 4 lanes, 9 heads over 3 kv
     heads, dh 64, block 16, a 4-block attend bound; bf16."""
     import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms
     from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
     from repro_torch.kernels.ref import paged_decode_attention_ref
 
@@ -782,9 +862,9 @@ def time_paged(gen, lengths=(64, 48, 33, 17)):
     tbl = tbl[:, :4]  # the engine's attend bound: a column slice of the table
     kernel = lambda: paged_decode_attention_cuda(q, kp, vp, tbl, lens)
     res = {"library_ms": None,  # no single PyTorch call attends through a block table
-           "ms": _device_ms(kernel),
-           "plain_ms": _device_ms(lambda: paged_decode_attention_ref(q, kp, vp, tbl, lens))}
-    res["eager_ms"] = _eager_ms(kernel)
+           "ms": graph_ms(kernel),
+           "plain_ms": graph_ms(lambda: paged_decode_attention_ref(q, kp, vp, tbl, lens))}
+    res["eager_ms"] = eager_ms(kernel)
     toks = sum(lengths)
     n_bytes = 2 * (2 * q.numel() + 2 * toks * KV * dh) + 4 * (len(lengths) + sum(
         -(-n // bs) for n in lengths))
@@ -799,6 +879,7 @@ def time_matmul(gen, N: int):
     """wq (N=576) / wv (N=192) projection of a training step: batch 8 ×
     seq 256 = 2048 rows, bf16."""
     import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
     from repro_torch.kernels.ref import qrlora_matmul_ref
 
@@ -806,10 +887,10 @@ def time_matmul(gen, N: int):
     x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.bfloat16, K, r, rank=r)
     lam16 = lam.bfloat16()
     kernel = lambda: qrlora_matmul_cuda(x, W, B, A, lam)
-    res = {"ms": _device_ms(kernel),
-           "plain_ms": _device_ms(lambda: qrlora_matmul_ref(x, W, B, A, lam)),
-           "library_ms": _device_ms(lambda: x @ W + ((x @ B) * lam16) @ A)}
-    res["eager_ms"] = _eager_ms(kernel)
+    res = {"ms": graph_ms(kernel),
+           "plain_ms": graph_ms(lambda: qrlora_matmul_ref(x, W, B, A, lam)),
+           "library_ms": graph_ms(lambda: x @ W + ((x @ B) * lam16) @ A)}
+    res["eager_ms"] = eager_ms(kernel)
     n_bytes = 2 * (M * K + K * N + K * r + r * N + M * N) + 4 * r
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
@@ -821,6 +902,7 @@ def time_bgmv_quant(gen, N: int, base: str):
     """wq (N=576) / wv (N=192) decode projection on a quantized base: 4
     lanes, bf16 x, int8 or fp8 q.  Bytes count q at one byte an element."""
     import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_quant_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_quant_ref
 
@@ -829,12 +911,12 @@ def time_bgmv_quant(gen, N: int, base: str):
     q, ws = _quantized(W, base)
     seg64, ws16 = seg.long(), ws.bfloat16()
     kernel = lambda: qrlora_bgmv_quant_cuda(x, q, ws, B, A, lam, seg)
-    res = {"ms": _device_ms(kernel),
-           "plain_ms": _device_ms(lambda: qrlora_bgmv_quant_ref(x, q, ws, B, A, lam, seg)),
+    res = {"ms": graph_ms(kernel),
+           "plain_ms": graph_ms(lambda: qrlora_bgmv_quant_ref(x, q, ws, B, A, lam, seg)),
            # the widening cast is part of each call: torch has no int8/fp8 × bf16 product
-           "library_ms": _device_ms(
+           "library_ms": graph_ms(
                lambda: (x @ q.to(x.dtype)) * ws16 + ((x @ B) * lam[seg64].to(x.dtype)) @ A)}
-    res["eager_ms"] = _eager_ms(kernel)
+    res["eager_ms"] = eager_ms(kernel)
     n_bytes = 2 * (M * K + K * r + r * N + M * N) + K * N + 4 * (N + n_slots * r + M)
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
@@ -849,6 +931,7 @@ def time_bgmv_rows(gen, N: int, base: str):
     The library yardstick is ``x@W·ws + ((x@B)*rows)@A`` (q widened in the
     call)."""
     import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_rows_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_rows_ref
 
@@ -861,12 +944,12 @@ def time_bgmv_rows(gen, N: int, base: str):
         W, ws = _quantized(W, base)
     ws16, rows16 = ws.bfloat16(), rows.bfloat16()
     kernel = lambda: qrlora_bgmv_rows_cuda(x, W, ws, B, A, rows)
-    res = {"ms": _device_ms(kernel),
-           "plain_ms": _device_ms(lambda: qrlora_bgmv_rows_ref(x, W, ws, B, A, rows)),
+    res = {"ms": graph_ms(kernel),
+           "plain_ms": graph_ms(lambda: qrlora_bgmv_rows_ref(x, W, ws, B, A, rows)),
            # W.to is a no-op for bf16 W, the widening cast for q
-           "library_ms": _device_ms(
+           "library_ms": graph_ms(
                lambda: (x @ W.to(x.dtype)) * ws16 + ((x @ B) * rows16) @ A)}
-    res["eager_ms"] = _eager_ms(kernel)
+    res["eager_ms"] = eager_ms(kernel)
     n_bytes = (2 * (M * K + K * r + r * N + M * N) + K * N * W.element_size()
                + 4 * (N + M * r))
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
@@ -879,6 +962,7 @@ def time_matmul_quant(gen, M: int, N: int, base: str):
     """The one-λ projection on a quantized base: M rows (a scoring forward's
     sequence, or 2048), bf16 x, int8 or fp8 q."""
     import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_quant_cuda
     from repro_torch.kernels.ref import qrlora_matmul_quant_ref
 
@@ -887,10 +971,10 @@ def time_matmul_quant(gen, M: int, N: int, base: str):
     q, ws = _quantized(W, base)
     lam16, ws16 = lam.bfloat16(), ws.bfloat16()
     kernel = lambda: qrlora_matmul_quant_cuda(x, q, ws, B, A, lam)
-    res = {"ms": _device_ms(kernel),
-           "plain_ms": _device_ms(lambda: qrlora_matmul_quant_ref(x, q, ws, B, A, lam)),
-           "library_ms": _device_ms(lambda: (x @ q.to(x.dtype)) * ws16 + ((x @ B) * lam16) @ A)}
-    res["eager_ms"] = _eager_ms(kernel)
+    res = {"ms": graph_ms(kernel),
+           "plain_ms": graph_ms(lambda: qrlora_matmul_quant_ref(x, q, ws, B, A, lam)),
+           "library_ms": graph_ms(lambda: (x @ q.to(x.dtype)) * ws16 + ((x @ B) * lam16) @ A)}
+    res["eager_ms"] = eager_ms(kernel)
     n_bytes = 2 * (M * K + K * r + r * N + M * N) + K * N + 4 * (N + r)
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
@@ -904,6 +988,7 @@ def time_flash(gen, B: int, S: int):
     ``scaled_dot_product_attention`` on the same values in its own (B,H,S,dh)
     layout, made before the timed calls."""
     import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
@@ -912,11 +997,11 @@ def time_flash(gen, B: int, S: int):
     q, k, v = _attention_inputs(gen, (B, S, H, dh), (B, S, KV, dh), torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     kernel = lambda: flash_attention_cuda(q, k, v, True)
-    res = {"ms": _device_ms(kernel),
-           "plain_ms": _device_ms(lambda: flash_attention_ref(q, k, v, causal=True)),
-           "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+    res = {"ms": graph_ms(kernel),
+           "plain_ms": graph_ms(lambda: flash_attention_ref(q, k, v, causal=True)),
+           "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                qt, kt, vt, is_causal=True, enable_gqa=True))}
-    res["eager_ms"] = _eager_ms(kernel)
+    res["eager_ms"] = eager_ms(kernel)
     pairs = S * (S + 1) // 2  # (query, key) pairs under the causal mask
     n_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     n_ops = 4 * B * H * dh * pairs
@@ -931,6 +1016,7 @@ def time_decode(gen, B: int = 4, S: int = 2048, L: int = 1000):
     length an int32 scalar on the card.  The library yardstick is
     ``scaled_dot_product_attention`` with a length mask over all S positions."""
     import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.ref import decode_attention_ref
@@ -941,11 +1027,11 @@ def time_decode(gen, B: int = 4, S: int = 2048, L: int = 1000):
     q4, kt, vt = q[:, :, None], kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     mask = (torch.arange(S, device=q.device) < length)[None, None, None, :]
     kernel = lambda: decode_attention_cuda(q, kc, vc, length)
-    res = {"ms": _device_ms(kernel),
-           "plain_ms": _device_ms(lambda: decode_attention_ref(q, kc, vc, length)),
-           "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+    res = {"ms": graph_ms(kernel),
+           "plain_ms": graph_ms(lambda: decode_attention_ref(q, kc, vc, length)),
+           "library_ms": graph_ms(lambda: F.scaled_dot_product_attention(
                q4, kt, vt, attn_mask=mask, enable_gqa=True))}
-    res["eager_ms"] = _eager_ms(kernel)
+    res["eager_ms"] = eager_ms(kernel)
     n_bytes = 2 * (2 * q.numel() + 2 * B * L * KV * dh) + 4
     n_ops = 4 * B * H * L * dh
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
@@ -1661,9 +1747,12 @@ def main(argv=None) -> None:
     logs = _build.build(verbose=True)
     print(f"built {sorted(_build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        kernel = ""
         for line in text.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = _kernel_name(_build.nvcc_path(), line.split("'")[1])
+            elif "registers" in line or "smem" in line or "spill" in line:
+                print(f"  {name} {kernel}: {line.strip()}")
 
     report = {"card": smi, "cases": []}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -1672,13 +1761,28 @@ def main(argv=None) -> None:
     matmul_err = check_matmul(gen, report["cases"])
     bgmv_quant_err = check_bgmv_quant(gen, report["cases"])
     matmul_quant_err = check_matmul_quant(gen, report["cases"])
+    replays = check_matmul_replay(gen)
+    report["matmul_replays"] = replays
+    print(f"one-λ kernels: a captured call replayed is bitwise the eager call: {replays}")
+    _check(all(r["bitwise"] for r in replays), f"a replayed one-λ call differs from eager: {replays}")
+    mm_faults = planted_matmul_faults(gen)
+    report["matmul_faults"] = mm_faults
+    print(f"one-λ kernels, |Δ| over the bf16 bound: sound wq {mm_faults['sound_wq']:.3f} "
+          f"(M=2048), sound int8 {mm_faults['sound_int8_M64']:.3f} (M={SCORE_ROWS}, plan "
+          f"{mm_faults['plan_M64']}); planted faults: an x·W step dropped "
+          f"{mm_faults['x_step_dropped']:.1f}, the last P step of each half dropped "
+          f"{mm_faults['last_p_step_dropped']:.1f}, cluster rank 1's steps "
+          f"{mm_faults['rank1_steps']} dropped {mm_faults['split_rank_dropped']:.1f} (rejected)")
+    for name in ("x_step_dropped", "last_p_step_dropped", "split_rank_dropped"):
+        _check(mm_faults[name] > 1.0, f"the one-λ check let the planted fault {name} through: "
+                                      f"{mm_faults[name]}")
     bgmv_rows_err = check_bgmv_rows(gen, report["cases"])
     flash_err, flash_fault = check_flash(gen, report["cases"])
     decode_err, decode_replays, decode_fault = check_decode(gen, report["cases"])
     print(f"kernel vs plain: qrlora_bgmv max|Δ| {bgmv_err}, "
           f"paged_decode_attention max|Δ| {paged_err}, qrlora_matmul max|Δ| {matmul_err}, "
           f"qrlora_bgmv_quant max|Δ| {bgmv_quant_err}, qrlora_matmul_quant max|Δ| "
-          f"{matmul_quant_err} (int8 and fp8), qrlora_bgmv_rows max|Δ| {bgmv_rows_err} (W in "
+          f"{matmul_quant_err} (int8 and fp8; both bitwise on a second call), qrlora_bgmv_rows max|Δ| {bgmv_rows_err} (W in "
           f"x's dtype, int8 and fp8; bitwise the BGMV kernels with rows = Λ[seg], a λ row sent "
           f"to slot 0 rejected), flash_attention {flash_err}, decode_attention {decode_err} "
           f"(all within tolerance)")

@@ -115,3 +115,44 @@ def device_us(fn, n: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) * 1e3 / n
+
+
+def graph_ms(fn, iters: int = 50, reps: int = 5) -> float:
+    """Device time of one call in ms on the card: ``iters`` back-to-back
+    calls captured in a CUDA graph, replayed ``reps`` times between CUDA
+    events.  Replaying a graph takes the host's launch overhead out, so this
+    is the card's time (with warm L2: the operands are the same every call).
+    A call that cannot be captured raises."""
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture needs
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def eager_ms(fn, iters: int = 100) -> float:
+    """Wall time of one eager call in ms on the card, host launch overhead
+    included."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters

@@ -7,19 +7,28 @@ pivoted-QR factors of W, λ (r,) the trained coefficients; ΔW is never
 formed.
 
 Replaces ``repro/kernels/qrlora_matmul.py::qrlora_matmul_kernel``.  The CUDA
-source is ``csrc/qrlora_matmul.cu``: a first pass writes ``P = (x·B) ⊙ λ``
-(M, r) in fp32, and the main pass computes x·W in 64×64 tiles (bf16 on the
-tensor cores through wmma, its tiles staged by ``cp.async`` two steps deep;
-float32 on the CUDA cores) and adds ``P·A`` in an fp32 epilogue, writing
-x's dtype.  At the training shapes (M = 2048,
-K = 576, N = 576, r = 128) the bound is ≈ 2.0 µs of bf16 tensor-core
-operations; PERF.md has the kernel's times.
+source is ``csrc/qrlora_matmul.cu``.  For bf16 x everything runs on the
+tensor cores: a P pass writes ``P' = scale · λ ⊙ (x·B)`` split into two
+bf16 halves (P_hi = bf16(P'), P_lo = bf16(P' − P_hi); exact products
+against the bf16 A, ≈ 16 bits of P' kept), and the main pass is one K loop
+of depth K + 2r over ``[x | P_hi | P_lo]`` against ``[W ; A ; A]``: wgmma
+from shared memory, tiles brought by TMA into an mbarrier ring, the fp32
+accumulator in registers until y is written in x's dtype.  The main pass is
+launched as a programmatic dependent of the P pass and waits for P only
+before its first P step; where the output tiles are too few to fill the
+card (a 64-row forward) it splits K over a thread-block cluster and sums
+the ranks' partial tiles in rank order.  :func:`qrlora_matmul_plan` says
+how a shape is tiled.  At the training shapes (M = 2048, K = 576, N = 576,
+r = 128) the bound is ≈ 2.0 µs of bf16 tensor-core operations; at 64 rows
+only latency bounds it.  float32 x keeps a CUDA-core route (fp32 P, fp32
+epilogue).  PERF.md has the kernel's times.
 
 The quantized base (:func:`qrlora_matmul_quant_cuda`, replacing
-``qrlora_matmul_quant_kernel``) is the same kernel whose main pass streams
-int8 or fp8-e4m3 q (K, N) instead of W (widened to bf16 in shared memory,
-exactly, for the tensor cores) and multiplies the x·q sum by a per-column
-``w_scale`` (N,) before adding the adapter term:
+``qrlora_matmul_quant_kernel``) runs the same main pass over int8 or
+fp8-e4m3 q (K, N) instead of W, widened to bf16 (exactly) by a warpgroup
+of its own one stage ahead of the products, and multiplies the full x·q sum
+by a per-column ``w_scale`` (N,), rounded in fp32, before any adapter
+product is added:
 
     y = (x·q)·w_scale + ((x·B) * λ) · A · scale
 
@@ -58,6 +67,8 @@ def _library():
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_matmul_quant_launch.restype = ctypes.c_int
+        lib.qrlora_matmul_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.qrlora_matmul_plan.restype = None
         lib.qrlora_matmul_error_string.argtypes = [ctypes.c_int]
         lib.qrlora_matmul_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -68,7 +79,8 @@ def qrlora_matmul_cuda(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: x (M,K) and W (K,N) in one of
     float32/bfloat16, the QR factors B (K,r) and A (r,N) in bfloat16 (as
     ``init_adapters`` makes them), λ (r,) float32; all contiguous, and for
-    bfloat16 x with K, N, r multiples of 8 and x, W, B 16-byte aligned.
+    bfloat16 x with K, N, r multiples of 8 and x, W, B, A 16-byte aligned
+    (TMA reads them).
     Returns (M,N) in x's dtype.  Adds one to ``qrlora_matmul_cuda.launches``
     per launch."""
     M, K = x.shape
@@ -82,12 +94,13 @@ def qrlora_matmul_cuda(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
         ("lam", lam, (torch.float32,), (r,)),
     ):
         _check(name, t, dtypes, shape, dev, kernel="qrlora_matmul")
-    if x.dtype == torch.bfloat16:  # the bf16 tiles travel in 16-byte copies of 8 elements
+    if x.dtype == torch.bfloat16:  # TMA: 16-byte row strides and bases
         if K % 8 or N % 8 or r % 8:
             raise ValueError(f"qrlora_matmul: bf16 needs K, N, r multiples of 8, got {K}, {N}, {r}")
-        if any(t.data_ptr() % 16 for t in (x, W, B)):
-            raise ValueError("qrlora_matmul: bf16 x, W, B must be 16-byte aligned")
+        if any(t.data_ptr() % 16 for t in (x, W, B, A)):
+            raise ValueError("qrlora_matmul: bf16 x, W, B, A must be 16-byte aligned")
     lib = _library()
+    # fp32 P for float32 x; P_hi then P_lo, bf16 (M, r) each, for bfloat16 x
     P = torch.empty((M, r), dtype=torch.float32, device=dev)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     err = lib.qrlora_matmul_launch(
@@ -106,6 +119,20 @@ def qrlora_matmul_cuda(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
 qrlora_matmul_cuda.launches = 0
 
 
+def qrlora_matmul_plan(M: int, K: int, N: int, r: int) -> dict:
+    """How the bf16 route tiles an (M, K) × (K, N) product of rank r on the
+    current card (both one-λ kernels): ``tile_m`` rows per tile (both
+    passes), ``tile_n`` columns per main-pass tile; ``cluster`` CTAs splitting its K loop (1: none), of which
+    ``ranks_x`` take x·W steps and the rest P steps; ``p_cluster`` the P
+    pass's split.  Step g of a rank's loop is x·W over K-columns
+    ``[64·g, 64·g + 64)`` for ``g < ⌈K/64⌉``, then P_hi and P_lo over rank
+    columns ``[64·j, 64·j + 64)``."""
+    plan = (ctypes.c_int * 5)()
+    _library().qrlora_matmul_plan(M, K, N, r, ctypes.addressof(plan))
+    return {"tile_m": plan[4], "tile_n": plan[0], "cluster": plan[1], "ranks_x": plan[2],
+            "p_cluster": plan[3]}
+
+
 def qrlora_matmul(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
     """2-D one-λ adapter matmul: the plain version for CPU tensors, the
     kernel for CUDA tensors (no fallback between the two)."""
@@ -120,8 +147,8 @@ def qrlora_matmul_quant_cuda(x, q, w_scale, B, A, lam, scale: float = 1.0) -> to
     """Launch the quantized-base one-λ kernel on CUDA tensors: x (M,K) in
     float32/bfloat16, q (K,N) int8 or float8_e4m3fn, w_scale (N,) float32,
     B (K,r) and A (r,N) bfloat16, λ (r,) float32; all contiguous, and for
-    bfloat16 x with K and N multiples of 16, r a multiple of 8, and x, q, B
-    16-byte aligned.  Returns (M,N) in x's dtype.  Adds one to
+    bfloat16 x with K and N multiples of 16, r a multiple of 8, and x, q,
+    B, A 16-byte aligned (TMA reads them).  Returns (M,N) in x's dtype.  Adds one to
     ``qrlora_matmul_quant_cuda.launches`` per launch."""
     M, K = x.shape
     N, r = q.shape[1], B.shape[1]
@@ -135,13 +162,13 @@ def qrlora_matmul_quant_cuda(x, q, w_scale, B, A, lam, scale: float = 1.0) -> to
         ("lam", lam, (torch.float32,), (r,)),
     ):
         _check(arg, t, dtypes, shape, dev, kernel=name)
-    if x.dtype == torch.bfloat16:  # q tiles travel in 16-byte copies of 16 elements
+    if x.dtype == torch.bfloat16:  # TMA boxes: 16-byte rows of q, 16-byte aligned bases
         if K % 16 or N % 16 or r % 8:
             raise ValueError(
                 f"{name}: bf16 needs K, N multiples of 16 and r of 8, got {K}, {N}, {r}"
             )
-        if any(t.data_ptr() % 16 for t in (x, q, B)):
-            raise ValueError(f"{name}: bf16 x, q, B must be 16-byte aligned")
+        if any(t.data_ptr() % 16 for t in (x, q, B, A)):
+            raise ValueError(f"{name}: bf16 x, q, B, A must be 16-byte aligned")
     lib = _library()
     P = torch.empty((M, r), dtype=torch.float32, device=dev)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)

@@ -47,6 +47,43 @@ def qrlora_matmul_quant_ref(x, q, w_scale, B, A, lam, scale: float = 1.0):
     return (y + low * scale).to(x.dtype)
 
 
+def qrlora_matmul_split_ref(x, W, w_scale, B, A, lam, scale: float = 1.0, *,
+                            lo_half: bool = True, skip_steps=()):
+    """The bf16 one-λ kernels' arithmetic in plain PyTorch, for the tests
+    and the card's checks (never the main path).
+
+    ``P' = (x·B) · (scale·λ)`` in fp32 is split into ``P_hi = bf16(P')`` and
+    ``P_lo = bf16(P' − P_hi)``; then one fp32 K loop of 64-deep steps runs
+    over ``[x | P_hi | P_lo]`` against ``[W ; A ; A]``: step g < ⌈K/64⌉ is
+    x·W over K-columns ``[64·g, 64·g + 64)``, the next ⌈r/64⌉ are P_hi·A
+    over rank columns, the last ⌈r/64⌉ P_lo·A.  For a quantized
+    base (W is int8/fp8 q and ``w_scale`` (N,) fp32; None otherwise) the
+    full x·q sum is multiplied by w_scale, rounded in fp32, before the
+    first P step.  ``lo_half=False`` leaves P_lo out (a single bf16 P');
+    ``skip_steps`` leaves those steps out (what a kernel that drops them
+    would give).  Result in x's dtype.
+    """
+    step = 64  # the kernel's K step (TK)
+    xf, Wf, Af = x.float(), W.float(), A.float()
+    K, r = x.shape[1], B.shape[1]
+    nkx, nkr = -(-K // step), -(-r // step)
+    p = (xf @ B.float()) * (scale * lam.float())
+    hi = p.bfloat16()
+    halves = (hi, (p - hi.float()).bfloat16()) if lo_half else (hi,)
+    y = torch.zeros((x.shape[0], W.shape[1]), dtype=torch.float32, device=x.device)
+    for g in range(nkx):
+        if g not in skip_steps:
+            y = y + xf[:, g * step:(g + 1) * step] @ Wf[g * step:(g + 1) * step]
+    if w_scale is not None:
+        y = y * w_scale.float()
+    for h, half in enumerate(halves):
+        for c in range(nkr):
+            if nkx + h * nkr + c not in skip_steps:
+                cols = slice(c * step, (c + 1) * step)
+                y = y + half[:, cols].float() @ Af[cols]
+    return y.to(x.dtype)
+
+
 def qrlora_bgmv_quant_ref(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.0):
     """Quantized-base batched multi-λ matmul:
     ``y_m = (x_m·q)·w_scale + ((x_m·B) * Λ[seg_m])·A·scale``, with the

@@ -144,12 +144,20 @@ def _matmul_inputs(gen, M, K, N, r, x_dtype, rank=None):
     return x, W, B.bfloat16(), A.bfloat16(), lam
 
 
+# (M, K, N, r): the training shapes (wq N=576, wv N=192, rank cap 128); the
+# 64-row scoring forward and M = 1, whose few output tiles split K over a
+# cluster; the kernel bench's fused adapter; ragged shapes, and K = 208,
+# whose last K step is partial and whose steps do not divide evenly over
+# the cluster's ranks.
+MATMUL_SHAPES = [(2048, 576, 576, 128), (37, 576, 192, 128), (1, 48, 16, 8), (130, 104, 72, 40),
+                 (64, 576, 576, 128), (64, 576, 192, 128), (1, 576, 576, 128),
+                 (512, 768, 768, 160), (64, 208, 192, 24)]
+
+
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("M,K,N,r", [(2048, 576, 576, 128), (37, 576, 192, 128),
-                                     (1, 48, 16, 8), (130, 104, 72, 40)])
+@pytest.mark.parametrize("M,K,N,r", MATMUL_SHAPES)
 def test_qrlora_matmul_kernel_matches_plain(gen, x_dtype, M, K, N, r):
-    """The training shapes (wq N=576, wv N=192, rank cap 128) and ragged
-    ones; columns past the selected rank are zero."""
+    """Columns past the selected rank are zero."""
     args = _matmul_inputs(gen, M, K, N, r, x_dtype, rank=r // 2)
     before = qrlora_matmul_cuda.launches
     y = qrlora_matmul_cuda(*args, scale=0.7)
@@ -241,7 +249,8 @@ def test_bgmv_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K, N, r):
 @pytest.mark.parametrize("base_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,K,N,r", [(2048, 576, 576, 128), (37, 576, 192, 128),
-                                     (130, 112, 80, 40)])
+                                     (130, 112, 80, 40), (64, 576, 576, 128),
+                                     (64, 576, 192, 128), (1, 576, 576, 128), (64, 208, 192, 24)])
 def test_qrlora_matmul_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K, N, r):
     x, W, B, A, lam = _matmul_inputs(gen, M, K, N, r, x_dtype, rank=r // 2)
     q, ws = _quantized(W, base_dtype)
@@ -251,6 +260,59 @@ def test_qrlora_matmul_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K
     assert qrlora_matmul_quant_cuda.launches == before + 1
     assert y.dtype == x_dtype and y.shape == (M, N)
     assert _close(y, qrlora_matmul_quant_ref(x, q, ws, B, A, lam, 0.7), "qrlora_matmul_quant")
+
+
+def _graph_call(fn):
+    """fn's output captured in a CUDA graph and replayed once."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("base", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("M,N", [(2048, 576), (64, 576), (64, 192), (37, 192)])
+def test_qrlora_matmul_kernels_bitwise_across_calls_and_graph_replay(gen, base, M, N):
+    """No atomics and fixed orders (a split K is summed in rank order): two
+    calls give the same bits, and so does a replay of a captured call (the
+    main pass is a programmatic dependent of the P pass under capture too).
+    One launch is counted per call."""
+    x, W, B, A, lam = _matmul_inputs(gen, M, 576, N, 128, torch.bfloat16, rank=100)
+    if base == "bf16":
+        fn, wrapper = (lambda: qrlora_matmul_cuda(x, W, B, A, lam, 0.7)), qrlora_matmul_cuda
+        ref = qrlora_matmul_ref(x, W, B, A, lam, 0.7)
+    else:
+        q, ws = _quantized(W, base)
+        fn = lambda: qrlora_matmul_quant_cuda(x, q, ws, B, A, lam, 0.7)
+        wrapper = qrlora_matmul_quant_cuda
+        ref = qrlora_matmul_quant_ref(x, q, ws, B, A, lam, 0.7)
+    before = wrapper.launches
+    y1, y2 = fn(), fn()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    assert torch.equal(y1, y2)
+    assert torch.equal(_graph_call(fn), y1)
+    assert _close(y1, ref, "qrlora_matmul" if base == "bf16" else "qrlora_matmul_quant")
+
+
+def test_qrlora_matmul_plan_splits_only_few_tiles(gen):
+    """The 64-row forward's 9 (wq) or 3 (wv) output tiles split K over a
+    cluster, x·W ranks before P ranks; the training shapes do not."""
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_plan
+
+    for N in (576, 192):
+        small = qrlora_matmul_plan(64, 576, N, 128)
+        assert 1 < small["cluster"] <= 8 and 1 <= small["ranks_x"] < small["cluster"]
+        assert qrlora_matmul_plan(2048, 576, N, 128)["cluster"] == 1
+    assert qrlora_matmul_plan(64, 576, 576, 0)["p_cluster"] == 0
 
 
 def test_quantized_serve_and_forward_launch_the_quantized_kernels(gen):

@@ -308,7 +308,7 @@ def test_qrlora_matmul_wrapper_validates_and_never_falls_back():
     with pytest.raises(ValueError):
         tmm.qrlora_matmul_cuda(x, W, B, A, lam[:4])  # λ length != rank
     xb, Wb = x.bfloat16(), W.bfloat16()
-    with pytest.raises(ValueError):  # bf16 tiles travel in copies of 8 elements
+    with pytest.raises(ValueError):  # TMA reads bf16 rows of 16-byte multiples
         tmm.qrlora_matmul_cuda(xb[:, :60].contiguous(), Wb[:60].contiguous(),
                                B[:60].contiguous(), A, lam)
     with pytest.raises(ValueError):  # ... from 16-byte aligned addresses

@@ -301,7 +301,7 @@ def test_quant_kernel_wrappers_validate_before_launching():
         tbgmv.qrlora_bgmv_quant_cuda(x, q, ws[:-1], B, A, tab, seg)
     with pytest.raises(TypeError):  # the QR factors are bf16
         tmm.qrlora_matmul_quant_cuda(x, q, ws, B.float(), A, lam)
-    with pytest.raises(ValueError):  # bf16 q tiles travel in 16-element copies
+    with pytest.raises(ValueError):  # TMA reads q rows of 16-byte multiples
         tmm.qrlora_matmul_quant_cuda(x[:, :248].contiguous(), q[:248].contiguous(), ws,
                                      B[:248].contiguous(), A, lam)
     with pytest.raises(ValueError):  # ... from 16-byte aligned addresses
