@@ -490,24 +490,15 @@ def check_matmul_replay(gen):
     return rows
 
 
-def _rank_steps(plan, K: int, r: int, rank: int):
-    """The K-loop steps that cluster rank ``rank`` runs under ``plan``
-    (``qrlora_matmul_plan``): x·W steps stride over the first ``ranks_x``
-    ranks, the P steps (P_hi's, then P_lo's) over the rest."""
-    nkx, nkr = -(-K // 64), -(-r // 64)
-    if rank < plan["ranks_x"]:
-        return tuple(range(rank, nkx, plan["ranks_x"]))
-    return tuple(range(nkx + rank - plan["ranks_x"], nkx + 2 * nkr,
-                       plan["cluster"] - plan["ranks_x"]))
-
-
 def planted_matmul_faults(gen):
     """Controls for the one-λ checks, each what a kernel that drops part of
     its K loop would give (``ref.qrlora_matmul_split_ref`` with those steps
     left out), read as a fraction of the bf16 bound against the plain
     version; each must be rejected (> 1).  One x·W step of the training
     wq projection; the last P step of each half at full rank; at 64 rows
-    on an int8 base, every step of one cluster rank (rank 1, an x·q rank)."""
+    on an int8 base, every step of one cluster rank (rank 1, an x·q rank),
+    as the kernel's own plan (``qrlora_matmul_plan``) gives that rank's
+    steps."""
     import torch
     from repro_torch.benchmarks.common import err_over_bound
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_plan
@@ -535,7 +526,7 @@ def planted_matmul_faults(gen):
     tol = (*_tol("qrlora_matmul_quant", torch.bfloat16), 0.0)
     plan = qrlora_matmul_plan(SCORE_ROWS, K, 576, r)
     _check(plan["cluster"] > 1, f"the 64-row projection does not split K: {plan}")
-    skip = _rank_steps(plan, K, r, 1)
+    skip = plan["steps"][1]
     out["sound_int8_M64"] = err_over_bound(qrlora_matmul_quant_cuda(x, q, ws, B, A, lam, 0.7),
                                            ref, tol)
     out["split_rank_dropped"] = err_over_bound(
@@ -879,7 +870,7 @@ def time_matmul(gen, N: int):
     """wq (N=576) / wv (N=192) projection of a training step: batch 8 ×
     seq 256 = 2048 rows, bf16."""
     import torch
-    from repro_torch.benchmarks.common import eager_ms, graph_ms
+    from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
     from repro_torch.kernels.ref import qrlora_matmul_ref
 
@@ -891,6 +882,7 @@ def time_matmul(gen, N: int):
            "plain_ms": graph_ms(lambda: qrlora_matmul_ref(x, W, B, A, lam)),
            "library_ms": graph_ms(lambda: x @ W + ((x @ B) * lam16) @ A)}
     res["eager_ms"] = eager_ms(kernel)
+    res["launch_us"] = launch_us(kernel)  # the P pass and the main pass
     n_bytes = 2 * (M * K + K * N + K * r + r * N + M * N) + 4 * r
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
@@ -962,7 +954,7 @@ def time_matmul_quant(gen, M: int, N: int, base: str):
     """The one-λ projection on a quantized base: M rows (a scoring forward's
     sequence, or 2048), bf16 x, int8 or fp8 q."""
     import torch
-    from repro_torch.benchmarks.common import eager_ms, graph_ms
+    from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_quant_cuda
     from repro_torch.kernels.ref import qrlora_matmul_quant_ref
 
@@ -975,6 +967,7 @@ def time_matmul_quant(gen, M: int, N: int, base: str):
            "plain_ms": graph_ms(lambda: qrlora_matmul_quant_ref(x, q, ws, B, A, lam)),
            "library_ms": graph_ms(lambda: (x @ q.to(x.dtype)) * ws16 + ((x @ B) * lam16) @ A)}
     res["eager_ms"] = eager_ms(kernel)
+    res["launch_us"] = launch_us(kernel)  # the P pass and the main pass
     n_bytes = 2 * (M * K + K * r + r * N + M * N) + K * N + 4 * (N + r)
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
@@ -1828,6 +1821,9 @@ def main(argv=None) -> None:
               f"{t['plain_ms']:.5f} ms, library {t['library_ms']} ms, bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']}) at {t['shape']} on {smi}; "
               f"timed by CUDA-graph replay")
+        if "launch_us" in t:
+            print(f"  {name} device µs per launch (torch.profiler, eager calls): "
+                  + "; ".join(f"{k} {us:.3f}" for k, us in t["launch_us"].items()))
     report["timings"] = timings
 
     # -- the kernel bench: flash and dense decode attention's path ----------

@@ -156,3 +156,23 @@ def eager_ms(fn, iters: int = 100) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def launch_us(fn, calls: int = 20) -> dict:
+    """Mean device µs of each kernel that one call of ``fn`` launches, by
+    kernel name (template arguments kept, parameters cut), over ``calls``
+    eager calls under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            out[name.split("(")[0]] = e.device_time_total / e.count
+    return out

@@ -49,9 +49,9 @@
 //    wave is taken: on the card, splits over 2 or 4 ranks lost to both.
 //  * Tiles are 64 × 64 (one consumer warpgroup).  Timed on the card
 //    against 128 × 64 (two warpgroups sharing each W tile), 64 × 192 and
-//    128 × 192 (QRLORA_TILE_M / QRLORA_TILE_N, for
-//    repro_torch.benchmarks.qrlora_tilings): 64 × 192 won the bf16 wq
-//    projection at 2048 rows by 8% and lost the other six timed shapes.
+//    128 × 192: 64 × 192 took the bf16 wq projection at 2048 rows by 6%
+//    and lost bf16 wv by 21% and the int8/fp8 shapes by 14-33%; the two
+//    128-row tiles lost or tied at every shape (PERF.md has the times).
 //    At 2048 rows the main pass reads ≈ 56 MB from L2 at wq (each x tile
 //    once per column tile, each W tile once per row tile), ≈ 5.6 TB/s over
 //    its profiled ≈ 10 µs; a 64-row forward is the chain of two launches
@@ -80,16 +80,6 @@
 
 #include <algorithm>
 
-#ifndef QRLORA_TILE_M
-#define QRLORA_TILE_M 64  // rows of an output tile: 64 per consumer warpgroup (64 or 128)
-#endif
-#ifndef QRLORA_TILE_N
-#define QRLORA_TILE_N 64  // columns of a main-pass output tile (64 or 192)
-#endif
-#ifndef QRLORA_MAX_CLUSTER
-#define QRLORA_MAX_CLUSTER 8  // the most CTAs a K loop is split over (1: never split)
-#endif
-
 namespace {
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -106,32 +96,42 @@ __device__ __forceinline__ float to_f(fp8 v) { return static_cast<float>(v); }
 // The tensor-core route (bf16 x): TMA, mbarriers, wgmma, clusters.
 // ---------------------------------------------------------------------------
 
-constexpr int TK = 64;             // depth of a K step: one 128-byte swizzled row of bf16
-constexpr int STAGES = 4;          // the ring's depth
-constexpr int WG_ROWS = 64;        // rows of a consumer warpgroup's share: one wgmma M
-constexpr int MAX_CLUSTER = QRLORA_MAX_CLUSTER;  // ≤ 8, the portable cluster size
-constexpr int P_TILE_N = 64;       // output columns of a P-pass tile
-constexpr int BOX_BYTES = TK * 64 * 2;  // one 64 × 64 bf16 TMA box (8 KB)
+constexpr int TK = 64;       // depth of a K step: one 128-byte swizzled row of bf16
+constexpr int STAGES = 4;    // the ring's depth
+constexpr int TM = 64;       // rows of an output tile: one wgmma M, one consumer warpgroup
+constexpr int BN = 64;       // columns of an output tile (both passes): one 64 × 64 TMA box
+constexpr int CONSUMERS = 128;   // the consumer warpgroup
+constexpr int MAX_CLUSTER = 8;   // the portable cluster size: the most CTAs a K loop takes
+constexpr int BOX_BYTES = TK * BN * 2;  // one 64 × 64 bf16 TMA box (8 KB)
 
-// WG consumer warpgroups share each W tile (a TM = 64·WG row tile); BN
-// output columns; W of type TW (bf16, or 1-byte q).
-template <int WG, int BN, typename TW>
+// The shared memory of a CTA whose W is of type TW (bf16, or 1-byte q).
+template <typename TW>
 struct Plan {
   static constexpr bool kQuant = sizeof(TW) == 1;
-  static constexpr int kTM = WG_ROWS * WG;
-  static constexpr int kConsumers = 128 * WG;
   static constexpr int kWideners = kQuant ? 128 : 0;  // the widening warpgroup
-  static constexpr int kThreads = kConsumers + kWideners + 32;  // + the producer warp
-  static constexpr int kXBytes = kTM * TK * 2;         // x or P tile
+  static constexpr int kThreads = CONSUMERS + kWideners + 32;  // + the producer warp
+  static constexpr int kXBytes = TM * TK * 2;          // x or P tile
   static constexpr int kWBytes = TK * BN * 2;          // W or A tile (bf16)
   static constexpr int kQBytes = kQuant ? TK * BN : 0; // raw q tile
   static constexpr int kStage = kXBytes + kWBytes + kQBytes;
-  static constexpr int kPart = BN / 2 * kConsumers * 4;  // a split-K partial tile, fp32
+  static constexpr int kPart = BN / 2 * CONSUMERS * 4;  // a split-K partial tile, fp32
   static constexpr int kBars = cmax(STAGES * kStage, kPart);
   static constexpr int kSmem = kBars + 3 * STAGES * 8 + 1024;  // + alignment slack
   static_assert(kStage % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
-  static_assert(BN % 64 == 0 && BN <= 256, "a tile is whole 64-column swizzle atoms");
 };
+
+// The K steps a CTA runs: g = first, first + stride, … < end.  Step g is
+// x·W over K-columns [g·TK, g·TK + TK) for g < nkx, else P step j = g − nkx.
+// A lone CTA (cs = 1) walks all nkx + 2·nkr; in a cluster, ranks < ranks_x
+// stride over the x steps and the others over the P steps.
+struct Steps {
+  int first, stride, end;
+};
+__host__ __device__ __forceinline__ Steps rank_steps(int rank, int cs, int ranks_x, int nkx, int nkr) {
+  if (cs == 1) return {0, 1, nkx + 2 * nkr};
+  if (rank < ranks_x) return {rank, ranks_x, nkx};
+  return {nkx + rank - ranks_x, cs - ranks_x, nkx + 2 * nkr};
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -199,9 +199,9 @@ __device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
 // start address, leading and stride byte offsets, each in 16-byte units.
 // K-major (x, P): 8-row groups 1024 bytes apart (SBO); a k16 slice starts
 // 32 bytes further along the swizzled row.  N-major (W, A): one TMA box
-// holds 64 columns × 64 K-rows, 8-row groups 1024 bytes apart (SBO), and
-// the next 64 columns are the next box, BOX_BYTES on (LBO); a k16 slice is
-// 16 rows, 2048 bytes, further.
+// holds the tile's 64 columns × 64 K-rows, 8-row groups 1024 bytes apart
+// (SBO; the LBO, a box apart, would step to a next 64 columns); a k16
+// slice is 16 rows, 2048 bytes, further.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
@@ -218,7 +218,7 @@ __device__ __forceinline__ void wgmma_wait_all_but_one() {
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
-// d += a·b for a 64 × 16 K-major a and a 16 × N N-major b (imm-trans-b = 1),
+// d += a·b for a 64 × 16 K-major a and a 16 × 64 N-major b (imm-trans-b = 1),
 // both from shared memory.
 __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
@@ -233,46 +233,6 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t a, uint64_t b
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
 }
-#if QRLORA_TILE_N == 192
-__device__ __forceinline__ void wgmma_n192(float (&d)[96], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(a), "l"(b), "r"(1));
-}
-#endif
-
-template <int BN>
-__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a, uint64_t b) {
-#if QRLORA_TILE_N == 192
-  if constexpr (BN == 192) {
-    wgmma_n192(d, a, b);
-    return;
-  }
-#endif
-  static_assert(BN == 64 || BN == QRLORA_TILE_N, "a 64-column or the main pass's tile");
-  if constexpr (BN == 64) wgmma_n64(d, a, b);
-}
-
 // Four 1-byte q values (one word) → four bf16 (two words), exactly, with
 // integer and bf16x2 operations only.
 //  * int8: u = v + 128 as a byte; the float with bits 0x4B0000uu is 2²³ + u,
@@ -351,37 +311,42 @@ __device__ __forceinline__ int frag_row(int t, int h) { return 16 * (t / 32) + (
 __device__ __forceinline__ int frag_col(int t, int i) { return 8 * i + 2 * (t % 4); }
 
 // The full x·q sum of a lone CTA's tile times w_scale, rounded in fp32,
-// before any adapter product is added to it.
-template <int BN>
+// before any adapter product is added to it.  The thread's 16 scales are
+// loaded before the wait, so the loads are in flight together and under
+// the last x·q products (issued one after another, they cost ≈ 6% of the
+// 2048-row quantized projection on the card).
 __device__ __forceinline__ bool dequant(float (&acc)[BN / 2], const Args& a, int n0, int t) {
-  wgmma_wait_all();  // the last x·q products have landed
+  float w[BN / 4];
 #pragma unroll
   for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int n = n0 + frag_col(t, i) + e;
-      const float w = n < a.N ? a.w_scale[n] : 0.f;
-      acc[4 * i + e] = __fmul_rn(acc[4 * i + e], w);
-      acc[4 * i + 2 + e] = __fmul_rn(acc[4 * i + 2 + e], w);
+      w[2 * i + e] = n < a.N ? __ldg(a.w_scale + n) : 0.f;
+    }
+  wgmma_wait_all();  // the last x·q products have landed
+#pragma unroll
+  for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      acc[4 * i + e] = __fmul_rn(acc[4 * i + e], w[2 * i + e]);
+      acc[4 * i + 2 + e] = __fmul_rn(acc[4 * i + 2 + e], w[2 * i + e]);
     }
   return true;
 }
 
 // One (TM × BN) output tile, or a cluster rank's share of it (blockIdx.x =
-// tile column · cluster size + rank, blockIdx.y = tile row).  Step g of the
-// K loop is x·W over K-columns [g·TK, g·TK + TK) for g < nkx, else the P
-// step j = g − nkx: P_hi (j < nkr) or P_lo over ranks [(j mod nkr)·TK, +TK)
-// against the same rows of A.  A lone CTA walks every step; in a cluster,
-// ranks < ranks_x stride over the x steps and the others over the P steps.
+// tile column · cluster size + rank, blockIdx.y = tile row), over the steps
+// of rank_steps.  The P step j is P_hi (j < nkr) or P_lo over ranks
+// [(j mod nkr)·TK, +TK) against the same rows of A.
 // kPPass: W is B, there are no P steps, and the epilogue writes P_hi/P_lo.
-template <int WG, int BN, typename TW, bool kPPass>
-__global__ void __launch_bounds__((Plan<WG, BN, TW>::kThreads))
+template <typename TW, bool kPPass>
+__global__ void __launch_bounds__(Plan<TW>::kThreads)
 tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
           const __grid_constant__ CUtensorMap tm_phi, const __grid_constant__ CUtensorMap tm_plo,
           const __grid_constant__ CUtensorMap tm_a, const Args args) {
-  using L = Plan<WG, BN, TW>;
+  using L = Plan<TW>;
   constexpr bool kQuant = L::kQuant;
-  constexpr int CONSUMERS = L::kConsumers;
   static_assert(!(kQuant && kPPass), "the P pass multiplies by B, never by q");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -403,16 +368,9 @@ tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
   __syncthreads();
 
   const uint32_t cs = cluster_size(), rank = cluster_rank();
-  const int m0 = blockIdx.y * L::kTM, n0 = (blockIdx.x / cs) * BN;
-  const int n_steps = args.nkx + 2 * args.nkr;
-  int first = 0, stride = 1, end = n_steps;
-  if (cs > 1) {
-    if (static_cast<int>(rank) < args.ranks_x) {
-      first = rank, stride = args.ranks_x, end = args.nkx;
-    } else {
-      first = args.nkx + rank - args.ranks_x, stride = cs - args.ranks_x;
-    }
-  }
+  const int m0 = blockIdx.y * TM, n0 = (blockIdx.x / cs) * BN;
+  const Steps steps = rank_steps(rank, cs, args.ranks_x, args.nkx, args.nkr);
+  const int first = steps.first, stride = steps.stride, end = steps.end;
 
   if (tid >= CONSUMERS + L::kWideners) {
     // ---- producer: one thread keeps the ring's loads in flight ----
@@ -431,12 +389,7 @@ tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
           const int k0 = g * TK;
           mbar_expect_tx(bar, L::kXBytes + (kQuant ? L::kQBytes : L::kWBytes));
           tma_2d(xs, &tm_x, bar, k0, m0);
-          if constexpr (kQuant) {
-            tma_2d(ws + L::kWBytes, &tm_w, bar, n0, k0);
-          } else {
-#pragma unroll
-            for (int b = 0; b < BN / 64; ++b) tma_2d(ws + b * BOX_BYTES, &tm_w, bar, n0 + 64 * b, k0);
-          }
+          tma_2d(kQuant ? ws + L::kWBytes : ws, &tm_w, bar, n0, k0);
         } else {
           if (!waited) {  // P is the P pass's output: wait for that grid here, and only here
             asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -445,14 +398,13 @@ tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
           const int j = g - args.nkx, c0 = (j % args.nkr) * TK;
           mbar_expect_tx(bar, L::kXBytes + L::kWBytes);
           tma_2d(xs, j < args.nkr ? &tm_phi : &tm_plo, bar, c0, m0);
-#pragma unroll
-          for (int b = 0; b < BN / 64; ++b) tma_2d(ws + b * BOX_BYTES, &tm_a, bar, n0 + 64 * b, c0);
+          tma_2d(ws, &tm_a, bar, n0, c0);
         }
       }
     }
   } else if (tid >= CONSUMERS) {
     // ---- widening warpgroup: raw q tile → bf16 W tile, swizzled as TMA
-    // would lay it (row k of a 64-column box: 16-byte chunk c at c ^ (k % 8))
+    // would lay it (row k: 16-byte chunk c at c ^ (k % 8))
     if constexpr (kQuant) {
       const int wt = tid - CONSUMERS;
       for (int g = first, it = 0; g < end && g < args.nkx; g += stride, ++it) {
@@ -463,10 +415,10 @@ tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
         unsigned char* w = st + L::kXBytes;
 #pragma unroll
         for (int u = wt; u < TK * BN / 16; u += L::kWideners) {
-          const int k = u / (BN / 16), cg = u % (BN / 16), c = 2 * (cg % 4);
+          const int k = u / (BN / 16), cg = u % (BN / 16), c = 2 * cg;
           uint4 lo, hi;
           widen16<TW>(*reinterpret_cast<const uint4*>(q + k * BN + 16 * cg), lo, hi);
-          unsigned char* row = w + (cg / 4) * BOX_BYTES + k * 128;
+          unsigned char* row = w + k * 128;
           *reinterpret_cast<uint4*>(row + ((c ^ (k & 7)) << 4)) = lo;
           *reinterpret_cast<uint4*>(row + (((c + 1) ^ (k & 7)) << 4)) = hi;
         }
@@ -475,9 +427,7 @@ tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
       }
     }
   } else {
-    // ---- consumer warpgroups: wgmma over the ring, accumulators in
-    // registers; warpgroup wg owns rows [64·wg, 64·wg + 64) of the tile ----
-    const int wg = tid / 128, lt = tid % 128, mw = m0 + WG_ROWS * wg;
+    // ---- consumer warpgroup: wgmma over the ring, accumulator in registers ----
     float acc[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
@@ -491,15 +441,14 @@ tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
         if (g < args.nkx)
           mbar_wait(wide0 + 8 * s, ph);
         else if (!scaled)
-          scaled = dequant<BN>(acc, args, n0, lt);
+          scaled = dequant(acc, args, n0, tid);
       }
       __syncwarp();
-      const uint32_t xs = smem_u32(smem + s * L::kStage), ws = xs + L::kXBytes,
-                     rows = xs + wg * WG_ROWS * 128;  // this warpgroup's 64 rows of the x/P tile
+      const uint32_t xs = smem_u32(smem + s * L::kStage), ws = xs + L::kXBytes;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk)
-        wgmma_tile<BN>(acc, sw128_desc(rows + 32 * kk, 16), sw128_desc(ws + 2048 * kk, BOX_BYTES));
+        wgmma_n64(acc, sw128_desc(xs + 32 * kk, 16), sw128_desc(ws + 2048 * kk, BOX_BYTES));
       wgmma_commit();
       wgmma_wait_all_but_one();  // the previous step's products have landed: free its stage
       if (held >= 0) mbar_arrive(empty0 + 8 * held);
@@ -507,13 +456,13 @@ tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
     }
     wgmma_wait_all();
     if (held >= 0) mbar_arrive(empty0 + 8 * held);
-    if (!scaled) scaled = dequant<BN>(acc, args, n0, lt);
+    if (!scaled) scaled = dequant(acc, args, n0, tid);
     if (cs == 1) {
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          store_pair<kPPass>(args, mw + frag_row(lt, h), n0 + frag_col(lt, i), acc[4 * i + 2 * h],
+          store_pair<kPPass>(args, m0 + frag_row(tid, h), n0 + frag_col(tid, i), acc[4 * i + 2 * h],
                              acc[4 * i + 2 * h + 1]);
     } else {  // this rank's partial tile, register-major, for the cluster's sum
       float* part = reinterpret_cast<float*>(smem);
@@ -541,8 +490,7 @@ tc_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUte
             p0 = __fadd_rn(p0, v0), p1 = __fadd_rn(p1, v1);
           }
         }
-        const int row = m0 + WG_ROWS * (tid / 128) + frag_row(tid % 128, h),
-                  col = n0 + frag_col(tid % 128, i);
+        const int row = m0 + frag_row(tid, h), col = n0 + frag_col(tid, i);
         if constexpr (kQuant) {
           if (col < args.N) {  // dequant rounded first, then the adapter term
             x0 = __fmul_rn(x0, args.w_scale[col]);
@@ -605,9 +553,9 @@ struct Split {
 // Split K over a cluster only where every tile can take the full cluster
 // (up to MAX_CLUSTER ranks, no more than there are steps) within one wave
 // of the SMs, the P steps' share of the ranks in proportion to their count.
-// Timed on the card: at 64 rows the full split edges out none, splits over
-// 2 or 4 ranks lose to both, and a split P pass at 2048 rows (64 tiles over
-// 2 ranks) loses to the unsplit one.
+// Timed on the card: at 64 rows the full split gains ≈ 1.5% over none,
+// splits over 2 or 4 ranks lose to both, and a split P pass at 2048 rows
+// (64 tiles over 2 ranks) loses to the unsplit one.
 Split plan_split(int tiles, int nkx, int nkr, int sms) {
   const int steps = nkx + 2 * nkr, cs = std::min(MAX_CLUSTER, steps);
   if (cs < 2 || tiles * cs > sms) return {1, 1};
@@ -625,14 +573,15 @@ int sm_count() {
   return sms;
 }
 
-template <int WG, int BN, typename TW, bool kPPass>
+template <typename TW, bool kPPass>
 cudaError_t launch_tile_kernel(const CUtensorMap& tx, const CUtensorMap& tw, const CUtensorMap& tph,
                                const CUtensorMap& tpl, const CUtensorMap& ta, const Args& args,
                                Split split, int tiles_m, int tiles_n, bool after_p_pass,
                                cudaStream_t stream) {
-  using L = Plan<WG, BN, TW>;
-  auto* kernel = tc_kernel<WG, BN, TW, kPPass>;
-  static const cudaError_t attr =
+  using L = Plan<TW>;
+  auto* kernel = tc_kernel<TW, kPPass>;
+  // on every launch: the attribute holds for the current device only
+  const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (attr != cudaSuccess) return attr;
   cudaLaunchAttribute at[2];
@@ -662,7 +611,6 @@ template <typename TW>
 int launch_tc(const void* x, const void* W, const float* w_scale, const void* B, const void* A,
               const float* lam, void* P, void* y, int M, int K, int N, int r, float scale,
               cudaStream_t stream) {
-  constexpr int WG = QRLORA_TILE_M / WG_ROWS, TM = QRLORA_TILE_M, BN = QRLORA_TILE_N;
   if (M == 0 || N == 0) return 0;
   if (K == 0) return static_cast<int>(cudaErrorInvalidValue);
   bf16* p_hi = static_cast<bf16*>(P);
@@ -679,18 +627,18 @@ int launch_tc(const void* x, const void* W, const float* w_scale, const void* B,
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const int sms = sm_count(), nkx = ceil_div(K, TK), nkr = ceil_div(r, TK), tiles_m = ceil_div(M, TM);
   if (r > 0) {
-    const int tiles_n = ceil_div(r, P_TILE_N);
+    const int tiles_n = ceil_div(r, BN);
     const Split split = plan_split(tiles_m * tiles_n, nkx, 0, sms);
     const Args pa = {lam, nullptr, p_hi, p_lo, M, r, nkx, 0, split.ranks_x, scale};
-    const cudaError_t err = launch_tile_kernel<WG, P_TILE_N, bf16, true>(tx, tb, tb, tb, tb, pa, split, tiles_m,
-                                                                     tiles_n, false, stream);
+    const cudaError_t err = launch_tile_kernel<bf16, true>(tx, tb, tb, tb, tb, pa, split, tiles_m, tiles_n,
+                                                       false, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int tiles_n = ceil_div(N, BN);
   const Split split = plan_split(tiles_m * tiles_n, nkx, nkr, sms);
   const Args ma = {nullptr, w_scale, static_cast<bf16*>(y), nullptr, M, N, nkx, nkr, split.ranks_x, scale};
-  return static_cast<int>(launch_tile_kernel<WG, BN, TW, false>(tx, tw, tph, tpl, ta, ma, split, tiles_m,
-                                                            tiles_n, r > 0, stream));
+  return static_cast<int>(
+      launch_tile_kernel<TW, false>(tx, tw, tph, tpl, ta, ma, split, tiles_m, tiles_n, r > 0, stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -890,20 +838,24 @@ extern "C" int qrlora_matmul_quant_launch(const void* x, const void* q, const fl
   return launch_fp32<int8_t>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, scale, stream);
 }
 
-// How the bf16 route tiles an (M, K) × (K, N) product of rank r on this
-// device: plan[0] the main pass's tile columns, plan[1] its cluster size
-// (1: no split of K), plan[2] the ranks of that cluster on x steps (the
-// rest take P steps, x·W's first), plan[3] the P pass's cluster size,
-// plan[4] the tile rows (both passes).
+// How the bf16 route splits K for an (M, K) × (K, N) product of rank r on
+// this device, in the numbers the kernels use: plan[0] the main pass's
+// cluster size (1: no split), plan[1] the ranks of that cluster on x
+// steps, plan[2] the P pass's cluster size (0 for r = 0); then for each rank
+// c < plan[0] of the main pass, the K steps it runs, plan[3 + 3c …] =
+// first, stride, end (rank_steps).  plan holds 3 + 3·8 ints.
 extern "C" void qrlora_matmul_plan(int M, int K, int N, int r, int* plan) {
-  const int sms = sm_count(), nkx = ceil_div(K, TK), nkr = ceil_div(r, TK),
-            tiles_m = ceil_div(M, QRLORA_TILE_M);
-  const Split main = plan_split(tiles_m * ceil_div(N, QRLORA_TILE_N), nkx, nkr, sms);
-  plan[0] = QRLORA_TILE_N;
-  plan[1] = main.ranks;
-  plan[2] = main.ranks_x;
-  plan[3] = r > 0 ? plan_split(tiles_m * ceil_div(r, P_TILE_N), nkx, 0, sms).ranks : 0;
-  plan[4] = QRLORA_TILE_M;
+  const int sms = sm_count(), nkx = ceil_div(K, TK), nkr = ceil_div(r, TK), tiles_m = ceil_div(M, TM);
+  const Split main = plan_split(tiles_m * ceil_div(N, BN), nkx, nkr, sms);
+  plan[0] = main.ranks;
+  plan[1] = main.ranks_x;
+  plan[2] = r > 0 ? plan_split(tiles_m * ceil_div(r, BN), nkx, 0, sms).ranks : 0;
+  for (int c = 0; c < main.ranks; ++c) {
+    const Steps st = rank_steps(c, main.ranks, main.ranks_x, nkx, nkr);
+    plan[3 + 3 * c] = st.first;
+    plan[4 + 3 * c] = st.stride;
+    plan[5 + 3 * c] = st.end;
+  }
 }
 
 extern "C" const char* qrlora_matmul_error_string(int err) {

@@ -17,8 +17,8 @@ accumulator in registers until y is written in x's dtype.  The main pass is
 launched as a programmatic dependent of the P pass and waits for P only
 before its first P step; where the output tiles are too few to fill the
 card (a 64-row forward) it splits K over a thread-block cluster and sums
-the ranks' partial tiles in rank order.  :func:`qrlora_matmul_plan` says
-how a shape is tiled.  At the training shapes (M = 2048, K = 576, N = 576,
+the ranks' partial tiles in rank order.  Tiles are 64 × 64;
+:func:`qrlora_matmul_plan` says how a shape's K loop is split.  At the training shapes (M = 2048, K = 576, N = 576,
 r = 128) the bound is ≈ 2.0 µs of bf16 tensor-core operations; at 64 rows
 only latency bounds it.  float32 x keeps a CUDA-core route (fp32 P, fp32
 epilogue).  PERF.md has the kernel's times.
@@ -50,6 +50,7 @@ from repro_torch.kernels.qrlora_bgmv import Q_DTYPES, _check
 from repro_torch.kernels.ref import qrlora_matmul_quant_ref, qrlora_matmul_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_MAX_CLUSTER = 8  # the most CTAs the kernel splits a K loop over
 _lib = None
 
 
@@ -120,17 +121,19 @@ qrlora_matmul_cuda.launches = 0
 
 
 def qrlora_matmul_plan(M: int, K: int, N: int, r: int) -> dict:
-    """How the bf16 route tiles an (M, K) × (K, N) product of rank r on the
-    current card (both one-λ kernels): ``tile_m`` rows per tile (both
-    passes), ``tile_n`` columns per main-pass tile; ``cluster`` CTAs splitting its K loop (1: none), of which
-    ``ranks_x`` take x·W steps and the rest P steps; ``p_cluster`` the P
-    pass's split.  Step g of a rank's loop is x·W over K-columns
-    ``[64·g, 64·g + 64)`` for ``g < ⌈K/64⌉``, then P_hi and P_lo over rank
-    columns ``[64·j, 64·j + 64)``."""
-    plan = (ctypes.c_int * 5)()
+    """How the bf16 route splits the K loop of an (M, K) × (K, N) product
+    of rank r on the current card (both one-λ kernels), as the kernel
+    computes it: ``cluster`` CTAs share each main-pass tile (1: no split),
+    of which ``ranks_x`` take x·W steps and the rest P steps;
+    ``p_cluster`` is the P pass's split (0 for r = 0); ``steps[c]`` the K
+    steps that rank c of the main pass runs.  Step g is x·W over K-columns
+    ``[64·g, 64·g + 64)`` for ``g < ⌈K/64⌉``, then P_hi's and P_lo's steps
+    over rank columns ``[64·j, 64·j + 64)``."""
+    plan = (ctypes.c_int * (3 + 3 * _MAX_CLUSTER))()
     _library().qrlora_matmul_plan(M, K, N, r, ctypes.addressof(plan))
-    return {"tile_m": plan[4], "tile_n": plan[0], "cluster": plan[1], "ranks_x": plan[2],
-            "p_cluster": plan[3]}
+    steps = tuple(tuple(range(plan[3 + 3 * c], plan[5 + 3 * c], plan[4 + 3 * c]))
+                  for c in range(plan[0]))
+    return {"cluster": plan[0], "ranks_x": plan[1], "p_cluster": plan[2], "steps": steps}
 
 
 def qrlora_matmul(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:

@@ -305,14 +305,40 @@ def test_qrlora_matmul_kernels_bitwise_across_calls_and_graph_replay(gen, base, 
 
 def test_qrlora_matmul_plan_splits_only_few_tiles(gen):
     """The 64-row forward's 9 (wq) or 3 (wv) output tiles split K over a
-    cluster, x·W ranks before P ranks; the training shapes do not."""
+    cluster, x·W ranks before P ranks; the training shapes do not.  The
+    ranks' steps, as the kernel computes them, take every K step once: the
+    x·W steps on the first ``ranks_x`` ranks, the P steps on the rest."""
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_plan
 
-    for N in (576, 192):
-        small = qrlora_matmul_plan(64, 576, N, 128)
-        assert 1 < small["cluster"] <= 8 and 1 <= small["ranks_x"] < small["cluster"]
-        assert qrlora_matmul_plan(2048, 576, N, 128)["cluster"] == 1
+    for M, K, N, r in ((64, 576, 576, 128), (64, 576, 192, 128), (64, 208, 192, 24),
+                       (1, 576, 576, 128), (2048, 576, 576, 128), (2048, 576, 192, 128)):
+        plan = qrlora_matmul_plan(M, K, N, r)
+        nkx, nkr = -(-K // 64), -(-r // 64)
+        if M == 2048:
+            assert plan["cluster"] == 1 and plan["steps"] == (tuple(range(nkx + 2 * nkr)),)
+            continue
+        assert 1 < plan["cluster"] <= 8 and 1 <= plan["ranks_x"] < plan["cluster"], plan
+        x_ranks, p_ranks = plan["steps"][:plan["ranks_x"]], plan["steps"][plan["ranks_x"]:]
+        assert sorted(g for s in x_ranks for g in s) == list(range(nkx)), plan
+        assert sorted(g for s in p_ranks for g in s) == list(range(nkx, nkx + 2 * nkr)), plan
     assert qrlora_matmul_plan(64, 576, 576, 0)["p_cluster"] == 0
+
+
+def test_qrlora_matmul_kernels_on_a_second_card(gen):
+    """A launch on one card, then on another: the kernels' shared-memory
+    attribute is set for each card it launches on."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second card")
+    for dev in ("cuda:0", "cuda:1"):
+        with torch.cuda.device(dev):
+            g = torch.Generator(device=dev).manual_seed(1)
+            x, W, B, A, lam = _matmul_inputs(g, 64, 576, 576, 128, torch.bfloat16)
+            y = qrlora_matmul_cuda(x, W, B, A, lam, 0.7)
+            assert _close(y, qrlora_matmul_ref(x, W, B, A, lam, 0.7), "qrlora_matmul")
+            qW = quantize_weight(W.float(), "int8")
+            y = qrlora_matmul_quant_cuda(x, qW["q"], qW["scale"], B, A, lam, 0.7)
+            assert _close(y, qrlora_matmul_quant_ref(x, qW["q"], qW["scale"], B, A, lam, 0.7),
+                          "qrlora_matmul_quant")
 
 
 def test_quantized_serve_and_forward_launch_the_quantized_kernels(gen):

@@ -181,3 +181,19 @@ def test_split_ref_planted_faults_are_seen(fault):
                                                       skip_steps=skip), plain, tol)
     print(f"[parity] planted {fault} (steps {skip}): {got:.1f} of the limit, sound {sound:.3f}")
     assert sound <= 1.0 and got > 10.0
+
+
+@pytest.mark.parametrize("step", range(7))
+def test_split_ref_every_step_is_seen_in_float32(step):
+    """Every step of the K loop (K = 192, r = 128: three x·W steps, two
+    P_hi steps, two P_lo steps) carries weight the float32 check sees: left
+    out alone, P_lo's included, it is outside the float32 bound."""
+    j, t = _inputs(37, 128, seed=11, x_dtype="float32")
+    args = (t["x"], t["W"], None, t["B"], t["A"], t["lam"], SCALE)
+    plain = tref.qrlora_matmul_ref(t["x"], t["W"], t["B"], t["A"], t["lam"], SCALE)
+    bound = _fp32_bound(t, plain)
+    sound = float(((tref.qrlora_matmul_split_ref(*args) - plain).abs() / bound).max())
+    got = float(((tref.qrlora_matmul_split_ref(*args, skip_steps=(step,)) - plain).abs()
+                 / bound).max())
+    print(f"[parity] float32, step {step} left out: {got:.1f} of the bound, sound {sound:.3f}")
+    assert sound <= 1.0 < got
