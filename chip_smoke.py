@@ -176,7 +176,31 @@ def _bgmv_inputs(gen, M, K, N, r, n_slots, x_dtype):
     return x, W, B, A, lam, seg
 
 
+def _replayed(fn):
+    """fn's output from one captured call replayed, and from an eager call."""
+    import torch
+
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out, eager
+
+
 def check_bgmv(gen, details):
+    """The BGMV kernel against its plain version: bf16 and float32 x, decode
+    (M=1, 4), prefill-bucket (16, 64) and ragged (37, 256) rows, wq and wv,
+    one row's slot outside the table (a zero adapter term: the plain
+    version reads a zero row appended to the table); a second call and a
+    captured call replayed bitwise the first."""
     import torch
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_ref
@@ -184,21 +208,64 @@ def check_bgmv(gen, details):
     K, r, n_slots = 576, 128, 8
     worst = {}
     for x_dt in (torch.bfloat16, torch.float32):
-        for M in (4, 37, 4 * 64):
+        for M in (1, 4, 16, 37, 64, 4 * 64):
             for N in (576, 192):
-                args = _bgmv_inputs(gen, M, K, N, r, n_slots, x_dt)
-                y = qrlora_bgmv_cuda(*args)
+                x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, x_dt)
+                seg[M // 2] = n_slots  # no such slot
+                fn = lambda: qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+                y, again = fn(), fn()
+                replayed, _ = _replayed(fn) if M in (4, 64) else (y, y)
                 torch.cuda.synchronize()
-                ref = qrlora_bgmv_ref(*args)
+                padded = torch.cat([lam, torch.zeros_like(lam[:1])])
+                ref = qrlora_bgmv_ref(x, W, B, A, padded, seg, 0.7)
                 name = str(x_dt).split(".")[1]
                 err = _max_err(y, ref)
-                ok = _within(y, ref, _tol("qrlora_bgmv", x_dt))
+                ok = (_within(y, ref, _tol("qrlora_bgmv", x_dt)) and bool(torch.isfinite(y).all())
+                      and torch.equal(y, again) and torch.equal(y, replayed))
                 details.append({"kernel": "qrlora_bgmv", "x": name, "M": M, "N": N,
-                                "max_abs_err": err, "ok": ok})
-                _check(ok, f"qrlora_bgmv x={x_dt} M={M} N={N}: "
-                           f"max|Δ|={err:.3e} over tolerance {_tol('qrlora_bgmv', x_dt)}")
+                                "max_abs_err": err, "bitwise_again_and_replayed": ok, "ok": ok})
+                _check(ok, f"qrlora_bgmv x={x_dt} M={M} N={N}: max|Δ|={err:.3e} over tolerance "
+                           f"{_tol('qrlora_bgmv', x_dt)}, or a second or replayed call differs")
                 worst[name] = max(worst.get(name, 0.0), err)
     return worst
+
+
+def planted_bgmv_faults(gen):
+    """Controls for the BGMV checks, as fractions of the kernel-vs-plain
+    bound at wq (bf16: decode and a 64-row bucket; float32 decode), each
+    of which must be rejected (> 1): one cluster rank's partials dropped —
+    ``ref.qrlora_bgmv_split_ref`` without that rank, cut as the kernel's own
+    plan (``qrlora_bgmv_plan``) cuts K, worst and least over the ranks —
+    and the kernel itself run with every row's λ taken from slot 0 (seg
+    all zeros).  The sound kernel reads ≤ 1."""
+    import torch
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda, qrlora_bgmv_plan
+    from repro_torch.kernels.ref import qrlora_bgmv_ref, qrlora_bgmv_split_ref
+
+    K, N, r, n_slots = 576, 576, 128, 8
+    out = {}
+    for x_dt, M in ((torch.bfloat16, 4), (torch.bfloat16, 64), (torch.float32, 4)):
+        x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, x_dt)
+        seg = torch.arange(M, device=x.device, dtype=torch.int32) % (n_slots - 1) + 1
+        plan = qrlora_bgmv_plan(M, K, N, r, x_dt)
+        ranks = plan["cluster"]
+        _check(plan["k_slice"] == -(-K // (8 * ranks)) * 8,
+               f"qrlora_bgmv_plan cuts K as the split mirror does not: {plan}")
+        tol = (*_tol("qrlora_bgmv", x_dt), 0.0)
+        ref = qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7)
+        rows = lam[seg.long()]
+        dropped = [err_over_bound(qrlora_bgmv_split_ref(x, W, B, A, rows, 0.7, ranks=ranks,
+                                                        skip_ranks=(c,)), ref, tol)
+                   for c in range(ranks)]
+        slot0 = qrlora_bgmv_cuda(x, W, B, A, lam, torch.zeros_like(seg), 0.7)
+        sound = qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+        torch.cuda.synchronize()
+        out[f"{str(x_dt).split('.')[1]}_M{M}"] = {
+            "sound": err_over_bound(sound, ref, tol),
+            "rank_dropped_least": min(dropped), "rank_dropped_worst": max(dropped),
+            "lam_slot0": err_over_bound(slot0, ref, tol), "plan": plan}
+    return out
 
 
 def _paged_inputs(gen, lengths, dtype, H=9, KV=3, dh=64, bs=16, max_blocks=8):
@@ -381,18 +448,19 @@ def check_bgmv_quant(gen, details):
 
 def check_bgmv_rows(gen, details):
     """The rows kernel against its plain version for W in x's dtype (bf16
-    or float32) and int8/fp8 q, bf16 and float32 x, decode (M=4), ragged
-    (M=37) and prefill-bucket (M=256) rows, within the BGMV limit; with
-    rows = Λ[seg] bitwise equal to the BGMV kernel or its quantized twin;
-    and one λ row sent to slot 0 (the base model) rejected by the limit.
-    Returns the worst max|Δ| of each x dtype."""
+    or float32, no w_scale) and int8/fp8 q, bf16 and float32 x, decode
+    (M=4), ragged (M=37) and prefill-bucket (M=256) rows, within the BGMV
+    limit; with rows = Λ[seg] bitwise equal to the BGMV kernel or its
+    quantized twin; and one λ row sent to slot 0 (the base model) rejected
+    by the limit.  Returns the worst max|Δ| of each x dtype."""
     import torch
     from repro_torch.kernels.qrlora_bgmv import (
         qrlora_bgmv_cuda,
         qrlora_bgmv_quant_cuda,
         qrlora_bgmv_rows_cuda,
     )
-    from repro_torch.kernels.ref import qrlora_bgmv_rows_ref
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.kernels.ref import qrlora_bgmv_rows_ref, qrlora_bgmv_split_ref
 
     K, r, n_slots = 576, 128, 8
     worst = {}
@@ -404,7 +472,7 @@ def check_bgmv_rows(gen, details):
                     x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, x_dt)
                     seg[1] = n_slots - 1  # the row the planted fault sends to slot 0
                     if w_kind == "x":
-                        ws = torch.ones((N,), dtype=torch.float32, device=x.device)
+                        ws = None
                         twin = qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
                     else:
                         W, ws = _quantized(W, w_kind)
@@ -423,6 +491,11 @@ def check_bgmv_rows(gen, details):
                            "bitwise_bgmv": torch.equal(y, twin),
                            "planted_row_to_slot0_err": _max_err(y_fault, ref),
                            "planted_rejected": not _within(y_fault, ref, tol)}
+                    if w_kind == "x":  # the one-launch kernel without one cluster rank
+                        row["planted_rank_dropped_over_bound"] = min(err_over_bound(
+                            qrlora_bgmv_split_ref(x, W, B, A, rows, 0.7, skip_ranks=(c,)), ref,
+                            (*tol, 0.0)) for c in range(8))
+                        row["planted_rejected"] &= row["planted_rank_dropped_over_bound"] > 1.0
                     row["ok"] = row["within"] and row["bitwise_bgmv"] and row["planted_rejected"]
                     details.append(row)
                     _check(row["within"], f"qrlora_bgmv_rows W={w_kind} x={name} M={M} N={N}: "
@@ -432,7 +505,8 @@ def check_bgmv_rows(gen, details):
                                                 f"rows = Λ[seg] (max|Δ| {_max_err(y, twin):.3e})")
                     _check(row["planted_rejected"], f"qrlora_bgmv_rows W={w_kind} x={name} "
                                                     f"M={M} N={N}: the check let a λ row sent "
-                                                    "to slot 0 through")
+                                                    "to slot 0 (or a dropped cluster rank) "
+                                                    "through")
                     worst[name] = max(worst.get(name, 0.0), err)
     return worst
 
@@ -818,14 +892,15 @@ def planted_backward_faults(gen):
 # ---------------------------------------------------------------------------
 
 
-def time_bgmv(gen, N: int):
-    """wq (N=576) / wv (N=192) decode projection: 4 lanes, bf16."""
+def time_bgmv(gen, N: int, M: int = 4):
+    """wq (N=576) / wv (N=192) projection, bf16: 4 decode lanes, or a
+    prefill bucket of M rows."""
     import torch
-    from repro_torch.benchmarks.common import eager_ms, graph_ms
+    from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_ref
 
-    M, K, r, n_slots = 4, 576, 128, 8
+    K, r, n_slots = 576, 128, 8
     x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, torch.bfloat16)
     seg64 = seg.long()
     kernel = lambda: qrlora_bgmv_cuda(x, W, B, A, lam, seg)
@@ -833,6 +908,7 @@ def time_bgmv(gen, N: int):
            "plain_ms": graph_ms(lambda: qrlora_bgmv_ref(x, W, B, A, lam, seg)),
            "library_ms": graph_ms(lambda: x @ W + ((x @ B) * lam[seg64].to(x.dtype)) @ A)}
     res["eager_ms"] = eager_ms(kernel)
+    res["launch_us"] = launch_us(kernel)  # one launch
     n_bytes = 2 * (M * K + K * N + K * r + r * N + M * N) + 4 * (n_slots * r + M)
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
@@ -919,32 +995,35 @@ def time_bgmv_quant(gen, N: int, base: str):
 
 def time_bgmv_rows(gen, N: int, base: str):
     """The sharded serve's decode projection: 4 lanes, bf16 x, pre-gathered
-    fp32 λ rows, W bf16 (``base`` "bf16", w_scale all ones) or int8/fp8 q.
-    The library yardstick is ``x@W·ws + ((x@B)*rows)@A`` (q widened in the
-    call)."""
+    fp32 λ rows, W bf16 (``base`` "bf16", no w_scale) or int8/fp8 q.  The
+    library yardstick is ``x@W + ((x@B)*rows)@A`` (``x@q·ws + …`` with q
+    widened in the call)."""
     import torch
-    from repro_torch.benchmarks.common import eager_ms, graph_ms
+    from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_rows_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_rows_ref
 
     M, K, r, n_slots = 4, 576, 128, 8
     x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, torch.bfloat16)
     rows = lam[seg.long()]
+    rows16 = rows.bfloat16()
     if base == "bf16":
-        ws = torch.ones((N,), dtype=torch.float32, device=x.device)
+        ws = None
+        library = lambda: x @ W + ((x @ B) * rows16) @ A
     else:
         W, ws = _quantized(W, base)
-    ws16, rows16 = ws.bfloat16(), rows.bfloat16()
+        ws16 = ws.bfloat16()
+        library = lambda: (x @ W.to(x.dtype)) * ws16 + ((x @ B) * rows16) @ A
     kernel = lambda: qrlora_bgmv_rows_cuda(x, W, ws, B, A, rows)
     res = {"ms": graph_ms(kernel),
            "plain_ms": graph_ms(lambda: qrlora_bgmv_rows_ref(x, W, ws, B, A, rows)),
-           # W.to is a no-op for bf16 W, the widening cast for q
-           "library_ms": graph_ms(
-               lambda: (x @ W.to(x.dtype)) * ws16 + ((x @ B) * rows16) @ A)}
+           "library_ms": graph_ms(library)}
     res["eager_ms"] = eager_ms(kernel)
+    res["launch_us"] = launch_us(kernel)
     n_bytes = (2 * (M * K + K * r + r * N + M * N) + K * N * W.element_size()
-               + 4 * (N + M * r))
-    n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
+               + 4 * (M * r + (N if ws is not None else 0)))
+    n_ops = (2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
+             + (M * N if ws is not None else 0))
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
     res["shape"] = {"M": M, "K": K, "N": N, "r": r, "x": "bfloat16", "W": base}
     return res
@@ -1750,6 +1829,16 @@ def main(argv=None) -> None:
     report = {"card": smi, "cases": []}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bgmv_err = check_bgmv(gen, report["cases"])
+    bgmv_faults = planted_bgmv_faults(gen)
+    report["bgmv_faults"] = bgmv_faults
+    for name, f in bgmv_faults.items():
+        print(f"qrlora_bgmv {name}, |Δ| over the bound: sound {f['sound']:.3f}; planted faults: "
+              f"one cluster rank dropped {f['rank_dropped_least']:.1f}-"
+              f"{f['rank_dropped_worst']:.1f} (least-worst of {f['plan']['cluster']} ranks), "
+              f"every λ row from slot 0 {f['lam_slot0']:.1f}; plan {f['plan']}")
+        _check(f["sound"] <= 1.0 and f["rank_dropped_least"] > 1.0 and f["lam_slot0"] > 1.0,
+               f"qrlora_bgmv {name}: a planted fault went through, or the sound kernel did "
+               f"not: {f}")
     paged_err, paged_fault = check_paged(gen, report["cases"])
     matmul_err = check_matmul(gen, report["cases"])
     bgmv_quant_err = check_bgmv_quant(gen, report["cases"])
@@ -1803,6 +1892,7 @@ def main(argv=None) -> None:
           f"{len(bwd_faults)} planted backward faults rejected")
 
     timings = {"qrlora_bgmv_wq": time_bgmv(gen, 576), "qrlora_bgmv_wv": time_bgmv(gen, 192),
+               "qrlora_bgmv_wq_M64": time_bgmv(gen, 576, 64),
                "paged_decode_attention": time_paged(gen),
                "qrlora_matmul_wq": time_matmul(gen, 576), "qrlora_matmul_wv": time_matmul(gen, 192)}
     for base in ("int8", "fp8"):
@@ -1813,6 +1903,7 @@ def main(argv=None) -> None:
                     gen, M, N, base)
     for base in ("bf16", "int8"):
         timings[f"qrlora_bgmv_rows_wq_{base}"] = time_bgmv_rows(gen, 576, base)
+    timings["qrlora_bgmv_rows_wv_bf16"] = time_bgmv_rows(gen, 192, "bf16")
     for B, S in ((8, 256), (1, 2048)):
         timings[f"flash_attention_B{B}_S{S}"] = time_flash(gen, B, S)
     timings["decode_attention"] = time_decode(gen)

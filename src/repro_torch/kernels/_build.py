@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` source has a plain C interface and compiles with ``nvcc``
 into its own shared library for ``sm_90a``, loaded with ``ctypes``.  No
 PyTorch headers are involved, so a build takes seconds.  Libraries land in
 ``_build/`` beside this file (listed in ``.gitignore``), named by a hash of
-the source and flags, so an edited source rebuilds and an unchanged one is
-reused.  :func:`build` starts one ``nvcc`` per missing library, all at once.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing library, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -56,8 +56,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, of every header
+    under ``csrc/`` (a source may include any of them) and of the flags."""
     src = (_CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -3,70 +3,473 @@
 //   y[m, n] = Σ_k x[m,k]·W[k,n] + scale · Σ_j P[m,j]·A[j,n]
 //   P[m, j] = (Σ_k x[m,k]·B[k,j]) · Λ[seg[m], j]
 //
-// Replaces repro/kernels/qrlora_bgmv.py::qrlora_bgmv_kernel (_kernel).  That
-// TPU kernel carries the (bm, r) x·B accumulator across its N grid axis,
-// which only works because a TPU grid runs in order, and gathers λ rows with
-// a one-hot × table matmul.  Blocks of a CUDA grid run in no order, so the
-// low-rank projection is a first small pass writing P (M, r) in fp32, and
-// the main pass adds P·A_tile in its epilogue; λ rows are loaded by index.
+// Replaces repro/kernels/qrlora_bgmv.py::qrlora_bgmv_kernel (_kernel) and,
+// with λ rows gathered before the call, ::qrlora_bgmv_rows_kernel
+// (_kernel_rows).  Those TPU kernels carry the (bm, r) x·B accumulator
+// across their in-order N grid axis and gather λ rows with a one-hot ×
+// table matmul; here λ rows are loaded by index.
 //
-// Bound on the card: at decode (M = lanes = 4, K = 576, N = 576, bf16) the
-// work is reading W once — 576·576·2 B ≈ 0.66 MB, ≈ 0.2 µs at 3.35 TB/s; the
-// flops (2·M·K·N ≈ 2.7 MFLOP) are negligible.  Prefill rows (M = bucket)
-// stay far below the 295 flop/byte ridge too.  This version is a plain
-// shared-memory tiled kernel on the CUDA cores with fp32 accumulation.  At
-// decode it is latency-bound, not bandwidth-bound: few blocks (ceil(N/32)
-// for the main pass), each walking K in a handful of deep tiles so many
-// loads are in flight per thread; the low-rank pass splits K over 8 warps
-// per block.  wgmma, TMA, double buffering and split-K come later.
+// Bound on the card: at decode (M = lanes = 4, K = 576, N = 576 for wq or
+// 192 for wv, r = 128, bf16) the work is reading W, B and A once, ≈ 0.97 MB
+// at wq, ≈ 0.29 µs at 3.35 TB/s; the flops are negligible, and prefill
+// buckets (M ≤ 64) stay far below the 295 flop/byte ridge too.  So a call
+// is bound by its chain of latencies: launch, dependent loads, barriers.
 //
-// Both passes compute each output row from that row alone, in a fixed
-// order, so a row's result does not depend on M or on its neighbours.
-// Rows past M in the last row tile read as zeros with slot 0 (λ ≡ 0): the
-// reference's padded rows, handled in the kernel instead of by padding x.
+// What the design does about it (W in x's dtype, bf16 or float32): one
+// launch of clusters of CS = 8 CTAs.  A cluster owns a 32-column tile of y
+// and a row tile of up to 32 rows; its CTAs split K into eight slices of
+// ⌈K/8⌉ rows (rounded up to 8).  Each CTA
+//  1. stages its slice of x, of W's column tile and of all of B, then its
+//     eighth of A's rows for the tile and of the λ rows — every load issued
+//     at once, as 16-byte cp.async copies (where the shapes align; element
+//     by element otherwise): one dependent round at K ≤ 8·128;
+//  2. takes its partial sums of x·W (rows × 32) and x·B (rows × r): bf16 on
+//     the tensor cores (mma.sync m16n8k16 from ldmatrix fragments; exact
+//     products, fp32 sums), float32 on the CUDA cores (an fp32 FMA chain in
+//     K order); and sends each to the CTA that sums it, x·B column j to
+//     rank j / ⌈r/8⌉, x·W column n to rank n / 4 (distributed shared
+//     memory stores; no atomics);
+//  3. after a cluster barrier, sums its P columns over the ranks in rank
+//     order, multiplies by λ, and sends its share of P·A (its eighth of the
+//     rank columns, all 32 columns of the tile) on the same way;
+//  4. after a second barrier, sums the x·W and the P·A partials of its 4
+//     columns in rank order and writes y = Σx·W + Σ(P·A)·scale, the product
+//     rounded before the sum (the reference's order), once, in x's dtype.
+// A decode launch puts 8·⌈N/32⌉ CTAs on the card (144 at wq, 48 at wv).  P
+// never leaves the cluster: no second launch and no scratch.  Every sum has
+// a fixed order, so y is bitwise the same from call to call and under graph
+// replay, and a row's result depends on that row alone, not on M or its
+// neighbours (an mma row is computed from its own row of x).  Rows past M
+// are neither read nor written.
+//
+// Timed on the card (PERF.md): the same design with bf16's partial
+// sums on the CUDA cores took 0.0093 ms at wq decode but 0.049 ms at a
+// 64-row bucket (each cluster's x·B on the CUDA cores); an mma loop that
+// re-loaded x's fragment for every 16 × 8 tile took 0.0102 / 0.0188 ms; the
+// loop here, with x's fragments loaded once a k16 step, ≈ 0.0079 / 0.0122.
+// At decode the time is the chain of one launch, one load round, the
+// partial sums and two barriers; the bf16 registers are capped so that a
+// 64-row bucket at wq (288 CTAs) fits the card in one wave.
+//
+// The rows kernel with W in x's dtype is this kernel reading rows[m] where
+// it reads Λ[seg[m]] (a slot outside [0, n_slots) gives a zero row), so with
+// rows = Λ[seg] its y is bitwise the BGMV kernel's.
 //
 // Quantized base (replaces repro/kernels/qrlora_bgmv.py::
-// qrlora_bgmv_quant_kernel, _kernel_q): the main pass streams q (K, N) int8
-// or fp8-e4m3, one byte an element, instead of W, widens it to fp32 as it
-// stages a tile (exact, and an fp32 product of a bf16 or fp32 x with it is
-// exact too), and computes
+// qrlora_bgmv_quant_kernel, _kernel_q, and the rows kernel on a q): two
+// launches.  A low-rank pass writes P = (x·B) ⊙ λ (M, r) in fp32; a main
+// pass over (16 × 32) output tiles streams q (K, N) int8 or fp8-e4m3, one
+// byte an element, widens it to fp32 as it stages a tile (exact, and an
+// fp32 product of a bf16 or fp32 x with it is exact too), and computes
 //   y[m, n] = (Σ_k x[m,k]·q[k,n]) · w_scale[n] + scale · Σ_j P[m,j]·A[j,n],
 // the dequant multiply rounded in fp32 before the adapter term is added
 // (__fmul_rn / __fadd_rn: no FMA contraction, the reference's order); the
-// scale never touches the adapter term.  The low-rank pass is the same.  At
-// decode (M = 4, K = N = 576) the bound is reading q, the factors and the
-// scales once — ≈ 0.64 MB, ≈ 0.19 µs at 3.35 TB/s, against ≈ 0.29 µs for
-// the bf16 W.
-//
-// Pre-gathered λ rows (replaces repro/kernels/qrlora_bgmv.py::
-// qrlora_bgmv_rows_kernel, _kernel_rows): the sharded-λ serve all-reduces
-// each row's λ (M, r) fp32 before the kernel, so pass 1 reads rows[m]
-// where the BGMV kernel reads Λ[seg[m]], and computes
-//   y[m, n] = (Σ_k x[m,k]·W[k,n]) · w_scale[n] + scale · Σ_j P[m,j]·A[j,n]
-// for W in x's dtype (w_scale all ones: ×1.0 is exact, so with
-// rows = Λ[seg] the result is bitwise the BGMV kernel's) or int8/fp8 q (the
-// quantized main pass, bitwise the quantized BGMV kernel's).  Both passes
-// are the BGMV kernel's own instantiations, so the summation order is
-// shared.  Bound at decode: reading x, W, B, A, rows and w_scale once and
-// writing y, ≈ 0.97 MB (bf16 W) or ≈ 0.64 MB (int8/fp8 q) at K = N = 576,
-// r = 128: ≈ 0.29 / 0.19 µs at 3.35 TB/s.
+// scale never touches the adapter term.  Bound at decode: ≈ 0.64 MB, ≈ 0.19
+// µs at 3.35 TB/s.  Its time is the chain of two launches and five serial
+// K rounds in the main pass.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
+#include "cluster.cuh"
+
 namespace {
 
+using bf16 = __nv_bfloat16;
+using fp8 = __nv_fp8_e4m3;
+
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f(fp8 v) { return static_cast<float>(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+int round_up(int a, int b) { return ceil_div(a, b) * b; }
+
+// ---------------------------------------------------------------------------
+// W in x's dtype: one launch of clusters splitting K.
+// ---------------------------------------------------------------------------
+
+constexpr int CS = 8;         // CTAs of a cluster: the K slices (the portable cluster size)
+constexpr int TN = 32;        // columns of a cluster's output tile
+constexpr int OUT = TN / CS;  // columns of the tile each rank sums and writes (4)
+constexpr int TM = 32;        // rows of a cluster's row tile at most
+constexpr int KC = 128;       // K rows a CTA stages in one round at most
+constexpr int THREADS = 256;
+constexpr int R_MAX = 256;    // largest rank r served
+// float32 x: a task is one row × 4 columns of [x·W tile | x·B]; a thread's
+// tasks at most.  bf16 x: 16 × 8 mma tiles of the same.
+constexpr int TASKS = ceil_div(TM * (TN + R_MAX) / 4, THREADS);
+constexpr int MT_MAX = TM / 16;                                   // 16-row tiles of a row tile
+constexpr int NT_WARP = ceil_div((TN + R_MAX) / 8, THREADS / 32);  // 8-column tiles a warp takes
+static_assert(OUT == 4, "a rank's output columns are one 4-column task");
+
+// The split of one launch, the same in every CTA (host and device).
+struct Geo {
+  int ks;   // K rows of a rank's slice (a multiple of 8)
+  int kc;   // K rows staged per round: min(ks, KC)
+  int js;   // rank columns of P a rank sums (a multiple of 4): ⌈r/8⌉ rounded up
+  int rp;   // B's columns in shared memory: r rounded up to 8
+  int tm;   // rows of the largest row tile: min(M, TM)
+  int kx;   // K rows a staged round holds (bf16: kc rounded up to whole k16 steps)
+  int rows; // rows of x a round holds (bf16: tm rounded up to whole m16 tiles)
+  // bytes of a row in shared memory: x, the W tile, B (bf16 rows padded by 16
+  // bytes, so the 8 row addresses of an ldmatrix fall in distinct banks)
+  int xs, ws, bs;
+  // shared-memory offsets, bytes, each 16-byte aligned
+  int o_w, o_b, o_a, o_lam, o_p, o_rb, o_rw, o_rpa, bytes;
+};
+
+Geo make_geo(int M, int K, int r, bool x_bf16) {
+  Geo g;
+  const int sz = x_bf16 ? 2 : 4, pad = x_bf16 ? 16 : 0;
+  g.ks = std::max(8, round_up(ceil_div(K, CS), 8));
+  g.kc = std::min(g.ks, KC);
+  g.js = std::max(4, round_up(ceil_div(r, CS), 4));
+  g.rp = round_up(std::max(r, 1), 8);
+  g.tm = std::min(M, TM);
+  g.kx = x_bf16 ? round_up(g.kc, 16) : g.kc;
+  g.rows = x_bf16 ? round_up(g.tm, 16) : g.tm;
+  g.xs = g.kx * sz + 16;
+  g.ws = TN * sz + pad;
+  g.bs = g.rp * 2 + pad;
+  g.o_w = g.rows * g.xs;
+  g.o_b = g.o_w + g.kx * g.ws;
+  g.o_a = g.o_b + g.kx * g.bs;
+  g.o_lam = g.o_a + g.js * TN * 2;
+  g.o_p = g.o_lam + g.tm * g.js * 4;
+  g.o_rb = g.o_p + g.tm * g.js * 4;
+  g.o_rw = g.o_rb + CS * g.tm * g.js * 4;
+  g.o_rpa = g.o_rw + CS * g.tm * OUT * 4;
+  g.bytes = g.o_rpa + CS * g.tm * OUT * 4;
+  return g;
 }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Stage a (rows × cols) block of a row-major matrix of SZ-byte elements
+// (row stride ld elements, first element src) into shared memory (row stride
+// dst_row bytes), zero past `rows_in` rows and `cols_in` columns.  vec: the
+// source rows and `src` are 16-byte aligned, so whole rows go as 16-byte
+// copies (a ragged last vector reads only its valid bytes); otherwise one
+// element at a time.  Neither waits: the caller waits once for all.
+template <int SZ>
+__device__ __forceinline__ void stage(unsigned char* dst, int dst_row, const void* src, size_t ld,
+                                      int rows, int cols, int rows_in, int cols_in, bool vec) {
+  const unsigned char* s = static_cast<const unsigned char*>(src);
+  if (vec) {
+    constexpr int V = 16 / SZ;  // elements a vector
+    const int per_row = ceil_div(cols, V);
+    for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
+      const int rr = i / per_row, c = (i % per_row) * V;
+      const int n = rr < rows_in ? min(V, max(0, cols_in - c)) : 0;
+      cp_async16(dst + rr * dst_row + c * SZ, n ? s + (rr * ld + c) * SZ : s, n * SZ);
+    }
+  } else {
+    using U = typename std::conditional<SZ == 2, uint16_t, uint32_t>::type;
+    const U* g = static_cast<const U*>(src);
+    for (int i = threadIdx.x; i < rows * cols; i += THREADS) {
+      const int rr = i / cols, c = i % cols;
+      reinterpret_cast<U*>(dst + rr * dst_row)[c] =
+          rr < rows_in && c < cols_in ? g[rr * ld + c] : U(0);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+// d += a · b on the tensor cores: a 16 × 16 bf16 (row), b 16 × 8 bf16 (col),
+// d 16 × 8 fp32; each product exact, summed in fp32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += x[k] · w4[k] over k < kn, in K order.
+template <typename TX, typename TW>
+__device__ __forceinline__ void fma_chain(float (&acc)[4], const TX* xr, const TW* w, int ld, int kn) {
+#pragma unroll 4
+  for (int k = 0; k < kn; ++k) {
+    const float a = to_f(xr[k]);
+    const float4 b = load4(w + k * ld);
+    acc[0] = fmaf(a, b.x, acc[0]);
+    acc[1] = fmaf(a, b.y, acc[1]);
+    acc[2] = fmaf(a, b.z, acc[2]);
+    acc[3] = fmaf(a, b.w, acc[3]);
+  }
+}
+
+// One cluster per (32-column tile, row tile): blockIdx.x = tile · CS + rank,
+// blockIdx.y = row tile.  kRows: λ is rows (M, r) at row m; else the table
+// row Λ[seg[m]].  vec: every staged matrix takes 16-byte copies.  bf16 x
+// takes its partial sums on the tensor cores (mma.sync m16n8k16: exact
+// products, fp32 sums, each output row from its own row of x), float32 x
+// on the CUDA cores.
+// bf16 asks for 3 CTAs an SM (≤ 85 registers a thread): a 64-row bucket at
+// wq (288 CTAs) then fits the card in one wave.
+template <typename TX, bool kRows>
+__global__ void __cluster_dims__(CS, 1, 1)
+__launch_bounds__(THREADS, std::is_same<TX, bf16>::value ? 3 : 1)
+bgmv_cluster_kernel(const TX* __restrict__ x, const TX* __restrict__ W, const bf16* __restrict__ B,
+                    const bf16* __restrict__ A, const float* __restrict__ lam,
+                    const int* __restrict__ seg, TX* __restrict__ y, int M, int K, int N, int r,
+                    int n_slots, float scale, Geo g, bool vec) {
+  constexpr bool kMma = std::is_same<TX, bf16>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* as = reinterpret_cast<bf16*>(smem + g.o_a);
+  float* lam_s = reinterpret_cast<float*>(smem + g.o_lam);
+  float* p_s = reinterpret_cast<float*>(smem + g.o_p);
+  float* recv_b = reinterpret_cast<float*>(smem + g.o_rb);   // [rank][row][js]: x·B partials
+  float* recv_w = reinterpret_cast<float*>(smem + g.o_rw);   // [rank][row][OUT]: x·W partials
+  float* recv_pa = reinterpret_cast<float*>(smem + g.o_rpa); // [rank][row][OUT]: P·A partials
+
+  const uint32_t rank = cluster_rank();
+  const int n0 = blockIdx.x / CS * TN, m0 = blockIdx.y * TM;
+  const int tm = min(TM, M - m0);
+  const int k0 = rank * g.ks, k1 = min(K, k0 + g.ks);
+  const int j0 = rank * g.js, jn = max(0, min(g.js, r - j0));  // this rank's P columns
+
+  cluster_arrive_relaxed();  // peers write into this CTA only after every CTA has started
+
+  // this rank's eighth of A's rows for the tile, and of the λ rows: issued
+  // after the first round's copies, so their loads (seg, then Λ) overlap it
+  auto stage_a_and_lam = [&] {
+    stage<2>(smem + g.o_a, TN * 2, A + (size_t)j0 * N + n0, N, g.js, TN, jn, N - n0, vec);
+    for (int i = threadIdx.x; i < tm * g.js; i += THREADS) {
+      const int m = i / g.js, jj = i % g.js;
+      float v = 0.f;
+      if (jj < jn) {
+        if constexpr (kRows) {
+          v = lam[(size_t)(m0 + m) * r + j0 + jj];
+        } else {
+          const int sg = seg[m0 + m];
+          v = sg >= 0 && sg < n_slots ? lam[(size_t)sg * r + j0 + jj] : 0.f;
+        }
+      }
+      lam_s[i] = v;
+    }
+  };
+  if (k0 >= k1) stage_a_and_lam();  // an empty K slice stages no round
+
+  if constexpr (kMma) {
+    // bf16: 16 × 8 tiles of [x·W tile | x·B] on the tensor cores.  Warp w
+    // takes the 8-column tiles w, w + 8, … for every 16-row tile: at each
+    // k16 step it loads x's fragments once and each column tile's once.
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int n_tiles = TN / 8 + g.rp / 8, m_tiles = ceil_div(tm, 16);
+    // shared-memory offset of lane's row of each column tile at k = 0, and its row stride
+    int b_off[NT_WARP], b_ld[NT_WARP];
+#pragma unroll
+    for (int t = 0; t < NT_WARP; ++t) {
+      const int nt = warp + t * (THREADS / 32);
+      b_ld[t] = nt < TN / 8 ? g.ws : g.bs;
+      b_off[t] = (nt < TN / 8 ? g.o_w + nt * 16 : g.o_b + (nt - TN / 8) * 16) + lane % 16 * b_ld[t];
+    }
+    float acc[NT_WARP][MT_MAX][4] = {};
+    for (int kc0 = k0; kc0 < k1; kc0 += g.kc) {
+      const int kn = min(g.kc, k1 - kc0);
+      stage<2>(smem, g.xs, x + (size_t)m0 * K + kc0, K, m_tiles * 16, g.kx, tm, kn, vec);
+      stage<2>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, g.kx, TN, kn, N - n0, vec);
+      stage<2>(smem + g.o_b, g.bs, B + (size_t)kc0 * r, r, g.kx, g.rp, kn, r, vec);
+      if (kc0 == k0) stage_a_and_lam();
+      cp_async_wait_all();
+      __syncthreads();
+      for (int k = 0; k < kn; k += 16) {  // rows past kn are zeros
+        uint32_t a[MT_MAX][4];
+#pragma unroll
+        for (int mt = 0; mt < MT_MAX; ++mt)
+          if (mt < m_tiles)
+            ldsm_x4(a[mt], smem + (mt * 16 + lane % 16) * g.xs + (k + lane / 16 * 8) * 2);
+#pragma unroll
+        for (int t = 0; t < NT_WARP; ++t) {
+          if (warp + t * (THREADS / 32) < n_tiles) {
+            uint32_t b[2];
+            ldsm_x2_trans(b, smem + b_off[t] + k * b_ld[t]);
+#pragma unroll
+            for (int mt = 0; mt < MT_MAX; ++mt)
+              if (mt < m_tiles) mma_bf16(acc[t][mt], a[mt], b);
+          }
+        }
+      }
+      __syncthreads();  // before the next round overwrites the tiles
+    }
+    cp_async_wait_all();  // A's rows, also where this rank's K slice is empty
+
+    // send each partial to the rank that sums it: a thread holds columns
+    // 2·(lane % 4) + {0, 1} of rows lane / 4 and lane / 4 + 8 of its tiles
+    cluster_wait();
+    const int c = lane % 4 * 2;
+#pragma unroll
+    for (int t = 0; t < NT_WARP; ++t) {
+      const int nt = warp + t * (THREADS / 32);
+      if (nt >= n_tiles) continue;
+#pragma unroll
+      for (int mt = 0; mt < MT_MAX; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = mt * 16 + lane / 4 + 8 * h;
+          const float2 v = make_float2(acc[t][mt][2 * h], acc[t][mt][2 * h + 1]);
+          if (m >= tm) continue;
+          if (nt < TN / 8) {
+            const int n = nt * 8 + c;
+            st_cluster(recv_w + (rank * g.tm + m) * OUT + n % OUT, n / OUT, v);
+          } else {
+            const int j = (nt - TN / 8) * 8 + c;  // a pair lies within one owner: js % 4 == 0
+            if (j < r) st_cluster(recv_b + (rank * g.tm + m) * g.js + j % g.js, j / g.js, v);
+          }
+        }
+      }
+    }
+  } else {
+    // float32: one row × 4 columns a task on the CUDA cores, an FMA chain in K order
+    const int groups = TN / 4 + g.rp / 4, tasks = tm * groups;
+    float acc[TASKS][4] = {};
+    for (int kc0 = k0; kc0 < k1; kc0 += g.kc) {
+      const int kn = min(g.kc, k1 - kc0);
+      stage<4>(smem, g.xs, x + (size_t)m0 * K + kc0, K, tm, g.kx, tm, kn, vec);
+      stage<4>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, kn, TN, kn, N - n0, vec);
+      stage<2>(smem + g.o_b, g.bs, B + (size_t)kc0 * r, r, kn, g.rp, kn, r, vec);
+      if (kc0 == k0) stage_a_and_lam();
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll
+      for (int t = 0; t < TASKS; ++t) {
+        const int task = threadIdx.x + t * THREADS;
+        if (task < tasks) {
+          const int m = task / groups, grp = task % groups;
+          const float* xr = reinterpret_cast<const float*>(smem + m * g.xs);
+          if (grp < TN / 4)
+            fma_chain(acc[t], xr, reinterpret_cast<const float*>(smem + g.o_w) + grp * 4, TN, kn);
+          else
+            fma_chain(acc[t], xr, reinterpret_cast<const bf16*>(smem + g.o_b) + (grp - TN / 4) * 4,
+                      g.rp, kn);
+        }
+      }
+      __syncthreads();  // before the next round overwrites the tiles
+    }
+    cp_async_wait_all();  // A's rows, also where this rank's K slice is empty
+
+    cluster_wait();
+#pragma unroll
+    for (int t = 0; t < TASKS; ++t) {
+      const int task = threadIdx.x + t * THREADS;
+      if (task < tasks) {
+        const int m = task / groups, grp = task % groups;
+        const float4 v = make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+        if (grp < TN / 4) {
+          st_cluster(recv_w + (rank * g.tm + m) * OUT, grp, v);
+        } else {
+          const int j = (grp - TN / 4) * 4;  // a group lies within one owner: js % 4 == 0
+          if (j < r) st_cluster(recv_b + (rank * g.tm + m) * g.js + j % g.js, j / g.js, v);
+        }
+      }
+    }
+  }
+  cluster_sync();
+
+  // P over this rank's columns: the x·B partials summed in rank order, then λ
+  for (int i = threadIdx.x; i < tm * g.js; i += THREADS) {
+    const int m = i / g.js, jj = i % g.js;
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < CS; ++c) s += recv_b[(c * g.tm + m) * g.js + jj];
+    p_s[i] = s * lam_s[i];
+  }
+  __syncthreads();
+  // this rank's share of P·A for the whole tile, sent to each column's owner
+  for (int i = threadIdx.x; i < tm * CS; i += THREADS) {
+    const int m = i / CS, owner = i % CS;
+    float pa[4] = {};
+    const float* pr = p_s + m * g.js;
+    for (int jj = 0; jj < jn; ++jj) {
+      const float p = pr[jj];
+      const float4 a = load4(as + jj * TN + owner * OUT);
+      pa[0] = fmaf(p, a.x, pa[0]);
+      pa[1] = fmaf(p, a.y, pa[1]);
+      pa[2] = fmaf(p, a.z, pa[2]);
+      pa[3] = fmaf(p, a.w, pa[3]);
+    }
+    st_cluster(recv_pa + (rank * g.tm + m) * OUT, owner, make_float4(pa[0], pa[1], pa[2], pa[3]));
+  }
+  cluster_sync();  // no shared memory of another CTA is touched after this
+
+  // this rank's 4 columns: both sums in rank order, the adapter term added once
+  for (int i = threadIdx.x; i < tm * OUT; i += THREADS) {
+    const int m = i / OUT, c = i % OUT, n = n0 + rank * OUT + c;
+    float xw = 0.f, pa = 0.f;
+#pragma unroll
+    for (int q = 0; q < CS; ++q) {
+      xw += recv_w[(q * g.tm + m) * OUT + c];
+      pa += recv_pa[(q * g.tm + m) * OUT + c];
+    }
+    if (n < N) y[(size_t)(m0 + m) * N + n] = from_f<TX>(__fadd_rn(xw, __fmul_rn(pa, scale)));
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename TX, bool kRows>
+int launch_cluster(const void* x, const void* W, const void* B, const void* A, const float* lam,
+                   const int* seg, void* y, int M, int K, int N, int r, int n_slots, float scale,
+                   cudaStream_t stream) {
+  if (M == 0 || N == 0) return 0;
+  if (r > R_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int SZ = sizeof(TX), V = 16 / SZ;
+  const Geo g = make_geo(M, K, r, SZ == 2);
+  const bool vec = K % V == 0 && N % 8 == 0 && r % 8 == 0 && aligned16(x) && aligned16(W) &&
+                   aligned16(B) && aligned16(A);
+  auto* kernel = bgmv_cluster_kernel<TX, kRows>;
+  if (g.bytes > 48 * 1024) {  // on every such launch: the attribute holds for the current device only
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  const dim3 grid(ceil_div(N, TN) * CS, ceil_div(M, TM));
+  kernel<<<grid, THREADS, g.bytes, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(W), static_cast<const bf16*>(B),
+      static_cast<const bf16*>(A), lam, seg, static_cast<TX*>(y), M, K, N, r, n_slots, scale, g,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Quantized W (int8 / fp8 q): a low-rank pass writing P, then a tiled main
+// pass.
+// ---------------------------------------------------------------------------
 
 constexpr int LR_COLS = 32, LR_SLICES = 8;  // 256 threads: 8 K-slices × 32 rank columns
 
@@ -144,17 +547,15 @@ __device__ __forceinline__ void stage_cols(float (*dst)[BN], const T* __restrict
 }
 
 // Pass 2: one block per (BM × BN) output tile; thread t owns row t / 16 and
-// the CPT columns CPT·(t % 16) … of the tile.  W is TX, or 1-byte q whose
-// columns w_scale dequantizes in the epilogue.  kWs multiplies a TX W's sum
-// by w_scale too (the rows kernel's epilogue), rounded before the FMA that
-// adds the adapter term.
-template <typename TX, typename TW, bool kWs>
+// the CPT columns CPT·(t % 16) … of the tile.  q is 1-byte; w_scale
+// dequantizes its columns in the epilogue.
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(MAIN_THREADS)
 bgmv_main_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
                  const float* __restrict__ w_scale, const float* __restrict__ P,
                  const __nv_bfloat16* __restrict__ A, TX* __restrict__ y, int M, int K, int N,
                  int r, float scale) {
-  constexpr bool kQuant = sizeof(TW) == 1;
+  static_assert(sizeof(TW) == 1, "the two-pass route is the quantized base's");
   __shared__ float rs[BM][BK + 1];
   __shared__ float cs[BK][BN];
   const int row = threadIdx.x / 16, c0 = (threadIdx.x % 16) * CPT;
@@ -194,23 +595,18 @@ bgmv_main_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
   for (int c = 0; c < CPT; ++c) {
     const int n = n0 + c0 + c;
     if (n >= N) continue;
-    if constexpr (kQuant)  // dequant rounded first, then the adapter term
-      y[(size_t)m * N + n] =
-          from_f<TX>(__fadd_rn(__fmul_rn(acc[c], w_scale[n]), __fmul_rn(low[c], scale)));
-    else
-      y[(size_t)m * N + n] =
-          from_f<TX>(fmaf(low[c], scale, kWs ? __fmul_rn(acc[c], w_scale[n]) : acc[c]));
+    // dequant rounded first, then the adapter term
+    y[(size_t)m * N + n] =
+        from_f<TX>(__fadd_rn(__fmul_rn(acc[c], w_scale[n]), __fmul_rn(low[c], scale)));
   }
 }
 
-// kRows: λ comes as pre-gathered rows (M, r) in lam, and a TX W's sum is
-// scaled by w_scale; a 1-byte q takes the quantized main pass either way.
+// kRows: λ comes as pre-gathered rows (M, r) in lam.
 template <typename TX, typename TW, bool kRows = false>
-int launch(const void* x, const void* W, const float* w_scale, const void* B, const void* A,
-           const float* lam, const int* seg, float* P, void* y, int M, int K, int N, int r,
-           int n_slots, float scale, cudaStream_t stream) {
+int launch_quant(const void* x, const void* W, const float* w_scale, const void* B, const void* A,
+                 const float* lam, const int* seg, float* P, void* y, int M, int K, int N, int r,
+                 int n_slots, float scale, cudaStream_t stream) {
   if (M == 0) return 0;
-  constexpr bool kWs = kRows && sizeof(TW) != 1;
   const dim3 lr_grid(M, (r + LR_COLS - 1) / LR_COLS);
   lowrank_kernel<TX, kRows><<<lr_grid, LR_COLS * LR_SLICES, K * sizeof(float), stream>>>(
       static_cast<const TX*>(x), static_cast<const __nv_bfloat16*>(B), lam, seg, P, K, r,
@@ -218,7 +614,7 @@ int launch(const void* x, const void* W, const float* w_scale, const void* B, co
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  bgmv_main_kernel<TX, TW, kWs><<<grid, MAIN_THREADS, 0, stream>>>(
+  bgmv_main_kernel<TX, TW><<<grid, MAIN_THREADS, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(W), w_scale, P,
       static_cast<const __nv_bfloat16*>(A), static_cast<TX*>(y), M, K, N, r, scale);
   return static_cast<int>(cudaGetLastError());
@@ -227,70 +623,80 @@ int launch(const void* x, const void* W, const float* w_scale, const void* B, co
 }  // namespace
 
 // x, W, y share one dtype (x_bf16 = 1 selects bfloat16, 0 float32); the
-// QR factors B, A are bfloat16 under either, as the reference keeps them.
-// Returns the CUDA error code of the launches (0 on success).
+// QR factors B, A are bfloat16 under either, as the reference keeps them;
+// r ≤ 256.  Returns the CUDA error code of the launch (0 on success).
 extern "C" int qrlora_bgmv_launch(const void* x, const void* W, const void* B, const void* A,
-                                  const float* lam, const int* seg, float* P, void* y, int M,
-                                  int K, int N, int r, int n_slots, float scale, int x_bf16,
+                                  const float* lam, const int* seg, void* y, int M, int K, int N,
+                                  int r, int n_slots, float scale, int x_bf16,
                                   cudaStream_t stream) {
   if (x_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, W, nullptr, B, A, lam, seg, P, y, M, K, N, r,
-                                                n_slots, scale, stream);
-  return launch<float, float>(x, W, nullptr, B, A, lam, seg, P, y, M, K, N, r, n_slots, scale,
-                              stream);
+    return launch_cluster<bf16, false>(x, W, B, A, lam, seg, y, M, K, N, r, n_slots, scale, stream);
+  return launch_cluster<float, false>(x, W, B, A, lam, seg, y, M, K, N, r, n_slots, scale, stream);
 }
 
 // The quantized base: q (K, N) int8 (q_fp8 = 0) or fp8-e4m3 (q_fp8 = 1)
-// with w_scale (N,) float32; x and y bfloat16 (x_bf16 = 1) or float32, the
-// rest as qrlora_bgmv_launch.  Returns the CUDA error code (0 on success).
+// with w_scale (N,) float32; x and y bfloat16 (x_bf16 = 1) or float32; P
+// an (M, r) float32 scratch.  Returns the CUDA error code (0 on success).
 extern "C" int qrlora_bgmv_quant_launch(const void* x, const void* q, const float* w_scale,
                                         const void* B, const void* A, const float* lam,
                                         const int* seg, float* P, void* y, int M, int K, int N,
                                         int r, int n_slots, float scale, int x_bf16, int q_fp8,
                                         cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  using fp8 = __nv_fp8_e4m3;
   if (x_bf16 && q_fp8)
-    return launch<bf16, fp8>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots, scale,
-                             stream);
+    return launch_quant<bf16, fp8>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots, scale,
+                                   stream);
   if (x_bf16)
-    return launch<bf16, int8_t>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots, scale,
-                                stream);
+    return launch_quant<bf16, int8_t>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots,
+                                      scale, stream);
   if (q_fp8)
-    return launch<float, fp8>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots, scale,
-                              stream);
-  return launch<float, int8_t>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots, scale,
-                               stream);
+    return launch_quant<float, fp8>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots,
+                                    scale, stream);
+  return launch_quant<float, int8_t>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots,
+                                     scale, stream);
 }
 
 // Pre-gathered λ: rows (M, r) float32 in place of Λ and seg; W (K, N) in
-// x's dtype (w_kind = 0, w_scale all ones) or int8 (1) or fp8-e4m3 (2) q with
-// its w_scale (N,) float32; x and y bfloat16 (x_bf16 = 1) or float32, B and A
-// bfloat16.  Returns the CUDA error code (0 on success).
+// x's dtype (w_kind = 0; w_scale and P unused, may be null) or int8 (1) or
+// fp8-e4m3 (2) q with its w_scale (N,) float32 and an (M, r) float32
+// scratch P; x and y bfloat16 (x_bf16 = 1) or float32, B and A bfloat16.
+// Returns the CUDA error code (0 on success).
 extern "C" int qrlora_bgmv_rows_launch(const void* x, const void* W, const float* w_scale,
                                        const void* B, const void* A, const float* rows, float* P,
                                        void* y, int M, int K, int N, int r, float scale,
                                        int x_bf16, int w_kind, cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
-  using fp8 = __nv_fp8_e4m3;
   if (x_bf16) {
     if (w_kind == 1)
-      return launch<bf16, int8_t, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
-                                        scale, stream);
+      return launch_quant<bf16, int8_t, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r,
+                                              M, scale, stream);
     if (w_kind == 2)
-      return launch<bf16, fp8, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
-                                     scale, stream);
-    return launch<bf16, bf16, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
-                                    scale, stream);
+      return launch_quant<bf16, fp8, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
+                                           scale, stream);
+    return launch_cluster<bf16, true>(x, W, B, A, rows, nullptr, y, M, K, N, r, M, scale, stream);
   }
   if (w_kind == 1)
-    return launch<float, int8_t, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
-                                       scale, stream);
+    return launch_quant<float, int8_t, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r,
+                                             M, scale, stream);
   if (w_kind == 2)
-    return launch<float, fp8, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
-                                    scale, stream);
-  return launch<float, float, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
-                                    scale, stream);
+    return launch_quant<float, fp8, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
+                                          scale, stream);
+  return launch_cluster<float, true>(x, W, B, A, rows, nullptr, y, M, K, N, r, M, scale, stream);
+}
+
+// How a launch with W in x's dtype (x_bf16 as above) splits its work, in
+// the numbers the kernel uses: plan[0] the cluster size, plan[1] and
+// plan[2] the grid (x: column tiles × cluster size, y: row tiles),
+// plan[3] the CTAs, plan[4] the K rows of a rank's slice, plan[5] the rank
+// columns of P a rank sums, plan[6] the dynamic shared memory of a CTA in
+// bytes.
+extern "C" void qrlora_bgmv_plan(int M, int K, int N, int r, int x_bf16, int* plan) {
+  const Geo g = make_geo(M, K, r, x_bf16 != 0);
+  plan[0] = CS;
+  plan[1] = ceil_div(N, TN) * CS;
+  plan[2] = ceil_div(M, TM);
+  plan[3] = plan[1] * plan[2];
+  plan[4] = g.ks;
+  plan[5] = g.js;
+  plan[6] = g.bytes;
 }
 
 extern "C" const char* qrlora_bgmv_error_string(int err) {

@@ -80,6 +80,8 @@
 
 #include <algorithm>
 
+#include "cluster.cuh"
+
 namespace {
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
@@ -133,10 +135,6 @@ __host__ __device__ __forceinline__ Steps rank_steps(int rank, int cs, int ranks
   return {nkx + rank - ranks_x, cs - ranks_x, nkx + 2 * nkr};
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
@@ -169,30 +167,6 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uin
       "%4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(v));
-  return v;
-}
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t v;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(v));
-  return v;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
-}
-// fp32 load from the shared memory of CTA `rank` of the cluster, at the
-// offset `p` has in this CTA's.
-__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
-  uint32_t remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
-  return v;
 }
 
 // wgmma shared-memory descriptors, 128-byte swizzle (layout type 1):

@@ -7,18 +7,21 @@ differ only in their λ row of the packed table Λ (n_slots, r), slot 0 being
 the base model (λ ≡ 0).  One launch serves a heterogeneous batch.
 
 Replaces ``repro/kernels/qrlora_bgmv.py::qrlora_bgmv_kernel``.  The CUDA
-source is ``csrc/qrlora_bgmv.cu``: a first pass writes
-``P = (x·B) ⊙ Λ[seg]`` (M, r) in fp32 with λ rows loaded by index, and the
-main pass computes x·W in shared-memory tiles and adds ``P·A`` in its
-epilogue, accumulating in fp32 and writing x's dtype.  At decode the work is
-bound by reading W once (0.66 MB for the 576×576 ``wq`` in bf16, ≈ 0.2 µs
-at 3.35 TB/s); this version is a plain tiled kernel on the CUDA cores, far
-from that bound (PERF.md has its times).
+source is ``csrc/qrlora_bgmv.cu``: one launch of thread-block clusters, each
+cluster a 32-column tile of y whose 8 CTAs split K, take their partial x·W
+and x·B in fp32 (bf16 on the tensor cores, float32 on the CUDA cores), and
+sum them in rank order through distributed shared memory; λ multiplies the summed x·B, and P·A is split
+over the ranks the same way, so P never reaches device memory.  At decode
+the work is bound by reading W, B and A once (≈ 0.97 MB for the 576×576
+``wq`` in bf16, ≈ 0.29 µs at 3.35 TB/s); a call's time is its chain of
+latencies (PERF.md has its times).  :func:`qrlora_bgmv_plan` gives the
+split of a launch.
 
 The quantized base (:func:`qrlora_bgmv_quant_cuda`, replacing
-``qrlora_bgmv_quant_kernel``) is the same kernel with W as int8 or fp8-e4m3
-q (K, N), widened as it is staged, and a per-column ``w_scale`` (N,)
-multiplying the x·q sum before the adapter term is added:
+``qrlora_bgmv_quant_kernel``) keeps two launches: a low-rank pass writing
+``P = (x·B) ⊙ Λ[seg]`` (M, r) in fp32, then a tiled main pass over int8 or
+fp8-e4m3 q (K, N), widened as it is staged, with a per-column ``w_scale``
+(N,) multiplying the x·q sum before the adapter term is added:
 
     y[m] = (x[m]·q)·w_scale + ((x[m]·B) * Λ[seg[m]]) · A · scale
 
@@ -31,13 +34,17 @@ replicated ``Λ[seg]`` — and feeds them to the rows kernel
 (:func:`qrlora_bgmv_rows_cuda`, replacing ``qrlora_bgmv_rows_kernel``),
 which reads ``rows[m]`` where the BGMV kernel reads ``Λ[seg[m]]``:
 
-    y[m] = (x[m]·W)·w_scale + ((x[m]·B) * rows[m]) · A · scale
+    y[m] = x[m]·W + ((x[m]·B) * rows[m]) · A · scale        (W in x's dtype)
+    y[m] = (x[m]·q)·w_scale + ((x[m]·B) * rows[m]) · A · scale
 
-The all-reduce comes before the kernel: summing partial products after
-``(x·B)·λ·A`` would reassociate the float sum and lose bit-identity with
-the replicated engine.  :func:`ba_gather_sharded` reassembles rank-dim
-shards of B and A (``shard_ba``) by an exact all-gather.  Collectives run on
-the group's backend (gloo for CPU tensors, NCCL for CUDA tensors).
+For W in x's dtype it is the BGMV kernel's own code, so with rows = Λ[seg]
+its result is bitwise the BGMV kernel's; on a q it is the quantized
+kernel's two passes.  The all-reduce comes before the kernel: summing
+partial products after ``(x·B)·λ·A`` would reassociate the float sum and
+lose bit-identity with the replicated engine.  :func:`ba_gather_sharded`
+reassembles rank-dim shards of B and A (``shard_ba``) by an exact
+all-gather.  Collectives run on the group's backend (gloo for CPU tensors,
+NCCL for CUDA tensors).
 
 CPU tensors take the plain versions (:func:`repro_torch.kernels.ref.
 qrlora_bgmv_ref`, :func:`~repro_torch.kernels.ref.qrlora_bgmv_quant_ref`,
@@ -58,7 +65,9 @@ from repro_torch.kernels.ref import qrlora_bgmv_quant_ref, qrlora_bgmv_ref, qrlo
 _DTYPES = (torch.float32, torch.bfloat16)
 #: quantized-weight dtypes the kernels take
 Q_DTYPES = (torch.int8, FP8_DTYPE)
-_MAX_K = 11776  # pass 1 stages one row of x (fp32) beside 1 KB of partial sums in 48 KB
+_MAX_K = 11776  # the quantized low-rank pass stages one row of x (fp32) beside 1 KB in 48 KB
+#: largest rank r of the one-launch kernel (W in x's dtype)
+MAX_RANK = 256
 _lib = None
 
 
@@ -67,7 +76,7 @@ def _library():
     if _lib is None:
         lib = _build.load("qrlora_bgmv")
         lib.qrlora_bgmv_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
             + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_bgmv_launch.restype = ctypes.c_int
@@ -81,6 +90,8 @@ def _library():
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_bgmv_rows_launch.restype = ctypes.c_int
+        lib.qrlora_bgmv_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.qrlora_bgmv_plan.restype = None
         lib.qrlora_bgmv_error_string.argtypes = [ctypes.c_int]
         lib.qrlora_bgmv_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -112,14 +123,13 @@ def qrlora_bgmv_cuda(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Te
     _check("A", A, (torch.bfloat16,), (r, N), dev)
     _check("lam_table", lam_table, (torch.float32,), (n_slots, r), dev)
     _check("seg", seg, (torch.int32,), (M,), dev)
-    if K > _MAX_K:
-        raise ValueError(f"qrlora_bgmv: K={K} exceeds {_MAX_K}")
+    if r > MAX_RANK:
+        raise ValueError(f"qrlora_bgmv: rank r={r} exceeds {MAX_RANK}")
     lib = _library()
-    P = torch.empty((M, r), dtype=torch.float32, device=dev)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     err = lib.qrlora_bgmv_launch(
         x.data_ptr(), W.data_ptr(), B.data_ptr(), A.data_ptr(), lam_table.data_ptr(),
-        seg.data_ptr(), P.data_ptr(), y.data_ptr(), M, K, N, r, n_slots, float(scale),
+        seg.data_ptr(), y.data_ptr(), M, K, N, r, n_slots, float(scale),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -131,6 +141,19 @@ def qrlora_bgmv_cuda(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Te
 
 
 qrlora_bgmv_cuda.launches = 0
+
+
+def qrlora_bgmv_plan(M: int, K: int, N: int, r: int, dtype=torch.bfloat16) -> dict:
+    """How the one-launch kernel (W in x's dtype, ``dtype``) splits an (M, K)
+    × (K, N) product of rank r, in the numbers the kernel uses: ``cluster``
+    (CTAs splitting K), ``grid`` (column tiles × cluster, row tiles),
+    ``ctas``, ``k_slice`` (K rows a rank takes), ``p_cols`` (rank columns of
+    P a rank sums) and ``smem`` (dynamic shared memory of a CTA, bytes).
+    Loads the library (builds it if needed)."""
+    plan = (ctypes.c_int * 7)()
+    _library().qrlora_bgmv_plan(M, K, N, r, int(dtype == torch.bfloat16), plan)
+    return {"cluster": plan[0], "grid": (plan[1], plan[2]), "ctas": plan[3],
+            "k_slice": plan[4], "p_cols": plan[5], "smem": plan[6]}
 
 
 def qrlora_bgmv(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
@@ -194,8 +217,8 @@ def qrlora_bgmv_quant(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.0) -
 
 def qrlora_bgmv_rows_cuda(x, W, w_scale, B, A, lam_rows, scale: float = 1.0) -> torch.Tensor:
     """Launch the rows kernel on CUDA tensors: x (M,K) float32/bfloat16, W
-    (K,N) in x's dtype or int8/float8_e4m3fn q, w_scale (N,) float32 (all
-    ones for a W in x's dtype), B (K,r) and A (r,N) bfloat16, lam_rows (M,r)
+    (K,N) in x's dtype with ``w_scale`` None, or int8/float8_e4m3fn q with
+    w_scale (N,) float32; B (K,r) and A (r,N) bfloat16, lam_rows (M,r)
     float32; all contiguous.  Returns (M,N) in x's dtype.  Adds one to
     ``qrlora_bgmv_rows_cuda.launches`` per launch."""
     M, K = x.shape
@@ -204,22 +227,29 @@ def qrlora_bgmv_rows_cuda(x, W, w_scale, B, A, lam_rows, scale: float = 1.0) -> 
     for arg, t, dtypes, shape in (
         ("x", x, _DTYPES, (M, K)),
         ("W", W, (x.dtype, *Q_DTYPES), (K, N)),
-        ("w_scale", w_scale, (torch.float32,), (N,)),
         ("B", B, (torch.bfloat16,), (K, r)),
         ("A", A, (torch.bfloat16,), (r, N)),
         ("lam_rows", lam_rows, (torch.float32,), (M, r)),
     ):
         _check(arg, t, dtypes, shape, dev, kernel=name)
-    if K > _MAX_K:
+    quant = W.dtype in Q_DTYPES
+    if w_scale is not None:
+        _check("w_scale", w_scale, (torch.float32,), (N,), dev, kernel=name)
+    if quant != (w_scale is not None):
+        raise ValueError(f"{name}: w_scale goes with an int8/fp8 q and only with one")
+    if quant and K > _MAX_K:
         raise ValueError(f"{name}: K={K} exceeds {_MAX_K}")
+    if not quant and r > MAX_RANK:
+        raise ValueError(f"{name}: rank r={r} exceeds {MAX_RANK}")
     lib = _library()
-    P = torch.empty((M, r), dtype=torch.float32, device=dev)
+    P = torch.empty((M, r), dtype=torch.float32, device=dev) if quant else None
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
-    w_kind = 0 if W.dtype == x.dtype else 1 if W.dtype == torch.int8 else 2
+    w_kind = 0 if not quant else 1 if W.dtype == torch.int8 else 2
     err = lib.qrlora_bgmv_rows_launch(
-        x.data_ptr(), W.data_ptr(), w_scale.data_ptr(), B.data_ptr(), A.data_ptr(),
-        lam_rows.data_ptr(), P.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
-        int(x.dtype == torch.bfloat16), w_kind, torch.cuda.current_stream(dev).cuda_stream,
+        x.data_ptr(), W.data_ptr(), w_scale.data_ptr() if quant else None, B.data_ptr(),
+        A.data_ptr(), lam_rows.data_ptr(), P.data_ptr() if quant else None, y.data_ptr(), M, K,
+        N, r, float(scale), int(x.dtype == torch.bfloat16), w_kind,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(f"{name} launch failed: {lib.qrlora_bgmv_error_string(err).decode()}")
@@ -295,9 +325,8 @@ def qrlora_bgmv_fused_sharded(x, W, B, A, tab_local, seg, *, group, scale: float
                               w_scale=None) -> torch.Tensor:
     """Sharded-λ BGMV: :func:`lam_gather_sharded` on this rank's slot
     shard, then the rows kernel (plain version for CPU tensors).  x (M,K),
-    W (K,N) in x's dtype or int8/fp8 q with ``w_scale`` (N,), B and A whole
-    (replicated, or gathered first), seg (M,) global slot ids."""
-    if w_scale is None:
-        w_scale = torch.ones((W.shape[1],), dtype=torch.float32, device=W.device)
+    W (K,N) in x's dtype (``w_scale`` None) or int8/fp8 q with ``w_scale``
+    (N,), B and A whole (replicated, or gathered first), seg (M,) global
+    slot ids."""
     rows = lam_gather_sharded(tab_local, seg, group)
     return qrlora_bgmv_rows(x, W, w_scale, B, A, rows, scale)

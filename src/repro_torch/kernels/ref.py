@@ -101,14 +101,54 @@ def qrlora_bgmv_rows_ref(x, W, w_scale, B, A, lam_rows, scale: float = 1.0):
 
     :func:`qrlora_bgmv_quant_ref` term for term with ``Λ[seg]`` replaced by
     ``lam_rows (M, r)`` fp32 (the sharded serve's all-reduced rows).  W is in
-    x's dtype with ``w_scale`` all ones (×1.0 is exact, so this is then
-    :func:`qrlora_bgmv_ref` bit for bit), or int8/float8_e4m3fn q with its
-    per-output-channel ``w_scale (N,)``.  Result in x's dtype.
+    x's dtype with ``w_scale`` None (then this is :func:`qrlora_bgmv_ref` bit
+    for bit; an all-ones ``w_scale`` gives the same bits, ×1.0 being exact),
+    or int8/float8_e4m3fn q with its per-output-channel ``w_scale (N,)``.
+    Result in x's dtype.
     """
     xf = x.float()
-    y = (xf @ W.float()) * w_scale.float()
+    y = xf @ W.float()
+    if w_scale is not None:
+        y = y * w_scale.float()
     low = ((xf @ B.float()) * lam_rows.float()) @ A.float()
     return (y + low * scale).to(x.dtype)
+
+
+def qrlora_bgmv_split_ref(x, W, B, A, lam_rows, scale: float = 1.0, *, ranks: int = 8,
+                          skip_ranks=()):
+    """The one-launch BGMV kernel's arithmetic in plain PyTorch, for the
+    tests and the card's checks (never the main path); W in x's dtype,
+    ``lam_rows`` (M, r) the λ row of each row of x (``Λ[seg]``).
+
+    K is cut into ``ranks`` slices of ⌈K/ranks⌉ rows rounded up to 8 (the
+    cluster's CTAs); each slice's x·W and x·B are taken in fp32 and the
+    slices summed in rank order.  λ multiplies the summed x·B, giving P;
+    the rank columns are cut into ``ranks`` slices of ⌈r/ranks⌉ rounded up
+    to 4, each slice's P·A taken in fp32 and the slices summed in rank
+    order.  ``y = Σx·W + (ΣP·A)·scale``, the product rounded first, in x's
+    dtype.  ``skip_ranks`` leaves those ranks' partials out (what a kernel
+    that drops a cluster rank would give).
+    """
+    xf, Wf, Bf, Af = x.float(), W.float(), B.float(), A.float()
+    K, r = x.shape[1], B.shape[1]
+    def share(n, step):  # ⌈n / ranks⌉ rounded up to a multiple of step
+        return max(step, -(-n // (ranks * step)) * step)
+
+    ks, js = share(K, 8), share(r, 4)
+    xw = torch.zeros((x.shape[0], W.shape[1]), dtype=torch.float32, device=x.device)
+    xb = torch.zeros((x.shape[0], r), dtype=torch.float32, device=x.device)
+    for c in range(ranks):
+        if c not in skip_ranks:
+            k = slice(c * ks, (c + 1) * ks)
+            xw = xw + xf[:, k] @ Wf[k]
+            xb = xb + xf[:, k] @ Bf[k]
+    p = xb * lam_rows.float()
+    pa = torch.zeros_like(xw)
+    for c in range(ranks):
+        if c not in skip_ranks:
+            j = slice(c * js, (c + 1) * js)
+            pa = pa + p[:, j] @ Af[j]
+    return (xw + pa * scale).to(x.dtype)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True):

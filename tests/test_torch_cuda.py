@@ -57,11 +57,16 @@ def _close(got, want, kind):
     return bool(((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all())
 
 
-@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("M,K,N,r", [(1, 64, 32, 16), (37, 96, 80, 24), (130, 576, 192, 128)])
-def test_bgmv_kernel_matches_plain(gen, x_dtype, M, K, N, r):
-    """The QR factors are bfloat16 under either model dtype."""
-    dev, n_slots = "cuda", 5
+# decode (M = 4 lanes) and prefill buckets (16-64 rows) at smollm-135m's wq
+# (N = 576) and wv (N = 192), M = 1, 37 and 256 beside them, and shapes no
+# vector width divides (K, N and r ragged: element-wise staging)
+BGMV_SHAPES = [(M, 576, 576, 128) for M in (1, 4, 16, 64, 256)] + [
+    (4, 576, 192, 128), (37, 576, 192, 128), (1, 64, 32, 16), (37, 96, 80, 24),
+    (130, 576, 192, 128), (5, 100, 50, 20), (33, 1500, 72, 256)]
+
+
+def _bgmv_operands(gen, x_dtype, M, K, N, r, n_slots=5):
+    dev = "cuda"
     x = torch.randn((M, K), generator=gen, device=dev).to(x_dtype)
     W = (torch.randn((K, N), generator=gen, device=dev) * K**-0.5).to(x_dtype)
     B = (torch.randn((K, r), generator=gen, device=dev) * K**-0.5).bfloat16()
@@ -69,12 +74,65 @@ def test_bgmv_kernel_matches_plain(gen, x_dtype, M, K, N, r):
     lam = torch.randn((n_slots, r), generator=gen, device=dev)
     lam[0] = 0
     seg = torch.randint(0, n_slots, (M,), generator=gen, device=dev, dtype=torch.int32)
+    return x, W, B, A, lam, seg
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,r", BGMV_SHAPES)
+def test_bgmv_kernel_matches_plain(gen, x_dtype, M, K, N, r):
+    """The QR factors are bfloat16 under either model dtype.  The last row's
+    slot lies outside the table: a zero adapter term (the plain version
+    reads a zero row appended to the table).  A second call is bitwise the
+    first."""
+    x, W, B, A, lam, seg = _bgmv_operands(gen, x_dtype, M, K, N, r)
+    seg[-1] = lam.shape[0]
     before = qrlora_bgmv_cuda.launches
     y = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
+    again = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
     torch.cuda.synchronize()
-    assert qrlora_bgmv_cuda.launches == before + 1
+    assert qrlora_bgmv_cuda.launches == before + 2
     assert y.dtype == x_dtype and y.shape == (M, N)
-    assert _close(y, qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7), "qrlora_bgmv")
+    padded = torch.cat([lam, torch.zeros_like(lam[:1])])
+    assert _close(y, qrlora_bgmv_ref(x, W, B, A, padded, seg, 0.7), "qrlora_bgmv")
+    assert _close(y[-1:], (x[-1:].float() @ W.float()).to(x_dtype), "qrlora_bgmv")
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,N", [(4, 576), (4, 192), (64, 576)])
+def test_bgmv_kernel_bitwise_under_graph_replay(gen, x_dtype, M, N):
+    """A captured call replayed is bitwise the eager call: every sum has a
+    fixed order (no atomics)."""
+    x, W, B, A, lam, seg = _bgmv_operands(gen, x_dtype, M, 576, N, 128)
+    fn = lambda: qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+    eager = fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_bgmv_plan_spreads_decode_over_the_card(gen, x_dtype):
+    """A decode launch (4 lanes) splits K over a cluster of 8 CTAs for each
+    32-column tile: 144 CTAs at wq (N = 576), 48 at wv (N = 192); a 64-row
+    prefill bucket takes two row tiles of 32.  Each rank takes 72 of the
+    576 K rows and sums 16 of the 128 rank columns of P."""
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_plan
+
+    wq, wv = (qrlora_bgmv_plan(4, 576, N, 128, x_dtype) for N in (576, 192))
+    assert (wq["cluster"], wq["ctas"], wv["ctas"]) == (8, 144, 48)
+    assert wq["grid"] == (144, 1) and (wq["k_slice"], wq["p_cols"]) == (72, 16)
+    assert qrlora_bgmv_plan(64, 576, 576, 128, x_dtype)["grid"] == (144, 2)
+    assert wq["smem"] <= 48 * 1024  # decode needs no opt-in to large shared memory
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -372,10 +430,12 @@ def test_quantized_serve_and_forward_launch_the_quantized_kernels(gen):
 
 @pytest.mark.parametrize("w_kind", ["x", "int8", "fp8"])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("M,K,N,r", [(4, 576, 576, 128), (64, 576, 192, 128), (37, 96, 80, 24)])
+@pytest.mark.parametrize("M,K,N,r", [(M, 576, 576, 128) for M in (1, 4, 16, 64, 256)]
+                         + [(37, 576, 192, 128), (64, 576, 192, 128), (37, 96, 80, 24),
+                            (5, 100, 50, 20)])
 def test_bgmv_rows_kernel_matches_plain_and_bgmv(gen, w_kind, x_dtype, M, K, N, r):
-    """W in x's dtype (w_scale all ones) or int8/fp8 q: within the limit of
-    its plain version; with rows = Λ[seg] bitwise the BGMV kernel (or its
+    """W in x's dtype (no w_scale) or int8/fp8 q: within the limit of its
+    plain version; with rows = Λ[seg] bitwise the BGMV kernel (or its
     quantized twin); one λ row sent to slot 0 is rejected by the limit."""
     dev, n_slots = "cuda", 8
     x = torch.randn((M, K), generator=gen, device=dev).to(x_dtype)
@@ -386,7 +446,7 @@ def test_bgmv_rows_kernel_matches_plain_and_bgmv(gen, w_kind, x_dtype, M, K, N, 
     lam[0] = 0
     seg = (torch.arange(M, device=dev, dtype=torch.int32) + 1) % n_slots  # row 0 off slot 0
     if w_kind == "x":
-        ws = torch.ones((N,), dtype=torch.float32, device=dev)
+        ws = None
         twin = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
     else:
         W, ws = _quantized(W.float(), w_kind)

@@ -139,6 +139,19 @@ def test_rows_wrapper_validates_and_never_falls_back():
     assert tbgmv.qrlora_bgmv_rows_cuda.launches == 0
 
 
+def test_rows_wrapper_takes_w_scale_with_a_q_only():
+    """W in x's dtype takes no w_scale (the one-launch kernel has no
+    dequant step); an int8/fp8 q needs its w_scale.  Either mismatch is
+    refused before any library is loaded."""
+    _, (x, W, ws, B, A, tab, seg) = _operands(2, "float32", "plain")
+    _, (_, q, qws, _, _, _, _) = _operands(2, "float32", "int8")
+    rows = tab[seg.long()]
+    for bad in ((x, W, ws, B, A, rows), (x, q, None, B, A, rows)):
+        with pytest.raises(ValueError, match="w_scale"):
+            tbgmv.qrlora_bgmv_rows_cuda(*bad)
+    assert tbgmv.qrlora_bgmv_rows_cuda.launches == 0
+
+
 # ---------------------------------------------------------------------------
 # the masked local gather
 # ---------------------------------------------------------------------------
@@ -258,22 +271,25 @@ def test_sharded_engine_matches_jax_sharded_engine(world_of_one, jax_params):
 
 # One rank of a gloo group: the reference test's traffic (float32 reduced
 # smollm-135m, 2 lanes, 4 slots, tenants t1 and t2) through the sharded
-# engine under each config, the local shard shapes asserted on every rank;
-# rank 0 also runs the replicated engine and writes, per config, whether
-# tokens and logits are bitwise equal.  With FAULT, rank 1 drops the rank
-# offset of its local λ gather in one more run.
+# engine under each config, the local shard shapes asserted on every rank.
+# With FAULT, rank 1 drops the rank offset of its local λ gather in one more
+# run.  Only then, with the engines released and the group destroyed, does
+# rank 0 run the replicated engine alone and write, per config, whether
+# tokens and logits are bitwise equal: no rank waits in a collective while
+# another works alone.
 _RANK_SCRIPT = textwrap.dedent(
     """
-    import datetime, json, sys
+    import datetime, gc, json, sys
     import numpy as np
     import torch
     import torch.distributed as dist
 
-    rank, world, store, out, fault = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-                                      sys.argv[4], sys.argv[5] == "1")
+    rank, world, store, out, fault, timeout = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                                               sys.argv[4], sys.argv[5] == "1",
+                                               float(sys.argv[6]))
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=world, timeout=datetime.timedelta(seconds=60))
+                            world_size=world, timeout=datetime.timedelta(seconds=timeout))
     from repro_torch.configs import get_reduced
     from repro_torch.kernels import qrlora_bgmv as tbgmv
     from repro_torch.serving import BASE_TENANT, EngineConfig, MultiTenantEngine
@@ -308,30 +324,43 @@ _RANK_SCRIPT = textwrap.dedent(
                                                            np.stack(y.logits))
                    for x, y in zip(a, b))
 
-    ref = run()[1] if rank == 0 else None
-    results = {}
+    results, served = {}, {}
     configs = {"shard_lam": {"shard_lam": True}, "shard_ba": {"shard_ba": True},
                "both": {"shard_lam": True, "shard_ba": True}}
     for name, kw in configs.items():
         tbgmv.reset_collective_counts()
-        eng, subs = run(**kw)
+        eng, served[name] = run(**kw)
         assert shapes(eng, kw), (name, rank)
-        results[name] = {"equal": ref is not None and same(ref, subs),
-                         "collectives": dict(tbgmv.COLLECTIVES),
-                         "forwards": eng.steps + len(subs)}
+        results[name] = {"collectives": dict(tbgmv.COLLECTIVES),
+                         "forwards": eng.steps + len(served[name])}
     if fault:
         sound = tbgmv.local_lam_rows
         if rank == 1:
             tbgmv.local_lam_rows = lambda tab, seg, r: sound(tab, seg, 0)
-        subs = run(shard_lam=True)[1]
-        results["fault"] = {"equal": ref is not None and same(ref, subs)}
+        served["fault"] = run(shard_lam=True)[1]
+        results["fault"] = {}
         tbgmv.local_lam_rows = sound
+    # the engines hold the group: let them go first, or the group's gloo
+    # threads are torn down only at interpreter exit, which may abort
+    del eng
+    gc.collect()
+    dist.destroy_process_group()
     if rank == 0:
+        ref = run()[1]
+        for name, subs in served.items():
+            results[name]["equal"] = same(ref, subs)
         with open(out, "w") as f:
             json.dump(results, f)
-    dist.destroy_process_group()
     """
 )
+
+
+# A group run's wall-clock limit, and the gloo timeout of each collective
+# (and of the rendezvous) inside it: under a loaded host a rank may wait
+# long for a slower peer, but a hung collective still reports itself before
+# the run is killed.
+GROUP_LIMIT_S = 300
+GLOO_TIMEOUT_S = 240
 
 
 def _run_group(world: int, tmp: Path, fault: bool) -> dict:
@@ -340,12 +369,12 @@ def _run_group(world: int, tmp: Path, fault: bool) -> dict:
     out = tmp / "results.json"
     procs = [subprocess.Popen(
         [sys.executable, "-c", _RANK_SCRIPT, str(r), str(world), str(tmp / "store"), str(out),
-         "1" if fault else "0"], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+         "1" if fault else "0", str(GLOO_TIMEOUT_S)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
+            logs.append(p.communicate(timeout=GROUP_LIMIT_S)[0])
     finally:
         for p in procs:
             if p.poll() is None:
