@@ -42,11 +42,11 @@
 // neighbours (an mma row is computed from its own row of x).  Rows past M
 // are neither read nor written.
 //
-// Timed on the card (PERF.md): the same design with bf16's partial
-// sums on the CUDA cores took 0.0093 ms at wq decode but 0.049 ms at a
-// 64-row bucket (each cluster's x·B on the CUDA cores); an mma loop that
-// re-loaded x's fragment for every 16 × 8 tile took 0.0102 / 0.0188 ms; the
-// loop here, with x's fragments loaded once a k16 step, ≈ 0.0079 / 0.0122.
+// Timed on the card (PERF.md): bf16's partial sums on the CUDA cores lost
+// several-fold at a 64-row bucket (each cluster recomputes x·B for its
+// rows); an mma loop that re-loaded x's fragment for every 16 × 8 tile
+// took 0.0103 / 0.0187 ms at wq decode / a 64-row bucket, the loop here,
+// with x's fragments loaded once a k16 step, 0.0081 / 0.0122.
 // At decode the time is the chain of one launch, one load round, the
 // partial sums and two barriers; the bf16 registers are capped so that a
 // 64-row bucket at wq (288 CTAs) fits the card in one wave.
