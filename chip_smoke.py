@@ -993,17 +993,17 @@ def time_bgmv_quant(gen, N: int, base: str):
     return res
 
 
-def time_bgmv_rows(gen, N: int, base: str):
-    """The sharded serve's decode projection: 4 lanes, bf16 x, pre-gathered
-    fp32 λ rows, W bf16 (``base`` "bf16", no w_scale) or int8/fp8 q.  The
-    library yardstick is ``x@W + ((x@B)*rows)@A`` (``x@q·ws + …`` with q
-    widened in the call)."""
+def time_bgmv_rows(gen, N: int, base: str, M: int = 4):
+    """The sharded serve's projection: 4 decode lanes (or a prefill bucket
+    of M rows), bf16 x, pre-gathered fp32 λ rows, W bf16 (``base`` "bf16",
+    no w_scale) or int8/fp8 q.  The library yardstick is
+    ``x@W + ((x@B)*rows)@A`` (``x@q·ws + …`` with q widened in the call)."""
     import torch
     from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_rows_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_rows_ref
 
-    M, K, r, n_slots = 4, 576, 128, 8
+    K, r, n_slots = 576, 128, 8
     x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, torch.bfloat16)
     rows = lam[seg.long()]
     rows16 = rows.bfloat16()
@@ -1904,6 +1904,7 @@ def main(argv=None) -> None:
     for base in ("bf16", "int8"):
         timings[f"qrlora_bgmv_rows_wq_{base}"] = time_bgmv_rows(gen, 576, base)
     timings["qrlora_bgmv_rows_wv_bf16"] = time_bgmv_rows(gen, 192, "bf16")
+    timings["qrlora_bgmv_rows_wq_M64_bf16"] = time_bgmv_rows(gen, 576, "bf16", 64)
     for B, S in ((8, 256), (1, 2048)):
         timings[f"flash_attention_B{B}_S{S}"] = time_flash(gen, B, S)
     timings["decode_attention"] = time_decode(gen)
