@@ -417,7 +417,8 @@ def check_bgmv_quant(gen, details):
     """Quantized BGMV against its plain version: int8 and fp8 q, bf16 and
     float32 x, decode (M=4) and prefill-bucket (M=64) rows, seg ids over
     every slot (0 included).  Widening q is exact and so are the products,
-    so the two differ by summation order only: the BGMV tolerance."""
+    so the two differ by summation order only: the BGMV tolerance.  A
+    second call and a captured call replayed are bitwise the first."""
     import torch
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_quant_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_quant_ref
@@ -433,17 +434,73 @@ def check_bgmv_quant(gen, details):
                     seg = torch.arange(M, device=x.device, dtype=torch.int32) % n_slots
                     q, ws = _quantized(W, base)
                     args = (x, q, ws, B, A, lam, seg)
-                    y = qrlora_bgmv_quant_cuda(*args, scale=0.7)
+                    fn = lambda: qrlora_bgmv_quant_cuda(*args, scale=0.7)
+                    y, again = fn(), fn()
+                    replayed, _ = _replayed(fn)
                     torch.cuda.synchronize()
                     ref = qrlora_bgmv_quant_ref(*args, scale=0.7)
                     err = _max_err(y, ref)
-                    ok = _within(y, ref, _tol("qrlora_bgmv_quant", x_dt)) and bool(torch.isfinite(y).all())
+                    within = (_within(y, ref, _tol("qrlora_bgmv_quant", x_dt))
+                              and bool(torch.isfinite(y).all()))
+                    bitwise = torch.equal(y, again) and torch.equal(y, replayed)
                     details.append({"kernel": "qrlora_bgmv_quant", "q": base, "x": name, "M": M,
-                                    "N": N, "max_abs_err": err, "ok": ok})
-                    _check(ok, f"qrlora_bgmv_quant q={base} x={name} M={M} N={N}: "
-                               f"max|Δ|={err:.3e} over tolerance {_tol('qrlora_bgmv_quant', x_dt)}")
+                                    "N": N, "max_abs_err": err,
+                                    "bitwise_again_and_replayed": bitwise,
+                                    "ok": within and bitwise})
+                    _check(within, f"qrlora_bgmv_quant q={base} x={name} M={M} N={N}: "
+                                   f"max|Δ|={err:.3e} over tolerance "
+                                   f"{_tol('qrlora_bgmv_quant', x_dt)}")
+                    _check(bitwise, f"qrlora_bgmv_quant q={base} x={name} M={M} N={N}: a second "
+                                    "or replayed call differs from the first")
                     worst[name] = max(worst.get(name, 0.0), err)
     return worst
+
+
+def planted_bgmv_quant_faults(gen):
+    """Controls for the quantized BGMV checks at wq, as fractions of the
+    kernel-vs-plain bound (int8 and fp8; bf16 at decode and a 64-row bucket,
+    float32 at decode), each of which must be rejected (> 1): one cluster
+    rank's partials dropped (``ref.qrlora_bgmv_split_ref`` with w_scale,
+    without that rank, cut as the kernel's plan cuts K; least and worst over
+    the ranks), and the kernel itself run with every λ row from slot 0 (seg
+    all zeros) and with w_scale dropped (all ones); and w_scale applied to
+    the adapter term as well (the split mirror without w_scale, times it).
+    The sound kernel reads ≤ 1."""
+    import torch
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_plan, qrlora_bgmv_quant_cuda
+    from repro_torch.kernels.ref import qrlora_bgmv_quant_ref, qrlora_bgmv_split_ref
+
+    K, N, r, n_slots = 576, 576, 128, 8
+    out = {}
+    for base in ("int8", "fp8"):
+        for x_dt, M in ((torch.bfloat16, 4), (torch.bfloat16, 64), (torch.float32, 4)):
+            x, W, B, A, lam, _ = _bgmv_inputs(gen, M, K, N, r, n_slots, x_dt)
+            seg = torch.arange(M, device=x.device, dtype=torch.int32) % (n_slots - 1) + 1
+            q, ws = _quantized(W, base)
+            plan = qrlora_bgmv_plan(M, K, N, r, x_dt, q.dtype)
+            ranks = plan["cluster"]
+            _check(plan["k_slice"] == -(-K // (8 * ranks)) * 8,
+                   f"qrlora_bgmv_plan cuts K as the split mirror does not on a q: {plan}")
+            tol = (*_tol("qrlora_bgmv_quant", x_dt), 0.0)
+            ref = qrlora_bgmv_quant_ref(x, q, ws, B, A, lam, seg, 0.7)
+            rows = lam[seg.long()]
+            dropped = [err_over_bound(qrlora_bgmv_split_ref(x, q, B, A, rows, 0.7, w_scale=ws,
+                                                            ranks=ranks, skip_ranks=(c,)),
+                                      ref, tol) for c in range(ranks)]
+            on_adapter = (qrlora_bgmv_split_ref(x, q, B, A, rows, 0.7, ranks=ranks).float()
+                          * ws).to(x_dt)
+            sound = qrlora_bgmv_quant_cuda(x, q, ws, B, A, lam, seg, 0.7)
+            slot0 = qrlora_bgmv_quant_cuda(x, q, ws, B, A, lam, torch.zeros_like(seg), 0.7)
+            unscaled = qrlora_bgmv_quant_cuda(x, q, torch.ones_like(ws), B, A, lam, seg, 0.7)
+            torch.cuda.synchronize()
+            out[f"{base}_{str(x_dt).split('.')[1]}_M{M}"] = {
+                "sound": err_over_bound(sound, ref, tol),
+                "rank_dropped_least": min(dropped), "rank_dropped_worst": max(dropped),
+                "lam_slot0": err_over_bound(slot0, ref, tol),
+                "w_scale_dropped": err_over_bound(unscaled, ref, tol),
+                "w_scale_on_adapter": err_over_bound(on_adapter, ref, tol), "plan": plan}
+    return out
 
 
 def check_bgmv_rows(gen, details):
@@ -966,15 +1023,16 @@ def time_matmul(gen, N: int):
     return res
 
 
-def time_bgmv_quant(gen, N: int, base: str):
-    """wq (N=576) / wv (N=192) decode projection on a quantized base: 4
-    lanes, bf16 x, int8 or fp8 q.  Bytes count q at one byte an element."""
+def time_bgmv_quant(gen, N: int, base: str, M: int = 4):
+    """wq (N=576) / wv (N=192) projection on a quantized base: 4 decode
+    lanes (or a prefill bucket of M rows), bf16 x, int8 or fp8 q.  Bytes
+    count q at one byte an element."""
     import torch
-    from repro_torch.benchmarks.common import eager_ms, graph_ms
+    from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_quant_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_quant_ref
 
-    M, K, r, n_slots = 4, 576, 128, 8
+    K, r, n_slots = 576, 128, 8
     x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, torch.bfloat16)
     q, ws = _quantized(W, base)
     seg64, ws16 = seg.long(), ws.bfloat16()
@@ -985,6 +1043,7 @@ def time_bgmv_quant(gen, N: int, base: str):
            "library_ms": graph_ms(
                lambda: (x @ q.to(x.dtype)) * ws16 + ((x @ B) * lam[seg64].to(x.dtype)) @ A)}
     res["eager_ms"] = eager_ms(kernel)
+    res["launch_us"] = launch_us(kernel)  # one launch
     n_bytes = 2 * (M * K + K * r + r * N + M * N) + K * N + 4 * (N + n_slots * r + M)
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N + M * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
@@ -1842,6 +1901,19 @@ def main(argv=None) -> None:
     paged_err, paged_fault = check_paged(gen, report["cases"])
     matmul_err = check_matmul(gen, report["cases"])
     bgmv_quant_err = check_bgmv_quant(gen, report["cases"])
+    bgmv_quant_faults = planted_bgmv_quant_faults(gen)
+    report["bgmv_quant_faults"] = bgmv_quant_faults
+    for name, f in bgmv_quant_faults.items():
+        print(f"qrlora_bgmv_quant {name}, |Δ| over the bound: sound {f['sound']:.3f}; planted "
+              f"faults: one cluster rank dropped {f['rank_dropped_least']:.1f}-"
+              f"{f['rank_dropped_worst']:.1f} (least-worst of {f['plan']['cluster']} ranks), "
+              f"every λ row from slot 0 {f['lam_slot0']:.1f}, w_scale dropped "
+              f"{f['w_scale_dropped']:.1f}, w_scale on the adapter term "
+              f"{f['w_scale_on_adapter']:.1f}; plan {f['plan']}")
+        _check(f["sound"] <= 1.0 and min(f[k] for k in (
+            "rank_dropped_least", "lam_slot0", "w_scale_dropped", "w_scale_on_adapter")) > 1.0,
+               f"qrlora_bgmv_quant {name}: a planted fault went through, or the sound kernel "
+               f"did not: {f}")
     matmul_quant_err = check_matmul_quant(gen, report["cases"])
     replays = check_matmul_replay(gen)
     report["matmul_replays"] = replays
@@ -1863,7 +1935,8 @@ def main(argv=None) -> None:
     decode_err, decode_replays, decode_fault = check_decode(gen, report["cases"])
     print(f"kernel vs plain: qrlora_bgmv max|Δ| {bgmv_err}, "
           f"paged_decode_attention max|Δ| {paged_err}, qrlora_matmul max|Δ| {matmul_err}, "
-          f"qrlora_bgmv_quant max|Δ| {bgmv_quant_err}, qrlora_matmul_quant max|Δ| "
+          f"qrlora_bgmv_quant max|Δ| {bgmv_quant_err} (int8 and fp8; bitwise again and "
+          f"replayed), qrlora_matmul_quant max|Δ| "
           f"{matmul_quant_err} (int8 and fp8; both bitwise on a second call), qrlora_bgmv_rows max|Δ| {bgmv_rows_err} (W in "
           f"x's dtype, int8 and fp8; bitwise the BGMV kernels with rows = Λ[seg], a λ row sent "
           f"to slot 0 rejected), flash_attention {flash_err}, decode_attention {decode_err} "
@@ -1901,10 +1974,11 @@ def main(argv=None) -> None:
             for M in (SCORE_ROWS, 2048):
                 timings[f"qrlora_matmul_quant_{proj}_M{M}_{base}"] = time_matmul_quant(
                     gen, M, N, base)
-    for base in ("bf16", "int8"):
+        timings[f"qrlora_bgmv_quant_wq_M64_{base}"] = time_bgmv_quant(gen, 576, base, 64)
+    for base in ("bf16", "int8", "fp8"):
         timings[f"qrlora_bgmv_rows_wq_{base}"] = time_bgmv_rows(gen, 576, base)
-    timings["qrlora_bgmv_rows_wv_bf16"] = time_bgmv_rows(gen, 192, "bf16")
-    timings["qrlora_bgmv_rows_wq_M64_bf16"] = time_bgmv_rows(gen, 576, "bf16", 64)
+        timings[f"qrlora_bgmv_rows_wv_{base}"] = time_bgmv_rows(gen, 192, base)
+        timings[f"qrlora_bgmv_rows_wq_M64_{base}"] = time_bgmv_rows(gen, 576, base, 64)
     for B, S in ((8, 256), (1, 2048)):
         timings[f"flash_attention_B{B}_S{S}"] = time_flash(gen, B, S)
     timings["decode_attention"] = time_decode(gen)

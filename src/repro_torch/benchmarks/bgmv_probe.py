@@ -146,7 +146,10 @@ def _variants(src: str) -> dict:
         "no_stage": _sub(_sub(_sub(
             src, "      stage<2>(smem, g.xs, x + (size_t)m0 * K + kc0, K, m_tiles * 16, g.kx, tm, "
                  "kn, vec);\n", ""),
-            "      stage<2>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, g.kx, TN, kn, "
+            "      if constexpr (kQuant)\n"
+            "        stage<1>(smem + g.o_q, g.qs, W + (size_t)kc0 * N + n0, N, g.kx, TN, kn, "
+            "N - n0, vec);\n      else\n"
+            "        stage<2>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, g.kx, TN, kn, "
             "N - n0, vec);\n", ""),
             "      stage<2>(smem + g.o_b, g.bs, B + (size_t)kc0 * r, r, g.kx, g.rp, kn, r, vec);\n",
             ""),

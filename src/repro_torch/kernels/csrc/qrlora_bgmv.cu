@@ -1,40 +1,50 @@
-// Batched multi-λ QR-LoRA matmul (BGMV) for Hopper (sm_90a).
+// Batched multi-λ QR-LoRA matmul (BGMV) for Hopper (sm_90a), on a frozen
+// base W in x's dtype or quantized to int8 / fp8-e4m3 q with a per-column
+// w_scale:
 //
 //   y[m, n] = Σ_k x[m,k]·W[k,n] + scale · Σ_j P[m,j]·A[j,n]
+//   y[m, n] = (Σ_k x[m,k]·q[k,n]) · w_scale[n] + scale · Σ_j P[m,j]·A[j,n]
 //   P[m, j] = (Σ_k x[m,k]·B[k,j]) · Λ[seg[m], j]
 //
-// Replaces repro/kernels/qrlora_bgmv.py::qrlora_bgmv_kernel (_kernel) and,
-// with λ rows gathered before the call, ::qrlora_bgmv_rows_kernel
-// (_kernel_rows).  Those TPU kernels carry the (bm, r) x·B accumulator
-// across their in-order N grid axis and gather λ rows with a one-hot ×
-// table matmul; here λ rows are loaded by index.
+// Replaces repro/kernels/qrlora_bgmv.py::qrlora_bgmv_kernel (_kernel),
+// ::qrlora_bgmv_quant_kernel (_kernel_q) and, with λ rows gathered before
+// the call, ::qrlora_bgmv_rows_kernel (_kernel_rows, both its routes).
+// Those TPU kernels carry the (bm, r) x·B accumulator across their in-order
+// N grid axis and gather λ rows with a one-hot × table matmul; here λ rows
+// are loaded by index.
 //
 // Bound on the card: at decode (M = lanes = 4, K = 576, N = 576 for wq or
-// 192 for wv, r = 128, bf16) the work is reading W, B and A once, ≈ 0.97 MB
-// at wq, ≈ 0.29 µs at 3.35 TB/s; the flops are negligible, and prefill
-// buckets (M ≤ 64) stay far below the 295 flop/byte ridge too.  So a call
-// is bound by its chain of latencies: launch, dependent loads, barriers.
+// 192 for wv, r = 128) the work is reading W (or q), B and A once: bf16 W
+// ≈ 0.97 MB at wq, ≈ 0.29 µs at 3.35 TB/s; an int8/fp8 q ≈ 0.64 MB, ≈ 0.19
+// µs.  The flops are negligible, and prefill buckets (M ≤ 64) stay far below
+// the 295 flop/byte ridge too.  So a call is bound by its chain of
+// latencies: launch, dependent loads, barriers.
 //
-// What the design does about it (W in x's dtype, bf16 or float32): one
-// launch of clusters of CS = 8 CTAs.  A cluster owns a 32-column tile of y
-// and a row tile of up to 32 rows; its CTAs split K into eight slices of
-// ⌈K/8⌉ rows (rounded up to 8).  Each CTA
-//  1. stages its slice of x, of W's column tile and of all of B, then its
-//     eighth of A's rows for the tile and of the λ rows — every load issued
+// What the design does about it: one launch of clusters of CS = 8 CTAs.  A
+// cluster owns a 32-column tile of y and a row tile of up to 32 rows; its
+// CTAs split K into eight slices of ⌈K/8⌉ rows (rounded up to 8).  Each CTA
+//  1. stages its slice of x, of W's column tile (a q raw, one byte an
+//     element) and of all of B, then its eighth of A's rows for the tile,
+//     of the λ rows and, on a q, its 4 columns' w_scale — every load issued
 //     at once, as 16-byte cp.async copies (where the shapes align; element
 //     by element otherwise): one dependent round at K ≤ 8·128;
 //  2. takes its partial sums of x·W (rows × 32) and x·B (rows × r): bf16 on
 //     the tensor cores (mma.sync m16n8k16 from ldmatrix fragments; exact
-//     products, fp32 sums), float32 on the CUDA cores (an fp32 FMA chain in
-//     K order); and sends each to the CTA that sums it, x·B column j to
-//     rank j / ⌈r/8⌉, x·W column n to rank n / 4 (distributed shared
-//     memory stores; no atomics);
+//     products, fp32 sums), a q first widened in shared memory to the bf16
+//     tile the same loop reads (exact: widen.cuh); float32 on the CUDA
+//     cores (an fp32 FMA chain in K order), a q widened to fp32 as it is
+//     read; and sends each to the CTA that sums it, x·B column j to rank
+//     j / ⌈r/8⌉, x·W column n to rank n / 4 (distributed shared memory
+//     stores; no atomics);
 //  3. after a cluster barrier, sums its P columns over the ranks in rank
 //     order, multiplies by λ, and sends its share of P·A (its eighth of the
 //     rank columns, all 32 columns of the tile) on the same way;
 //  4. after a second barrier, sums the x·W and the P·A partials of its 4
-//     columns in rank order and writes y = Σx·W + Σ(P·A)·scale, the product
-//     rounded before the sum (the reference's order), once, in x's dtype.
+//     columns in rank order and writes y = Σx·W + Σ(P·A)·scale, or on a q
+//     y = Σx·q·w_scale + Σ(P·A)·scale with the dequant product rounded in
+//     fp32 before the adapter term is added (the reference's order; the
+//     scale never touches the adapter term or a partial), each product
+//     rounded before the sum, once, in x's dtype.
 // A decode launch puts 8·⌈N/32⌉ CTAs on the card (144 at wq, 48 at wv).  P
 // never leaves the cluster: no second launch and no scratch.  Every sum has
 // a fixed order, so y is bitwise the same from call to call and under graph
@@ -49,24 +59,16 @@
 // with x's fragments loaded once a k16 step, 0.0081 / 0.0122.
 // At decode the time is the chain of one launch, one load round, the
 // partial sums and two barriers; the bf16 registers are capped so that a
-// 64-row bucket at wq (288 CTAs) fits the card in one wave.
+// 64-row bucket at wq (288 CTAs) fits the card in one wave.  On an int8 or
+// fp8 q (bf16 x) the launch reads 0.0085 / 0.0077 ms at wq / wv decode and
+// 0.0136 at a 64-row bucket, ≈ 0.0004 ms over a bf16 W at decode, which
+// has no widening pass and one barrier fewer a round; the two launches it
+// replaced (a low-rank pass writing P, then a main pass walking K in five
+// serial rounds over 18 CTAs at wq) read 0.0218 at wq and at wv alike.
 //
-// The rows kernel with W in x's dtype is this kernel reading rows[m] where
-// it reads Λ[seg[m]] (a slot outside [0, n_slots) gives a zero row), so with
-// rows = Λ[seg] its y is bitwise the BGMV kernel's.
-//
-// Quantized base (replaces repro/kernels/qrlora_bgmv.py::
-// qrlora_bgmv_quant_kernel, _kernel_q, and the rows kernel on a q): two
-// launches.  A low-rank pass writes P = (x·B) ⊙ λ (M, r) in fp32; a main
-// pass over (16 × 32) output tiles streams q (K, N) int8 or fp8-e4m3, one
-// byte an element, widens it to fp32 as it stages a tile (exact, and an
-// fp32 product of a bf16 or fp32 x with it is exact too), and computes
-//   y[m, n] = (Σ_k x[m,k]·q[k,n]) · w_scale[n] + scale · Σ_j P[m,j]·A[j,n],
-// the dequant multiply rounded in fp32 before the adapter term is added
-// (__fmul_rn / __fadd_rn: no FMA contraction, the reference's order); the
-// scale never touches the adapter term.  Bound at decode: ≈ 0.64 MB, ≈ 0.19
-// µs at 3.35 TB/s.  Its time is the chain of two launches and five serial
-// K rounds in the main pass.
+// The rows kernel is this kernel reading rows[m] where it reads Λ[seg[m]]
+// (a slot outside [0, n_slots) gives a zero row), so with rows = Λ[seg] its
+// y is bitwise the BGMV kernel's, on a W in x's dtype or on a q.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -76,16 +78,12 @@
 #include <type_traits>
 
 #include "cluster.cuh"
+#include "widen.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using fp8 = __nv_fp8_e4m3;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
-__device__ __forceinline__ float to_f(fp8 v) { return static_cast<float>(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
@@ -93,10 +91,6 @@ template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __flo
 
 __host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
 int round_up(int a, int b) { return ceil_div(a, b) * b; }
-
-// ---------------------------------------------------------------------------
-// W in x's dtype: one launch of clusters splitting K.
-// ---------------------------------------------------------------------------
 
 constexpr int CS = 8;         // CTAs of a cluster: the K slices (the portable cluster size)
 constexpr int TN = 32;        // columns of a cluster's output tile
@@ -121,14 +115,19 @@ struct Geo {
   int tm;   // rows of the largest row tile: min(M, TM)
   int kx;   // K rows a staged round holds (bf16: kc rounded up to whole k16 steps)
   int rows; // rows of x a round holds (bf16: tm rounded up to whole m16 tiles)
-  // bytes of a row in shared memory: x, the W tile, B (bf16 rows padded by 16
-  // bytes, so the 8 row addresses of an ldmatrix fall in distinct banks)
-  int xs, ws, bs;
-  // shared-memory offsets, bytes, each 16-byte aligned
-  int o_w, o_b, o_a, o_lam, o_p, o_rb, o_rw, o_rpa, bytes;
+  // bytes of a row in shared memory: x, the W tile the partial sums read (a
+  // q under float32 x raw, one byte an element), B (bf16 rows padded by 16
+  // bytes, so the 8 row addresses of an ldmatrix fall in distinct banks), a
+  // q under bf16 x as staged (raw)
+  int xs, ws, bs, qs;
+  // shared-memory offsets, bytes, each 16-byte aligned: o_ws a q's w_scale
+  // for the rank's 4 columns, o_q a q's raw tile under bf16 x (widened from
+  // there into the bf16 tile at o_w)
+  int o_w, o_b, o_a, o_lam, o_p, o_rb, o_rw, o_rpa, o_ws, o_q, bytes;
 };
 
-Geo make_geo(int M, int K, int r, bool x_bf16) {
+// quant: W is a 1-byte q (int8 or fp8), else in x's dtype.
+Geo make_geo(int M, int K, int r, bool x_bf16, bool quant) {
   Geo g;
   const int sz = x_bf16 ? 2 : 4, pad = x_bf16 ? 16 : 0;
   g.ks = std::max(8, round_up(ceil_div(K, CS), 8));
@@ -139,7 +138,7 @@ Geo make_geo(int M, int K, int r, bool x_bf16) {
   g.kx = x_bf16 ? round_up(g.kc, 16) : g.kc;
   g.rows = x_bf16 ? round_up(g.tm, 16) : g.tm;
   g.xs = g.kx * sz + 16;
-  g.ws = TN * sz + pad;
+  g.ws = quant && !x_bf16 ? TN : TN * sz + pad;  // float32 x reads a q as it lies
   g.bs = g.rp * 2 + pad;
   g.o_w = g.rows * g.xs;
   g.o_b = g.o_w + g.kx * g.ws;
@@ -150,6 +149,17 @@ Geo make_geo(int M, int K, int r, bool x_bf16) {
   g.o_rw = g.o_rb + CS * g.tm * g.js * 4;
   g.o_rpa = g.o_rw + CS * g.tm * OUT * 4;
   g.bytes = g.o_rpa + CS * g.tm * OUT * 4;
+  g.o_ws = g.o_q = g.o_w;
+  g.qs = g.ws;
+  if (quant) {
+    g.o_ws = g.bytes;
+    g.bytes += 16;
+    if (x_bf16) {  // q lands raw beside the bf16 tile it is widened into
+      g.o_q = g.bytes;
+      g.qs = TN;
+      g.bytes += g.kx * TN;
+    }
+  }
   return g;
 }
 
@@ -181,7 +191,8 @@ __device__ __forceinline__ void stage(unsigned char* dst, int dst_row, const voi
       cp_async16(dst + rr * dst_row + c * SZ, n ? s + (rr * ld + c) * SZ : s, n * SZ);
     }
   } else {
-    using U = typename std::conditional<SZ == 2, uint16_t, uint32_t>::type;
+    using U = typename std::conditional<
+        SZ == 1, uint8_t, typename std::conditional<SZ == 2, uint16_t, uint32_t>::type>::type;
     const U* g = static_cast<const U*>(src);
     for (int i = threadIdx.x; i < rows * cols; i += THREADS) {
       const int rr = i / cols, c = i % cols;
@@ -196,6 +207,18 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+// A q's four values widened to fp32 (exact).
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(c.x, c.y, c.z, c.w);
+}
+__device__ __forceinline__ float4 load4(const fp8* p) {
+  uint32_t w01, w23;
+  widen4(fp8{}, *reinterpret_cast<const uint32_t*>(p), w01, w23);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w01));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w23));
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
@@ -220,11 +243,11 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 }
 
 // acc += x[k] · w4[k] over k < kn, in K order.
-template <typename TX, typename TW>
-__device__ __forceinline__ void fma_chain(float (&acc)[4], const TX* xr, const TW* w, int ld, int kn) {
+template <typename TW>
+__device__ __forceinline__ void fma_chain(float (&acc)[4], const float* xr, const TW* w, int ld, int kn) {
 #pragma unroll 4
   for (int k = 0; k < kn; ++k) {
-    const float a = to_f(xr[k]);
+    const float a = xr[k];
     const float4 b = load4(w + k * ld);
     acc[0] = fmaf(a, b.x, acc[0]);
     acc[1] = fmaf(a, b.y, acc[1]);
@@ -234,21 +257,25 @@ __device__ __forceinline__ void fma_chain(float (&acc)[4], const TX* xr, const T
 }
 
 // One cluster per (32-column tile, row tile): blockIdx.x = tile · CS + rank,
-// blockIdx.y = row tile.  kRows: λ is rows (M, r) at row m; else the table
-// row Λ[seg[m]].  vec: every staged matrix takes 16-byte copies.  bf16 x
-// takes its partial sums on the tensor cores (mma.sync m16n8k16: exact
-// products, fp32 sums, each output row from its own row of x), float32 x
-// on the CUDA cores.
+// blockIdx.y = row tile.  TW: W's type, x's (w_scale unused) or a 1-byte q
+// (int8_t, fp8) dequantized by w_scale.  kRows: λ is rows (M, r) at row m;
+// else the table row Λ[seg[m]].  vec: every staged matrix takes 16-byte
+// copies.  bf16 x takes its partial sums on the tensor cores (mma.sync
+// m16n8k16: exact products, fp32 sums, each output row from its own row of
+// x), float32 x on the CUDA cores.
 // bf16 asks for 3 CTAs an SM (≤ 85 registers a thread): a 64-row bucket at
 // wq (288 CTAs) then fits the card in one wave.
-template <typename TX, bool kRows>
+template <typename TX, typename TW, bool kRows>
 __global__ void __cluster_dims__(CS, 1, 1)
 __launch_bounds__(THREADS, std::is_same<TX, bf16>::value ? 3 : 1)
-bgmv_cluster_kernel(const TX* __restrict__ x, const TX* __restrict__ W, const bf16* __restrict__ B,
+bgmv_cluster_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
+                    const float* __restrict__ w_scale, const bf16* __restrict__ B,
                     const bf16* __restrict__ A, const float* __restrict__ lam,
                     const int* __restrict__ seg, TX* __restrict__ y, int M, int K, int N, int r,
                     int n_slots, float scale, Geo g, bool vec) {
   constexpr bool kMma = std::is_same<TX, bf16>::value;
+  constexpr bool kQuant = sizeof(TW) == 1;
+  static_assert(kQuant || std::is_same<TW, TX>::value, "W is in x's dtype or a 1-byte q");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* as = reinterpret_cast<bf16*>(smem + g.o_a);
   float* lam_s = reinterpret_cast<float*>(smem + g.o_lam);
@@ -256,6 +283,7 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TX* __restrict__ W, const bf
   float* recv_b = reinterpret_cast<float*>(smem + g.o_rb);   // [rank][row][js]: x·B partials
   float* recv_w = reinterpret_cast<float*>(smem + g.o_rw);   // [rank][row][OUT]: x·W partials
   float* recv_pa = reinterpret_cast<float*>(smem + g.o_rpa); // [rank][row][OUT]: P·A partials
+  float* ws_s = reinterpret_cast<float*>(smem + g.o_ws);     // a q's w_scale, the rank's columns
 
   const uint32_t rank = cluster_rank();
   const int n0 = blockIdx.x / CS * TN, m0 = blockIdx.y * TM;
@@ -265,10 +293,15 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TX* __restrict__ W, const bf
 
   cluster_arrive_relaxed();  // peers write into this CTA only after every CTA has started
 
-  // this rank's eighth of A's rows for the tile, and of the λ rows: issued
-  // after the first round's copies, so their loads (seg, then Λ) overlap it
+  // this rank's eighth of A's rows for the tile, and of the λ rows (and a
+  // q's w_scale for the rank's columns): issued after the first round's
+  // copies, so their loads (seg, then Λ) overlap it
   auto stage_a_and_lam = [&] {
     stage<2>(smem + g.o_a, TN * 2, A + (size_t)j0 * N + n0, N, g.js, TN, jn, N - n0, vec);
+    if constexpr (kQuant) {
+      const int n = n0 + rank * OUT + threadIdx.x;
+      if (threadIdx.x < OUT) ws_s[threadIdx.x] = n < N ? w_scale[n] : 0.f;
+    }
     for (int i = threadIdx.x; i < tm * g.js; i += THREADS) {
       const int m = i / g.js, jj = i % g.js;
       float v = 0.f;
@@ -303,11 +336,25 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TX* __restrict__ W, const bf
     for (int kc0 = k0; kc0 < k1; kc0 += g.kc) {
       const int kn = min(g.kc, k1 - kc0);
       stage<2>(smem, g.xs, x + (size_t)m0 * K + kc0, K, m_tiles * 16, g.kx, tm, kn, vec);
-      stage<2>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, g.kx, TN, kn, N - n0, vec);
+      if constexpr (kQuant)
+        stage<1>(smem + g.o_q, g.qs, W + (size_t)kc0 * N + n0, N, g.kx, TN, kn, N - n0, vec);
+      else
+        stage<2>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, g.kx, TN, kn, N - n0, vec);
       stage<2>(smem + g.o_b, g.bs, B + (size_t)kc0 * r, r, g.kx, g.rp, kn, r, vec);
       if (kc0 == k0) stage_a_and_lam();
       cp_async_wait_all();
       __syncthreads();
+      if constexpr (kQuant) {  // q's raw tile widened into the bf16 tile the loop reads (exact)
+        for (int i = threadIdx.x; i < g.kx * (TN / 16); i += THREADS) {
+          const int k = i / (TN / 16), c = i % (TN / 16) * 16;
+          uint4 lo, hi;
+          widen16<TW>(*reinterpret_cast<const uint4*>(smem + g.o_q + k * TN + c), lo, hi);
+          uint4* dst = reinterpret_cast<uint4*>(smem + g.o_w + k * g.ws + c * 2);
+          dst[0] = lo;
+          dst[1] = hi;
+        }
+        __syncthreads();
+      }
       for (int k = 0; k < kn; k += 16) {  // rows past kn are zeros
         uint32_t a[MT_MAX][4];
 #pragma unroll
@@ -361,7 +408,7 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TX* __restrict__ W, const bf
     for (int kc0 = k0; kc0 < k1; kc0 += g.kc) {
       const int kn = min(g.kc, k1 - kc0);
       stage<4>(smem, g.xs, x + (size_t)m0 * K + kc0, K, tm, g.kx, tm, kn, vec);
-      stage<4>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, kn, TN, kn, N - n0, vec);
+      stage<sizeof(TW)>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, kn, TN, kn, N - n0, vec);
       stage<2>(smem + g.o_b, g.bs, B + (size_t)kc0 * r, r, kn, g.rp, kn, r, vec);
       if (kc0 == k0) stage_a_and_lam();
       cp_async_wait_all();
@@ -373,7 +420,7 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TX* __restrict__ W, const bf
           const int m = task / groups, grp = task % groups;
           const float* xr = reinterpret_cast<const float*>(smem + m * g.xs);
           if (grp < TN / 4)
-            fma_chain(acc[t], xr, reinterpret_cast<const float*>(smem + g.o_w) + grp * 4, TN, kn);
+            fma_chain(acc[t], xr, reinterpret_cast<const TW*>(smem + g.o_w) + grp * 4, TN, kn);
           else
             fma_chain(acc[t], xr, reinterpret_cast<const bf16*>(smem + g.o_b) + (grp - TN / 4) * 4,
                       g.rp, kn);
@@ -427,7 +474,8 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TX* __restrict__ W, const bf
   }
   cluster_sync();  // no shared memory of another CTA is touched after this
 
-  // this rank's 4 columns: both sums in rank order, the adapter term added once
+  // this rank's 4 columns: both sums in rank order, the adapter term added
+  // once (on a q after the x·q sum is dequantized and rounded)
   for (int i = threadIdx.x; i < tm * OUT; i += THREADS) {
     const int m = i / OUT, c = i % OUT, n = n0 + rank * OUT + c;
     float xw = 0.f, pa = 0.f;
@@ -436,23 +484,24 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TX* __restrict__ W, const bf
       xw += recv_w[(q * g.tm + m) * OUT + c];
       pa += recv_pa[(q * g.tm + m) * OUT + c];
     }
+    if constexpr (kQuant) xw = __fmul_rn(xw, ws_s[c]);
     if (n < N) y[(size_t)(m0 + m) * N + n] = from_f<TX>(__fadd_rn(xw, __fmul_rn(pa, scale)));
   }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename TX, bool kRows>
-int launch_cluster(const void* x, const void* W, const void* B, const void* A, const float* lam,
-                   const int* seg, void* y, int M, int K, int N, int r, int n_slots, float scale,
-                   cudaStream_t stream) {
+template <typename TX, typename TW, bool kRows>
+int launch_cluster(const void* x, const void* W, const float* w_scale, const void* B,
+                   const void* A, const float* lam, const int* seg, void* y, int M, int K, int N,
+                   int r, int n_slots, float scale, cudaStream_t stream) {
   if (M == 0 || N == 0) return 0;
   if (r > R_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int SZ = sizeof(TX), V = 16 / SZ;
-  const Geo g = make_geo(M, K, r, SZ == 2);
-  const bool vec = K % V == 0 && N % 8 == 0 && r % 8 == 0 && aligned16(x) && aligned16(W) &&
+  constexpr int SZ = sizeof(TX), V = 16 / SZ, VW = std::max<int>(8, 16 / sizeof(TW));
+  const Geo g = make_geo(M, K, r, SZ == 2, sizeof(TW) == 1);
+  const bool vec = K % V == 0 && N % VW == 0 && r % 8 == 0 && aligned16(x) && aligned16(W) &&
                    aligned16(B) && aligned16(A);
-  auto* kernel = bgmv_cluster_kernel<TX, kRows>;
+  auto* kernel = bgmv_cluster_kernel<TX, TW, kRows>;
   if (g.bytes > 48 * 1024) {  // on every such launch: the attribute holds for the current device only
     const cudaError_t attr =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g.bytes);
@@ -460,164 +509,36 @@ int launch_cluster(const void* x, const void* W, const void* B, const void* A, c
   }
   const dim3 grid(ceil_div(N, TN) * CS, ceil_div(M, TM));
   kernel<<<grid, THREADS, g.bytes, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TX*>(W), static_cast<const bf16*>(B),
+      static_cast<const TX*>(x), static_cast<const TW*>(W), w_scale, static_cast<const bf16*>(B),
       static_cast<const bf16*>(A), lam, seg, static_cast<TX*>(y), M, K, N, r, n_slots, scale, g,
       vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// Quantized W (int8 / fp8 q): a low-rank pass writing P, then a tiled main
-// pass.
-// ---------------------------------------------------------------------------
-
-constexpr int LR_COLS = 32, LR_SLICES = 8;  // 256 threads: 8 K-slices × 32 rank columns
-
-// Pass 1: block (m, y) computes P[m, 32y … 32y+31].  The row of x is staged
-// in shared memory; warp s walks its slice of K over 32 consecutive columns
-// of B (coalesced), and the 8 partial sums are added in a fixed order.  λ
-// comes from the table row Λ[seg[m]] or, with kRows, from lam = rows (M, r)
-// at row m (seg unused).  A slot id outside [0, n_slots) gives a zero row
-// rather than an out-of-bounds read.
+// w_kind: W in x's dtype (0), or an int8 (1) or fp8-e4m3 (2) q.
 template <typename TX, bool kRows>
-__global__ void __launch_bounds__(LR_COLS * LR_SLICES)
-lowrank_kernel(const TX* __restrict__ x, const __nv_bfloat16* __restrict__ B,
-               const float* __restrict__ lam, const int* __restrict__ seg,
-               float* __restrict__ P, int K, int r, int n_slots) {
-  extern __shared__ float xs[];  // K floats
-  __shared__ float part[LR_SLICES][LR_COLS];
-  const int m = blockIdx.x;
-  const int lane = threadIdx.x % LR_COLS, slice = threadIdx.x / LR_COLS;
-  const int j = blockIdx.y * LR_COLS + lane;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) xs[k] = to_f(x[(size_t)m * K + k]);
-  __syncthreads();
-  float acc = 0.f;
-  if (j < r) {
-    const int per = (K + LR_SLICES - 1) / LR_SLICES;
-    const int k1 = min(K, (slice + 1) * per);
-#pragma unroll 8
-    for (int k = slice * per; k < k1; ++k) acc = fmaf(xs[k], to_f(B[(size_t)k * r + j]), acc);
-  }
-  part[slice][lane] = acc;
-  __syncthreads();
-  if (slice == 0 && j < r) {
-    float sum = 0.f;
-#pragma unroll
-    for (int s = 0; s < LR_SLICES; ++s) sum += part[s][lane];
-    if constexpr (kRows) {
-      P[(size_t)m * r + j] = sum * lam[(size_t)m * r + j];
-    } else {
-      const int sg = seg[m];
-      P[(size_t)m * r + j] = (sg >= 0 && sg < n_slots) ? sum * lam[(size_t)sg * r + j] : 0.f;
-    }
-  }
+int launch_kind(int w_kind, const void* x, const void* W, const float* w_scale, const void* B,
+                const void* A, const float* lam, const int* seg, void* y, int M, int K, int N,
+                int r, int n_slots, float scale, cudaStream_t stream) {
+  if (w_kind == 1)
+    return launch_cluster<TX, int8_t, kRows>(x, W, w_scale, B, A, lam, seg, y, M, K, N, r,
+                                             n_slots, scale, stream);
+  if (w_kind == 2)
+    return launch_cluster<TX, fp8, kRows>(x, W, w_scale, B, A, lam, seg, y, M, K, N, r, n_slots,
+                                          scale, stream);
+  return launch_cluster<TX, TX, kRows>(x, W, w_scale, B, A, lam, seg, y, M, K, N, r, n_slots,
+                                       scale, stream);
 }
 
-constexpr int BM = 16, BN = 32, BK = 128, MAIN_THREADS = 256;
-constexpr int CPT = BN / 16;  // output columns per thread
-
-static_assert(BM * BK % MAIN_THREADS == 0 && BK * BN % MAIN_THREADS == 0,
-              "tiles split evenly over the block's threads");
-
-// Stage a (BM × BK) tile of a row-major (rows × cols) matrix starting at
-// (r0, c0), as fp32, zero-filled past the edges.  The trip count is a
-// constant, so the loop unrolls and a thread's loads are all in flight at
-// once.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float (*dst)[BK + 1], const T* __restrict__ src,
-                                           int r0, int c0, int rows, int cols) {
-#pragma unroll
-  for (int t = 0; t < BM * BK / MAIN_THREADS; ++t) {
-    const int i = t * MAIN_THREADS + threadIdx.x;
-    const int rr = i / BK, cc = i % BK, gr = r0 + rr, gc = c0 + cc;
-    dst[rr][cc] = (gr < rows && gc < cols) ? to_f(src[(size_t)gr * cols + gc]) : 0.f;
-  }
-}
-
-// Stage a (BK × BN) tile of a row-major (rows × cols) matrix at (r0, c0).
-template <typename T>
-__device__ __forceinline__ void stage_cols(float (*dst)[BN], const T* __restrict__ src,
-                                           int r0, int c0, int rows, int cols) {
-#pragma unroll
-  for (int t = 0; t < BK * BN / MAIN_THREADS; ++t) {
-    const int i = t * MAIN_THREADS + threadIdx.x;
-    const int rr = i / BN, cc = i % BN, gr = r0 + rr, gc = c0 + cc;
-    dst[rr][cc] = (gr < rows && gc < cols) ? to_f(src[(size_t)gr * cols + gc]) : 0.f;
-  }
-}
-
-// Pass 2: one block per (BM × BN) output tile; thread t owns row t / 16 and
-// the CPT columns CPT·(t % 16) … of the tile.  q is 1-byte; w_scale
-// dequantizes its columns in the epilogue.
-template <typename TX, typename TW>
-__global__ void __launch_bounds__(MAIN_THREADS)
-bgmv_main_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
-                 const float* __restrict__ w_scale, const float* __restrict__ P,
-                 const __nv_bfloat16* __restrict__ A, TX* __restrict__ y, int M, int K, int N,
-                 int r, float scale) {
-  static_assert(sizeof(TW) == 1, "the two-pass route is the quantized base's");
-  __shared__ float rs[BM][BK + 1];
-  __shared__ float cs[BK][BN];
-  const int row = threadIdx.x / 16, c0 = (threadIdx.x % 16) * CPT;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  float acc[CPT] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_rows(rs, x, m0, k0, M, K);
-    stage_cols(cs, W, k0, n0, K, N);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float a = rs[row][kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[c] = fmaf(a, cs[kk][c0 + c], acc[c]);
-    }
-    __syncthreads();
-  }
-
-  float low[CPT] = {};
-  for (int j0 = 0; j0 < r; j0 += BK) {
-    stage_rows(rs, P, m0, j0, M, r);
-    stage_cols(cs, A, j0, n0, r, N);
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < BK; ++jj) {
-      const float p = rs[row][jj];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) low[c] = fmaf(p, cs[jj][c0 + c], low[c]);
-    }
-    __syncthreads();
-  }
-
-  const int m = m0 + row;
-  if (m >= M) return;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    const int n = n0 + c0 + c;
-    if (n >= N) continue;
-    // dequant rounded first, then the adapter term
-    y[(size_t)m * N + n] =
-        from_f<TX>(__fadd_rn(__fmul_rn(acc[c], w_scale[n]), __fmul_rn(low[c], scale)));
-  }
-}
-
-// kRows: λ comes as pre-gathered rows (M, r) in lam.
-template <typename TX, typename TW, bool kRows = false>
-int launch_quant(const void* x, const void* W, const float* w_scale, const void* B, const void* A,
-                 const float* lam, const int* seg, float* P, void* y, int M, int K, int N, int r,
-                 int n_slots, float scale, cudaStream_t stream) {
-  if (M == 0) return 0;
-  const dim3 lr_grid(M, (r + LR_COLS - 1) / LR_COLS);
-  lowrank_kernel<TX, kRows><<<lr_grid, LR_COLS * LR_SLICES, K * sizeof(float), stream>>>(
-      static_cast<const TX*>(x), static_cast<const __nv_bfloat16*>(B), lam, seg, P, K, r,
-      n_slots);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  bgmv_main_kernel<TX, TW><<<grid, MAIN_THREADS, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(W), w_scale, P,
-      static_cast<const __nv_bfloat16*>(A), static_cast<TX*>(y), M, K, N, r, scale);
-  return static_cast<int>(cudaGetLastError());
+template <bool kRows>
+int launch(int x_bf16, int w_kind, const void* x, const void* W, const float* w_scale,
+           const void* B, const void* A, const float* lam, const int* seg, void* y, int M, int K,
+           int N, int r, int n_slots, float scale, cudaStream_t stream) {
+  if (x_bf16)
+    return launch_kind<bf16, kRows>(w_kind, x, W, w_scale, B, A, lam, seg, y, M, K, N, r,
+                                    n_slots, scale, stream);
+  return launch_kind<float, kRows>(w_kind, x, W, w_scale, B, A, lam, seg, y, M, K, N, r, n_slots,
+                                   scale, stream);
 }
 
 }  // namespace
@@ -629,67 +550,42 @@ extern "C" int qrlora_bgmv_launch(const void* x, const void* W, const void* B, c
                                   const float* lam, const int* seg, void* y, int M, int K, int N,
                                   int r, int n_slots, float scale, int x_bf16,
                                   cudaStream_t stream) {
-  if (x_bf16)
-    return launch_cluster<bf16, false>(x, W, B, A, lam, seg, y, M, K, N, r, n_slots, scale, stream);
-  return launch_cluster<float, false>(x, W, B, A, lam, seg, y, M, K, N, r, n_slots, scale, stream);
+  return launch<false>(x_bf16, 0, x, W, nullptr, B, A, lam, seg, y, M, K, N, r, n_slots, scale,
+                       stream);
 }
 
 // The quantized base: q (K, N) int8 (q_fp8 = 0) or fp8-e4m3 (q_fp8 = 1)
-// with w_scale (N,) float32; x and y bfloat16 (x_bf16 = 1) or float32; P
-// an (M, r) float32 scratch.  Returns the CUDA error code (0 on success).
+// with w_scale (N,) float32; x and y bfloat16 (x_bf16 = 1) or float32;
+// r ≤ 256.  Returns the CUDA error code (0 on success).
 extern "C" int qrlora_bgmv_quant_launch(const void* x, const void* q, const float* w_scale,
                                         const void* B, const void* A, const float* lam,
-                                        const int* seg, float* P, void* y, int M, int K, int N,
-                                        int r, int n_slots, float scale, int x_bf16, int q_fp8,
+                                        const int* seg, void* y, int M, int K, int N, int r,
+                                        int n_slots, float scale, int x_bf16, int q_fp8,
                                         cudaStream_t stream) {
-  if (x_bf16 && q_fp8)
-    return launch_quant<bf16, fp8>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots, scale,
-                                   stream);
-  if (x_bf16)
-    return launch_quant<bf16, int8_t>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots,
-                                      scale, stream);
-  if (q_fp8)
-    return launch_quant<float, fp8>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots,
-                                    scale, stream);
-  return launch_quant<float, int8_t>(x, q, w_scale, B, A, lam, seg, P, y, M, K, N, r, n_slots,
-                                     scale, stream);
+  return launch<false>(x_bf16, q_fp8 ? 2 : 1, x, q, w_scale, B, A, lam, seg, y, M, K, N, r,
+                       n_slots, scale, stream);
 }
 
 // Pre-gathered λ: rows (M, r) float32 in place of Λ and seg; W (K, N) in
-// x's dtype (w_kind = 0; w_scale and P unused, may be null) or int8 (1) or
-// fp8-e4m3 (2) q with its w_scale (N,) float32 and an (M, r) float32
-// scratch P; x and y bfloat16 (x_bf16 = 1) or float32, B and A bfloat16.
-// Returns the CUDA error code (0 on success).
+// x's dtype (w_kind = 0; w_scale unused, may be null) or int8 (1) or
+// fp8-e4m3 (2) q with its w_scale (N,) float32; x and y bfloat16
+// (x_bf16 = 1) or float32, B and A bfloat16; r ≤ 256.  Returns the CUDA
+// error code (0 on success).
 extern "C" int qrlora_bgmv_rows_launch(const void* x, const void* W, const float* w_scale,
-                                       const void* B, const void* A, const float* rows, float* P,
-                                       void* y, int M, int K, int N, int r, float scale,
-                                       int x_bf16, int w_kind, cudaStream_t stream) {
-  if (x_bf16) {
-    if (w_kind == 1)
-      return launch_quant<bf16, int8_t, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r,
-                                              M, scale, stream);
-    if (w_kind == 2)
-      return launch_quant<bf16, fp8, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
-                                           scale, stream);
-    return launch_cluster<bf16, true>(x, W, B, A, rows, nullptr, y, M, K, N, r, M, scale, stream);
-  }
-  if (w_kind == 1)
-    return launch_quant<float, int8_t, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r,
-                                             M, scale, stream);
-  if (w_kind == 2)
-    return launch_quant<float, fp8, true>(x, W, w_scale, B, A, rows, nullptr, P, y, M, K, N, r, M,
-                                          scale, stream);
-  return launch_cluster<float, true>(x, W, B, A, rows, nullptr, y, M, K, N, r, M, scale, stream);
+                                       const void* B, const void* A, const float* rows, void* y,
+                                       int M, int K, int N, int r, float scale, int x_bf16,
+                                       int w_kind, cudaStream_t stream) {
+  return launch<true>(x_bf16, w_kind, x, W, w_scale, B, A, rows, nullptr, y, M, K, N, r, M, scale,
+                      stream);
 }
 
-// How a launch with W in x's dtype (x_bf16 as above) splits its work, in
-// the numbers the kernel uses: plan[0] the cluster size, plan[1] and
-// plan[2] the grid (x: column tiles × cluster size, y: row tiles),
-// plan[3] the CTAs, plan[4] the K rows of a rank's slice, plan[5] the rank
-// columns of P a rank sums, plan[6] the dynamic shared memory of a CTA in
-// bytes.
-extern "C" void qrlora_bgmv_plan(int M, int K, int N, int r, int x_bf16, int* plan) {
-  const Geo g = make_geo(M, K, r, x_bf16 != 0);
+// How a launch (x_bf16 and w_kind as above) splits its work, in the numbers
+// the kernel uses: plan[0] the cluster size, plan[1] and plan[2] the grid
+// (x: column tiles × cluster size, y: row tiles), plan[3] the CTAs,
+// plan[4] the K rows of a rank's slice, plan[5] the rank columns of P a
+// rank sums, plan[6] the dynamic shared memory of a CTA in bytes.
+extern "C" void qrlora_bgmv_plan(int M, int K, int N, int r, int x_bf16, int w_kind, int* plan) {
+  const Geo g = make_geo(M, K, r, x_bf16 != 0, w_kind != 0);
   plan[0] = CS;
   plan[1] = ceil_div(N, TN) * CS;
   plan[2] = ceil_div(M, TM);

@@ -10,18 +10,18 @@ Replaces ``repro/kernels/qrlora_bgmv.py::qrlora_bgmv_kernel``.  The CUDA
 source is ``csrc/qrlora_bgmv.cu``: one launch of thread-block clusters, each
 cluster a 32-column tile of y whose 8 CTAs split K, take their partial x·W
 and x·B in fp32 (bf16 on the tensor cores, float32 on the CUDA cores), and
-sum them in rank order through distributed shared memory; λ multiplies the summed x·B, and P·A is split
-over the ranks the same way, so P never reaches device memory.  At decode
-the work is bound by reading W, B and A once (≈ 0.97 MB for the 576×576
-``wq`` in bf16, ≈ 0.29 µs at 3.35 TB/s); a call's time is its chain of
-latencies (PERF.md has its times).  :func:`qrlora_bgmv_plan` gives the
-split of a launch.
+sum them in rank order through distributed shared memory; λ multiplies the
+summed x·B, and P·A is split over the ranks the same way, so P never
+reaches device memory.  At decode the work is bound by reading W, B and A
+once (≈ 0.97 MB for the 576×576 ``wq`` in bf16, ≈ 0.29 µs at 3.35 TB/s); a
+call's time is its chain of latencies (PERF.md has its times).
+:func:`qrlora_bgmv_plan` gives the split of a launch.
 
 The quantized base (:func:`qrlora_bgmv_quant_cuda`, replacing
-``qrlora_bgmv_quant_kernel``) keeps two launches: a low-rank pass writing
-``P = (x·B) ⊙ Λ[seg]`` (M, r) in fp32, then a tiled main pass over int8 or
-fp8-e4m3 q (K, N), widened as it is staged, with a per-column ``w_scale``
-(N,) multiplying the x·q sum before the adapter term is added:
+``qrlora_bgmv_quant_kernel``) is the same launch over an int8 or fp8-e4m3 q
+(K, N), staged one byte an element and widened in the CTA (exactly), with a
+per-column ``w_scale`` (N,) multiplying the rank-order x·q sum, rounded in
+fp32, before the adapter term is added:
 
     y[m] = (x[m]·q)·w_scale + ((x[m]·B) * Λ[seg[m]]) · A · scale
 
@@ -37,14 +37,13 @@ which reads ``rows[m]`` where the BGMV kernel reads ``Λ[seg[m]]``:
     y[m] = x[m]·W + ((x[m]·B) * rows[m]) · A · scale        (W in x's dtype)
     y[m] = (x[m]·q)·w_scale + ((x[m]·B) * rows[m]) · A · scale
 
-For W in x's dtype it is the BGMV kernel's own code, so with rows = Λ[seg]
-its result is bitwise the BGMV kernel's; on a q it is the quantized
-kernel's two passes.  The all-reduce comes before the kernel: summing
-partial products after ``(x·B)·λ·A`` would reassociate the float sum and
-lose bit-identity with the replicated engine.  :func:`ba_gather_sharded`
-reassembles rank-dim shards of B and A (``shard_ba``) by an exact
-all-gather.  Collectives run on the group's backend (gloo for CPU tensors,
-NCCL for CUDA tensors).
+It is the BGMV kernel's own code, so with rows = Λ[seg] its result is
+bitwise the BGMV kernel's (on a q, the quantized kernel's).  The all-reduce
+comes before the kernel: summing partial products after ``(x·B)·λ·A`` would
+reassociate the float sum and lose bit-identity with the replicated engine.
+:func:`ba_gather_sharded` reassembles rank-dim shards of B and A
+(``shard_ba``) by an exact all-gather.  Collectives run on the group's
+backend (gloo for CPU tensors, NCCL for CUDA tensors).
 
 CPU tensors take the plain versions (:func:`repro_torch.kernels.ref.
 qrlora_bgmv_ref`, :func:`~repro_torch.kernels.ref.qrlora_bgmv_quant_ref`,
@@ -63,10 +62,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import qrlora_bgmv_quant_ref, qrlora_bgmv_ref, qrlora_bgmv_rows_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+#: the C interface's code of a quantized W's type (0: W in x's dtype)
+_W_KIND = {torch.int8: 1, FP8_DTYPE: 2}
 #: quantized-weight dtypes the kernels take
-Q_DTYPES = (torch.int8, FP8_DTYPE)
-_MAX_K = 11776  # the quantized low-rank pass stages one row of x (fp32) beside 1 KB in 48 KB
-#: largest rank r of the one-launch kernel (W in x's dtype)
+Q_DTYPES = tuple(_W_KIND)
+#: largest rank r the kernels serve
 MAX_RANK = 256
 _lib = None
 
@@ -81,16 +81,16 @@ def _library():
         )
         lib.qrlora_bgmv_launch.restype = ctypes.c_int
         lib.qrlora_bgmv_quant_launch.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_bgmv_quant_launch.restype = ctypes.c_int
         lib.qrlora_bgmv_rows_launch.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float]
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float]
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_bgmv_rows_launch.restype = ctypes.c_int
-        lib.qrlora_bgmv_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        lib.qrlora_bgmv_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.qrlora_bgmv_plan.restype = None
         lib.qrlora_bgmv_error_string.argtypes = [ctypes.c_int]
         lib.qrlora_bgmv_error_string.restype = ctypes.c_char_p
@@ -143,15 +143,18 @@ def qrlora_bgmv_cuda(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Te
 qrlora_bgmv_cuda.launches = 0
 
 
-def qrlora_bgmv_plan(M: int, K: int, N: int, r: int, dtype=torch.bfloat16) -> dict:
-    """How the one-launch kernel (W in x's dtype, ``dtype``) splits an (M, K)
-    × (K, N) product of rank r, in the numbers the kernel uses: ``cluster``
-    (CTAs splitting K), ``grid`` (column tiles × cluster, row tiles),
-    ``ctas``, ``k_slice`` (K rows a rank takes), ``p_cols`` (rank columns of
-    P a rank sums) and ``smem`` (dynamic shared memory of a CTA, bytes).
-    Loads the library (builds it if needed)."""
+def qrlora_bgmv_plan(M: int, K: int, N: int, r: int, dtype=torch.bfloat16,
+                     w_dtype=None) -> dict:
+    """How the one-launch kernel (x in ``dtype``; W in x's dtype, or an
+    int8/fp8 q where ``w_dtype`` names one) splits an (M, K) × (K, N)
+    product of rank r, in the numbers the kernel uses: ``cluster`` (CTAs
+    splitting K), ``grid`` (column tiles × cluster, row tiles), ``ctas``,
+    ``k_slice`` (K rows a rank takes), ``p_cols`` (rank columns of P a rank
+    sums) and ``smem`` (dynamic shared memory of a CTA, bytes).  Loads the
+    library (builds it if needed)."""
     plan = (ctypes.c_int * 7)()
-    _library().qrlora_bgmv_plan(M, K, N, r, int(dtype == torch.bfloat16), plan)
+    _library().qrlora_bgmv_plan(M, K, N, r, int(dtype == torch.bfloat16),
+                                _W_KIND.get(w_dtype, 0), plan)
     return {"cluster": plan[0], "grid": (plan[1], plan[2]), "ctas": plan[3],
             "k_slice": plan[4], "p_cols": plan[5], "smem": plan[6]}
 
@@ -185,14 +188,13 @@ def qrlora_bgmv_quant_cuda(x, q, w_scale, B, A, lam_table, seg, scale: float = 1
         ("seg", seg, (torch.int32,), (M,)),
     ):
         _check(arg, t, dtypes, shape, dev, kernel=name)
-    if K > _MAX_K:
-        raise ValueError(f"{name}: K={K} exceeds {_MAX_K}")
+    if r > MAX_RANK:
+        raise ValueError(f"{name}: rank r={r} exceeds {MAX_RANK}")
     lib = _library()
-    P = torch.empty((M, r), dtype=torch.float32, device=dev)
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     err = lib.qrlora_bgmv_quant_launch(
         x.data_ptr(), q.data_ptr(), w_scale.data_ptr(), B.data_ptr(), A.data_ptr(),
-        lam_table.data_ptr(), seg.data_ptr(), P.data_ptr(), y.data_ptr(), M, K, N, r, n_slots,
+        lam_table.data_ptr(), seg.data_ptr(), y.data_ptr(), M, K, N, r, n_slots,
         float(scale), int(x.dtype == torch.bfloat16), int(q.dtype != torch.int8),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -237,18 +239,14 @@ def qrlora_bgmv_rows_cuda(x, W, w_scale, B, A, lam_rows, scale: float = 1.0) -> 
         _check("w_scale", w_scale, (torch.float32,), (N,), dev, kernel=name)
     if quant != (w_scale is not None):
         raise ValueError(f"{name}: w_scale goes with an int8/fp8 q and only with one")
-    if quant and K > _MAX_K:
-        raise ValueError(f"{name}: K={K} exceeds {_MAX_K}")
-    if not quant and r > MAX_RANK:
+    if r > MAX_RANK:
         raise ValueError(f"{name}: rank r={r} exceeds {MAX_RANK}")
     lib = _library()
-    P = torch.empty((M, r), dtype=torch.float32, device=dev) if quant else None
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
-    w_kind = 0 if not quant else 1 if W.dtype == torch.int8 else 2
     err = lib.qrlora_bgmv_rows_launch(
         x.data_ptr(), W.data_ptr(), w_scale.data_ptr() if quant else None, B.data_ptr(),
-        A.data_ptr(), lam_rows.data_ptr(), P.data_ptr() if quant else None, y.data_ptr(), M, K,
-        N, r, float(scale), int(x.dtype == torch.bfloat16), w_kind,
+        A.data_ptr(), lam_rows.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
+        int(x.dtype == torch.bfloat16), _W_KIND.get(W.dtype, 0),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:

@@ -114,20 +114,22 @@ def qrlora_bgmv_rows_ref(x, W, w_scale, B, A, lam_rows, scale: float = 1.0):
     return (y + low * scale).to(x.dtype)
 
 
-def qrlora_bgmv_split_ref(x, W, B, A, lam_rows, scale: float = 1.0, *, ranks: int = 8,
-                          skip_ranks=()):
+def qrlora_bgmv_split_ref(x, W, B, A, lam_rows, scale: float = 1.0, *, w_scale=None,
+                          ranks: int = 8, skip_ranks=()):
     """The one-launch BGMV kernel's arithmetic in plain PyTorch, for the
-    tests and the card's checks (never the main path); W in x's dtype,
+    tests and the card's checks (never the main path); W in x's dtype with
+    ``w_scale`` None, or an int8/fp8 q with its per-column ``w_scale`` (N,);
     ``lam_rows`` (M, r) the λ row of each row of x (``Λ[seg]``).
 
     K is cut into ``ranks`` slices of ⌈K/ranks⌉ rows rounded up to 8 (the
-    cluster's CTAs); each slice's x·W and x·B are taken in fp32 and the
-    slices summed in rank order.  λ multiplies the summed x·B, giving P;
-    the rank columns are cut into ``ranks`` slices of ⌈r/ranks⌉ rounded up
-    to 4, each slice's P·A taken in fp32 and the slices summed in rank
-    order.  ``y = Σx·W + (ΣP·A)·scale``, the product rounded first, in x's
-    dtype.  ``skip_ranks`` leaves those ranks' partials out (what a kernel
-    that drops a cluster rank would give).
+    cluster's CTAs); each slice's x·W and x·B are taken in fp32 (a q widened
+    exactly) and the slices summed in rank order; on a q the sum is then
+    multiplied by ``w_scale``, rounded in fp32.  λ multiplies the summed
+    x·B, giving P; the rank columns are cut into ``ranks`` slices of
+    ⌈r/ranks⌉ rounded up to 4, each slice's P·A taken in fp32 and the slices
+    summed in rank order.  ``y = Σx·W + (ΣP·A)·scale``, the product rounded
+    first, in x's dtype.  ``skip_ranks`` leaves those ranks' partials out
+    (what a kernel that drops a cluster rank would give).
     """
     xf, Wf, Bf, Af = x.float(), W.float(), B.float(), A.float()
     K, r = x.shape[1], B.shape[1]
@@ -142,6 +144,8 @@ def qrlora_bgmv_split_ref(x, W, B, A, lam_rows, scale: float = 1.0, *, ranks: in
             k = slice(c * ks, (c + 1) * ks)
             xw = xw + xf[:, k] @ Wf[k]
             xb = xb + xf[:, k] @ Bf[k]
+    if w_scale is not None:
+        xw = xw * w_scale.float()
     p = xb * lam_rows.float()
     pa = torch.zeros_like(xw)
     for c in range(ranks):

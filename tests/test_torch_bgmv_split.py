@@ -1,32 +1,46 @@
 """The one-launch BGMV kernel's arithmetic on the CPU.
 
 ``ref.qrlora_bgmv_split_ref`` mirrors what ``csrc/qrlora_bgmv.cu`` computes
-for W in x's dtype (the BGMV kernel and the rows kernel): K cut into the 8
+(the BGMV kernel, its quantized twin and the rows kernel): K cut into the 8
 slices of a thread-block cluster, each slice's x·W and x·B in fp32, the
-slices summed in rank order; λ times the summed x·B; P·A cut into 8 slices
-of rank columns, summed in rank order; the adapter term scaled and added
-once.  Here it is held against the JAX reference's ``qrlora_bgmv_kernel``
-and ``qrlora_bgmv_rows_kernel`` in interpret mode (blocks as large as the
+slices summed in rank order; on an int8/fp8 q (widened exactly) that sum
+times ``w_scale`` once; λ times the summed x·B; P·A cut into 8 slices of
+rank columns, summed in rank order; the adapter term scaled and added once.
+Here it is held against the JAX reference's ``qrlora_bgmv_kernel``,
+``qrlora_bgmv_quant_kernel`` and ``qrlora_bgmv_rows_kernel`` (W in x's dtype
+and its ``widen`` route on a q) in interpret mode (blocks as large as the
 operands, as ``tests/test_torch_sharding.py`` runs the rows kernel) and
-against the port's plain ``qrlora_bgmv_ref`` / ``qrlora_bgmv_rows_ref``, for
-float32 and bfloat16 x, ragged M, K and N, r ∈ {8, 40, 128}, and a slot id
-outside the table.  Inputs are made with numpy from a seed.
+against the port's plain ``qrlora_bgmv_ref`` / ``qrlora_bgmv_quant_ref`` /
+``qrlora_bgmv_rows_ref``, for float32 and bfloat16 x, int8 and fp8 q
+(quantized by the reference, crossed bit for bit), ragged M, K and N,
+r ∈ {8, 40, 128}, and a slot id outside the table.  Inputs are made with
+numpy from a seed.
 
 Tolerance: the limit the card holds the kernels to,
-``kernel_bench.TOL["qrlora_bgmv"]`` / ``["qrlora_bgmv_rows"]``: float32
-1e-4 + 1e-5·|y| (the same products summed in another order), bfloat16
-1e-3 + 2⁻⁷·|y| (both sides round an fp32 sum to bf16).  The planted faults
-(a cluster rank's slices dropped, λ taken from slot 0, the adapter term left
-out) are each seen in float32.
+``kernel_bench.TOL["qrlora_bgmv"]`` / ``["qrlora_bgmv_quant"]`` /
+``["qrlora_bgmv_rows"]``: float32 1e-4 + 1e-5·|y| (the same products summed
+in another order), bfloat16 1e-3 + 2⁻⁷·|y| (both sides round an fp32 sum to
+bf16).  Readings (largest over the cases, of the limit): W in x's dtype
+float32 0.045, bfloat16 0.772; on a q float32 0.034, bfloat16 0.737 (fp8;
+int8 0.098).  The planted faults (a cluster rank's slices dropped, λ taken
+from slot 0, the adapter term left out; on a q a rank dropped, λ from slot
+0, ``w_scale`` dropped, ``w_scale`` on the adapter term too) are each seen
+in float32, at 26,000 to 63,000,000 of the limit.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.qrlora_bgmv import qrlora_bgmv_kernel, qrlora_bgmv_rows_kernel
+from repro.core.quantize import FP8_SUPPORTED as J_FP8, quantize_weight as j_quantize_weight
+from repro.kernels.qrlora_bgmv import (
+    qrlora_bgmv_kernel,
+    qrlora_bgmv_quant_kernel,
+    qrlora_bgmv_rows_kernel,
+)
 from repro_torch.benchmarks.common import err_over_bound
 from repro_torch.benchmarks.kernel_bench import TOL
+from repro_torch.interop import params_from_jax
 from repro_torch.kernels import ref as tref
 
 K, N, N_SLOTS = 192, 80, 5
@@ -180,3 +194,151 @@ def test_split_ref_planted_faults_are_seen_in_float32(fault):
     got = _ratio(_fault(t, fault), plain, "float32")
     print(f"[parity] planted {fault}: {got:.1f} of the float32 limit, sound {sound:.3f}")
     assert sound <= 1.0 and got > 100.0
+
+
+# ---------------------------------------------------------------------------
+# the quantized routes: #5 and the rows kernel on an int8/fp8 q
+# ---------------------------------------------------------------------------
+
+QUANTS = ["int8"] + (["fp8"] if J_FP8 else [])
+
+
+def _q_inputs(M, r, seed, x_dtype, base, k=K, n=N):
+    """:func:`_inputs` with W quantized per column by the reference
+    (``quantize_weight``) and crossed to the port bit for bit: each dict
+    gains ``q`` and ``ws``."""
+    j, t = _inputs(M, r, seed, x_dtype, k=k, n=n)
+    qW = j_quantize_weight(jnp.asarray(j["W"], jnp.float32), base)
+    j["q"], j["ws"] = qW["q"], qW["scale"]
+    crossed = params_from_jax({"q": np.asarray(qW["q"]), "ws": np.asarray(qW["scale"])},
+                              device="cpu")
+    t["q"], t["ws"] = crossed["q"], crossed["ws"]
+    return j, t
+
+
+def _split_q(t, rows, **kw):
+    return tref.qrlora_bgmv_split_ref(t["x"], t["q"], t["B"], t["A"], rows, SCALE,
+                                      w_scale=t["ws"], **kw)
+
+
+def _plain_quant(t):
+    tab = torch.cat([t["tab"], torch.zeros_like(t["tab"][:1])])
+    return tref.qrlora_bgmv_quant_ref(t["x"], t["q"], t["ws"], t["B"], t["A"], tab, t["seg"],
+                                      SCALE)
+
+
+@pytest.mark.parametrize("r", [8, 40, 128])
+@pytest.mark.parametrize("M", [4, 37])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("base", QUANTS)
+def test_split_ref_on_a_q_matches_jax_quant_kernel_and_plain(base, x_dtype, M, r):
+    j, t = _q_inputs(M, r, seed=200 + M + r, x_dtype=x_dtype, base=base)
+    got = _split_q(t, _rows(t))
+    assert got.dtype == T_DT[x_dtype] and got.shape == (M, N)
+    kernel = qrlora_bgmv_quant_kernel(j["x"], j["q"], j["ws"], j["B"], j["A"], j["tab"],
+                                      j["seg"][:, None], scale=SCALE, bm=M, bn=N, bk=K,
+                                      interpret=True)
+    vs_kernel = _ratio(got, kernel, x_dtype, "qrlora_bgmv_quant")
+    vs_plain = _ratio(got, _plain_quant(t), x_dtype, "qrlora_bgmv_quant")
+    print(f"[parity] bgmv quant split {base} {x_dtype} M={M} r={r}: {vs_kernel:.3f} of the "
+          f"limit against Pallas, {vs_plain:.3f} against plain")
+    assert vs_kernel <= 1.0 and vs_plain <= 1.0
+
+
+@pytest.mark.parametrize("r", [8, 40, 128])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("base", QUANTS)
+def test_split_ref_on_a_q_matches_jax_rows_kernel_and_plain(base, x_dtype, r):
+    """The rows kernel's ``widen`` route: an int8/fp8 q and its w_scale."""
+    M = 37
+    j, t = _q_inputs(M, r, seed=300 + r, x_dtype=x_dtype, base=base)
+    rows = _rows(t)
+    got = _split_q(t, rows)
+    kernel = qrlora_bgmv_rows_kernel(j["x"], j["q"], j["ws"], j["B"], j["A"],
+                                     jnp.asarray(rows.numpy()), scale=SCALE, bm=M, bn=N, bk=K,
+                                     interpret=True)
+    plain = tref.qrlora_bgmv_rows_ref(t["x"], t["q"], t["ws"], t["B"], t["A"], rows, SCALE)
+    vs_kernel = _ratio(got, kernel, x_dtype, "qrlora_bgmv_rows")
+    vs_plain = _ratio(got, plain, x_dtype, "qrlora_bgmv_rows")
+    print(f"[parity] rows quant split {base} {x_dtype} r={r}: {vs_kernel:.3f} of the limit "
+          f"against Pallas, {vs_plain:.3f} against plain")
+    assert vs_kernel <= 1.0 and vs_plain <= 1.0
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("base", QUANTS)
+def test_split_ref_on_a_q_ragged_shapes_match_plain(base, x_dtype):
+    """K = 100, N = 50 (no 16-byte row of q), r = 20, M = 9: both JAX
+    kernels and both plain versions."""
+    j, t = _q_inputs(9, 20, seed=19, x_dtype=x_dtype, base=base, k=100, n=50)
+    rows = _rows(t)
+    got = _split_q(t, rows)
+    quant = qrlora_bgmv_quant_kernel(j["x"], j["q"], j["ws"], j["B"], j["A"], j["tab"],
+                                     j["seg"][:, None], scale=SCALE, bm=9, bn=50, bk=100,
+                                     interpret=True)
+    by_rows = qrlora_bgmv_rows_kernel(j["x"], j["q"], j["ws"], j["B"], j["A"],
+                                      jnp.asarray(rows.numpy()), scale=SCALE, bm=9, bn=50,
+                                      bk=100, interpret=True)
+    plain = tref.qrlora_bgmv_rows_ref(t["x"], t["q"], t["ws"], t["B"], t["A"], rows, SCALE)
+    for want in (quant, _plain_quant(t)):
+        assert _ratio(got, want, x_dtype, "qrlora_bgmv_quant") <= 1.0
+    for want in (by_rows, plain):
+        assert _ratio(got, want, x_dtype, "qrlora_bgmv_rows") <= 1.0
+
+
+@pytest.mark.parametrize("base", QUANTS)
+def test_out_of_table_slot_on_a_q_gives_the_dequantized_base_projection(base):
+    """A slot id outside the table adds no adapter term on a q either: that
+    row is (x·q)·w_scale alone, in the JAX kernel and the mirror alike."""
+    j, t = _q_inputs(6, 40, seed=5, x_dtype="float32", base=base)
+    got = _split_q(t, _rows(t))
+    kernel = np.asarray(qrlora_bgmv_quant_kernel(
+        j["x"], j["q"], j["ws"], j["B"], j["A"], j["tab"], j["seg"][:, None], scale=SCALE,
+        bm=6, bn=N, bk=K, interpret=True))
+    base_row = ((t["x"][-1] @ t["q"].float()) * t["ws"]).numpy()
+    np.testing.assert_allclose(got[-1].numpy(), base_row, atol=1e-5)
+    np.testing.assert_allclose(kernel[-1], base_row, atol=1e-5)
+
+
+def _q_fault(t, fault):
+    rows = _rows(t)
+    if fault.startswith("rank"):
+        return _split_q(t, rows, skip_ranks=(int(fault[4:]),))
+    if fault == "lam_slot0":
+        return _split_q(t, _rows(t, 0))
+    no_scale = tref.qrlora_bgmv_split_ref(t["x"], t["q"], t["B"], t["A"], rows, SCALE)
+    if fault == "w_scale_dropped":
+        return no_scale
+    assert fault == "w_scale_on_adapter"  # (Σx·q + ΣP·A·scale)·w_scale
+    return no_scale * t["ws"]
+
+
+@pytest.mark.parametrize("fault", [f"rank{c}" for c in range(8)]
+                         + ["lam_slot0", "w_scale_dropped", "w_scale_on_adapter"])
+@pytest.mark.parametrize("base", QUANTS)
+def test_split_ref_on_a_q_planted_faults_are_seen_in_float32(base, fault):
+    """What a quantized kernel that drops one cluster rank's partials (each
+    of the 8), reads every λ row from slot 0, drops the dequant scale, or
+    multiplies the adapter term by it too would give: each far outside the
+    float32 limit, where the sound mirror is within it."""
+    _, t = _q_inputs(16, 128, seed=6, x_dtype="float32", base=base)
+    plain = _plain_quant(t)
+    sound = _ratio(_split_q(t, _rows(t)), plain, "float32", "qrlora_bgmv_quant")
+    got = _ratio(_q_fault(t, fault), plain, "float32", "qrlora_bgmv_quant")
+    print(f"[parity] planted {base} {fault}: {got:.1f} of the float32 limit, sound {sound:.3f}")
+    assert sound <= 1.0 and got > 100.0
+
+
+def test_q_wrappers_refuse_a_rank_past_the_cluster_cap():
+    """The q routes share the one-launch kernel's rank cap (``MAX_RANK``):
+    r = 264 is refused by both wrappers before any library is loaded."""
+    from repro_torch.kernels import qrlora_bgmv as tbgmv
+
+    _, t = _q_inputs(4, tbgmv.MAX_RANK + 8, seed=7, x_dtype="float32", base="int8")
+    rows = _rows(t)
+    with pytest.raises(ValueError, match="rank"):
+        tbgmv.qrlora_bgmv_quant_cuda(t["x"], t["q"], t["ws"], t["B"], t["A"], t["tab"],
+                                     t["seg"])
+    with pytest.raises(ValueError, match="rank"):
+        tbgmv.qrlora_bgmv_rows_cuda(t["x"], t["q"], t["ws"], t["B"], t["A"], rows)
+    assert tbgmv.qrlora_bgmv_quant_cuda.launches == tbgmv.qrlora_bgmv_rows_cuda.launches == 0

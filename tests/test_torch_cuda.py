@@ -17,7 +17,7 @@ from repro_torch.kernels.decode_attention import decode_attention_chunk, decode_
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
 from repro_torch.kernels import ops
-from repro_torch.core.quantize import quantize_weight
+from repro_torch.core.quantize import FP8_DTYPE, quantize_weight
 from repro_torch.kernels.qrlora_bgmv import (
     qrlora_bgmv_cuda,
     qrlora_bgmv_quant_cuda,
@@ -284,11 +284,16 @@ def _quantized(W, base_dtype):
     return qW["q"], qW["scale"]
 
 
-@pytest.mark.parametrize("base_dtype", ["int8", "fp8"])
-@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("M,K,N,r", [(4, 576, 576, 128), (64, 576, 192, 128), (37, 96, 80, 24)])
-def test_bgmv_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K, N, r):
-    dev, n_slots = "cuda", 8
+# decode, prefill buckets and M = 1, 37, 256 at wq and wv; N = 200 and 50
+# (no 16-byte row of q: element-wise staging), ragged K and r, and a K
+# past the old two-pass route's cap (12 staged rounds a rank)
+BGMV_QUANT_SHAPES = [(M, 576, 576, 128) for M in (1, 4, 16, 37, 64, 256)] + [
+    (4, 576, 192, 128), (64, 576, 192, 128), (37, 576, 200, 128), (37, 96, 80, 24),
+    (5, 100, 50, 20), (4, 12288, 192, 128)]
+
+
+def _bgmv_quant_operands(gen, base_dtype, x_dtype, M, K, N, r, n_slots=8):
+    dev = "cuda"
     x = torch.randn((M, K), generator=gen, device=dev).to(x_dtype)
     q, ws = _quantized(torch.randn((K, N), generator=gen, device=dev) * K**-0.5, base_dtype)
     B = (torch.randn((K, r), generator=gen, device=dev) * K**-0.5).bfloat16()
@@ -296,12 +301,79 @@ def test_bgmv_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K, N, r):
     lam = torch.randn((n_slots, r), generator=gen, device=dev)
     lam[0] = 0
     seg = torch.arange(M, device=dev, dtype=torch.int32) % n_slots  # every slot, 0 included
+    return x, q, ws, B, A, lam, seg
+
+
+@pytest.mark.parametrize("base_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,r", BGMV_QUANT_SHAPES)
+def test_bgmv_quant_kernel_matches_plain(gen, base_dtype, x_dtype, M, K, N, r):
+    """One launch a call, within the limit of the plain version; the last
+    row's slot outside the table gives the dequantized base projection
+    alone; a second call is bitwise the first."""
+    x, q, ws, B, A, lam, seg = _bgmv_quant_operands(gen, base_dtype, x_dtype, M, K, N, r)
+    seg[-1] = lam.shape[0]
     before = qrlora_bgmv_quant_cuda.launches
     y = qrlora_bgmv_quant_cuda(x, q, ws, B, A, lam, seg, scale=0.7)
+    again = qrlora_bgmv_quant_cuda(x, q, ws, B, A, lam, seg, scale=0.7)
     torch.cuda.synchronize()
-    assert qrlora_bgmv_quant_cuda.launches == before + 1
+    assert qrlora_bgmv_quant_cuda.launches == before + 2
     assert y.dtype == x_dtype and y.shape == (M, N)
-    assert _close(y, qrlora_bgmv_quant_ref(x, q, ws, B, A, lam, seg, 0.7), "qrlora_bgmv_quant")
+    padded = torch.cat([lam, torch.zeros_like(lam[:1])])
+    assert _close(y, qrlora_bgmv_quant_ref(x, q, ws, B, A, padded, seg, 0.7), "qrlora_bgmv_quant")
+    base_row = ((x[-1:].float() @ q.float()) * ws).to(x_dtype)
+    assert _close(y[-1:], base_row, "qrlora_bgmv_quant")
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("route", ["quant", "rows"])
+@pytest.mark.parametrize("base_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,N", [(4, 576), (4, 192), (64, 576)])
+def test_bgmv_quant_routes_bitwise_under_graph_replay(gen, route, base_dtype, x_dtype, M, N):
+    """Both q routes (#5 and the rows kernel on a q): a second call and a
+    captured call replayed are bitwise the eager call."""
+    x, q, ws, B, A, lam, seg = _bgmv_quant_operands(gen, base_dtype, x_dtype, M, 576, N, 128)
+    rows = lam[seg.long()]
+    if route == "quant":
+        fn = lambda: qrlora_bgmv_quant_cuda(x, q, ws, B, A, lam, seg, 0.7)
+    else:
+        fn = lambda: qrlora_bgmv_rows_cuda(x, q, ws, B, A, rows, 0.7)
+    eager, again = fn(), fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(again, eager) and torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("base_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_bgmv_plan_q_route_spreads_decode_over_the_card(gen, base_dtype, x_dtype):
+    """A q launch splits as the W-in-x's-dtype one: 144 CTAs at wq decode,
+    48 at wv, 72 K rows and 16 rank columns a rank; its shared memory holds
+    q's tile at a byte an element (bf16 x: beside the bf16 tile it is
+    widened into) and fits 48 KB at decode."""
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_plan
+
+    w_dtype = torch.int8 if base_dtype == "int8" else FP8_DTYPE
+    wq, wv = (qrlora_bgmv_plan(4, 576, N, 128, x_dtype, w_dtype) for N in (576, 192))
+    assert (wq["cluster"], wq["ctas"], wv["ctas"]) == (8, 144, 48)
+    assert wq["grid"] == (144, 1) and (wq["k_slice"], wq["p_cols"]) == (72, 16)
+    assert qrlora_bgmv_plan(64, 576, 576, 128, x_dtype, w_dtype)["grid"] == (144, 2)
+    # bf16 x stages q raw (80 K rows × 32 bytes) beside the bf16 tile it is
+    # widened into; float32 x reads q raw where an fp32 W tile lies (72 × 32
+    # × 3 bytes fewer); both hold the rank's 4 w_scale values (16 bytes)
+    raw = 80 * 32 if x_dtype == torch.bfloat16 else -72 * 32 * 3
+    assert wq["smem"] == qrlora_bgmv_plan(4, 576, 576, 128, x_dtype)["smem"] + raw + 16
+    assert wq["smem"] <= 48 * 1024
 
 
 @pytest.mark.parametrize("base_dtype", ["int8", "fp8"])

@@ -140,8 +140,8 @@ def test_rows_wrapper_validates_and_never_falls_back():
 
 
 def test_rows_wrapper_takes_w_scale_with_a_q_only():
-    """W in x's dtype takes no w_scale (the one-launch kernel has no
-    dequant step); an int8/fp8 q needs its w_scale.  Either mismatch is
+    """W in x's dtype takes no w_scale (its route has no dequant step); an
+    int8/fp8 q needs its w_scale.  Either mismatch is
     refused before any library is loaded."""
     _, (x, W, ws, B, A, tab, seg) = _operands(2, "float32", "plain")
     _, (_, q, qws, _, _, _, _) = _operands(2, "float32", "int8")
