@@ -290,51 +290,138 @@ def _paged_inputs(gen, lengths, dtype, H=9, KV=3, dh=64, bs=16, max_blocks=8):
     return q, k_pool, v_pool, tbl, lens
 
 
-def check_paged(gen, details):
-    """Each case against the plain version within the bench's attention-form
-    limit (2⁻⁷·|ref| + 2⁻⁸·P·|v| in bf16); in bf16 the kernel with the
-    longest lane's last block dropped (its length cut to the block before)
-    must fail it.  Returns the worst |Δ| of each dtype and the planted
-    fault's |Δ|/bound."""
-    import torch
+# (lengths, H, KV, dh, table columns, columns attended): the serve's heads
+# through a whole table and through the engine's 4-column slice (its
+# attend bound), the reduced config's heads (dh 16, one query head a kv
+# head), and a 64-column table (1024 positions: a cluster of 8 ranks
+# folding several chunks each), whole and as a 48-column slice
+PAGED_CASES = (((0, 1, 16, 17), 9, 3, 64, 8, 8), ((100, 17, 1, 16), 9, 3, 64, 8, 8),
+               ((64, 48, 33, 17), 9, 3, 64, 8, 4), ((0, 1, 16, 100), 3, 3, 16, 8, 8),
+               ((1000, 0, 513, 64), 9, 3, 64, 64, 64), ((1000, 1, 999, 257), 9, 3, 64, 64, 48))
+# the device lengths written between replays of one captured call
+PAGED_REPLAY_LENGTHS = ((1, 0, 64, 40), (64, 63, 17, 0), (64, 48, 33, 17))
+
+
+def _paged_over(o, args, tol) -> float:
+    """|kernel − plain| over the attention-form bound (see check_paged)."""
     from repro_torch.benchmarks.common import err_over_bound
-    from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_paged
-    from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+    from repro_torch.benchmarks.kernel_bench import abs_v_paged
     from repro_torch.kernels.ref import paged_decode_attention_ref
 
-    worst, faults = {}, []
+    return err_over_bound(o, paged_decode_attention_ref(*args), tol, abs_v_paged(*args))
+
+
+def check_paged(gen, details):
+    """Each case of PAGED_CASES against the plain version within the bench's
+    attention-form limit (2⁻⁷·|ref| + 2⁻⁸·P·|v| in bf16), length-0 lanes
+    zeros, a second call bitwise the first; an out-of-range table entry
+    inside the length (negative, past the pool) against the plain version
+    over the table with that column removed and the length cut by one
+    block; one captured call replayed after each of PAGED_REPLAY_LENGTHS is
+    written into the device lengths, bitwise an eager call at those lengths.
+    Planted faults, each of which must fail the limit: in bf16 the kernel
+    with the longest lane's last block dropped (its length cut to the block
+    before) on the first two cases, and one split's partial dropped from
+    the merge on the 64-column table (``ref.paged_decode_attention_split_ref``
+    without that rank, cut as the kernel's plan cuts the table; the least
+    over the ranks).  Returns the worst |Δ| and |Δ|/bound of each dtype and
+    the planted faults' least |Δ|/bound."""
+    import torch
+    from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL
+    from repro_torch.kernels.paged_attention import paged_decode_attention_cuda, paged_decode_plan
+    from repro_torch.kernels.ref import (paged_decode_attention_ref,
+                                         paged_decode_attention_split_ref)
+
+    worst, faults = {}, {"last_block_dropped": [], "split_dropped": []}
     for dtype in (torch.bfloat16, torch.float32):
         name, tol = str(dtype).split(".")[1], BENCH_TOL["paged_decode_attention"][dtype]
-        for lengths in ((0, 1, 16, 17), (100, 17, 1, 16)):
-            args = _paged_inputs(gen, lengths, dtype)
+        w = worst.setdefault(name, {"max_abs_err": 0.0, "err_over_bound": 0.0})
+        for n_case, (lengths, H, KV, dh, mb, cols) in enumerate(PAGED_CASES):
+            q, kp, vp, tbl, lens = _paged_inputs(gen, lengths, dtype, H, KV, dh, 16, mb)
+            args = (q, kp, vp, tbl[:, :cols], torch.clamp(lens, max=cols * 16))
             o = paged_decode_attention_cuda(*args)
+            again = paged_decode_attention_cuda(*args)
             torch.cuda.synchronize()
-            ref = paged_decode_attention_ref(*args)
-            pv = abs_v_paged(*args)
-            err, over = _max_err(o, ref), err_over_bound(o, ref, tol, pv)
+            err, over = _max_err(o, paged_decode_attention_ref(*args)), _paged_over(o, args, tol)
             ok = over <= 1.0 and bool(torch.isfinite(o).all())
-            zero_ok = all(bool((o[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
+            zero_ok = all(bool((o[b] == 0).all()) for b in range(len(lengths))
+                          if int(args[4][b]) == 0)
+            bitwise = torch.equal(o, again)
             details.append({"kernel": "paged_decode_attention", "dtype": name,
-                            "lengths": list(lengths), "max_abs_err": err,
-                            "err_over_bound": over, "ok": ok and zero_ok})
-            _check(ok, f"paged_decode_attention {name} lengths={lengths}: max|Δ|={err:.3e}, "
-                       f"{over:.3f} of the bound {tol}")
+                            "lengths": list(lengths), "H": H, "KV": KV, "dh": dh,
+                            "columns": cols, "max_abs_err": err, "err_over_bound": over,
+                            "bitwise_again": bitwise, "ok": ok and zero_ok and bitwise})
+            _check(ok, f"paged_decode_attention {name} {(lengths, H, KV, dh, mb, cols)}: "
+                       f"max|Δ|={err:.3e}, {over:.3f} of the bound {tol}")
             _check(zero_ok, f"paged_decode_attention {name}: a length-0 lane is not zeros")
-            worst[name] = max(worst.get(name, 0.0), err)
-            if dtype == torch.bfloat16:
-                q, kp, vp, tbl, lens = args
+            _check(bitwise, f"paged_decode_attention {name}: a second call differs")
+            w["max_abs_err"] = max(w["max_abs_err"], err)
+            w["err_over_bound"] = max(w["err_over_bound"], over)
+            if dtype == torch.bfloat16 and n_case < 2:
                 b = max(range(len(lengths)), key=lambda i: lengths[i])
                 cut = lens.clone()
                 cut[b] = (lengths[b] - 1) // kp.shape[1] * kp.shape[1]
                 planted = paged_decode_attention_cuda(q, kp, vp, tbl, cut)
                 torch.cuda.synchronize()
-                faults.append(err_over_bound(planted, ref, tol, pv))
+                faults["last_block_dropped"].append(_paged_over(planted, args, tol))
+            if dtype == torch.bfloat16 and mb == cols == 64:
+                plan = paged_decode_plan(len(lengths), H, KV, dh, 16, mb, dtype)
+                dropped = [_paged_over(paged_decode_attention_split_ref(
+                    *args, plan["chunk"], ranks=plan["cluster"], skip_ranks=(r,)), args, tol)
+                    for r in range(plan["cluster"])]
+                sound = _paged_over(paged_decode_attention_split_ref(
+                    *args, plan["chunk"], ranks=plan["cluster"]), args, tol)
+                faults["split_dropped"].append(min(dropped))
                 details.append({"kernel": "paged_decode_attention", "planted_fault":
-                                "last_block_of_longest_lane_dropped", "lengths": list(lengths),
-                                "err_over_bound": faults[-1]})
-    _check(min(faults) > 1.0,
-           f"paged_decode_attention bf16: the check let a dropped block through: {faults}")
-    return worst, min(faults)
+                                "one_split_partial_dropped", "lengths": list(lengths),
+                                "plan": plan, "sound_mirror": sound,
+                                "err_over_bound_by_rank": dropped})
+                _check(sound <= 1.0, f"paged_decode_attention: the split mirror is off the "
+                                     f"plain version: {sound}")
+        # an out-of-range entry inside the length contributes nothing
+        q, kp, vp, tbl, lens = _paged_inputs(gen, (100, 70, 40, 64), dtype)
+        cut = torch.cat([tbl[:, :1], tbl[:, 2:], tbl[:, :1]], dim=1).contiguous()
+        for entry in (-3, kp.shape[0] + 5):
+            bad = tbl.clone()
+            bad[:, 1] = entry
+            o = paged_decode_attention_cuda(q, kp, vp, bad, lens)
+            torch.cuda.synchronize()
+            over = _paged_over(o, (q, kp, vp, cut, lens - 16), tol)
+            details.append({"kernel": "paged_decode_attention", "dtype": name,
+                            "out_of_range_entry": int(entry), "err_over_bound": over})
+            _check(over <= 1.0 and bool(torch.isfinite(o).all()),
+                   f"paged_decode_attention {name}: an out-of-range entry ({entry}) "
+                   f"contributed: {over:.3f} of the bound")
+        # one captured call replayed after new device lengths
+        for mb in (4, 64):
+            q, kp, vp, tbl, lens = _paged_inputs(gen, PAGED_REPLAY_LENGTHS[-1], dtype,
+                                                 max_blocks=mb)
+            fn = lambda: paged_decode_attention_cuda(q, kp, vp, tbl, lens)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn()
+            for new in PAGED_REPLAY_LENGTHS:
+                lens.copy_(torch.tensor(new, dtype=torch.int32))
+                graph.replay()
+                eager = fn()
+                torch.cuda.synchronize()
+                over = _paged_over(out, (q, kp, vp, tbl, lens), tol)
+                same = torch.equal(out, eager)
+                details.append({"kernel": "paged_decode_attention", "dtype": name,
+                                "graph_replay": list(new), "columns": mb,
+                                "bitwise_eager": same, "err_over_bound": over})
+                _check(same and over <= 1.0,
+                       f"paged_decode_attention {name}: a replay at lengths {new} over {mb} "
+                       f"columns differs from the eager call ({same}) or reads {over:.3f}")
+    least = {k: min(v) for k, v in faults.items()}
+    _check(min(least.values()) > 1.0,
+           f"paged_decode_attention bf16: the check let a planted fault through: {faults}")
+    return worst, least
 
 
 def _matmul_inputs(gen, M, N, x_dtype, K=576, r=128, rank=100):
@@ -973,11 +1060,22 @@ def time_bgmv(gen, N: int, M: int = 4):
     return res
 
 
+def _paged_bound(q, lengths, KV, dh, bs):
+    """(bound ms, what bounds it) of one paged attend: q read and out
+    written, the valid K/V rows and table entries and the lengths read once
+    (bf16), against the products and the softmax's operations."""
+    B, H = q.shape[:2]
+    toks = sum(lengths)
+    n_bytes = 2 * (2 * q.numel() + 2 * toks * KV * dh) + 4 * (B + sum(-(-n // bs)
+                                                                      for n in lengths))
+    return _bound_ms(n_bytes, 4 * toks * H * dh + 5 * toks * H, "bfloat16")
+
+
 def time_paged(gen, lengths=(64, 48, 33, 17)):
     """One decode attend of the serving shapes: 4 lanes, 9 heads over 3 kv
     heads, dh 64, block 16, a 4-block attend bound; bf16."""
     import torch
-    from repro_torch.benchmarks.common import eager_ms, graph_ms
+    from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
     from repro_torch.kernels.ref import paged_decode_attention_ref
 
@@ -989,13 +1087,43 @@ def time_paged(gen, lengths=(64, 48, 33, 17)):
            "ms": graph_ms(kernel),
            "plain_ms": graph_ms(lambda: paged_decode_attention_ref(q, kp, vp, tbl, lens))}
     res["eager_ms"] = eager_ms(kernel)
-    toks = sum(lengths)
-    n_bytes = 2 * (2 * q.numel() + 2 * toks * KV * dh) + 4 * (len(lengths) + sum(
-        -(-n // bs) for n in lengths))
-    n_ops = 4 * toks * H * dh + 5 * toks * H
-    res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
+    res["launch_us"] = launch_us(kernel)  # one launch
+    res["bound_ms"], res["bound_by"] = _paged_bound(q, lengths, KV, dh, bs)
     res["shape"] = {"B": len(lengths), "H": H, "KV": KV, "dh": dh, "block_size": bs,
                     "lengths": list(lengths), "attend_blocks": 4, "dtype": "bfloat16"}
+    return res
+
+
+def time_paged_long(gen, L: int = 1000, B: int = 4):
+    """B lanes of length L through a 64-column table of 16-position blocks
+    (a cluster of 8 ranks, 2 chunks each), bf16, beside the dense decode
+    kernel (#8) over a (B, 2048) cache at the same length: the same K/V
+    bytes but for the table.  Timed in turns (paged, dense, dense, paged),
+    each by CUDA-graph replay; ``ms`` and ``dense_ms`` are the means of
+    each one's two readings."""
+    import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+    from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref
+
+    H, KV, dh, bs, mb = 9, 3, 64, 16, 64
+    lengths = (L,) * B
+    q, kp, vp, tbl, lens = _paged_inputs(gen, lengths, torch.bfloat16, H, KV, dh, bs, mb)
+    qd, kc, vc = _attention_inputs(gen, (B, H, dh), (B, 2048, KV, dh), torch.bfloat16)
+    length = torch.tensor(L, dtype=torch.int32, device=q.device)
+    kernel = lambda: paged_decode_attention_cuda(q, kp, vp, tbl, lens)
+    dense = lambda: decode_attention_cuda(qd, kc, vc, length)
+    turns = [graph_ms(f) for f in (kernel, dense, dense, kernel)]
+    res = {"library_ms": None, "ms": (turns[0] + turns[3]) / 2,
+           "dense_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+           "plain_ms": graph_ms(lambda: paged_decode_attention_ref(q, kp, vp, tbl, lens))}
+    res["over_dense"] = res["ms"] / res["dense_ms"]
+    res["eager_ms"] = eager_ms(kernel)
+    res["launch_us"] = launch_us(kernel)
+    res["bound_ms"], res["bound_by"] = _paged_bound(q, lengths, KV, dh, bs)
+    res["shape"] = {"B": B, "H": H, "KV": KV, "dh": dh, "block_size": bs, "lengths": [L] * B,
+                    "attend_blocks": mb, "dtype": "bfloat16"}
     return res
 
 
@@ -1171,11 +1299,19 @@ def time_decode(gen, B: int = 4, S: int = 2048, L: int = 1000):
     return res
 
 
+# the port's CUDA kernels (the __global__ functions of csrc/*.cu), by name
+PORT_KERNELS = ("bgmv_cluster_kernel", "paged_decode_kernel", "tc_kernel", "fp32_tile_kernel",
+                "flash_bf16_kernel", "flash_f32_kernel", "decode_split_kernel",
+                "decode_combine_kernel")
+
+
 def _device_busy(prof, wall_us: float):
     """Union of the device-kernel intervals of a torch.profiler run: busy
     time, idle share of ``wall_us``, kernel count, the top kernels by device
-    time, and the top host operations by self time (ms, calls): where a
-    host-bound run spends its host."""
+    time, the device time and share of busy of each of the port's own
+    kernels (:data:`PORT_KERNELS`), and the top host
+    operations by self time (ms, calls): where a host-bound run spends its
+    host."""
     from torch.autograd import DeviceType
 
     spans, by_name, host = [], {}, {}
@@ -1193,10 +1329,16 @@ def _device_busy(prof, wall_us: float):
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    port = {}
+    for n, t in by_name.items():
+        short = n.removeprefix("void ").removeprefix("(anonymous namespace)::").split("(")[0]
+        if short.split("<")[0] in PORT_KERNELS:
+            port[short] = (t / 1e3, t / busy)
     top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1 - busy / wall_us, "kernels": len(spans),
             "top_kernels_ms": [(n, t / 1e3) for n, t in top],
+            "port_kernels_ms": port,
             "top_host_ops_ms": [(n, t / 1e3, c) for n, (t, c) in top_host]}
 
 
@@ -1946,8 +2088,12 @@ def main(argv=None) -> None:
     print(f"decode_attention: one captured call replayed at device lengths "
           f"{DECODE_REPLAY_LENGTHS} reads {decode_replays} of the bound; a merge that drops the "
           f"last valid chunk at L=1000 (bf16) reads {decode_fault} (rejected)")
-    print(f"paged_decode_attention bf16: the longest lane's last block dropped reads at least "
-          f"{paged_fault:.3f} of the attention-form bound (rejected)")
+    print(f"paged_decode_attention: worst |Δ| and |Δ|/bound {paged_err} over {len(PAGED_CASES)} "
+          f"cases (dh 64 and 16, lengths 0-1000, whole tables and column slices), out-of-range "
+          f"entries contributing nothing, bitwise on a second call and under graph replay at "
+          f"device lengths {PAGED_REPLAY_LENGTHS}; planted faults (bf16, least |Δ|/bound): the "
+          f"longest lane's last block dropped {paged_fault['last_block_dropped']:.3f}, one "
+          f"split's partial dropped {paged_fault['split_dropped']:.3f} (rejected)")
 
     # -- the one-λ matmul's backward against autograd of the plain formula ---
     bwd_rows = check_matmul_backward(gen, report["cases"])
@@ -1967,6 +2113,7 @@ def main(argv=None) -> None:
     timings = {"qrlora_bgmv_wq": time_bgmv(gen, 576), "qrlora_bgmv_wv": time_bgmv(gen, 192),
                "qrlora_bgmv_wq_M64": time_bgmv(gen, 576, 64),
                "paged_decode_attention": time_paged(gen),
+               "paged_decode_attention_long": time_paged_long(gen),
                "qrlora_matmul_wq": time_matmul(gen, 576), "qrlora_matmul_wv": time_matmul(gen, 192)}
     for base in ("int8", "fp8"):
         for proj, N in (("wq", 576), ("wv", 192)):
@@ -1990,6 +2137,10 @@ def main(argv=None) -> None:
         if "launch_us" in t:
             print(f"  {name} device µs per launch (torch.profiler, eager calls): "
                   + "; ".join(f"{k} {us:.3f}" for k, us in t["launch_us"].items()))
+    long = timings["paged_decode_attention_long"]
+    print(f"paged_decode_attention_long: {long['ms']:.5f} ms beside the dense decode kernel's "
+          f"{long['dense_ms']:.5f} ms at the same length ({long['over_dense']:.3f}×; turns "
+          f"paged, dense, dense, paged {long['turns_ms']}) on {smi}")
     report["timings"] = timings
 
     # -- the kernel bench: flash and dense decode attention's path ----------
@@ -2189,7 +2340,8 @@ def main(argv=None) -> None:
         ("qrlora_bgmv", "qrlora_bgmv_wq", bgmv_err["bfloat16"],
          "src/repro_torch/kernels/csrc/qrlora_bgmv.cu",
          "src/repro/kernels/qrlora_bgmv.py:172", launches["qrlora_bgmv"]),
-        ("paged_decode_attention", "paged_decode_attention", paged_err["bfloat16"],
+        ("paged_decode_attention", "paged_decode_attention",
+         paged_err["bfloat16"]["max_abs_err"],
          "src/repro_torch/kernels/csrc/paged_attention.cu",
          "src/repro/kernels/paged_attention.py:116", launches["paged_decode_attention"]),
         ("qrlora_matmul", "qrlora_matmul_wq", matmul_err["bfloat16"],

@@ -25,7 +25,9 @@
 //     that share a row split dh, so a score is a short dot per lane and a
 //     shuffle reduction over the row's lanes.  The chunk's softmax state —
 //     max m, sum l and the unnormalised accumulator Σ e^{s−m}·v over its
-//     positions, all fp32 — goes to an fp32 workspace.
+//     positions, all fp32 — goes to an fp32 workspace.  The chunk's loads
+//     and arithmetic live in decode_chunk.cuh, shared with the paged
+//     decode kernel.
 //  2. combine: grid (H, B), one thread per output element, reads the length
 //     again, merges the ⌈length/TCH⌉ valid partials (global max M,
 //     l = Σ lᵢ·e^{mᵢ−M}, o = Σ accᵢ·e^{mᵢ−M} / l) and writes out in q's
@@ -41,50 +43,13 @@
 // 12 (row, kv head) pairs) the whole read is issued at once over the SMs;
 // what is left is the load latency of one chunk, the second launch and the
 // combine's read.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "decode_chunk.cuh"
+
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int THREADS = 128, WARPS = THREADS / 32;
-constexpr int HG = 4;   // query heads a split block serves (GQA groups of more take several)
-constexpr int RPL = 4;  // cache rows a lane loads per chunk, for K and for V
-
-// The chunk of one split block: 16-byte pieces of E elements, C lanes a
-// row, GPW rows a warp at a time, RPL rows a lane.
-template <typename T, int DH>
-struct Tile {
-  static constexpr int E = 16 / sizeof(T);
-  static constexpr int C = DH / E;
-  static constexpr int GPW = 32 / C;
-  static constexpr int G = WARPS * GPW;  // rows in flight a step
-  static constexpr int TCH = G * RPL;    // positions a chunk
-  static_assert(DH % E == 0 && C >= 1 && C <= 32 && 32 % C == 0, "unsupported head dim");
-};
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);  // bf16 → fp32: the high half of the word
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
 
 __device__ __forceinline__ int valid_length(const int* len_ptr, int len_value, int S) {
   return min(max(len_ptr ? *len_ptr : len_value, 0), S);
@@ -111,115 +76,29 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   const int piece = lane % C, grp = warp * GPW + lane / C;  // this lane's 16 bytes and row group
 
   // every load of the chunk first: K and V rows grp, grp + G, … as 16-byte pieces
-  uint4 kr[RPL], vr[RPL];
+  size_t off[RPL];
+  bool valid[RPL];
 #pragma unroll
   for (int i = 0; i < RPL; ++i) {
     const int t = grp + G * i;
-    kr[i] = vr[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (t < nt) {
-      const size_t off = (((size_t)b * S + t0 + t) * KV + g) * DH + piece * E;
-      kr[i] = __ldg(reinterpret_cast<const uint4*>(k_cache + off));
-      vr[i] = __ldg(reinterpret_cast<const uint4*>(v_cache + off));
-    }
+    valid[i] = t < nt;
+    off[i] = (((size_t)b * S + t0 + t) * KV + g) * DH + piece * E;
   }
+  uint4 kr[RPL], vr[RPL];
+  load_rows(k_cache, v_cache, off, valid, kr, vr);
   float qf[HG][E];
-#pragma unroll
-  for (int j = 0; j < HG; ++j) {
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (j < nh)
-      u = __ldg(reinterpret_cast<const uint4*>(q + ((size_t)b * H + h0 + j) * DH) + piece);
-    unpack(u, qf[j]);
-  }
+  load_q<T, DH>(q, (size_t)b * H + h0, nh, piece, qf);
 
-  // scores: each lane a partial dot over its piece, summed over the row's C lanes
-  float s[HG][RPL];
-#pragma unroll
-  for (int i = 0; i < RPL; ++i) {
-    float kf[E];
-    unpack(kr[i], kf);
-    const bool ok = grp + G * i < nt;
-#pragma unroll
-    for (int j = 0; j < HG; ++j) {
-      float d = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) d = fmaf(qf[j][e], kf[e], d);
-#pragma unroll
-      for (int o = C / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      s[j][i] = ok ? d * scale : -INFINITY;
-    }
-  }
-
-  // the chunk's max and sum per head: over this lane's rows, the warp's row
-  // groups (lanes C, 2C, … apart), then the warps
+  // the chunk's softmax state per head: its max m (finite: position t0 is
+  // valid), this lane's share of the sum l and of the accumulator Σ e^{s−m}·v
   __shared__ float red[WARPS][HG];
   __shared__ float mx_s[HG];
   __shared__ float acc_s[WARPS][HG][DH];
-  float m[HG];
-#pragma unroll
-  for (int j = 0; j < HG; ++j) {
-    float v = s[j][0];
-#pragma unroll
-    for (int i = 1; i < RPL; ++i) v = fmaxf(v, s[j][i]);
-#pragma unroll
-    for (int o = C; o < 32; o <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-    m[j] = v;
-  }
-  if (lane == 0)
-#pragma unroll
-    for (int j = 0; j < HG; ++j) red[warp][j] = m[j];
-  __syncthreads();
-  if (tid < HG) {
-    float v = red[0][tid];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w) v = fmaxf(v, red[w][tid]);
-    mx_s[tid] = v;  // finite: position t0 is valid
-  }
-  __syncthreads();
-  float l[HG];
-#pragma unroll
-  for (int j = 0; j < HG; ++j) {
-    const float mj = mx_s[j];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < RPL; ++i) {
-      s[j][i] = s[j][i] == -INFINITY ? 0.f : expf(s[j][i] - mj);  // now p, fp32
-      sum += s[j][i];
-    }
-#pragma unroll
-    for (int o = C; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    l[j] = sum;
-  }
-
-  // P·V in fp32: each lane its rows' share of its piece, summed over the
-  // warp's row groups by shuffles and over the warps in shared memory
-  float acc[HG][E];
-#pragma unroll
-  for (int j = 0; j < HG; ++j)
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int i = 0; i < RPL; ++i) {
-    float vf[E];
-    unpack(vr[i], vf);  // zeros past the length, where p is 0
-#pragma unroll
-    for (int j = 0; j < HG; ++j)
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[j][e] = fmaf(s[j][i], vf[e], acc[j][e]);
-  }
-#pragma unroll
-  for (int j = 0; j < HG; ++j)
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-#pragma unroll
-      for (int o = C; o < 32; o <<= 1) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], o);
-  if (lane < C) {  // red[] is free again: its reads came before the last barrier
-#pragma unroll
-    for (int j = 0; j < HG; ++j) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc_s[warp][j][piece * E + e] = acc[j][e];
-      if (lane == 0) red[warp][j] = l[j];
-    }
-  }
+  float s[HG][RPL], m[HG], l[HG] = {}, acc[HG][E] = {};
+  chunk_scores<T, DH>(kr, qf, valid, scale, s);
+  chunk_max<C>(s, red, mx_s, tid, lane, warp, m);
+  chunk_pv<T, DH>(s, vr, m, l, acc);
+  warp_sums<T, DH>(l, acc, red, acc_s, lane, warp, piece);
   __syncthreads();
   for (int i = tid; i < nh * DH; i += THREADS) {
     const int j = i / DH, d = i % DH;

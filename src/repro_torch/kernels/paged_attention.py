@@ -4,15 +4,27 @@ One query per lane attends, GQA, over the KV pool blocks its block-table
 row names, masked by the lane's length; a lane of length 0 gives zeros.
 
 Replaces ``repro/kernels/paged_attention.py::paged_decode_attention_kernel``.
-The CUDA source is ``csrc/paged_attention.cu``: one block per (lane, kv
-head) covers the GQA group of query heads, reads its own table row and
-length, and streams the lane's valid blocks through shared memory with an
-online softmax in fp32, so neither stale table entries past the length nor
-trash block 0 contribute.  The work is bound by reading the valid K/V rows
-once; PERF.md has the kernel's times beside that bound.
+The work is bound by reading the valid K/V rows once, so the CUDA source
+(``csrc/paged_attention.cu``) reads them as the dense decode kernel does
+(``csrc/decode_chunk.cuh``): chunks of :func:`paged_decode_plan`'s
+``chunk`` positions (64 in bf16 at dh 64), each position's row found
+through the table, in 16-byte loads issued before the first product, the
+GQA group read once for up to 4 query heads, an fp32 softmax state per
+chunk.  One launch: a cluster of up to 8 CTAs per (kv head, lane) splits
+the table's chunks (rank r takes chunks r, r + 8, …, folding them in
+order) and merges the ranks' states in rank order through distributed
+shared memory.  The cluster follows the table's column count, never the
+length: every CTA reads its lane's length and table entries on the card,
+so a call never waits on the host and replays in a CUDA graph after the
+lengths change.  Positions past the length and their table entries are
+never read (stale entries and trash block 0 cannot contribute); an entry
+outside ``[0, n_blocks)`` reads nothing and its positions contribute
+nothing.  PERF.md has the kernel's times beside its bound.
 
 CPU tensors take the plain version (:func:`repro_torch.kernels.ref.
 paged_decode_attention_ref`); CUDA tensors launch the kernel or raise.
+:func:`repro_torch.kernels.ref.paged_decode_attention_split_ref` mirrors the
+chunk-and-merge arithmetic for the CPU tests.
 """
 from __future__ import annotations
 
@@ -24,8 +36,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import paged_decode_attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_THREADS, _MAX_OUT = 128, 4  # csrc/paged_attention.cu: THREADS, MAX_OUT
-_MAX_SMEM = 48 * 1024
+HEAD_DIMS = (16, 32, 64, 128)  # csrc/paged_attention.cu instantiations
 _lib = None
 
 
@@ -38,18 +49,39 @@ def _library():
             + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.paged_decode_launch.restype = ctypes.c_int
+        lib.paged_decode_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+        lib.paged_decode_plan.restype = ctypes.c_int
         lib.paged_decode_error_string.argtypes = [ctypes.c_int]
         lib.paged_decode_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def paged_decode_plan(B: int, H: int, KV: int, dh: int, bs: int, max_blocks: int,
+                      dtype) -> dict:
+    """How the kernel splits a call, from its own numbers: ``chunk``
+    positions a chunk, ``chunks`` of the table (⌈max_blocks·bs / chunk⌉),
+    ``cluster`` CTAs a cluster (min(chunks, 8); a rank folds ⌈chunks /
+    cluster⌉ chunks at most: ``chunks_per_rank``), and the ``grid``.  The
+    lengths do not enter."""
+    lib = _library()
+    plan = (ctypes.c_int * 4)()
+    err = lib.paged_decode_plan(H, KV, dh, bs, max_blocks, int(dtype == torch.bfloat16), plan)
+    if err:
+        raise ValueError(f"paged_decode_plan: {lib.paged_decode_error_string(err).decode()}")
+    chunk, cs, grid_y, chunks = plan
+    return {"chunk": chunk, "chunks": chunks, "cluster": cs, "grid": (cs, grid_y, B),
+            "chunks_per_rank": -(-chunks // cs)}
+
+
 def paged_decode_attention_cuda(q, k_pool, v_pool, block_tbl, lengths) -> torch.Tensor:
     """Launch the paged decode kernel on CUDA tensors: q (B,H,dh) and pools
-    (n_blocks, bs, KV, dh) contiguous in one of float32/bfloat16; block_tbl
-    (B, max_blocks) int32 with unit column stride (a column slice of a wider
-    table is fine); lengths (B,) int32.  Returns (B,H,dh) in q's dtype.
-    Adds one to ``paged_decode_attention_cuda.launches`` per launch."""
+    (n_blocks, bs, KV, dh), contiguous and 16-byte aligned, in one of
+    float32/bfloat16, dh ∈ :data:`HEAD_DIMS`; block_tbl (B, max_blocks)
+    int32 with unit column stride (a column slice of a wider table is fine);
+    lengths (B,) int32 (clamped to [0, max_blocks·bs] on the card).  Returns
+    (B,H,dh) in q's dtype.  Adds one to
+    ``paged_decode_attention_cuda.launches`` per launch."""
     B, H, dh = q.shape
     n_blocks, bs, KV, _ = k_pool.shape
     max_blocks = block_tbl.shape[1]
@@ -76,10 +108,10 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tbl, lengths) -> torch.
             and lengths.is_contiguous() and block_tbl.stride(1) == 1):
         raise ValueError("paged_decode_attention: q, pools, lengths contiguous; "
                          "block_tbl rows with unit stride")
-    rep = H // KV
-    smem = 4 * (rep * dh + 2 * bs * dh + rep * bs + 3 * rep)
-    if rep * dh > _THREADS * _MAX_OUT or smem > _MAX_SMEM:
-        raise ValueError(f"paged_decode_attention: group {rep}×{dh}, block {bs} too large")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention: head dim {dh} not in {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged_decode_attention: q and pools must start on a 16-byte boundary")
     lib = _library()
     out = torch.empty_like(q)
     err = lib.paged_decode_launch(

@@ -248,3 +248,67 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tbl, lengths):
     o = torch.einsum("bhk,bkhd->bhd", p.float(), v.float())
     o = torch.where((lengths > 0)[:, None, None], o, torch.zeros_like(o))
     return o.to(q.dtype)
+
+
+def paged_decode_attention_split_ref(q, k_pool, v_pool, block_tbl, lengths, chunk: int, *,
+                                     ranks: int = 8, skip_ranks=()):
+    """The paged decode kernel's chunk-and-merge arithmetic in plain
+    PyTorch, for the tests and the card's checks (never the main path).
+
+    Arguments as :func:`paged_decode_attention_ref`.  A lane's positions
+    (its length clamped to the table's ``max_blocks·bs``) go through its
+    table row; a position whose entry lies outside ``[0, n_blocks)`` scores
+    −∞.  The table's ⌈max_blocks·bs / chunk⌉ chunks are dealt to ``cs =
+    min(chunks, ranks)`` ranks, rank r taking chunks r, r + cs, …; a rank
+    folds its chunks below the length in order into an fp32 state (max m,
+    sum l, unnormalised Σ e^{s−m}·v, rescaled by e^{m_old − m_new} when a
+    chunk raises the max), so with at most ``ranks`` chunks each state is one
+    chunk's own.  The ranks' states are merged in rank order under the
+    global max M (weights e^{m−M}) and the summed accumulator divided by the
+    summed l; a lane with nothing valid gives zeros.  ``skip_ranks`` leaves
+    those ranks' states out of the merge (what a kernel that drops a
+    split's partial would give).  Result in q's dtype.
+    """
+    B, H, dh = q.shape
+    n_blocks, bs, KV, _ = k_pool.shape
+    width = block_tbl.shape[1] * bs
+    n_chunks = -(-width // chunk)
+    cs = max(1, min(n_chunks, ranks))
+    rep = H // KV
+    k_rows, v_rows = k_pool.reshape(-1, KV, dh), v_pool.reshape(-1, KV, dh)
+    out = torch.zeros((B, H, dh), dtype=torch.float32, device=q.device)
+    neg = torch.tensor(float("-inf"), device=q.device)
+    for b in range(B):
+        L = min(max(int(lengths[b]), 0), width)
+        pos = torch.arange(L, device=q.device)
+        blk = block_tbl[b, pos // bs].long()
+        ok = (blk >= 0) & (blk < n_blocks)
+        rows = torch.where(ok, blk, 0) * bs + pos % bs
+        k = k_rows[rows].float().repeat_interleave(rep, dim=1)  # (L, H, dh)
+        v = v_rows[rows].float().repeat_interleave(rep, dim=1)
+        s = torch.einsum("hd,thd->ht", q[b].float(), k) * dh**-0.5
+        s = torch.where(ok[None, :], s, neg)
+        states = []
+        for r in range(cs):
+            m = torch.full((H,), float("-inf"), device=q.device)
+            l = torch.zeros((H,), device=q.device)
+            acc = torch.zeros((H, dh), device=q.device)
+            for t0 in range(r * chunk, L, cs * chunk):
+                sc, vc = s[:, t0:t0 + chunk], v[t0:t0 + chunk]
+                M = torch.maximum(m, sc.amax(dim=-1))
+                c = torch.where(m == M, torch.ones_like(m), torch.exp(m - M))
+                p = torch.where(sc == neg, torch.zeros_like(sc), torch.exp(sc - M[:, None]))
+                l = l * c + p.sum(dim=-1)
+                acc = acc * c[:, None] + torch.einsum("ht,thd->hd", p, vc)
+                m = M
+            if r not in skip_ranks:
+                states.append((m, l, acc))
+        if not states:
+            continue
+        M = torch.stack([m for m, _, _ in states]).amax(dim=0)
+        Mf = torch.where(M == neg, torch.zeros_like(M), M)
+        w = [torch.where(m == neg, torch.zeros_like(m), torch.exp(m - Mf)) for m, _, _ in states]
+        l = sum(wi * li for wi, (_, li, _) in zip(w, states))
+        o = sum(wi[:, None] * acc for wi, (_, _, acc) in zip(w, states))
+        out[b] = torch.where(l[:, None] > 0, o / torch.where(l > 0, l, 1.0)[:, None], 0.0)
+    return out.to(q.dtype)

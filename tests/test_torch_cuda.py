@@ -15,7 +15,7 @@ from repro_torch.benchmarks.common import err_over_bound
 from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL, abs_v_attention, abs_v_paged
 from repro_torch.kernels.decode_attention import decode_attention_chunk, decode_attention_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+from repro_torch.kernels.paged_attention import paged_decode_attention_cuda, paged_decode_plan
 from repro_torch.kernels import ops
 from repro_torch.core.quantize import FP8_DTYPE, quantize_weight
 from repro_torch.kernels.qrlora_bgmv import (
@@ -28,6 +28,7 @@ from repro_torch.kernels.ref import (
     decode_attention_ref,
     flash_attention_ref,
     paged_decode_attention_ref,
+    paged_decode_attention_split_ref,
     qrlora_bgmv_quant_ref,
     qrlora_bgmv_ref,
     qrlora_bgmv_rows_ref,
@@ -170,6 +171,133 @@ def test_paged_kernel_matches_plain(gen, dtype, lengths):
     torch.cuda.synchronize()
     assert err_over_bound(o, paged_decode_attention_ref(q, kp, vp, tbl, lens), tol,
                           abs_v_paged(q, kp, vp, tbl, lens)) > 1
+
+
+def _paged_operands(gen, dtype, lengths, H=9, KV=3, dh=64, bs=16, mb=8):
+    """q, pools with trash block 0 at 1e4, a table whose columns past each
+    length alternate trash and the lane's own (stale) blocks, lengths."""
+    dev, B = "cuda", len(lengths)
+    n_blocks = 1 + B * mb
+    q = torch.randn((B, H, dh), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((n_blocks, bs, KV, dh), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((n_blocks, bs, KV, dh), generator=gen, device=dev).to(dtype)
+    kp[0] = vp[0] = 1e4
+    tbl = (torch.randperm(n_blocks - 1, generator=gen, device=dev) + 1).to(torch.int32)
+    tbl = tbl.reshape(B, mb).clone()
+    for b, n in enumerate(lengths):
+        tbl[b, -(-n // bs)::2] = 0
+    return q, kp, vp, tbl, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _paged_over(o, q, kp, vp, tbl, lens):
+    tol = BENCH_TOL["paged_decode_attention"][o.dtype]
+    return err_over_bound(o, paged_decode_attention_ref(q, kp, vp, tbl, lens), tol,
+                          abs_v_paged(q, kp, vp, tbl, lens))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths", [(0, 1, 16, 17), (100, 33, 2, 128)])
+def test_paged_kernel_head_dim_16_rep_1(gen, dtype, lengths):
+    """The reduced smollm-135m config's attention (3 heads over 3, dh 16):
+    one query head a kv head, a 256-position chunk in bf16."""
+    args = _paged_operands(gen, dtype, lengths, H=3, KV=3, dh=16)
+    o = paged_decode_attention_cuda(*args)
+    torch.cuda.synchronize()
+    assert _paged_over(o, *args) <= 1
+    assert all((o[b] == 0).all() for b, n in enumerate(lengths) if n == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("entry", ["negative", "past_the_pool"])
+def test_paged_kernel_out_of_range_entry_reads_nothing(gen, dtype, entry):
+    """An entry outside [0, n_blocks) inside the length contributes
+    nothing: the result is the plain version over the table with that
+    column removed and the length cut by one block."""
+    q, kp, vp, tbl, lens = _paged_operands(gen, dtype, (100, 70, 40, 64))
+    col = 1
+    bad = tbl.clone()
+    bad[:, col] = -3 if entry == "negative" else kp.shape[0] + 5
+    o = paged_decode_attention_cuda(q, kp, vp, bad, lens)
+    torch.cuda.synchronize()
+    cut = torch.cat([tbl[:, :col], tbl[:, col + 1:], tbl[:, :1]], dim=1).contiguous()
+    assert _paged_over(o, q, kp, vp, cut, lens - 16) <= 1
+    assert bool(torch.isfinite(o).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths", [(1000, 0, 513, 64), (1024, 1, 999, 257)])
+def test_paged_kernel_long_table(gen, dtype, lengths):
+    """A 64-column table (1024 positions: 16 chunks in bf16, 32 in float32,
+    over a cluster of 8, each rank folding 2 or 4 chunks), whole and as a
+    48-column slice."""
+    q, kp, vp, tbl, lens = _paged_operands(gen, dtype, lengths, mb=64)
+    for width in (64, 48):
+        t = tbl[:, :width]
+        lw = torch.clamp(lens, max=width * 16)
+        o = paged_decode_attention_cuda(q, kp, vp, t, lw)
+        torch.cuda.synchronize()
+        assert _paged_over(o, q, kp, vp, t, lw) <= 1
+        assert all((o[b] == 0).all() for b, n in enumerate(lengths) if n == 0)
+
+
+def test_paged_kernel_matches_its_split_mirror(gen):
+    """The kernel against ``ref.paged_decode_attention_split_ref`` cut as
+    the kernel's own plan cuts the table, in float32: equal up to the
+    rounding of another summation order (1e-6 + 1e-6·|mirror|, as the CPU
+    tests hold the mirror to the references)."""
+    q, kp, vp, tbl, lens = _paged_operands(gen, torch.float32, (1000, 300, 64, 17), mb=64)
+    plan = paged_decode_plan(4, 9, 3, 64, 16, 64, torch.float32)
+    o = paged_decode_attention_cuda(q, kp, vp, tbl, lens)
+    mirror = paged_decode_attention_split_ref(q, kp, vp, tbl, lens, plan["chunk"],
+                                              ranks=plan["cluster"])
+    torch.cuda.synchronize()
+    assert bool(((o - mirror).abs() <= 1e-6 + 1e-6 * mirror.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mb", [4, 64])
+def test_paged_kernel_bitwise_again_and_under_graph_replay(gen, dtype, mb):
+    """A second call gives the same bits; a captured call replayed after new
+    lengths are written into the device tensor gives the bits of an eager
+    call at those lengths (no host read, no atomics)."""
+    q, kp, vp, tbl, lens = _paged_operands(gen, dtype, (64, 48, 33, 17), mb=mb)
+    first = paged_decode_attention_cuda(q, kp, vp, tbl, lens)
+    again = paged_decode_attention_cuda(q, kp, vp, tbl, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        paged_decode_attention_cuda(q, kp, vp, tbl, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_decode_attention_cuda(q, kp, vp, tbl, lens)
+    width = mb * 16
+    for new in ((1, 0, width, 40), (width, width - 1, 17, 0), (64, 48, 33, 17)):
+        lens.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        eager = paged_decode_attention_cuda(q, kp, vp, tbl, lens)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert _paged_over(out, q, kp, vp, tbl, lens) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_plan_follows_the_table_not_the_length(gen, dtype):
+    """The serving shape (a 4-column slice of 16-position blocks) is one
+    chunk in bf16: no cluster, 12 CTAs; a 64-column table is a cluster of 8
+    ranks folding 2 (bf16) or 4 (float32) chunks each.  The plan takes no
+    length: the kernel reads the lengths on the card."""
+    serve = paged_decode_plan(4, 9, 3, 64, 16, 4, dtype)
+    long = paged_decode_plan(4, 9, 3, 64, 16, 64, dtype)
+    chunk = 64 if dtype == torch.bfloat16 else 32
+    assert serve["chunk"] == long["chunk"] == chunk
+    assert serve["cluster"] == 64 // chunk and serve["grid"] == (64 // chunk, 3, 4)
+    assert long["cluster"] == 8 and long["grid"] == (8, 3, 4)
+    assert long["chunks"] == 1024 // chunk and long["chunks_per_rank"] == 1024 // chunk // 8
+    assert paged_decode_plan(4, 3, 3, 16, 16, 4, dtype)["grid"] == (1, 3, 4)  # dh 16, rep 1
+    assert paged_decode_plan(2, 16, 2, 128, 16, 8, dtype)["grid"][1] == 4  # rep 8: 2 groups
 
 
 def test_serving_step_launches_both_kernels(gen):
