@@ -7,11 +7,11 @@ Run from the root of a checkout, with no arguments:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version at the shapes the
-serving, training and kernel-bench paths give it (and the one-λ matmul's
-hand-written backward against autograd through the plain formula), then
-drives the paths at the full width of smollm-135m (30 layers, random weights
-from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers), counting
-kernel launches around each:
+serving, training, GLUE and kernel-bench paths give it (and the one-λ
+matmul's hand-written backward against autograd through the plain
+formula), then drives the paths, counting kernel launches around each; the
+decoder paths at the full width of smollm-135m (30 layers, random weights
+from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
 
 * serving: 6 tenants through the paged multi-tenant engine (default
   config), the served tokens checked against the merged-weight reference;
@@ -33,7 +33,19 @@ kernel launches around each:
   process): pivoted QR against SVD, the fused adapter against ΔW, and the
   flash-attention, dense decode-attention and one-λ kernels against their
   plain versions at the reference's shapes and smollm-135m's attention
-  width, every row within its tolerance.
+  width, every row within its tolerance;
+* the GLUE path: full-width RoBERTa-base (12 layers, d 768, vocab 50265,
+  random weights from ``--seed``, float32) on mrpc through
+  ``repro_torch.benchlib.run_glue_method`` in qr_lora, lora, svd_lora and
+  ft at batch 16 × seq 128 (a few warm-up FT steps, a few adapter steps,
+  two eval batches), every adapted projection through the one-λ kernel's
+  float32 route, each mode held against the same run with the plain
+  version in place of the kernel.
+
+The one-λ kernel is also checked at the encoder's shapes (float32 x,
+M = 2048, 768 and a ragged 100, K = N = 768, r = 256 and 2), its backward
+with LoRA's dB and dA against autograd, and ``qr_pivoted`` at 768 × 768
+captured whole in one CUDA graph, replayed bitwise.
 
 Planted faults check that each check rejects what it targets.  Without a
 CUDA card it exits non-zero before printing any result.
@@ -50,6 +62,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -449,15 +462,17 @@ MATMUL_SHAPES = [(M, 576, N, 128) for M in (2048, 64, 37, 1) for N in (576, 192)
     (512, 768, 768, 160), (64, 208, 192, 24)]
 
 
-def _matmul_case(gen, kind, x_dt, M, K, N, r, base=None):
+def _matmul_case(gen, kind, x_dt, M, K, N, r, base=None, rank=None):
     """One one-λ case: the kernel twice (bitwise the same), against the
-    plain version within the unchanged limit.  Returns the details row."""
+    plain version within the unchanged limit; the factors' columns past
+    ``rank`` (default min(100, r)) are zero.  Returns the details row."""
     import torch
     from repro_torch.benchmarks.common import err_over_bound
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda, qrlora_matmul_quant_cuda
     from repro_torch.kernels.ref import qrlora_matmul_quant_ref, qrlora_matmul_ref
 
-    x, W, B, A, lam = _matmul_inputs(gen, M, N, x_dt, K=K, r=r, rank=min(100, r))
+    x, W, B, A, lam = _matmul_inputs(gen, M, N, x_dt, K=K, r=r,
+                                     rank=min(100, r) if rank is None else rank)
     if base is None:
         args, kernel, plain = (x, W, B, A, lam), qrlora_matmul_cuda, qrlora_matmul_ref
     else:
@@ -490,6 +505,36 @@ def check_matmul(gen, details):
                               f"max|Δ|={row['max_abs_err']:.3e} ({row['err_over_bound']:.3f} of "
                               f"the bound), bitwise on a second call: {row['bitwise_repeat']}")
             worst[row["x"]] = max(worst.get(row["x"], 0.0), row["max_abs_err"])
+    return worst
+
+
+# (M, K, N, r) of the encoder's adapted projections (RoBERTa-base, float32):
+# batch 16 × seq 128 = 2048 rows (the GLUE phase, REPRO_BENCH_SCALE=paper),
+# 768 rows and a ragged 100, K = N = 768; r = 256 (QR-LoRA's rank cap at
+# d = 768) and 2 (LoRA, SVD-LoRA), every rank column live.
+ENCODER_SHAPES = [(M, 768, 768, r) for M in (2048, 768, 100) for r in (256, 2)]
+
+
+def check_matmul_encoder(gen, details):
+    """The one-λ kernel's float32 route at the encoder's shapes against its
+    plain version within TOL, bitwise on a second call and under CUDA-graph
+    replay.  Returns the worst max |Δ|."""
+    import torch
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
+
+    worst = 0.0
+    for M, K, N, r in ENCODER_SHAPES:
+        row = _matmul_case(gen, "qrlora_matmul", torch.float32, M, K, N, r, rank=r)
+        x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.float32, K=K, r=r, rank=r)
+        out, eager = _replayed(lambda: qrlora_matmul_cuda(x, W, B, A, lam, 0.7))
+        row.update(encoder=True, bitwise_replay=torch.equal(out, eager))
+        details.append(row)
+        _check(row["ok"] and row["bitwise_replay"],
+               f"qrlora_matmul float32 encoder shape M={M} K={K} N={N} r={r}: "
+               f"max|Δ|={row['max_abs_err']:.3e} ({row['err_over_bound']:.3f} of the bound), "
+               f"bitwise on a second call {row['bitwise_repeat']}, under replay "
+               f"{row['bitwise_replay']}")
+        worst = max(worst, row["max_abs_err"])
     return worst
 
 
@@ -1031,6 +1076,61 @@ def planted_backward_faults(gen):
     return rows
 
 
+def matmul_factor_backward_readings(gen, M, r, scale=0.7):
+    """LoRA / SVD-LoRA through the one-λ kernel: the autograd.Function's dx,
+    dB and dA (kernel forward, hand-written backward) against
+    torch.autograd through the plain formula, float32 x at the encoder's
+    width (K = N = 768), bf16 factors (the model's) that both require grad,
+    λ one.  dx is held to TOL["qrlora_matmul_dx"] in float32; dB and dA are
+    bf16 leaves, each side's fp32 sum rounded once, so they are held to its
+    bf16 limit (one ulp where a sum straddles a rounding boundary, 1e-3 near
+    zero).  A gradient left out reads as zeros."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import qrlora_matmul_ref
+
+    x, W, B, A, _ = _matmul_inputs(gen, M, 768, torch.float32, K=768, r=r, rank=r)
+    lam = torch.ones((r,), device=gen.device)
+    cot = torch.randn((M, 768), generator=gen, device=gen.device)
+    outs = []
+    for fn in (ops.qrlora_matmul, qrlora_matmul_ref):
+        xx, BB, AA = (t.clone().requires_grad_(True) for t in (x, B, A))
+        y = fn(xx, W, BB, AA, lam, scale)
+        (y * cot).sum().backward()
+        outs.append([y.detach()] + [torch.zeros_like(t) if t.grad is None else t.grad
+                                    for t in (xx, BB, AA)])
+    torch.cuda.synchronize()
+    (y, dx, dB, dA), (y_ref, dx_ref, dB_ref, dA_ref) = outs
+    row = {"x": "float32", "M": M, "K": 768, "N": 768, "r": r, "y_err": _max_err(y, y_ref),
+           "dx_err": _max_err(dx, dx_ref), "dB_err": _max_err(dB, dB_ref),
+           "dA_err": _max_err(dA, dA_ref)}
+    bf16_tol = _tol("qrlora_matmul_dx", torch.bfloat16)
+    row["ok"] = (_within(y, y_ref, _tol("qrlora_matmul", torch.float32))
+                 and _within(dx, dx_ref, _tol("qrlora_matmul_dx", torch.float32))
+                 and dB.dtype == dA.dtype == torch.bfloat16
+                 and _within(dB, dB_ref, bf16_tol) and _within(dA, dA_ref, bf16_tol)
+                 and bool(dB.abs().max() > 0 and dA.abs().max() > 0))
+    return row
+
+
+def planted_factor_backward_fault(gen):
+    """Control for the factor check: the hand-written backward with dA
+    dropped (None, as the reference's custom VJP's zeros would leave it);
+    it must fail :func:`matmul_factor_backward_readings`."""
+    from repro_torch.kernels import ops
+
+    sound = ops.qrlora_matmul_bwd_factors
+
+    def no_dA(*args, **kw):
+        return sound(*args, **kw)[0], None
+
+    ops.qrlora_matmul_bwd_factors = no_dA
+    try:
+        return matmul_factor_backward_readings(gen, 2048, 2)
+    finally:
+        ops.qrlora_matmul_bwd_factors = sound
+
+
 # ---------------------------------------------------------------------------
 # timing at the serving path's decode shapes and the training path's shapes
 # ---------------------------------------------------------------------------
@@ -1148,6 +1248,34 @@ def time_matmul(gen, N: int):
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
     res["shape"] = {"M": M, "K": K, "N": N, "r": r, "dtype": "bfloat16"}
+    return res
+
+
+def time_matmul_f32(gen, M: int, r: int):
+    """The one-λ kernel's float32 route at an encoder projection: M rows
+    (2048 = batch 16 × seq 128, or 768), K = N = 768, rank r (256, QR-LoRA's
+    cap; 2, LoRA) with every rank column live.  Library: ``x@W +
+    ((x@B)*λ)@A`` in fp32 (TF32 off) on fp32 copies of the factors made
+    outside the timed call.  Bound: fp32 operations over the card's
+    non-tensor fp32 peak against the bytes."""
+    import torch
+    from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
+    from repro_torch.kernels.ref import qrlora_matmul_ref
+
+    K = N = 768
+    x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.float32, K, r, rank=r)
+    B32, A32 = B.float(), A.float()
+    kernel = lambda: qrlora_matmul_cuda(x, W, B, A, lam)
+    res = {"ms": graph_ms(kernel),
+           "plain_ms": graph_ms(lambda: qrlora_matmul_ref(x, W, B, A, lam)),
+           "library_ms": graph_ms(lambda: x @ W + ((x @ B32) * lam) @ A32)}
+    res["eager_ms"] = eager_ms(kernel)
+    res["launch_us"] = launch_us(kernel)  # the P pass and the main pass
+    n_bytes = 4 * (M * K + K * N + M * N) + 2 * (K * r + r * N) + 4 * r
+    n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
+    res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "float32")
+    res["shape"] = {"M": M, "K": K, "N": N, "r": r, "dtype": "float32"}
     return res
 
 
@@ -1882,21 +2010,27 @@ def plain_forward(x, W, B, A, lam, scale=1.0):
     return qrlora_matmul_ref(x, W, B, A, lam, scale)
 
 
-def last_wq_lam_dropped(cfg):
-    """Planted fault: the kernel's forward with λ of the last layer's wq
-    left out (layer ``n_layers - 1`` is the λ view at that storage offset of
-    the stacked leaf; wq is the projection of width n_heads · d_head)."""
+def wq_lam_dropped(cfg, layer: int):
+    """Planted fault: the kernel's forward with λ of ``layer``'s wq left out
+    (the layer's λ is the view at that storage offset of the stacked leaf;
+    wq is the projection of width n_heads · d_head, the only adapted one of
+    that width where this is planted)."""
     import torch
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul
 
-    last, n_q = cfg.n_layers - 1, cfg.n_heads * cfg.d_head
+    n_q = cfg.n_heads * cfg.d_head
 
     def fwd(x, W, B, A, lam, scale=1.0):
-        if lam.storage_offset() == last * lam.shape[0] and W.shape[1] == n_q:
+        if lam.storage_offset() == layer * lam.shape[0] and W.shape[1] == n_q:
             lam = torch.zeros_like(lam)
         return qrlora_matmul(x, W, B, A, lam, scale)
 
     return fwd
+
+
+def last_wq_lam_dropped(cfg):
+    """:func:`wq_lam_dropped` at the last layer."""
+    return wq_lam_dropped(cfg, cfg.n_layers - 1)
 
 
 def compare_trains(run, twin):
@@ -1972,6 +2106,259 @@ def train_phase(dtype: str, seed: int, log_every: int = 0):
     return out
 
 
+def check_qr_graph(gen, d: int = 768):
+    """``qr_pivoted`` of a d × d weight captured whole in one CUDA graph (the
+    capture raises on any host sync), replayed: bitwise the eager result,
+    ``perm`` identical to the CPU's.  Times one eager call, one replay and
+    ``torch.linalg.svd`` of the same weight (CUDA events)."""
+    import torch
+    from repro_torch.core.pivoted_qr import qr_pivoted
+
+    # a decaying spectrum, as a warmed-up weight has
+    W = torch.randn((d, d), generator=gen, device="cuda") * torch.linspace(
+        1.0, 0.05, d, device="cuda")[None, :]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    eager = qr_pivoted(W)
+    end.record()
+    torch.cuda.synchronize()
+    eager_ms = start.elapsed_time(end)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture needs
+        qr_pivoted(W)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qr_pivoted(W)
+    for t in out:
+        t.fill_(-1)
+    times = []
+    for _ in range(3):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    svd_ms = []
+    for _ in range(3):
+        start.record()
+        torch.linalg.svd(W, full_matrices=False)
+        end.record()
+        torch.cuda.synchronize()
+        svd_ms.append(start.elapsed_time(end))
+    cpu = qr_pivoted(W.cpu())
+    return {"d": d, "bitwise": all(torch.equal(a, b) for a, b in zip(out, eager)),
+            "perm_equals_cpu": torch.equal(out.perm.cpu(), cpu.perm),
+            "q_vs_cpu": _max_err(out.Q.cpu(), cpu.Q), "eager_ms": eager_ms,
+            "replay_ms": min(times), "svd_ms": min(svd_ms)}
+
+
+# the GLUE phase: full-width RoBERTa-base (12 layers, d 768, vocab 50265,
+# random weights from --seed) on mrpc through run_glue_method at the paper
+# scale's batch 16 × seq 128, a few warm-up FT steps, a few adapter steps and
+# two eval batches, in each mode.  Each adapted projection (wq of the last 4
+# layers; the stacked λ/B/A of all 12 go through the kernel) runs the one-λ
+# kernel's float32 route in every adapter mode.
+GLUE_TASK, GLUE_BATCH, GLUE_SEQ = "mrpc", 16, 128
+GLUE_WARMUP, GLUE_STEPS, GLUE_EVAL = 3, 5, 2
+# The reference's warm-up lr (1e-3), for 3 steps from random weights, throws
+# the encoder into a saturated state (its loss rises; the phase reports that
+# run) where the adapters' gradients sit at Adam's ε; 1e-4 keeps it out.
+GLUE_WARMUP_LR = 1e-4
+# A GLUE run against its plain twin: losses as the float32 train
+# (TRAIN_TOL["float32"]["dloss"]), and the largest |Δ| of the eval outputs
+# (2 batches × 16 logits, max |logit| ≈ 0.7).  Set from full-width readings
+# on an H100 at --seed 0 (mrpc, the task hash pinned): sound twins |Δloss|
+# ≤ 6.0e-7, |Δout| ≤ 1.3e-6; LoRA with λ of its first adapted layer (8)
+# dropped from the kernel's forward reads |Δloss| 8.3e-6 and |Δout| 1.6e-4,
+# so the output bound carries the fault.  The λ of QR-LoRA moves ≈ 2.5e-3
+# in these 5 steps: dropping one layer's (|Δout| 1.4e-6) is below what the
+# run can resolve (reported), and QR-LoRA faults are the kernel checks'.
+GLUE_OUT_TOL = 1e-5
+GLUE_FAULT_LAYER = 8  # the first of the last 4 layers
+GLUE_MODES = ("qr_lora", "lora", "svd_lora", "ft")
+
+
+def glue_run(mode: str, seed: int, fwd=None, warmup_lr: float = GLUE_WARMUP_LR):
+    """One full-width ``run_glue_method`` in ``mode``, the one-λ kernel's
+    forward replaced by ``fwd`` if given (its backward stays the
+    hand-written one); launches counted from 0 around it, peak memory."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.benchlib import run_glue_method
+    from repro_torch.kernels import qrlora_matmul as mm
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with swapped(mm, "qrlora_matmul", fwd) if fwd else contextlib.nullcontext():
+        r = run_glue_method(GLUE_TASK, mode, seed=seed, reduced=False, train_steps=GLUE_STEPS,
+                            warmup_steps=GLUE_WARMUP, eval_batches=GLUE_EVAL, batch=GLUE_BATCH,
+                            seq=GLUE_SEQ, warmup_lr=warmup_lr, device="cuda")
+    torch.cuda.synchronize()
+    r["launches"] = kernels.launch_counts()
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 2**30
+    return r
+
+
+def _glue_fp32_trained(params):
+    """The float32 trained leaves a GLUE run compares, in two groups: λ of
+    every adapted projection (empty in ft), and the task head."""
+    lams = [leaf["lam"] for projs in params["groups"].get("adapters", {}).values()
+            for leaf in projs.values()]
+    return [g for g in (lams, [params[k] for k in ("cls_w", "cls_b", "pooler")]) if g]
+
+
+def compare_glue(run, twin):
+    """A GLUE run against its twin: the largest per-step |Δloss| over both
+    phases and |Δ| of the eval outputs (bounded), and the largest |Δ| of a
+    float32 trained leaf over the twin's largest entry in its group (λ, the
+    head; reported: QR-LoRA's small λ gradients sit near Adam's ε, where
+    the last bits of a gradient move its update, 1.3e-3 of max|λ| read)."""
+    rel, dlam = 0.0, 0.0
+    for a, b in zip(_glue_fp32_trained(run["params"]), _glue_fp32_trained(twin["params"])):
+        d = max(_max_err(x, y) for x, y in zip(a, b))
+        rel = max(rel, d / max(max(float(t.abs().max()) for t in b), 1e-30))
+        dlam = max(dlam, d)
+    losses = run["warmup_losses"] + run["losses"]
+    twin_losses = twin["warmup_losses"] + twin["losses"]
+    return {"max_dloss": max(abs(x - y) for x, y in zip(losses, twin_losses)),
+            "max_dout": float(abs(run["outputs"] - twin["outputs"]).max()),
+            "max_dlam": dlam, "dlam_rel": rel,
+            "finite": all(math.isfinite(x) for x in losses + twin_losses),
+            "metric_equal": run["metric"] == twin["metric"],
+            "trainable_equal": run["trainable"] == twin["trainable"]}
+
+
+def within_glue_tol(c) -> bool:
+    return (c["finite"] and c["max_dloss"] <= TRAIN_TOL["float32"]["dloss"]
+            and c["max_dout"] <= GLUE_OUT_TOL and c["metric_equal"] and c["trainable_equal"])
+
+
+def _task_hash(name: str) -> int:
+    """The GLUE data's task seed: the reference seeds each task with
+    ``hash(name)``, which changes with every process's PYTHONHASHSEED; the
+    phase pins it to the name's CRC-32 so that its runs are repeatable."""
+    import zlib
+
+    return zlib.crc32(name.encode())
+
+
+def profile_glue_steps(result, seed: int, steps: int = 3):
+    """Further adapter steps of a qr_lora GLUE run's trained params under
+    torch.profiler, with the runner's own step: wall time, device busy time
+    and idle share."""
+    import torch
+    from repro_torch.benchlib import glue_runner
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_task
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config("roberta_base")
+    cfg = cfg.replace(adapter=cfg.adapter.replace(mode="qr_lora", targets=("wq",)))
+    model = build_model(cfg, "cuda")
+    params = result["params"]
+    step = glue_runner._make_step(model, AdamWConfig(lr=2e-3))
+    batches = make_task(GLUE_TASK, vocab=cfg.vocab_size, seq=GLUE_SEQ, seed=seed + 1).batches(
+        "train", GLUE_BATCH)
+    mask = model.trainable_mask(params)
+    glue_runner._train(step, params, mask, batches, 1, model.device)  # warm
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        glue_runner._train(step, params, mask, batches, steps, model.device)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return {**_device_busy(prof, wall_us), "steps": steps}
+
+
+def glue_phase(seed: int):
+    """The GLUE path in every mode, each against its plain-version twin; the
+    planted fault (λ of layer GLUE_FAULT_LAYER's wq left out of the kernel's
+    forward) in lora and qr_lora against their twins; the qr_lora run's
+    further steps profiled.  The task hash is pinned (:func:`_task_hash`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+
+    synthetic.hash = _task_hash
+    try:
+        return _glue_phase(seed, get_config("roberta_base"))
+    finally:
+        del synthetic.hash
+
+
+def _glue_phase(seed: int, cfg):
+    out = {}
+    for mode in GLUE_MODES:
+        run, twin = glue_run(mode, seed), glue_run(mode, seed, plain_forward)
+        out[mode] = {k: run[k] for k in ("metric", "metric_name", "accuracy", "trainable",
+                                          "adapter_init_s", "losses", "warmup_losses",
+                                          "launches", "peak_mem_gb")}
+        out[mode]["median_step_ms"] = statistics.median(run["step_ms"][1:])
+        out[mode]["median_warmup_step_ms"] = statistics.median(run["warmup_step_ms"][1:])
+        out[mode]["twin_launches"] = twin["launches"]
+        out[mode]["twin"] = compare_glue(run, twin)
+        if mode in ("lora", "qr_lora"):
+            fault = glue_run(mode, seed, wq_lam_dropped(cfg, GLUE_FAULT_LAYER))
+            out[mode]["fault_wq_lam_dropped"] = compare_glue(fault, twin)
+        if mode == "qr_lora":
+            out[mode]["max_lam"] = max(float(leaf["lam"].abs().max()) for leaf in
+                                       run["params"]["groups"]["adapters"]["attn"].values())
+            out[mode]["profile"] = profile_glue_steps(run, seed)
+            # reported: the same run at the reference's warm-up lr
+            ref = glue_run(mode, seed, warmup_lr=1e-3)
+            out[mode]["at_reference_warmup_lr"] = {
+                "warmup_losses": ref["warmup_losses"], "losses": ref["losses"],
+                "max_lam": max(float(leaf["lam"].abs().max()) for leaf in
+                               ref["params"]["groups"]["adapters"]["attn"].values())}
+    return out
+
+
+def check_glue(glue: dict, want_launches: dict):
+    """Print and check the GLUE phase's readings: launches per mode (the
+    one-λ kernel only, on every adapted projection of every forward; none in
+    ft and in the twins), each mode within the float32 train tolerance of
+    its twin with the same metric and trainable count, the planted fault
+    rejected.  Returns (readings, the one-λ kernel's launches over all
+    modes)."""
+    from repro_torch.configs import get_config
+
+    per_forward = get_config("roberta_base").n_layers  # the stacked wq of every layer
+    for mode, g in glue.items():
+        print(f"glue {GLUE_TASK} {mode}: trainable {g['trainable']}, adapter init "
+              f"{g['adapter_init_s']:.3f} s, median adapter step {g['median_step_ms']:.1f} ms "
+              f"(warm-up FT step {g['median_warmup_step_ms']:.1f} ms) at batch {GLUE_BATCH} × "
+              f"seq {GLUE_SEQ}, {g['metric_name']} {g['metric']:.4f}, peak memory "
+              f"{g['peak_mem_gb']:.2f} GiB; launches {g['launches']}")
+        print(f"  losses: warm-up {' '.join(f'{x:.5f}' for x in g['warmup_losses'])}; adapter "
+              f"{' '.join(f'{x:.5f}' for x in g['losses'])}")
+        print(f"  vs plain twin: {g['twin']} (bounds |Δloss| {TRAIN_TOL['float32']['dloss']}, "
+              f"|Δout| {GLUE_OUT_TOL})")
+        want = per_forward * (GLUE_STEPS + GLUE_EVAL) if mode != "ft" else 0
+        _check(g["launches"] == {**want_launches, "qrlora_matmul": want},
+               f"glue {mode}: launches {g['launches']}, want {want} qrlora_matmul and no other")
+        _check(g["twin_launches"] == want_launches,
+               f"glue {mode}: the plain twin launched {g['twin_launches']}")
+        _check(within_glue_tol(g["twin"]),
+               f"glue {mode} disagrees with its plain-version twin: {g['twin']}")
+    for mode in ("lora", "qr_lora"):
+        print(f"  glue {mode} planted fault: λ of layer {GLUE_FAULT_LAYER}'s wq dropped, vs twin: "
+              f"{glue[mode]['fault_wq_lam_dropped']}")
+    _check(not within_glue_tol(glue["lora"]["fault_wq_lam_dropped"]),
+           "the GLUE check let the planted fault (LoRA, one layer's λ dropped) through")
+    print(f"  qr_lora max|λ| after {GLUE_STEPS} steps {glue['qr_lora']['max_lam']:.3e}; at the "
+          f"reference's warm-up lr 1e-3: {glue['qr_lora']['at_reference_warmup_lr']}")
+    print(f"  profiled {glue['qr_lora']['profile']['steps']} further qr_lora adapter steps: "
+          f"{glue['qr_lora']['profile']}")
+    print(f"adapter init on the warmed-up weights (4 × wq, 768 × 768): QR-LoRA "
+          f"{glue['qr_lora']['adapter_init_s']:.3f} s against SVD-LoRA "
+          f"{glue['svd_lora']['adapter_init_s']:.3f} s, LoRA {glue['lora']['adapter_init_s']:.3f} s")
+    glue_launches = sum(g["launches"]["qrlora_matmul"] for g in glue.values())
+    return glue, glue_launches
+
+
 def kernel_bench_phase():
     """The port's kernel bench on the card, in process, launches counted
     around it; its rows go into the report."""
@@ -2042,6 +2429,9 @@ def main(argv=None) -> None:
                f"not: {f}")
     paged_err, paged_fault = check_paged(gen, report["cases"])
     matmul_err = check_matmul(gen, report["cases"])
+    matmul_enc_err = check_matmul_encoder(gen, report["cases"])
+    print(f"qrlora_matmul float32 route at the encoder's shapes {ENCODER_SHAPES}: max|Δ| "
+          f"{matmul_enc_err:.3e}, within tolerance, bitwise on a second call and under replay")
     bgmv_quant_err = check_bgmv_quant(gen, report["cases"])
     bgmv_quant_faults = planted_bgmv_quant_faults(gen)
     report["bgmv_quant_faults"] = bgmv_quant_faults
@@ -2109,6 +2499,23 @@ def main(argv=None) -> None:
         _check(not row["ok"], f"the backward check let the planted fault {name} through")
     print("qrlora_matmul backward: agrees with autograd of the plain formula; "
           f"{len(bwd_faults)} planted backward faults rejected")
+    factor_rows = [matmul_factor_backward_readings(gen, M, r) for M, r in ((2048, 2), (768, 256))]
+    factor_fault = planted_factor_backward_fault(gen)
+    report["cases"].extend({"kernel": "qrlora_matmul factor backward", **r} for r in factor_rows)
+    report["factor_backward_fault"] = factor_fault
+    for row in factor_rows:
+        print(f"  qrlora_matmul backward with dB, dA (LoRA) {row}")
+    print(f"  planted fault dA dropped: {factor_fault}")
+    _check(all(r["ok"] for r in factor_rows),
+           "the factor gradients disagree with autograd through the plain formula")
+    _check(not factor_fault["ok"], "the factor backward check let a dropped dA through")
+
+    # -- pivoted QR without host reads: one CUDA graph at 768 × 768 ----------
+    qr_graph = check_qr_graph(gen)
+    report["qr_graph"] = qr_graph
+    print(f"qr_pivoted 768 × 768 captured in one CUDA graph: {qr_graph}")
+    _check(qr_graph["bitwise"] and qr_graph["perm_equals_cpu"],
+           f"qr_pivoted under graph replay differs from eager, or perm from the CPU's: {qr_graph}")
 
     timings = {"qrlora_bgmv_wq": time_bgmv(gen, 576), "qrlora_bgmv_wv": time_bgmv(gen, 192),
                "qrlora_bgmv_wq_M64": time_bgmv(gen, 576, 64),
@@ -2126,6 +2533,9 @@ def main(argv=None) -> None:
         timings[f"qrlora_bgmv_rows_wq_{base}"] = time_bgmv_rows(gen, 576, base)
         timings[f"qrlora_bgmv_rows_wv_{base}"] = time_bgmv_rows(gen, 192, base)
         timings[f"qrlora_bgmv_rows_wq_M64_{base}"] = time_bgmv_rows(gen, 576, base, 64)
+    for M in (2048, 768):
+        for r in (256, 2):
+            timings[f"qrlora_matmul_f32_M{M}_r{r}"] = time_matmul_f32(gen, M, r)
     for B, S in ((8, 256), (1, 2048)):
         timings[f"flash_attention_B{B}_S{S}"] = time_flash(gen, B, S)
     timings["decode_attention"] = time_decode(gen)
@@ -2330,6 +2740,9 @@ def main(argv=None) -> None:
            "the float32 train check let the planted fault last_wq_lam_dropped through")
     train_launches = report["train"]["bfloat16"]["launches_kernel"]
 
+    # -- the GLUE path: full-width RoBERTa-base in every mode, launches counted
+    report["glue"], glue_launches = check_glue(glue_phase(args.seed), want_launches)
+
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
@@ -2362,6 +2775,10 @@ def main(argv=None) -> None:
         ("qrlora_bgmv_rows", "qrlora_bgmv_rows_wq_bf16", bgmv_rows_err["bfloat16"],
          "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:375",
          report["serve_sharded"]["bf16"]["launches"]["qrlora_bgmv_rows"]),
+        # the float32 route, on the GLUE path (launches over its four modes)
+        ("qrlora_matmul_f32_encoder", "qrlora_matmul_f32_M2048_r256", matmul_enc_err,
+         "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:161", glue_launches),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,6 +1,17 @@
-"""CSV/JSON emit helpers and timers of the port's benchmarks (the port's copy
-of ``benchmarks/common.py``'s ``emit``, ``timed`` and ``write_json``; the
-row format is the same, ``name,us_per_call,derived``).
+"""Shared benchmark config, CSV/JSON emit helpers and timers of the port's
+benchmarks (the port's copy of ``benchmarks/common.py``: the scale knob,
+``emit``, ``timed`` and ``write_json``; the row format is the same,
+``name,us_per_call,derived``).
+
+REPRO_BENCH_SCALE=smoke  seconds in CI — smallest shapes that still touch
+                         every code path.
+REPRO_BENCH_SCALE=tiny   (default) minutes on a laptop CPU — reduced
+                         encoder, short schedules; demonstrates orderings.
+REPRO_BENCH_SCALE=paper  full RoBERTa-base shapes + min(10000,|train|)
+                         examples — the paper's actual grid (hours).
+
+The knob is read when a bench runs (:func:`scale`, :func:`kw`), not when
+this module is imported.
 
 On a card the timers synchronise: :func:`timed` brackets its loop with
 ``torch.cuda.synchronize()`` (host clock, launches included) and
@@ -12,6 +23,7 @@ record the error against a stated tolerance (:func:`record_error`), which
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -22,6 +34,24 @@ _timings = {}
 _errors = {}
 
 
+def scale() -> str:
+    """The ``REPRO_BENCH_SCALE`` knob: smoke, tiny (default) or paper."""
+    return os.environ.get("REPRO_BENCH_SCALE", "tiny")
+
+
+def kw() -> dict:
+    """The GLUE runner's size arguments at the knob's scale (the
+    reference's ``KW``)."""
+    if scale() == "paper":
+        return dict(reduced=False, train_steps=1500, warmup_steps=600, eval_batches=30,
+                    batch=16, seq=128)
+    if scale() == "smoke":
+        return dict(reduced=True, train_steps=10, warmup_steps=5, eval_batches=2,
+                    batch=8, seq=32)
+    return dict(reduced=True, train_steps=50, warmup_steps=30, eval_batches=6,
+                batch=16, seq=32)
+
+
 def reset() -> None:
     """Forget every emitted row (one run of ``run.main`` starts empty)."""
     _rows.clear()
@@ -29,12 +59,31 @@ def reset() -> None:
     _errors.clear()
 
 
+def say(line: str) -> None:
+    """One line of a bench's output (a heading or a row)."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def emit(name: str, us_per_call: float, derived: str):
     row = f"{name},{us_per_call:.1f},{derived}"
     _rows.append(row)
     _timings[name] = round(float(us_per_call), 1)
-    sys.stdout.write(row + "\n")
-    sys.stdout.flush()
+    say(row)
+
+
+def glue_rows(name: str, task: str, mode: str, args: dict, device, derived) -> dict:
+    """One paper-table row: :func:`repro_torch.benchlib.run_glue_method` on
+    ``task`` in ``mode`` with ``args`` at the knob's scale, emitted as the
+    reference emits it (µs of the whole run per adapter step, ``derived``
+    of the result); returns the result."""
+    from repro_torch.benchlib import run_glue_method
+
+    sizes = kw()
+    t0 = time.time()
+    r = run_glue_method(task, mode, seed=0, device=device, **sizes, **args)
+    emit(name, (time.time() - t0) * 1e6 / max(sizes["train_steps"], 1), derived(r))
+    return r
 
 
 def err_over_bound(got: torch.Tensor, want: torch.Tensor, tol, scale=None) -> float:

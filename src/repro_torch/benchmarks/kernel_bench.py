@@ -4,8 +4,9 @@ width).
 
 * pivoted-QR vs SVD factorization time: the paper's §3.2 claim that QR is
   the cheaper basis extractor.  Both are plain torch on the device (neither
-  is a kernel of the reference); ``qr_pivoted`` is a loop of small ops with
-  a host read of the pivot each column, SVD one library call.  The ratio is
+  is a kernel of the reference); ``qr_pivoted`` is a loop of small ops
+  (no host read: its pivot stays on the device), timed eagerly, so its
+  launches count; SVD is one library call.  The ratio is
   the datum, whichever way it points.
 * the fused QR-LoRA matmul (the one-λ kernel on the card) vs materialising
   ΔW, with the plain formula's time beside it.

@@ -1,12 +1,17 @@
-"""Benchmark entry point of the port (port of ``benchmarks/run.py``).  Prints
-``name,us_per_call,derived`` CSV rows, as the reference does.
+"""Benchmark entry point of the port (port of ``benchmarks/run.py``): one
+module per paper table/figure plus the kernel and train-throughput benches.
+Prints ``name,us_per_call,derived`` CSV rows, as the reference does.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run --only kernel
-  PYTHONPATH=src python -m repro_torch.benchmarks.run --only kernel --device cpu
+  PYTHONPATH=src python -m repro_torch.benchmarks.run --only table2_mrpc
+  REPRO_BENCH_SCALE=smoke PYTHONPATH=src python -m repro_torch.benchmarks.run \
+      --only table3_glue --device cpu
 
-It runs on the card unless ``--device cpu`` (a missing card raises).  Only
-the kernel bench is ported; naming a reference bench that is not raises
-and names the ROADMAP item that ports it.  Unlike the reference, it exits
+``REPRO_BENCH_SCALE`` (smoke, tiny, paper) sizes the GLUE runs as in the
+reference (:func:`common.kw`).  It runs on the card unless ``--device cpu``
+(a missing card raises).  Naming one of the reference's serving benches,
+which are not ported yet, raises and names the ROADMAP item that ports
+them.  Unlike the reference, it exits
 non-zero when a row's kernel error is over its stated tolerance, as well as
 when a bench fails.  On a card, float32 matrix products stay in full
 float32 (TF32 off) so the plain versions are exact references.
@@ -24,17 +29,18 @@ from repro_torch.benchmarks import common
 from repro_torch.device import resolve_device
 
 MODULES = [
+    ("table1_mnli", "repro_torch.benchmarks.table1_mnli"),
+    ("table2_mrpc", "repro_torch.benchmarks.table2_mrpc"),
+    ("table3_glue", "repro_torch.benchmarks.table3_glue"),
+    ("table4_ablation", "repro_torch.benchmarks.table4_ablation"),
+    ("fig1_tradeoff", "repro_torch.benchmarks.fig1_tradeoff"),
     ("kernel", "repro_torch.benchmarks.kernel_bench"),
+    ("train_throughput", "repro_torch.benchmarks.train_throughput"),
 ]
 
-#: the reference's benches that the port does not have yet (ROADMAP Queue 1 item 16)
-NOT_PORTED = ("table1_mnli", "table2_mrpc", "table3_glue", "table4_ablation", "fig1_tradeoff",
-              "train_throughput", "serve_multitenant", "multi_replica")
-
-
-def _say(msg: str) -> None:
-    sys.stdout.write(msg + "\n")
-    sys.stdout.flush()
+#: the reference's serving benches that the port does not have yet: they need
+#: the engine features and replicas of ROADMAP Queue 1 items 10, 12, 13 and 14b
+NOT_PORTED = ("serve_multitenant", "multi_replica")
 
 
 def main(argv=None) -> dict:
@@ -54,7 +60,9 @@ def main(argv=None) -> dict:
     sel = args.only.split(",") if args.only else list(ported)
     for name in sel:
         if name in NOT_PORTED:
-            raise NotImplementedError(f"bench {name!r} is not ported yet (ROADMAP Queue 1 item 16)")
+            raise NotImplementedError(
+                f"bench {name!r} is not ported yet: it needs the serving features of ROADMAP "
+                "Queue 1 item 16")
         if name not in ported:
             raise ValueError(f"unknown bench {name!r}; ported: {sorted(ported)}")
     device = resolve_device(args.device)
@@ -66,8 +74,8 @@ def main(argv=None) -> dict:
         where = "cpu"
 
     common.reset()
-    _say(f"# device: {where}")
-    _say("name,us_per_call,derived")
+    common.say(f"# device: {where}")
+    common.say("name,us_per_call,derived")
     failures = []
     for name, mod in MODULES:
         if name not in sel:
@@ -75,22 +83,22 @@ def main(argv=None) -> dict:
         t0 = time.time()
         try:
             __import__(mod, fromlist=["main"]).main(device)
-            _say(f"# {name} done in {time.time()-t0:.1f}s")
+            common.say(f"# {name} done in {time.time()-t0:.1f}s")
         except Exception:
             failures.append(name)
-            _say(f"# {name} FAILED:\n{traceback.format_exc()[-1500:]}")
+            common.say(f"# {name} FAILED:\n{traceback.format_exc()[-1500:]}")
     if args.json_out:
         common.write_json(args.json_out, where)
-        _say(f"# wrote {args.json_out}")
+        common.say(f"# wrote {args.json_out}")
     errors = common.errors()
     over = sorted(n for n, e in errors.items() if not e["ok"])
     if over:
-        _say(f"# OVER TOLERANCE: {over}")
+        common.say(f"# OVER TOLERANCE: {over}")
     if failures:
-        _say(f"# FAILURES: {failures}")
+        common.say(f"# FAILURES: {failures}")
     if failures or over:
         sys.exit(1)
-    _say("# all benchmarks complete")
+    common.say("# all benchmarks complete")
     return errors
 
 

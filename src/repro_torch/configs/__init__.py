@@ -1,9 +1,9 @@
-"""Architecture configs the port serves: ``get_config(name)`` /
-``get_reduced(name)``."""
-from repro_torch.configs import smollm_135m
+"""Architecture configs of the port: ``get_config(name)`` /
+``get_reduced(name)`` (``-`` and ``_`` alike in names)."""
+from repro_torch.configs import roberta_base, smollm_135m
 from repro_torch.configs.base import AdapterConfig, ModelConfig
 
-ARCHS = {"smollm-135m": smollm_135m}
+ARCHS = {"smollm-135m": smollm_135m, "roberta-base": roberta_base}
 
 
 def _module(name: str):
@@ -11,7 +11,7 @@ def _module(name: str):
         return ARCHS[name.replace("_", "-")]
     except KeyError:
         raise NotImplementedError(
-            f"arch {name!r}: the port serves {sorted(ARCHS)} so far"
+            f"arch {name!r}: the port has {sorted(ARCHS)} so far"
         ) from None
 
 

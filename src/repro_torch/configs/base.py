@@ -1,6 +1,6 @@
 """Model and adapter configuration — the port's copy of
-``repro/configs/base.py``, cut to the fields the dense serving, λ-only
-training and quantized-base slices read.
+``repro/configs/base.py``, cut to the fields the dense decoder (serving,
+training, quantized bases) and the paper's RoBERTa-style encoder read.
 
 The dimensions of a published model are plain numbers, so the port keeps its
 own copy instead of importing the JAX package (see ``smollm_135m.py``).
@@ -11,8 +11,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
-# LoRA / SVD-LoRA / full fine-tuning come with later slices of the port.
-ADAPTER_MODES = ("none", "qr_lora")
+ADAPTER_MODES = ("none", "ft", "lora", "svd_lora", "qr_lora")
 
 # Frozen-base weight dtypes ("bf16" = the model's native dtype, unquantized;
 # int8/fp8 = per-output-channel symmetric quantization of every adapted base
@@ -22,11 +21,14 @@ BASE_DTYPES = ("bf16", "int8", "fp8")
 
 @dataclass(frozen=True)
 class AdapterConfig:
-    """QR-LoRA adapter attached to a model.
+    """The PEFT adapter attached to a model.
 
     mode:
-      none    — no adapters.
-      qr_lora — the paper: pivoted-QR basis, only diagonal λ trainable.
+      none      — no adapters, nothing trainable except what the caller says.
+      ft        — full fine-tuning (no adapters, everything trainable).
+      lora      — standard LoRA, ΔW = B·A·(α/r); A, B trainable.
+      svd_lora  — LoRA with B, A initialized from top-k singular vectors.
+      qr_lora   — the paper: pivoted-QR basis, only diagonal λ trainable.
     """
 
     mode: str = "qr_lora"
@@ -40,7 +42,13 @@ class AdapterConfig:
     tau: float = 0.5
     # Storage rank of the factors; selected ranks are zero-padded up to it.
     rank_cap: int = 160
+    # lora / svd_lora (and the "fixed" rank policy):
     rank: int = 2
+    alpha: float = 2.0
+    svd_k: int = 1
+    # svd_lora: subtract the initialized component from W0 so the effective
+    # weight is unchanged at init (PiSSA-style), as the reference does.
+    svd_subtract_init: bool = True
 
     def replace(self, **kw) -> "AdapterConfig":
         return dataclasses.replace(self, **kw)
@@ -49,7 +57,7 @@ class AdapterConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # only "dense" in this slice of the port
+    family: str  # "dense" (decoder) or "encoder"
     n_layers: int
     d_model: int
     n_heads: int
@@ -58,7 +66,13 @@ class ModelConfig:
     vocab_size: int
     d_head: int = 0  # 0 → d_model // n_heads
     rope_theta: float = 10_000.0
+    causal: bool = True
+    # Encoder (the paper's RoBERTa-style model)
+    is_encoder: bool = False
+    n_classes: int = 0
+    max_position: int = 0
     dtype: str = "bfloat16"
+    logits_dtype: str = "float32"
     norm_eps: float = 1e-5
     adapter: AdapterConfig = field(default_factory=AdapterConfig)
     microbatches: int = 1  # gradient accumulation steps per train step
@@ -76,9 +90,7 @@ class ModelConfig:
                 f"n_kv_heads={self.n_kv_heads}"
             )
         if self.adapter.mode not in ADAPTER_MODES:
-            raise NotImplementedError(
-                f"adapter mode {self.adapter.mode!r}: the port has {ADAPTER_MODES}"
-            )
+            raise ValueError(f"adapter mode {self.adapter.mode!r} not in {ADAPTER_MODES}")
         if self.base_dtype not in BASE_DTYPES:
             raise ValueError(
                 f"{self.name}: base_dtype={self.base_dtype!r} not in {BASE_DTYPES}"

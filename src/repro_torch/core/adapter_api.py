@@ -1,14 +1,18 @@
-"""Adapter API (port of ``repro/core/adapter_api.py``, QR-LoRA mode).
+"""Adapter API (port of ``repro/core/adapter_api.py``).
 
-One runtime formula::
+One runtime formula serves every mode::
 
     y = x · W  +  ((x · B) * λ) · A · scale
 
-B and A are the frozen pivoted-QR factors and λ trains (init 0); ``adp is
-None`` is the plain ``x · W``.  Adapters live inside the stacked layer tree
-under ``params["groups"]["adapters"][module][proj]``.  One λ goes through
-the one-λ matmul kernel (:func:`repro_torch.kernels.ops.qrlora_matmul`),
-whose backward gives x and λ their gradients.
+* qr_lora  — B, A frozen pivoted-QR factors; λ trainable (init 0).
+* lora     — B, A trainable; λ frozen at 1; scale = α/r.
+* svd_lora — B, A trainable from SVD init; λ frozen at 1; scale = α/r.
+* ft/none  — no adapters (``adp is None``): y = x · W.
+
+Adapters live inside the stacked layer tree under
+``params["groups"]["adapters"][module][proj]``.  One λ goes through the
+one-λ matmul kernel (:func:`repro_torch.kernels.ops.qrlora_matmul`) in
+every mode; its backward gives x, λ, B and A the gradients they need.
 
 Multi-tenant serving: when ``adp`` carries ``"seg"`` (int32 slot ids, per
 sequence or per row), its ``"lam"`` leaf is a packed λ table
@@ -24,6 +28,10 @@ Quantized base: a W that is the ``{"q", "scale"}`` dict of
 :mod:`repro_torch.core.quantize` goes through the quantized twins of the
 two kernels (dequantized in their epilogue), or, with no adapter, through
 :func:`_quant_base_matmul`.
+
+Trainability is a tree of bools beside the params (:func:`trainable_mask`)
+that drives the (trainable, frozen) split (:func:`partition` /
+:func:`merge`).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import AdapterConfig, ModelConfig
+from repro_torch.core.lora import lora_init_stacked, svd_lora_init_stacked
 from repro_torch.core.qr_lora import qr_lora_init_stacked
 from repro_torch.core.quantize import dequantize_weight, is_quantized
 from repro_torch.kernels import ops
@@ -58,7 +67,9 @@ def _plain_matmul(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
 
 
 def adapter_scale(cfg: AdapterConfig) -> float:
-    """``α/r`` for the LoRA modes of later slices; QR-LoRA uses 1."""
+    """``α/r`` for lora and svd_lora; 1 for QR-LoRA."""
+    if cfg.mode in ("lora", "svd_lora"):
+        return cfg.alpha / cfg.rank
     return 1.0
 
 
@@ -79,8 +90,8 @@ def adapted_matmul(
     scale: float = 1.0,
 ) -> torch.Tensor:
     """``y = x·W + ((x·B)*λ)·A·scale``.  One λ goes through the one-λ
-    kernel (differentiable in x and λ, products in fp32, result in x's
-    dtype); with ``adp["seg"]`` the λ leaf is a slot table and every row
+    kernel (differentiable in x, λ, B and A, products in fp32, result in
+    x's dtype); with ``adp["seg"]`` the λ leaf is a slot table and every row
     takes its own slot's λ (BGMV kernel; under ``lam_slots`` rules the
     table is this rank's slot shard and the rows kernel applies the
     all-reduced rows; under ``qr_rank`` B and A are rank shards, gathered
@@ -125,37 +136,31 @@ def merge_adapter(
 
 
 def init_adapters(
+    gen: Optional[torch.Generator],
     cfg: ModelConfig,
     stacked: Dict[str, torch.Tensor],
     dtype=torch.bfloat16,
-) -> Dict[str, Dict[str, torch.Tensor]]:
-    """QR-LoRA adapters for every ``(n_layers, d_in, d_out)`` projection in
-    ``stacked`` (callers pre-filter targets).  The factors default to
-    bfloat16 whatever the model dtype, as in the reference."""
+) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
+    """Adapters for every ``(n_layers, d_in, d_out)`` projection in
+    ``stacked`` (callers pre-filter targets) → ``(adapters,
+    updated_weights)``; the weights change only for svd_lora with
+    subtract-init.  LoRA's A is drawn from ``gen`` (the other modes draw
+    nothing).  The factors default to bfloat16 whatever the model dtype, as
+    in the reference."""
     acfg = cfg.adapter
-    if acfg.mode == "none":
-        return {}
-    return {
-        name: qr_lora_init_stacked(
-            W, layer_selection_mask(acfg.layers, W.shape[0]), acfg, dtype
-        )
-        for name, W in sorted(stacked.items())
-    }
-
-
-def count_trainable_params(params, cfg: ModelConfig) -> int:
-    """Trainable λ entries of a QR-LoRA parameter tree.
-
-    Counts every stored λ entry, rank padding included — the figure the
-    reference's ``count_trainable_params`` returns for decoder trees (its
-    ``ranks`` lookup is keyed by module name and never matches a
-    projection, see ROADMAP Queue 3)."""
-    if cfg.adapter.mode != "qr_lora":
-        return 0
-    adapters = params["groups"].get("adapters", {})
-    return sum(
-        leaf["lam"].numel() for projs in adapters.values() for leaf in projs.values()
-    )
+    adapters: Dict[str, Dict[str, torch.Tensor]] = {}
+    new_weights = dict(stacked)
+    if acfg.mode in ("none", "ft"):
+        return adapters, new_weights
+    for name, W in sorted(stacked.items()):
+        mask = layer_selection_mask(acfg.layers, W.shape[0])
+        if acfg.mode == "qr_lora":
+            adapters[name] = qr_lora_init_stacked(W, mask, acfg, dtype)
+        elif acfg.mode == "lora":
+            adapters[name] = lora_init_stacked(gen, W, mask, acfg, dtype)
+        else:  # svd_lora
+            adapters[name], new_weights[name] = svd_lora_init_stacked(W, mask, acfg, dtype)
+    return adapters, new_weights
 
 
 # ---------------------------------------------------------------------------
@@ -163,22 +168,56 @@ def count_trainable_params(params, cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 _QR_TRAINABLE = ("lam",)
+_LORA_TRAINABLE = ("A", "B")
 
 
-def trainable_mask(params: Tree, cfg: ModelConfig) -> Tree:
-    """Tree of bools beside ``params``: which leaves train.  In qr_lora mode
-    only the λ leaves under ``adapters`` do (the reference's mask with no
-    extra trainable paths)."""
-    train_lam = cfg.adapter.mode == "qr_lora"
+def _is_adapter_leaf_trainable(mode: str, leaf_name: str) -> bool:
+    if mode == "qr_lora":
+        return leaf_name in _QR_TRAINABLE
+    if mode in ("lora", "svd_lora"):
+        return leaf_name in _LORA_TRAINABLE
+    return False
 
-    def decide(tree, in_adapters):
-        return {
-            k: decide(v, in_adapters or k == "adapters") if isinstance(v, dict)
-            else train_lam and in_adapters and k in _QR_TRAINABLE
-            for k, v in tree.items()
-        }
 
-    return decide(params, False)
+def _paths(tree: Tree, prefix: Tuple[str, ...] = ()):
+    """(path, leaf) of every non-``None`` leaf, in JAX's flattening order
+    (sorted keys)."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def trainable_mask(params: Tree, cfg: ModelConfig, extra_trainable=()) -> Tree:
+    """Tree of bools beside ``params`` (``None`` stays ``None``): which
+    leaves train, by the reference's rule.  A leaf whose ``/``-joined path
+    contains one of ``extra_trainable`` trains (a fresh task head during
+    PEFT); in ft every leaf outside ``adapters`` and ``ranks`` trains;
+    otherwise the adapter leaves of the mode do (qr_lora: λ; lora and
+    svd_lora: A and B)."""
+    mode = cfg.adapter.mode
+
+    def decide(keys) -> bool:
+        spath = "/".join(keys)
+        if any(s in spath for s in extra_trainable):
+            return True
+        if mode == "ft":
+            return "adapters" not in spath and "ranks" not in spath
+        if "adapters" in spath:
+            return _is_adapter_leaf_trainable(mode, keys[-1])
+        return False
+
+    def walk(tree, keys):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            return {k: walk(v, keys + (str(k),)) for k, v in tree.items()}
+        return decide(keys)
+
+    return walk(params, ())
 
 
 def partition(params: Tree, mask: Tree) -> Tuple[Tree, Tree]:
@@ -193,3 +232,43 @@ def merge(trainable: Tree, frozen: Tree) -> Tree:
     if isinstance(frozen, dict):
         return {k: merge(trainable[k], frozen[k]) for k in frozen}
     return trainable if frozen is None else frozen
+
+
+def count_params(tree: Tree) -> int:
+    return sum(leaf.numel() for _, leaf in _paths(tree))
+
+
+def count_trainable_params(params: Tree, cfg: ModelConfig, extra_trainable=()) -> int:
+    """The reference's paper-style trainable-parameter count, step for step.
+
+    For qr_lora a λ leaf is meant to count its projection's selected ranks
+    (the ``ranks`` metadata) instead of its padded size; but the lookup is
+    keyed by the path of the dict that holds ``adapters`` plus the name
+    under it, so in a model tree (``groups/adapters/<module>/<proj>``) it
+    never matches a projection and the padded λ size is counted, as the
+    reference counts it (ROADMAP Queue 3, kept on purpose)."""
+    mask = trainable_mask(params, cfg, extra_trainable)
+    rank_by_proj = {}
+
+    def visit(node, path=""):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k == "adapters" and isinstance(v, dict):
+                    for proj, adp in v.items():
+                        if isinstance(adp, dict) and "ranks" in adp:
+                            rank_by_proj[path + "/" + proj] = int(adp["ranks"].sum())
+                else:
+                    visit(v, path + "/" + str(k))
+
+    visit(params)
+    total = 0
+    for (keys, leaf), (_, m) in zip(_paths(params), _paths(mask)):
+        if not m:
+            continue
+        spath = "/".join(keys)
+        if cfg.adapter.mode == "qr_lora" and spath.endswith("lam") and "adapters" in spath:
+            matches = [v for k, v in rank_by_proj.items() if k.endswith("/" + keys[-2])]
+            total += matches[0] if matches else leaf.numel()
+        else:
+            total += leaf.numel()
+    return total

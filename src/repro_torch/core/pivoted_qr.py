@@ -5,7 +5,9 @@ ranks the orthonormal directions in Q by importance; signs are normalised so
 that diag R ≥ 0.  The algorithm is the reference's step for step (trailing
 column norms recomputed each step, no norm downdating), in plain float32
 torch on the weight's device.  It runs once per adapted matrix at adapter
-init, so it is a loop of small tensor ops rather than a kernel.
+init, so it is a loop of small tensor ops rather than a kernel; the loop
+reads nothing back to the host (the pivot is a device index), so on a card
+it can be captured whole in one CUDA graph.
 """
 from __future__ import annotations
 
@@ -30,13 +32,17 @@ def qr_pivoted(W: torch.Tensor, num_reflectors: int | None = None) -> PivotedQR:
     betas = torch.zeros((K,), dtype=torch.float32, device=dev)
     perm = torch.arange(M, device=dev)
     for k in range(K):
-        # pivot: trailing column with the largest ||A[k:, j]||
+        # pivot: trailing column with the largest ||A[k:, j]||, found and
+        # swapped on the device (a tensor index, no branch on it): the loop
+        # reads nothing back to the host, so it can run inside a CUDA graph
         sq = (A[k:, :] ** 2).sum(dim=0)
         sq[:k] = float("-inf")
-        p = int(torch.argmax(sq))  # first maximum, like jnp.argmax
-        if p != k:
-            A[:, [k, p]] = A[:, [p, k]]
-            perm[[k, p]] = perm[[p, k]]
+        p = torch.argmax(sq).view(1)  # the first maximum, like jnp.argmax
+        col_k, perm_k = A[:, k].clone(), perm[k].clone()
+        A[:, k] = A.index_select(1, p)[:, 0]
+        A.index_copy_(1, p, col_k[:, None])
+        perm[k] = perm.index_select(0, p)[0]
+        perm.index_copy_(0, p, perm_k.view(1))
         # Householder reflector annihilating A[k+1:, k]
         x = torch.zeros((L,), dtype=torch.float32, device=dev)
         x[k:] = A[k:, k]

@@ -63,3 +63,10 @@ def qr_lora_init_stacked(
         "lam": torch.zeros((n_layers, cap), dtype=torch.float32, device=dev),
         "ranks": ranks,
     }
+
+
+def qr_lora_delta(adp: Dict[str, torch.Tensor], scale: float = 1.0) -> torch.Tensor:
+    """Materialize ΔW = B · diag(λ) · A · scale in the factors' dtype (the
+    merge path), stacked layers included."""
+    lam = adp["lam"].to(adp["A"].dtype)
+    return (adp["B"] * lam[..., None, :]) @ adp["A"] * scale

@@ -1,8 +1,9 @@
 """Weights crossing from the JAX reference into the port.
 
 :func:`params_from_jax` turns a parameter tree whose leaves are numpy arrays
-(``jax.device_get(params)`` of a ``repro`` model: decoder params, adapters
-with ``B``/``A``/``lam``/``ranks``, or a bare λ tree) into the same tree of
+(``jax.device_get(params)`` of a ``repro`` model: decoder or encoder
+params, QR-LoRA, LoRA or SVD-LoRA adapters with ``B``/``A``/``lam``/``ranks``,
+or a bare λ tree) into the same tree of
 torch tensors, leaf for leaf.  The port keeps the reference's layouts, so
 the conversion is a plain copy, quantized ``{"q", "scale"}`` leaves
 included.  This module imports neither ``jax`` nor ``ml_dtypes``: bfloat16

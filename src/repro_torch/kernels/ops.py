@@ -1,7 +1,8 @@
 """Model-facing wrappers around the port's kernels (port of
 ``repro/kernels/ops.py``): batching conventions on top of the 2-D/3-D
 kernel wrappers, which pick the kernel (CUDA tensors) or its plain version
-(CPU tensors), the autograd rule of the trainable one-λ matmul, the
+(CPU tensors), the autograd rule of the one-λ matmul (λ for QR-LoRA, B and
+A for LoRA and SVD-LoRA), the
 forward-only quantized-base variants, and the model-layout attention
 wrappers (forward only, as the reference's)."""
 from __future__ import annotations
@@ -18,9 +19,9 @@ from repro_torch.kernels import qrlora_matmul as _mm
 def qrlora_matmul_bwd(x, W, B, A, lam, scale, g, need_dx: bool = True, need_dlam: bool = True):
     """The reference's ``_qrlora_bwd`` term for term, in fp32: with
     ``gA = g·Aᵀ``, ``dx = g·Wᵀ + ((gA·λ)·Bᵀ)·scale`` and
-    ``dλ = Σ_m (x·B) ⊙ gA · scale``; dx in x's dtype, dλ in λ's.  W, B and
-    A are frozen and get no gradient.  Returns ``(dx, dλ)``, None where not
-    needed."""
+    ``dλ = Σ_m (x·B) ⊙ gA · scale``; dx in x's dtype, dλ in λ's.  Returns
+    ``(dx, dλ)``, None where not needed; the factors' gradients are
+    :func:`qrlora_matmul_bwd_factors`.  W is frozen and gets none."""
     g2 = g.reshape(-1, g.shape[-1]).float()
     gA = g2 @ A.float().T  # (M, r)
     dx = dlam = None
@@ -31,6 +32,25 @@ def qrlora_matmul_bwd(x, W, B, A, lam, scale, g, need_dx: bool = True, need_dlam
         x2 = x.reshape(-1, x.shape[-1]).float()
         dlam = (((x2 @ B.float()) * gA).sum(0) * scale).to(lam.dtype)
     return dx, dlam
+
+
+def qrlora_matmul_bwd_factors(x, B, A, lam, scale, g, need_dB: bool = True,
+                              need_dA: bool = True):
+    """The LoRA / SVD-LoRA factors' gradients, in fp32, each cast to its
+    leaf's dtype: ``dB = scale·xᵀ·((g·Aᵀ)⊙λ)`` and ``dA = scale·((x·B)⊙λ)ᵀ·g``.
+    The reference's custom VJP returns zeros for them, which is right there
+    only because its LoRA path never reaches it (its default route is plain
+    XLA, differentiated whole); these are the gradients of that formula.
+    Returns ``(dB, dA)``, None where not needed."""
+    g2 = g.reshape(-1, g.shape[-1]).float()
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    lam32 = lam.float()
+    dB = dA = None
+    if need_dB:
+        dB = ((x2.T @ ((g2 @ A.float().T) * lam32)) * scale).to(B.dtype)
+    if need_dA:
+        dA = ((((x2 @ B.float()) * lam32).T @ g2) * scale).to(A.dtype)
+    return dB, dA
 
 
 class _QRLoRAMatmul(torch.autograd.Function):
@@ -44,17 +64,20 @@ class _QRLoRAMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, W, B, A, lam = ctx.saved_tensors
-        dx, dlam = qrlora_matmul_bwd(x, W, B, A, lam, ctx.scale, g,
-                                     ctx.needs_input_grad[0], ctx.needs_input_grad[4])
-        return dx, None, None, None, dlam, None
+        need = ctx.needs_input_grad
+        dx, dlam = qrlora_matmul_bwd(x, W, B, A, lam, ctx.scale, g, need[0], need[4])
+        dB, dA = qrlora_matmul_bwd_factors(x, B, A, lam, ctx.scale, g, need[2], need[3])
+        return dx, None, dB, dA, dlam, None
 
 
 def qrlora_matmul(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
     """``y = x·W + ((x·B) * λ)·A·scale`` for ``x (..., K)`` and one λ (r,),
-    differentiable in x and λ (the reference's custom VJP): the forward is
-    the kernel for CUDA tensors and its plain version for CPU tensors; the
-    backward is :func:`qrlora_matmul_bwd` on either.  ``scale`` is a
-    constant.  Rows are not padded: the kernel masks its ragged last tile."""
+    differentiable in x, λ, B and A (W is frozen): the forward is the kernel
+    for CUDA tensors and its plain version for CPU tensors; the backward is
+    :func:`qrlora_matmul_bwd` and :func:`qrlora_matmul_bwd_factors` on
+    either, plain PyTorch, as the reference's backward is plain JAX.
+    ``scale`` is a constant.  Rows are not padded: the kernel masks its
+    ragged last tile."""
     return _QRLoRAMatmul.apply(x, W, B, A, lam, scale)
 
 

@@ -1,15 +1,17 @@
-"""λ-only training entry point of the port (QR-LoRA: frozen backbone, pivoted-QR
-factors, only λ trains) on the synthetic LM stream.
+"""Training entry point of the port on the synthetic LM stream, in any PEFT
+mode: QR-LoRA (the default: frozen backbone, pivoted-QR factors, only λ
+trains), LoRA, SVD-LoRA (B and A train) or full fine-tuning (``--peft``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --peft lora
     PYTHONPATH=src python -m repro_torch.launch.train --steps 30 --batch 8 --seq 256
 
-The second form trains full-width smollm-135m on the card (random weights
+The last form trains full-width smollm-135m on the card (random weights
 from ``--seed``), where every adapted projection's forward runs the one-λ
-QR-LoRA kernel.  It prints the trainable count, the loss every
-``--log-every`` steps, the median step time and the train tokens/s.  The
-reference launcher's LoRA/SVD-LoRA/FT modes and its checkpointing and fault
-tolerance (``--ckpt-dir``) come with later slices and raise here.
+kernel.  It prints the trainable count, the loss every ``--log-every``
+steps, the median step time and the train tokens/s.  The reference
+launcher's checkpointing and fault tolerance (``--ckpt-dir``) are not
+ported yet and raise here (ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -35,10 +37,12 @@ def _say(msg: str) -> None:
     sys.stdout.flush()
 
 
-def build(arch: str, reduced: bool, device=None, dtype: Optional[str] = None) -> Model:
-    """The model to train (``dtype``: the config's own, bfloat16, unless
-    given)."""
+def build(arch: str, reduced: bool, device=None, dtype: Optional[str] = None,
+          peft: str = "qr_lora") -> Model:
+    """The model to train in adapter mode ``peft`` (``dtype``: the config's
+    own, bfloat16, unless given)."""
     cfg = (get_reduced if reduced else get_config)(arch)
+    cfg = cfg.replace(adapter=cfg.adapter.replace(mode=peft))
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
     return build_model(cfg, device)
@@ -99,22 +103,17 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.peft != "qr_lora":
-        raise NotImplementedError(
-            f"--peft {args.peft}: LoRA/SVD-LoRA/FT train B/A or W and need another "
-            "backward; they come with ROADMAP Queue 1 item 9"
-        )
     if args.ckpt_dir is not None:
         raise NotImplementedError(
             "--ckpt-dir: checkpointing and fault tolerance come with ROADMAP Queue 1 item 15"
         )
 
-    model = build(args.arch, args.reduced, args.device)
+    model = build(args.arch, args.reduced, args.device, peft=args.peft)
     cfg = model.cfg
     _say(f"arch={cfg.name} peft={cfg.adapter.mode} device={model.device} dtype={cfg.dtype}")
     t0 = time.perf_counter()
     state = init_train_state(model, torch.Generator(device=model.device).manual_seed(args.seed))
-    n_train = model.count_trainable(state["trainable"])
+    n_train = model.count_trainable({"groups": state["trainable"]["groups"]})
     _say(f"init {time.perf_counter() - t0:.1f}s; trainable params: {n_train}")
 
     step_fn = make_step(model, args.lr, args.steps)

@@ -1,5 +1,5 @@
-"""Shared building blocks: RMS norm, rotary embeddings, initializers (port of
-``repro/models/layers.py``)."""
+"""Shared building blocks: RMS and layer norms, rotary embeddings,
+initializers (port of ``repro/models/layers.py``)."""
 from __future__ import annotations
 
 import math
@@ -11,6 +11,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """LayerNorm in fp32 (mean, biased variance, then ``rsqrt``), in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
 
 
 def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Public model API: :class:`Model` (port of ``repro/models/model_zoo.py``
-for the dense family): init with QR-LoRA adapters, forward (logits, or
-``(logits, aux)`` for the trainer), prefill and decode over the paged or
-lock-step dense cache, the trainable mask and the parameter count."""
+for the dense decoder and the RoBERTa-style encoder): init with adapters
+(QR-LoRA, LoRA, SVD-LoRA), forward (decoder logits, or ``(logits, aux)``
+for the trainer; encoder task outputs), prefill and decode over the paged
+or lock-step dense cache, the trainable mask and the parameter count."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,10 +13,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import adapter_api
 from repro_torch.device import resolve_device
+from repro_torch.models import encoder as enc_lib
 from repro_torch.models import transformer as tfm_lib
 
-# Projections adaptable in the dense family: module key in groups → weights.
-_ADAPTER_MODULES = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")}
+# Projections adaptable per family: module key in groups → weight names.
+_ADAPTER_MODULES = {
+    "dense": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")},
+    "encoder": {"attn": ("wq", "wk", "wv", "wo")},
+}
+
+# The encoder's task head trains beside the adapters outside ft (the paper's
+# GLUE setup).
+_HEAD = ("cls_w", "cls_b", "pooler")
 
 
 @dataclasses.dataclass
@@ -29,44 +38,62 @@ class Model:
     # ---- init ------------------------------------------------------------
     def init(self, gen: torch.Generator, with_adapters: bool = True) -> Dict:
         """Random params drawn from ``gen`` (on the generator's device, then
-        moved to the model's), with QR-LoRA adapters computed from them."""
-        params = tfm_lib.init_decoder_params(gen, self.cfg)
+        moved to the model's), with adapters computed from them (LoRA's A
+        drawn from ``gen`` too)."""
+        if self.cfg.is_encoder:
+            params = enc_lib.init_encoder_params(gen, self.cfg)
+        else:
+            params = tfm_lib.init_decoder_params(gen, self.cfg)
         params = _to(params, self.device)
-        if with_adapters and self.cfg.adapter.mode != "none":
-            params = self.attach_adapters(params)
+        if with_adapters and self.cfg.adapter.mode not in ("none", "ft"):
+            params = self.attach_adapters(gen, params)
         return params
 
     def _adapter_targets(self) -> Dict[str, Tuple[str, ...]]:
         """module → the weight names ``cfg.adapter.targets`` selects."""
+        family = "encoder" if self.cfg.is_encoder else self.cfg.family
         sel = {}
-        for mod, weights in _ADAPTER_MODULES.items():
+        for mod, weights in _ADAPTER_MODULES.get(family, {}).items():
             picked = tuple(w for w in weights if w in self.cfg.adapter.targets)
             if picked:
                 sel[mod] = picked
         return sel
 
-    def attach_adapters(self, params: Dict) -> Dict:
-        """Pivoted-QR factors of the current weights, installed under
-        ``groups["adapters"]``."""
+    def attach_adapters(self, gen: Optional[torch.Generator], params: Dict) -> Dict:
+        """Factors of the current weights (pivoted QR, LoRA drawn from
+        ``gen``, or SVD) installed under ``groups["adapters"]``; on the
+        svd_lora path with subtract-init the weights they came from are
+        replaced by the subtracted ones."""
         groups = dict(params["groups"])
         adapters = {}
         for mod, weights in self._adapter_targets().items():
-            stacked = {w: groups[mod][w] for w in weights}
-            adapters[mod] = adapter_api.init_adapters(self.cfg, stacked)
+            mod_params = dict(groups[mod])
+            sub, new_w = adapter_api.init_adapters(
+                gen, self.cfg, {w: mod_params[w] for w in weights})
+            for w in weights:
+                mod_params[w] = new_w[w]
+                if w in sub:
+                    adapters.setdefault(mod, {})[w] = sub[w]
+            groups[mod] = mod_params
         groups["adapters"] = adapters
         return {**params, "groups": groups}
 
     # ---- forward ---------------------------------------------------------
     # ``seg_ids`` (int32 (batch,)) selects a per-sequence adapter slot when
     # the params carry a packed multi-tenant λ table (see repro_torch.serving).
-    def apply(self, params, tokens, seg_ids=None, train: bool = False):
-        """Full-sequence forward → fp32 logits (B, S, V); with ``train=True``
-        ``(logits, aux)`` as the reference's trainer takes them (``aux``, the
-        MoE balance loss, is 0 for the dense family)."""
-        logits = tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids)
+    def apply(self, params, tokens, seg_ids=None, train: bool = False, attn_mask=None):
+        """Full-sequence forward.  Decoder: fp32 logits (B, S, V); encoder:
+        the fp32 task output (B, n_classes), ``attn_mask`` (B, S) marking the
+        keys to attend to.  With ``train=True`` ``(out, aux)`` as the
+        reference's trainer takes them (``aux``, the MoE balance loss, is 0
+        for these families)."""
+        if self.cfg.is_encoder:
+            out = enc_lib.encoder_apply(params, self.cfg, tokens, attn_mask)
+        else:
+            out = tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids)
         if not train:
-            return logits
-        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+            return out
+        return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
     def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16,
                           paged: bool = False, block_size: int = 16,
@@ -97,11 +124,15 @@ class Model:
         )
 
     # ---- PEFT helpers ------------------------------------------------------
-    def trainable_mask(self, params) -> Dict:
-        return adapter_api.trainable_mask(params, self.cfg)
+    def trainable_mask(self, params, extra_trainable=()) -> Dict:
+        extra = tuple(extra_trainable)
+        if self.cfg.is_encoder and self.cfg.adapter.mode != "ft":
+            extra = extra + _HEAD
+        return adapter_api.trainable_mask(params, self.cfg, extra)
 
-    def count_trainable(self, params) -> int:
-        return adapter_api.count_trainable_params(params, self.cfg)
+    def count_trainable(self, params, include_head: bool = False) -> int:
+        return adapter_api.count_trainable_params(
+            params, self.cfg, _HEAD if include_head else ())
 
 
 def _to(tree, device):

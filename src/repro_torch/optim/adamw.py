@@ -48,7 +48,8 @@ def adamw_update(grads: Tree, state: Tree, params: Tree, cfg: AdamWConfig) -> Tu
     gnorm = global_norm(grads)
     if cfg.clip_norm:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-        grads = tree_map(lambda g: g * scale, grads)
+        # in fp32, as the reference's promotion gives it for a bf16 leaf
+        grads = tree_map(lambda g: g.float() * scale, grads)
     lr = cfg.schedule(step) if cfg.schedule is not None else cfg.lr
     step32 = torch.tensor(float(step), dtype=torch.float32)
     b1c = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** step32

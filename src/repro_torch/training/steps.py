@@ -1,9 +1,10 @@
-"""The λ-only train step (port of ``repro/training/steps.py`` for the dense
-family).
+"""The PEFT-aware train step (port of ``repro/training/steps.py`` for the
+dense family).
 
-Parameters are partitioned into (trainable, frozen): only the λ leaves
-require grad, so autograd differentiates with respect to a few thousand λ
-scalars while the frozen tree flows through as constants.  Gradient
+Parameters are partitioned into (trainable, frozen) by the model's mask:
+only the trainable leaves require grad (λ for QR-LoRA, a few thousand
+scalars; B and A for LoRA and SVD-LoRA; every weight for ft), while the
+frozen tree flows through as constants.  Gradient
 accumulation (``cfg.microbatches``) is a Python loop over microbatch slices
 whose fp32 gradients add up in each leaf's ``.grad``.
 """
@@ -75,9 +76,10 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
         loss_sum = ce_sum = 0.0
         for mb in tokens.reshape(k, tokens.shape[0] // k, *tokens.shape[1:]):
             loss, ce = loss_fn(trainable, frozen, mb)
-            loss.backward()  # λ's .grad sums the microbatches' fp32 gradients
+            loss.backward()  # each leaf's .grad sums the microbatches' gradients
             loss_sum, ce_sum = loss_sum + loss.detach(), ce_sum + ce.detach()
-        grads = tree_map(lambda p: p.grad / k, trainable)
+        grads = tree_map(lambda p: (torch.zeros_like(p) if p.grad is None else p.grad) / k,
+                         trainable)
         new_trainable, new_opt, om = adamw_update(grads, state["opt"], trainable, opt_cfg)
         new_trainable = tree_map(lambda p: p.requires_grad_(True), new_trainable)
         new_state = {"trainable": new_trainable, "frozen": frozen, "opt": new_opt}

@@ -400,6 +400,79 @@ def test_train_step_launches_the_matmul_kernel(gen):
     assert torch.isfinite(met["loss"])
 
 
+# the encoder's adapted projections on the float32 route: batch 16 × seq 128
+# rows, 768 and a ragged 100; K = N = 768; QR-LoRA's rank cap 256 and LoRA's 2
+@pytest.mark.parametrize("M", [2048, 768, 100])
+@pytest.mark.parametrize("r", [256, 2])
+def test_qrlora_matmul_float32_route_at_the_encoder_shapes(gen, M, r):
+    args = _matmul_inputs(gen, M, 768, 768, r, torch.float32, rank=r)
+    y, y2 = qrlora_matmul_cuda(*args, scale=0.7), qrlora_matmul_cuda(*args, scale=0.7)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2)
+    assert _close(y, qrlora_matmul_ref(*args, 0.7), "qrlora_matmul")
+
+
+@pytest.mark.parametrize("M,r", [(2048, 2), (768, 256)])
+def test_qrlora_matmul_factor_grads_match_autograd_of_plain(gen, M, r):
+    """LoRA through the kernel: dx (fp32) and the bf16 factors' dB and dA
+    (each side's fp32 sum rounded once: the bf16 limit) against autograd
+    through the plain formula."""
+    x, W, B, A, _ = _matmul_inputs(gen, M, 768, 768, r, torch.float32, rank=r)
+    lam = torch.ones((r,), device="cuda")
+    cot = torch.randn((M, 768), generator=gen, device="cuda")
+    outs = []
+    for fn in (ops.qrlora_matmul, qrlora_matmul_ref):
+        xx, BB, AA = (t.clone().requires_grad_(True) for t in (x, B, A))
+        (fn(xx, W, BB, AA, lam, 0.7) * cot).sum().backward()
+        outs.append((xx.grad, BB.grad, AA.grad))
+    torch.cuda.synchronize()
+    (dx, dB, dA), (dx_ref, dB_ref, dA_ref) = outs
+    assert _close(dx, dx_ref, "qrlora_matmul_dx")
+    assert dB.dtype == dA.dtype == torch.bfloat16
+    assert _close(dB, dB_ref, "qrlora_matmul_dx") and _close(dA, dA_ref, "qrlora_matmul_dx")
+
+
+def test_qr_pivoted_is_one_cuda_graph(gen):
+    """No host read in the pivoted QR: captured whole (a sync would raise),
+    its replay is bitwise the eager call and its permutation the CPU's."""
+    from repro_torch.core.pivoted_qr import qr_pivoted
+
+    W = torch.randn((256, 192), generator=gen, device="cuda")
+    eager = qr_pivoted(W)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qr_pivoted(W)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qr_pivoted(W)
+    for t in out:
+        t.fill_(-1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    assert torch.equal(out.perm.cpu(), qr_pivoted(W.cpu()).perm)
+
+
+@pytest.mark.parametrize("mode", ["qr_lora", "lora", "svd_lora", "ft"])
+def test_glue_run_launches_the_matmul_kernel(gen, mode):
+    """The GLUE runner on the reduced encoder: every forward of the adapter
+    phase and of eval runs the one-λ kernel once a layer (the stacked wq),
+    in every adapter mode; ft none."""
+    from repro_torch.benchlib import run_glue_method
+    from repro_torch.configs import get_reduced
+
+    kernels.reset_launch_counts()
+    r = run_glue_method("mrpc", mode, train_steps=2, warmup_steps=1, eval_batches=1, batch=8,
+                        seq=32)
+    torch.cuda.synchronize()
+    n = get_reduced("roberta_base").n_layers * 3 if mode != "ft" else 0
+    assert kernels.launch_counts() == {**{k: 0 for k in kernels.KERNEL_WRAPPERS},
+                                       "qrlora_matmul": n}
+    assert all(torch.isfinite(torch.tensor(r["losses"])))
+
+
 # ---------------------------------------------------------------------------
 # the quantized base: int8 / fp8-e4m3 q with per-column scales
 # ---------------------------------------------------------------------------

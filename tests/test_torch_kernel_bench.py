@@ -25,6 +25,18 @@ SMOLLM_ROWS = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Torch's CPU ops on two threads in this module: under the suite's
+    parallel workers, larger OpenMP teams oversubscribe the cores and every
+    small op of an eager loop stalls (a run of the GLUE pipeline took 60 s
+    on 8 threads beside five busy processes, 19 s on 2)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def bench(tmp_path_factory):
     out = tmp_path_factory.mktemp("bench") / "kernel.json"

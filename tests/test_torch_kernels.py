@@ -279,14 +279,20 @@ def test_ops_qrlora_matmul_value_and_grads_match_jax(dtype, lead):
 
 
 def test_ops_qrlora_matmul_grads_only_where_needed():
-    """x without requires_grad (layer 0's input) gets no dx; the frozen W,
-    B, A get no gradient even when they require one; scale is a constant."""
+    """x without requires_grad (layer 0's input) gets no dx; the frozen W
+    gets no gradient even when it requires one, B and A only when they
+    require one (LoRA, SVD-LoRA); scale is a constant."""
     x, W, B, A, lam = (torch.from_numpy(a) for a in _matmul_np(7))
     B, A = B.bfloat16(), A.bfloat16()
     W.requires_grad_(True)
     lam.requires_grad_(True)
     ops.qrlora_matmul(x, W, B, A, lam, 0.5).sum().backward()
     assert x.grad is None and W.grad is None and lam.grad is not None
+    assert B.grad is None and A.grad is None
+    Bt, At = B.clone().requires_grad_(True), A.clone().requires_grad_(True)
+    ops.qrlora_matmul(x, W.detach(), Bt, At, lam.detach(), 0.5).sum().backward()
+    assert Bt.grad.dtype == At.grad.dtype == torch.bfloat16
+    assert Bt.grad.abs().sum() > 0 and At.grad.abs().sum() > 0
     # a λ view of a stacked leaf (the model's per-layer slice) trains the leaf
     stacked = torch.zeros((3, 8), requires_grad=True)
     ops.qrlora_matmul(x, W.detach(), B, A, stacked[1], 0.5).sum().backward()

@@ -221,7 +221,7 @@ def test_train_launcher_runs_to_its_end_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--peft", "lora"], NotImplementedError),
+    (["--peft", "lora", "--ckpt-dir", "ckpt"], NotImplementedError),  # every mode refuses it
     (["--ckpt-dir", "ckpt"], NotImplementedError),
     ([], RuntimeError),  # the default device is the card, absent here
 ], ids=["peft_lora", "ckpt_dir", "default_device_cuda"])
