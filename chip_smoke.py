@@ -26,6 +26,16 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   ``shard_ba``) float32 serves' weights, tenants and traffic, in a NCCL
   world of one, through the rows BGMV kernel — token-identical to the
   replicated serves, float32 logits bit for bit;
+* the serving posture: full-width qwen2-0.5b (24 layers, d 896, 14 heads
+  over 2, QKV bias, vocab 151936; random weights and biases from
+  ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers) under
+  ``EngineConfig.serving()`` (prefix sharing, chunked prefill at 32 tokens a
+  step, a watermark of one block), 4 tenants, 8 requests — six on a
+  48-token system prefix, two of 160 and 220 tokens that stream in chunks
+  — with one CoW fork forced, in float32 and bfloat16, each against the
+  same traffic unshared and monolithic, float32 against the merged-weight
+  reference, three planted faults (a family key without the λ digest,
+  chunks that attend only to themselves, no CoW fork);
 * training: 30 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
   held against the same run with the plain version in place of the kernel;
@@ -42,7 +52,9 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   float32 route, each mode held against the same run with the plain
   version in place of the kernel.
 
-The one-λ kernel is also checked at the encoder's shapes (float32 x,
+The BGMV and paged kernels are also checked at qwen2-0.5b's shapes (K 896,
+N 896 and 128, r 160; 14 heads over 2 with length-0 lanes).  The one-λ
+kernel is also checked at the encoder's shapes (float32 x,
 M = 2048, 768 and a ragged 100, K = N = 768, r = 256 and 2), its backward
 with LoRA's dB and dA against autograd, and ``qr_pivoted`` at 768 × 768
 captured whole in one CUDA graph, replayed bitwise.
@@ -1136,15 +1148,15 @@ def planted_factor_backward_fault(gen):
 # ---------------------------------------------------------------------------
 
 
-def time_bgmv(gen, N: int, M: int = 4):
+def time_bgmv(gen, N: int, M: int = 4, K: int = 576, r: int = 128):
     """wq (N=576) / wv (N=192) projection, bf16: 4 decode lanes, or a
-    prefill bucket of M rows."""
+    prefill bucket of M rows (smollm-135m's K and rank cap unless given)."""
     import torch
     from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
     from repro_torch.kernels.ref import qrlora_bgmv_ref
 
-    K, r, n_slots = 576, 128, 8
+    n_slots = 8
     x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, torch.bfloat16)
     seg64 = seg.long()
     kernel = lambda: qrlora_bgmv_cuda(x, W, B, A, lam, seg)
@@ -1171,17 +1183,19 @@ def _paged_bound(q, lengths, KV, dh, bs):
     return _bound_ms(n_bytes, 4 * toks * H * dh + 5 * toks * H, "bfloat16")
 
 
-def time_paged(gen, lengths=(64, 48, 33, 17)):
-    """One decode attend of the serving shapes: 4 lanes, 9 heads over 3 kv
-    heads, dh 64, block 16, a 4-block attend bound; bf16."""
+def time_paged(gen, lengths=(64, 48, 33, 17), H: int = 9, KV: int = 3, cols: int = 4,
+               max_blocks: int = 8):
+    """One decode attend of the serving shapes: 4 lanes, dh 64, block 16,
+    bf16; smollm-135m's 9 heads over 3 through a 4-block attend bound unless
+    given."""
     import torch
     from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
     from repro_torch.kernels.ref import paged_decode_attention_ref
 
-    H, KV, dh, bs = 9, 3, 64, 16
-    q, kp, vp, tbl, lens = _paged_inputs(gen, lengths, torch.bfloat16, H, KV, dh, bs, 8)
-    tbl = tbl[:, :4]  # the engine's attend bound: a column slice of the table
+    dh, bs = 64, 16
+    q, kp, vp, tbl, lens = _paged_inputs(gen, lengths, torch.bfloat16, H, KV, dh, bs, max_blocks)
+    tbl = tbl[:, :cols]  # the engine's attend bound: a column slice of the table
     kernel = lambda: paged_decode_attention_cuda(q, kp, vp, tbl, lens)
     res = {"library_ms": None,  # no single PyTorch call attends through a block table
            "ms": graph_ms(kernel),
@@ -1190,7 +1204,7 @@ def time_paged(gen, lengths=(64, 48, 33, 17)):
     res["launch_us"] = launch_us(kernel)  # one launch
     res["bound_ms"], res["bound_by"] = _paged_bound(q, lengths, KV, dh, bs)
     res["shape"] = {"B": len(lengths), "H": H, "KV": KV, "dh": dh, "block_size": bs,
-                    "lengths": list(lengths), "attend_blocks": 4, "dtype": "bfloat16"}
+                    "lengths": list(lengths), "attend_blocks": cols, "dtype": "bfloat16"}
     return res
 
 
@@ -2359,6 +2373,411 @@ def check_glue(glue: dict, want_launches: dict):
     return glue, glue_launches
 
 
+# ---------------------------------------------------------------------------
+# the serving posture at full width: qwen2-0.5b under EngineConfig.serving()
+# ---------------------------------------------------------------------------
+
+QWEN = "qwen2-0.5b"
+# the posture's engine: block 16, watermark 1, chunks of 32 tokens a step
+QWEN_ENGINE = {"n_lanes": 4, "n_slots": 8, "max_len": 384, "collect_logits": True}
+QWEN_GEN = 16
+QWEN_PREFIX = 48  # a system prompt of 3 full blocks
+QWEN_TAILS = (8, 12, 16, 10, 14, 24)  # six requests on the prefix, tenants 0 and 1 in turn
+QWEN_LONG = (160, 220)  # tenants 2 and 3: prompts that stream in chunks
+# Chunked against monolithic prefill on the card: the same arithmetic on
+# other GEMM shapes (a 32-row chunk where the monolithic pass has the 64- or
+# 256-row bucket), where cuBLAS picks another kernel and sums in another
+# order, so the two are not bitwise (3 and 5 of 8 streams were, float32 and
+# bf16, on an H100 at --seed 0).  float32: identical tokens and |Δlogits|
+# within the CPU parity bound 1e-4 (read 4.1e-6; the planted fault ≥ 3.3).
+# bfloat16: BF16_DRIFT, the bar a bf16 serve is held to against a path that
+# rounds at other places, as a fraction of each row's largest |logit| up to
+# a parting, which may only fall where the monolithic stream's own lead is
+# within it (read 0.525 of it and one parting at a near-tie; the planted
+# fault 24).  Prefix sharing itself is held bitwise: between serves whose
+# requests take the same prefill path (a cached prefix sends a short prompt
+# down the chunked path, so under the posture a hit may not).
+QWEN_CHUNK_FP32_TOL = 1e-4
+QWEN_CHUNK_BF16_DRIFT = BF16_DRIFT
+# #1 at qwen2-0.5b's wq (N 896) and wv (N 128), K 896, rank cap 160: 4 decode
+# lanes and a 32-row prefill chunk
+QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (4, 32) for N in (896, 128)]
+# #2 at 14 heads over 2 (7 query heads a group), dh 64: (lengths, columns of
+# a 24-column table); length-0 lanes, the 16-column attend bound of the serve
+QWEN_PAGED_CASES = (((0, 1, 17, 240), 16), ((240, 100, 0, 33), 24), ((0, 0, 16, 15), 16))
+
+
+def check_qwen_kernels(gen, details):
+    """#1 and #2 against their plain versions at qwen2-0.5b's shapes:
+    :data:`QWEN_BGMV_SHAPES` in bf16 and float32 x (8 slots, a quarter of
+    the rows padding in slot 0), :data:`QWEN_PAGED_CASES` in bf16 and
+    float32 (trash block poisoned, stale entries past the lengths), a
+    length-0 lane zeros; a second call bitwise the first.  Returns the
+    worst |Δ| of each kernel and dtype (paged: and |Δ|/bound)."""
+    import torch
+    from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL
+    from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref, qrlora_bgmv_ref
+
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        for M, K, N, r in QWEN_BGMV_SHAPES:
+            x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, 8, dt)
+            y = qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+            again = qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+            torch.cuda.synchronize()
+            ref = qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7)
+            err = _max_err(y, ref)
+            ok = (_within(y, ref, _tol("qrlora_bgmv", dt)) and bool(torch.isfinite(y).all())
+                  and torch.equal(y, again))
+            details.append({"kernel": "qrlora_bgmv", "arch": QWEN, "x": name, "M": M, "K": K,
+                            "N": N, "r": r, "max_abs_err": err, "ok": ok})
+            _check(ok, f"qrlora_bgmv at {QWEN} x={name} M={M} K={K} N={N} r={r}: max|Δ|="
+                       f"{err:.3e} over {_tol('qrlora_bgmv', dt)}, or a second call differs")
+            worst[f"qrlora_bgmv_{name}"] = max(worst.get(f"qrlora_bgmv_{name}", 0.0), err)
+        tol = BENCH_TOL["paged_decode_attention"][dt]
+        for lengths, cols in QWEN_PAGED_CASES:
+            q, kp, vp, tbl, lens = _paged_inputs(gen, lengths, dt, 14, 2, 64, 16, 24)
+            args = (q, kp, vp, tbl[:, :cols], torch.clamp(lens, max=cols * 16))
+            o = paged_decode_attention_cuda(*args)
+            again = paged_decode_attention_cuda(*args)
+            torch.cuda.synchronize()
+            err, over = _max_err(o, paged_decode_attention_ref(*args)), _paged_over(o, args, tol)
+            zero = all(bool((o[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
+            ok = over <= 1.0 and bool(torch.isfinite(o).all()) and zero and torch.equal(o, again)
+            details.append({"kernel": "paged_decode_attention", "arch": QWEN, "dtype": name,
+                            "H": 14, "KV": 2, "lengths": list(lengths), "columns": cols,
+                            "max_abs_err": err, "err_over_bound": over, "ok": ok})
+            _check(ok, f"paged_decode_attention at {QWEN} {name} lengths {lengths} over {cols} "
+                       f"columns: {over:.3f} of the bound, a length-0 lane not zeros, or a "
+                       f"second call differs")
+            w = worst.setdefault(f"paged_decode_attention_{name}",
+                                 {"max_abs_err": 0.0, "err_over_bound": 0.0})
+            w["max_abs_err"] = max(w["max_abs_err"], err)
+            w["err_over_bound"] = max(w["err_over_bound"], over)
+    return worst
+
+
+def qwen_traffic(seed: int, vocab: int):
+    """(tenant, prompt) pairs: six requests of tenants 0 and 1 on one
+    48-token system prefix with 8-24-token tails, and the 160- and
+    220-token prompts of tenants 2 and 3 among them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(2, vocab, size=QWEN_PREFIX).astype(np.int32)
+    pfx = [(f"tenant{i % 2}", np.concatenate([prefix, rng.integers(2, vocab, size=n).astype(
+        np.int32)])) for i, n in enumerate(QWEN_TAILS)]
+    long = [(f"tenant{2 + i}", rng.integers(2, vocab, size=n).astype(np.int32))
+            for i, n in enumerate(QWEN_LONG)]
+    return [pfx[0], pfx[1], long[0], pfx[2], pfx[3], long[1], pfx[4], pfx[5]]
+
+
+def qwen_engine(dtype: str, seed: int, params=None, **overrides):
+    """qwen2-0.5b at full width under ``EngineConfig.serving(**QWEN_ENGINE,
+    **overrides)``, 4 tenants registered (λ from ``seed``).  Without
+    ``params``: random weights from ``seed`` (QR-LoRA built on the card),
+    the QKV biases drawn too (the config's init leaves them zero).  Returns
+    (cfg, engine, λ trees)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving import EngineConfig, MultiTenantEngine, random_lambda
+
+    cfg = get_config(QWEN).replace(dtype=dtype)
+    engine = MultiTenantEngine(
+        cfg, EngineConfig.serving(seed=seed, **{**QWEN_ENGINE, **overrides}), params=params)
+    gen = torch.Generator(device="cuda")
+    if params is None:
+        gen.manual_seed(seed + 3000)
+        for name in ("bq", "bk", "bv"):
+            leaf = engine.params["groups"]["attn"][name]
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=leaf.device) * 0.5)
+    lams = {}
+    for i in range(4):
+        lams[f"tenant{i}"] = random_lambda(gen.manual_seed(seed + 2000 + i), engine.params, 0.3)
+        engine.add_tenant(f"tenant{i}", lams[f"tenant{i}"])
+    return cfg, engine, lams
+
+
+def qwen_serve(engine, traffic, fork_tail: bool = False) -> dict:
+    """Serve ``traffic`` (16 tokens a request) to the end, counting chunked
+    admissions and chunk dispatches.  With ``fork_tail``, once the first
+    request decodes, take a reference on its private tail block as another
+    owner would, so that its next write must fork a copy; after the run
+    ``tail_kept`` says whether that block still holds what it held then.
+    Returns the readings (``done``: uid → request)."""
+    import torch
+
+    counts = {"chunked_admissions": 0, "chunk_dispatches": 0}
+    chunked = set()  # (tenant, prompt bytes) of the chunked admissions
+    begin, prefill = engine._begin_chunked_prefill, engine.model.prefill
+
+    def counted_begin(req, *a, **kw):
+        counts["chunked_admissions"] += 1
+        chunked.add((req.tenant, req.prompt.tobytes()))
+        return begin(req, *a, **kw)
+
+    def counted_prefill(*a, **kw):
+        counts["chunk_dispatches"] += kw.get("start") is not None
+        return prefill(*a, **kw)
+
+    pc, al = engine.prefix_cache, engine.allocator
+    hits0, misses0 = (pc.hits, pc.misses) if pc is not None else (0, 0)
+    forks0, pre0, steps0, toks0 = (engine.cow_forks, engine.preemptions, engine.steps,
+                                   engine.decoded_tokens)
+    engine._begin_chunked_prefill, engine.model.prefill = counted_begin, counted_prefill
+    done, tail, kept = {}, None, None
+    try:
+        reqs = [engine.submit(t, p, QWEN_GEN) for t, p in traffic]
+        t0 = time.perf_counter()
+        while engine.scheduler.has_work:
+            for r in engine.step():
+                done[r.uid] = r
+            if fork_tail and tail is None and reqs[0].tokens:
+                tail = engine._lane_blocks[reqs[0].lane][-1]
+                al.incref(tail)
+                a = engine.cache["layers"]["attn"]
+                before = (a["k"][:, tail].clone(), a["v"][:, tail].clone())
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        del engine._begin_chunked_prefill, engine.model.prefill
+    if tail is not None:
+        a = engine.cache["layers"]["attn"]
+        kept = torch.equal(before[0], a["k"][:, tail]) and torch.equal(before[1], a["v"][:, tail])
+        al.decref(tail)
+    hits = (pc.hits - hits0) if pc is not None else 0
+    tokens = engine.decoded_tokens - toks0
+    return {"done": done, "chunked": chunked, "serve_s": serve_s, "tokens": tokens, "tok_per_s": tokens / serve_s,
+            "steps": engine.steps - steps0, "prefix_hits": hits, "blocks_saved": hits,
+            "prefix_misses": (pc.misses - misses0) if pc is not None else 0,
+            "cow_forks": engine.cow_forks - forks0, "preemptions": engine.preemptions - pre0,
+            "pool_peak": al.peak_in_use, "pool_capacity": al.capacity, "tail_kept": kept,
+            "all_served": len(done) == len(traffic) and all(
+                len(r.tokens) == QWEN_GEN for r in done.values()), **counts}
+
+
+def _by_request(done):
+    return {(r.tenant, r.prompt.tobytes()): r for r in done.values()}
+
+
+def compare_streams(run, ref_run, drift=None):
+    """Each request of qwen_serve's ``run`` against the same request (tenant
+    and prompt) of ``ref_run``: whether both prefilled it by the same path
+    (chunked or not), logits bitwise equal or not, where the token streams
+    first part (None: never) and the largest |Δlogits| up to and including
+    that position (the same context until there).  With ``drift``: that
+    largest over the bound ``drift``·max|logit| of each row, and at a
+    parting the reference stream's lead of its own token over ``run``'s,
+    over the bound."""
+    import numpy as np
+
+    ref = _by_request(ref_run["done"])
+    rows = []
+    for uid in sorted(run["done"]):
+        req = run["done"][uid]
+        key = (req.tenant, req.prompt.tobytes())
+        other = ref[key]
+        a, b = np.stack(req.logits), np.stack(other.logits)
+        t = next((i for i, (x, y) in enumerate(zip(req.tokens, other.tokens)) if x != y), None)
+        upto = len(req.tokens) if t is None else t + 1
+        d = np.abs(a[:upto] - b[:upto]).max(axis=1)
+        row = {"tenant": req.tenant, "prompt_len": int(req.prompt.size),
+               "same_path": (key in run["chunked"]) == (key in ref_run["chunked"]),
+               "bitwise": bool(a.shape == b.shape and np.array_equal(a, b)), "parted_at": t,
+               "max_abs_dlogits": float(d.max())}
+        if drift is not None:
+            bound = drift * np.abs(b[:upto]).max(axis=1)
+            row["max_dlogits_over_bound"] = float((d / bound).max())
+            if t is not None:
+                row["parting_margin_over_bound"] = float(
+                    (b[t].max() - b[t][req.tokens[t]]) / bound[-1])
+        rows.append(row)
+    return rows
+
+
+def chunk_rows_ok(rows, dtype: str) -> bool:
+    """The chunked-against-monolithic bar of ``dtype`` over compare_streams
+    rows (bf16 rows carry the drift readings)."""
+    if dtype == "float32":
+        return all(r["parted_at"] is None and r["max_abs_dlogits"] <= QWEN_CHUNK_FP32_TOL
+                   for r in rows)
+    return all(r["max_dlogits_over_bound"] <= 1.0 and (
+        r["parted_at"] is None or r["parting_margin_over_bound"] <= 1.0) for r in rows)
+
+
+def sharing_rows_ok(rows, dtype: str) -> bool:
+    """Shared against unshared: bitwise where both serves prefilled a
+    request by the same path, else the chunked-prefill bar."""
+    return all(r["bitwise"] for r in rows if r["same_path"]) and chunk_rows_ok(
+        [r for r in rows if not r["same_path"]], dtype)
+
+
+def qwen_faults(dtype: str, seed: int, params, traffic, runs) -> dict:
+    """Planted faults, each served on a fresh engine with the same weights
+    under the posture and held to the check it targets: the family key
+    without the λ digest (tenants 0 and 1 of different λ share the prefix
+    blocks; against the unshared serve, bitwise), chunks that attend only to
+    themselves (the view's ``read_ids`` dropped; the long prompts against
+    the monolithic serve, at the dtype's chunk bar) and, in float32, no CoW
+    fork (the forced extra owner of a tail block; its content must stay)."""
+    from repro_torch.serving import engine as engine_mod
+
+    drift = QWEN_CHUNK_BF16_DRIFT if dtype == "bfloat16" else None
+    out = {}
+    if dtype == "float32":
+        _, eng, _ = qwen_engine(dtype, seed, params=params)
+        eng._family_key = lambda tenant, n: engine_mod._bucket_len(
+            n, eng.max_len, eng._prefill_floor).to_bytes(4, "little")
+        run = qwen_serve(eng, traffic[:2])
+        rows = compare_streams(run, runs["unshared"])
+        out["family_key_without_digest"] = {
+            "prefix_hits": run["prefix_hits"], "rows": rows,
+            "rejected": not sharing_rows_ok(rows, dtype)}
+        _, eng, _ = qwen_engine(dtype, seed, params=params)
+        eng.allocator.is_shared = lambda b: False
+        run = qwen_serve(eng, traffic[:1], fork_tail=True)
+        out["no_cow_fork"] = {"cow_forks": run["cow_forks"], "tail_kept": run["tail_kept"],
+                              "rejected": not (run["cow_forks"] == 1 and run["tail_kept"])}
+    _, eng, _ = qwen_engine(dtype, seed, params=params)
+    view = eng.model.paged_prefill_view
+    eng.model.paged_prefill_view = lambda cache, write_ids, read_ids=None: view(cache, write_ids)
+    run = qwen_serve(eng, [t for t in traffic if t[1].size > 2 * eng.prefill_chunk])
+    rows = compare_streams(run, runs["monolithic"], drift)
+    out["chunk_attends_only_itself"] = {"chunk_dispatches": run["chunk_dispatches"], "rows": rows,
+                                        "rejected": not chunk_rows_ok(rows, dtype)}
+    return out
+
+
+def profile_qwen(engine, traffic) -> dict:
+    """The posture's traffic served again on the same engine (weights warm,
+    the prefix cache holding the first serve's blocks) under torch.profiler:
+    wall time, device busy and idle share, kernels by device time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run = qwen_serve(engine, traffic)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del run["done"], run["chunked"]
+    return {**_device_busy(prof, wall_us), "serve": run}
+
+
+def serving_posture_phase(seed: int) -> dict:
+    """qwen2-0.5b at full width (24 layers, d 896, 14 heads over 2, QKV
+    bias, vocab 151936) under ``EngineConfig.serving()``, in float32 and
+    bfloat16: the posture's serve (launches counted, one CoW fork forced),
+    the same traffic unshared, monolithic, and both; float32 against the
+    merged-weight reference; the planted faults; bf16 profiled.  Returns
+    every reading (without the request objects); check_serving_posture
+    holds them to the bars."""
+    import torch
+    from repro_torch import kernels
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cfg, engine, lams = qwen_engine(dtype, seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        traffic = qwen_traffic(seed, cfg.vocab_size)
+        kernels.reset_launch_counts()
+        runs = {"serving": qwen_serve(engine, traffic, fork_tail=True)}
+        runs["serving"]["launches"] = kernels.launch_counts()
+        runs["serving"]["init_s"] = init_s
+        params = engine.params
+        for name, kw in (("unshared", {"share_prefix": False}),
+                         ("monolithic", {"prefill_chunk": None}),
+                         ("monolithic_unshared", {"share_prefix": False, "prefill_chunk": None})):
+            _, eng, _ = qwen_engine(dtype, seed, params=params, **kw)
+            runs[name] = qwen_serve(eng, traffic)
+            del eng
+        drift = QWEN_CHUNK_BF16_DRIFT if dtype == "bfloat16" else None
+        res = {
+            "shared_vs_unshared": compare_streams(runs["serving"], runs["unshared"], drift),
+            "shared_vs_unshared_monolithic": compare_streams(
+                runs["monolithic"], runs["monolithic_unshared"], drift),
+            "chunked_vs_monolithic": compare_streams(runs["serving"], runs["monolithic"],
+                                                     drift),
+            "chunked_vs_monolithic_unshared": compare_streams(
+                runs["unshared"], runs["monolithic_unshared"], drift),
+        }
+        if dtype == "float32":
+            res["verify"] = verify(cfg, engine, lams, runs["serving"]["done"], QWEN_GEN)
+        res["faults"] = qwen_faults(dtype, seed, params, traffic, runs)
+        if dtype == "bfloat16":
+            res["profile"] = profile_qwen(engine, traffic)
+        for run in runs.values():
+            del run["done"], run["chunked"]
+        res["runs"] = runs
+        out[dtype] = res
+        del engine, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def print_serving_posture(out: dict, smi: str) -> None:
+    for dtype, res in out.items():
+        for name, run in res["runs"].items():
+            print(f"{QWEN} {dtype} {name}: {run['tokens']} tokens in {run['serve_s']:.3f} s = "
+                  f"{run['tok_per_s']:.1f} tok/s over {run['steps']} decode steps; prefix hits "
+                  f"{run['prefix_hits']} (blocks saved), misses {run['prefix_misses']}, CoW forks "
+                  f"{run['cow_forks']}, chunked admissions {run['chunked_admissions']}, chunk "
+                  f"dispatches {run['chunk_dispatches']}, preemptions {run['preemptions']}, pool "
+                  f"peak {run['pool_peak']}/{run['pool_capacity']}"
+                  + (f"; init {run['init_s']:.1f} s; launches {run['launches']}; forced tail "
+                     f"block kept {run['tail_kept']}" if "launches" in run else "") + f" on {smi}")
+        for name in ("shared_vs_unshared", "shared_vs_unshared_monolithic",
+                     "chunked_vs_monolithic", "chunked_vs_monolithic_unshared"):
+            rows = res[name]
+            print(f"  {dtype} {name}: bitwise {sum(r['bitwise'] for r in rows)}/{len(rows)} "
+                  f"(same prefill path {sum(r['same_path'] for r in rows)}), "
+                  f"parted {[r['parted_at'] for r in rows]}, max|Δlogits| "
+                  f"{max(r['max_abs_dlogits'] for r in rows):.3e}"
+                  + (f", over the bf16 bound {max(r['max_dlogits_over_bound'] for r in rows):.4f}"
+                     if "max_dlogits_over_bound" in rows[0] else ""))
+        if "verify" in res:
+            for row in res["verify"]:
+                print(f"  {dtype} vs the merged-weight reference: {row}")
+        for name, f in res["faults"].items():
+            print(f"  {dtype} planted fault {name}: rejected {f['rejected']}; {f}")
+        if "profile" in res:
+            print(f"  profiled {dtype} serve (warm prefix cache): {res['profile']}")
+
+
+def check_serving_posture(out: dict) -> None:
+    for dtype, res in out.items():
+        main = res["runs"]["serving"]
+        for name in ("qrlora_bgmv", "paged_decode_attention"):
+            _check(main["launches"][name] > 0, f"{QWEN} {dtype}: {name} never launched")
+        _check_no_bench_kernels(main["launches"], f"{QWEN} {dtype} serve")
+        for name, run in res["runs"].items():
+            _check(run["all_served"], f"{QWEN} {dtype} {name}: not every request got its tokens")
+        _check(main["prefix_hits"] > 0 and main["chunked_admissions"] >= 2
+               and main["cow_forks"] == 1 and main["tail_kept"],
+               f"{QWEN} {dtype}: the posture's serve shows no prefix hit, fewer than 2 chunked "
+               f"admissions, or not one CoW fork that left the shared block as it was: {main}")
+        _check(all(r["same_path"] and r["bitwise"] for r in res["shared_vs_unshared_monolithic"]),
+               f"{QWEN} {dtype}: prefix sharing changed logits of a monolithic serve: "
+               f"{res['shared_vs_unshared_monolithic']}")
+        _check(sharing_rows_ok(res["shared_vs_unshared"], dtype),
+               f"{QWEN} {dtype}: prefix sharing under the posture changed logits where the "
+               f"prefill path was the same, or is over the chunked bar where it was not: "
+               f"{res['shared_vs_unshared']}")
+        for name in ("chunked_vs_monolithic", "chunked_vs_monolithic_unshared"):
+            _check(chunk_rows_ok(res[name], dtype),
+                   f"{QWEN} {dtype} {name}: over the chunked-prefill bar: {res[name]}")
+        if "verify" in res:
+            _check(all(r["tokens_match"] and r["max_abs_dlogits"] < FP32_LOGIT_TOL
+                       for r in res["verify"]),
+                   f"{QWEN} {dtype} serve diverged from the merged-weight reference")
+        for name, f in res["faults"].items():
+            _check(f["rejected"], f"{QWEN} {dtype}: the check let the planted fault {name} through")
+
+
 def kernel_bench_phase():
     """The port's kernel bench on the card, in process, launches counted
     around it; its rows go into the report."""
@@ -2428,6 +2847,10 @@ def main(argv=None) -> None:
                f"qrlora_bgmv {name}: a planted fault went through, or the sound kernel did "
                f"not: {f}")
     paged_err, paged_fault = check_paged(gen, report["cases"])
+    qwen_err = check_qwen_kernels(gen, report["cases"])
+    print(f"qrlora_bgmv and paged_decode_attention at {QWEN}'s shapes (BGMV {QWEN_BGMV_SHAPES}; "
+          f"paged 14 heads over 2, dh 64, {QWEN_PAGED_CASES}): {qwen_err}, within tolerance, "
+          f"length-0 lanes zeros, bitwise on a second call")
     matmul_err = check_matmul(gen, report["cases"])
     matmul_enc_err = check_matmul_encoder(gen, report["cases"])
     print(f"qrlora_matmul float32 route at the encoder's shapes {ENCODER_SHAPES}: max|Δ| "
@@ -2521,7 +2944,12 @@ def main(argv=None) -> None:
                "qrlora_bgmv_wq_M64": time_bgmv(gen, 576, 64),
                "paged_decode_attention": time_paged(gen),
                "paged_decode_attention_long": time_paged_long(gen),
-               "qrlora_matmul_wq": time_matmul(gen, 576), "qrlora_matmul_wv": time_matmul(gen, 192)}
+               "qrlora_matmul_wq": time_matmul(gen, 576), "qrlora_matmul_wv": time_matmul(gen, 192),
+               "qrlora_bgmv_qwen2_wq": time_bgmv(gen, 896, 4, K=896, r=160),
+               "qrlora_bgmv_qwen2_wv": time_bgmv(gen, 128, 4, K=896, r=160),
+               "qrlora_bgmv_qwen2_wq_M32": time_bgmv(gen, 896, 32, K=896, r=160),
+               "paged_decode_attention_qwen2": time_paged(gen, (72, 64, 230, 200), H=14, KV=2,
+                                                          cols=16, max_blocks=24)}
     for base in ("int8", "fp8"):
         for proj, N in (("wq", 576), ("wv", 192)):
             timings[f"qrlora_bgmv_quant_{proj}_{base}"] = time_bgmv_quant(gen, N, base)
@@ -2702,6 +3130,17 @@ def main(argv=None) -> None:
     del params_f32
     torch.cuda.empty_cache()
 
+    # -- the serving posture: qwen2-0.5b under EngineConfig.serving() --------
+    t0 = time.perf_counter()
+    posture = serving_posture_phase(args.seed)
+    report["serving_posture"] = posture
+    print_serving_posture(posture, smi)
+    check_serving_posture(posture)
+    print(f"{QWEN} under EngineConfig.serving() in float32 and bf16: shared bitwise unshared, "
+          f"chunked within the bar of monolithic, float32 token-identical to the merged-weight "
+          f"reference, every planted fault rejected ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
     # -- the training path: full-width λ-only trains, launches counted -------
     want_launches = {name: 0 for name in kernels.KERNEL_WRAPPERS}
     report["train"] = {}
@@ -2779,6 +3218,15 @@ def main(argv=None) -> None:
         ("qrlora_matmul_f32_encoder", "qrlora_matmul_f32_M2048_r256", matmul_enc_err,
          "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
          "src/repro/kernels/qrlora_matmul.py:161", glue_launches),
+        # qwen2-0.5b's serve under the posture (bf16), at its shapes
+        ("qrlora_bgmv_qwen2", "qrlora_bgmv_qwen2_wq", qwen_err["qrlora_bgmv_bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:172",
+         posture["bfloat16"]["runs"]["serving"]["launches"]["qrlora_bgmv"]),
+        ("paged_decode_attention_qwen2", "paged_decode_attention_qwen2",
+         qwen_err["paged_decode_attention_bfloat16"]["max_abs_err"],
+         "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:116",
+         posture["bfloat16"]["runs"]["serving"]["launches"]["paged_decode_attention"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,14 +1,28 @@
 """Architecture configs of the port: ``get_config(name)`` /
-``get_reduced(name)`` (``-`` and ``_`` alike in names)."""
-from repro_torch.configs import roberta_base, smollm_135m
+``get_reduced(name)`` (``-``, ``_`` and ``.`` alike in names, as the
+reference's registry resolves them)."""
+from repro_torch.configs import qwen2_0_5b, qwen2_5_32b, qwen3_14b, roberta_base, smollm_135m
 from repro_torch.configs.base import AdapterConfig, ModelConfig
 
-ARCHS = {"smollm-135m": smollm_135m, "roberta-base": roberta_base}
+ARCHS = {
+    "smollm-135m": smollm_135m,
+    "qwen2-0.5b": qwen2_0_5b,
+    "qwen3-14b": qwen3_14b,
+    "qwen2.5-32b": qwen2_5_32b,
+    "roberta-base": roberta_base,
+}
+
+
+def _norm(name: str) -> str:
+    return name.replace("-", "_").replace(".", "_")
+
+
+_BY_NORM = {_norm(name): mod for name, mod in ARCHS.items()}
 
 
 def _module(name: str):
     try:
-        return ARCHS[name.replace("_", "-")]
+        return _BY_NORM[_norm(name)]
     except KeyError:
         raise NotImplementedError(
             f"arch {name!r}: the port has {sorted(ARCHS)} so far"

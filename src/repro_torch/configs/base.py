@@ -1,6 +1,6 @@
 """Model and adapter configuration — the port's copy of
 ``repro/configs/base.py``, cut to the fields the dense decoder (serving,
-training, quantized bases) and the paper's RoBERTa-style encoder read.
+training, quantized bases; QKV bias and QK-norm) and the paper's RoBERTa-style encoder read.
 
 The dimensions of a published model are plain numbers, so the port keeps its
 own copy instead of importing the JAX package (see ``smollm_135m.py``).
@@ -65,6 +65,10 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     d_head: int = 0  # 0 → d_model // n_heads
+    # Attention flavour: a bias on the q/k/v projections (qwen2), and an RMS
+    # norm of each q/k head before RoPE (qwen3)
+    qkv_bias: bool = False
+    qk_norm: bool = False
     rope_theta: float = 10_000.0
     causal: bool = True
     # Encoder (the paper's RoBERTa-style model)

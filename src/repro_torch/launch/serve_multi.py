@@ -9,11 +9,17 @@ deployment (λ merged into the weights) and compares it token for token and
 logit for logit.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --arch qwen2-0.5b \
+        --device cpu --share-prefix --prefill-chunk 32 --max-len 64
     PYTHONPATH=src python -m repro_torch.launch.serve_multi          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --base-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu --shard-lam --shard-ba
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve_multi \
         --reduced --device cpu --shard-lam --shard-ba
+
+``--n-blocks``, ``--share-prefix``, ``--watermark`` and ``--prefill-chunk``
+configure the paged layout as the reference's driver takes them (the pool
+size, copy-on-write prefix sharing, admission headroom, chunked prefill).
 
 ``--shard-lam`` shards the packed λ tables' slot axis and ``--shard-ba`` the
 QR factors' rank dim over a ``torch.distributed`` process group: the one
@@ -113,6 +119,17 @@ def main(argv=None):
     ap.add_argument("--lam-scale", type=float, default=0.3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--n-blocks", type=int, default=None,
+                    help="KV pool size (default: dense-equivalent capacity + trash block)")
+    ap.add_argument("--share-prefix", action="store_true",
+                    help="copy-on-write prefix sharing: requests repeating a prompt prefix "
+                    "reuse its resident KV blocks")
+    ap.add_argument("--prefill-chunk", type=int, default=None, metavar="TOKENS",
+                    help="chunked prefill: long prompts stream in chunks of this many tokens "
+                    "between resident lanes' decode steps (a multiple of --block-size; "
+                    "default: monolithic admission prefill)")
+    ap.add_argument("--watermark", type=int, default=0,
+                    help="free blocks admission keeps in reserve as decode-growth headroom")
     ap.add_argument(
         "--dtype", default="float32",
         help="float32 default: the verification compares fused-multi-λ vs "
@@ -146,12 +163,15 @@ def serve(args, device):
     econf = EngineConfig(
         n_lanes=args.lanes, n_slots=n_slots, max_len=args.max_len,
         collect_logits=True, seed=args.seed, block_size=args.block_size,
-        base_dtype=args.base_dtype, shard_lam=args.shard_lam, shard_ba=args.shard_ba,
+        n_blocks=args.n_blocks, share_prefix=args.share_prefix, watermark=args.watermark,
+        prefill_chunk=args.prefill_chunk, base_dtype=args.base_dtype, shard_lam=args.shard_lam, shard_ba=args.shard_ba,
     )
     engine = MultiTenantEngine(cfg, econf, device=device)
     lead = not dist.is_initialized() or dist.get_rank() == 0
     _say(f"arch={cfg.name} layout={engine.layout} device={engine.device} "
-         f"pool={engine.allocator.capacity} blocks of {args.block_size}")
+         f"pool={engine.allocator.capacity} blocks of {args.block_size} "
+         f"share_prefix={args.share_prefix} watermark={args.watermark} "
+         f"prefill_chunk={args.prefill_chunk}")
     if engine.base_dtype != "bf16":
         qb, fb = resident_base_bytes(engine.params)
         _say(f"quantized base ({engine.base_dtype}): adapted projections resident at "
@@ -189,7 +209,10 @@ def serve(args, device):
     _say(f"{engine.decoded_tokens} tokens in {dt * 1e3:.1f} ms "
          f"({engine.decoded_tokens / dt:.0f} tok/s) over {engine.steps} shared decode "
          f"steps, pool peak={engine.allocator.peak_in_use}/{engine.allocator.capacity} "
-         f"blocks, preemptions={engine.preemptions}")
+         f"blocks, preemptions={engine.preemptions}, cow_forks={engine.cow_forks}")
+    if engine.prefix_cache is not None:
+        pc = engine.prefix_cache
+        _say(f"prefix hits={pc.hits} misses={pc.misses} cached={pc.cached_blocks} blocks")
 
     params = engine.gathered_params()  # a collective under --shard-ba: every rank
     if not lead:

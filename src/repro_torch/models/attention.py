@@ -19,30 +19,50 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter_api import adapted_matmul
 from repro_torch.kernels import ops
 from repro_torch.models.lane_state import NO_LANE
-from repro_torch.models.layers import apply_rope, stacked_dense_init
+from repro_torch.models.layers import apply_rope, rms_norm, stacked_dense_init
 
 _NEG = -1e30
 
 
 def init_attn_params(gen: torch.Generator, cfg: ModelConfig, n: int, dtype) -> Dict:
+    """Stacked projections; with ``qkv_bias`` zero biases ``bq``/``bk``/``bv``
+    and with ``qk_norm`` unit per-head norm scales ``q_norm``/``k_norm``, as
+    the reference initialises them."""
     H, KV, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
-    return {
+    p = {
         "wq": stacked_dense_init(gen, n, d, H * dh, dtype),
         "wk": stacked_dense_init(gen, n, d, KV * dh, dtype),
         "wv": stacked_dense_init(gen, n, d, KV * dh, dtype),
         "wo": stacked_dense_init(gen, n, H * dh, d, dtype, scale=1.0 / (2 * cfg.n_layers) ** 0.5),
     }
+    dev = gen.device
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((n, H * dh), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((n, KV * dh), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((n, KV * dh), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((n, dh), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((n, dh), dtype=dtype, device=dev)
+    return p
 
 
 def _project_qkv(p, x, cfg: ModelConfig, adp):
-    """Project to q (B,S,H,dh) and k, v (B,S,KV,dh)."""
+    """Project to q (B,S,H,dh) and k, v (B,S,KV,dh): the bias (plain add,
+    outside the adapted matmul) before the reshape, the per-head RMS norm
+    after it (RoPE comes later, in :func:`attention`)."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     B = x.shape[0]
     adp = adp or {}
     q = adapted_matmul(x, p["wq"], adp.get("wq"))
     k = adapted_matmul(x, p["wk"], adp.get("wk"))
     v = adapted_matmul(x, p["wv"], adp.get("wv"))
-    return q.reshape(B, -1, H, dh), k.reshape(B, -1, KV, dh), v.reshape(B, -1, KV, dh)
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = q.reshape(B, -1, H, dh), k.reshape(B, -1, KV, dh), v.reshape(B, -1, KV, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
 
 
 def _softmax_attend(q, k, v, mask, scale):
@@ -125,9 +145,19 @@ def _scatter_rows(pool: torch.Tensor, flat: torch.Tensor, rows: torch.Tensor) ->
 def _paged_prefill(q, k, v, cache, positions, scale):
     """Block-aligned prefill against a paged cache view
     (``transformer.paged_prefill_view``): ``block_tbl`` names this pass's
-    write targets, trash block 0 standing in for bucket padding.  Position
-    ``t`` of lane ``b`` scatters to ``pool[tbl[b, t // bs], t % bs]``; the
-    attention itself is the plain causal pass over the bucketed prompt."""
+    write targets, trash block 0 standing in for cached prefix blocks and
+    bucket padding.  ``positions`` are the absolute positions of this pass's
+    rows: ``arange(S)`` for a whole prompt, ``start + arange(C)`` for one
+    chunk of a chunked prefill.  Position ``t`` of lane ``b`` scatters to
+    ``pool[tbl[b, t // bs], t % bs]``.
+
+    Without ``read_tbl`` in the view the attention is the plain causal pass
+    over the bucketed prompt.  With it (chunked prefill) the keys and values
+    are gathered back from the pool through ``read_tbl`` (the monolithic
+    bucket's width) after the scatter, under the absolute causal mask
+    ``kpos <= positions``: a chunk sees every earlier chunk's K/V and every
+    cached prefix block, and the softmax reduces over score rows as wide as
+    the monolithic pass's."""
     B, S = q.shape[:2]
     bs = cache["k"].shape[1]
     tbl = cache["block_tbl"].long()
@@ -136,7 +166,15 @@ def _paged_prefill(q, k, v, cache, positions, scale):
     flat = (blk * bs + pos[None, :] % bs).reshape(-1)
     _scatter_rows(cache["k"], flat, k.reshape(B * S, *k.shape[2:]))
     _scatter_rows(cache["v"], flat, v.reshape(B * S, *v.shape[2:]))
-    return _softmax_attend(q, k, v, _causal_mask(S, q.device), scale)
+    read_tbl = cache.get("read_tbl")
+    if read_tbl is None:
+        return _softmax_attend(q, k, v, _causal_mask(S, q.device), scale)
+    W = read_tbl.shape[1] * bs
+    ids = read_tbl.long()
+    kg = cache["k"][ids].reshape(B, W, *k.shape[2:]).to(q.dtype)
+    vg = cache["v"][ids].reshape(B, W, *v.shape[2:]).to(q.dtype)
+    mask = (torch.arange(W, device=q.device)[None, :] <= pos[:, None])[None, None, None]
+    return _softmax_attend(q, kg, vg, mask, scale)
 
 
 def _paged_decode(q, k, v, cache, scale, attend_blocks: Optional[int] = None):

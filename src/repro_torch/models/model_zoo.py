@@ -107,15 +107,15 @@ class Model:
         """LaneState protocol: lane axes of the paged per-lane cache."""
         return tfm_lib.decode_state_lane_axes(self.cfg)
 
-    def paged_prefill_view(self, cache, write_ids):
-        return tfm_lib.paged_prefill_view(self.cfg, cache, write_ids)
+    def paged_prefill_view(self, cache, write_ids, read_ids=None):
+        return tfm_lib.paged_prefill_view(self.cfg, cache, write_ids, read_ids)
 
     def commit_paged_prefill(self, cache, filled, lane, table_row, length):
         return tfm_lib.commit_paged_prefill(self.cfg, cache, filled, lane, table_row, length)
 
-    def prefill(self, params, cache, tokens, seg_ids=None, length=None):
+    def prefill(self, params, cache, tokens, seg_ids=None, length=None, start=None):
         return tfm_lib.decoder_prefill(
-            params, self.cfg, cache, tokens, seg_ids=seg_ids, length=length
+            params, self.cfg, cache, tokens, seg_ids=seg_ids, length=length, start=start
         )
 
     def decode_step(self, params, cache, token, seg_ids=None, attend_blocks=None):

@@ -179,23 +179,29 @@ def decode_state_lane_axes(cfg: ModelConfig) -> Dict:
     return {"pos": 0, "layers": {"attn": attn_lib.paged_kv_lane_axes()}}
 
 
-def paged_prefill_view(cfg: ModelConfig, cache, write_ids: torch.Tensor) -> Dict:
+def paged_prefill_view(cfg: ModelConfig, cache, write_ids: torch.Tensor,
+                       read_ids: Optional[torch.Tensor] = None) -> Dict:
     """1-lane paged-cache view for block-aligned admission prefill: it
     aliases the engine cache's pools, and its single block-table row is
     ``write_ids`` (ceil(bucket / block_size),) — this pass's write targets,
-    trash block 0 standing in for bucket padding."""
+    trash block 0 standing in for cached prefix blocks and bucket padding.
+
+    ``read_ids`` (ceil(bucket / block_size),) switches the view to chunked
+    prefill: attention gathers its keys back out of the pool through this
+    row — the request's own blocks and any adopted prefix-cache blocks — so
+    a chunk sees every earlier chunk's K/V under the absolute causal mask."""
     a = cache["layers"]["attn"]
     G = a["idx"].shape[0]
     dev = a["idx"].device
-    return {
-        "pos": torch.zeros((1,), dtype=torch.int32, device=dev),
-        "layers": {"attn": {
-            "k": a["k"],
-            "v": a["v"],
-            "block_tbl": write_ids.to(torch.int32).expand(G, 1, -1),
-            "idx": torch.zeros((G, 1), dtype=torch.int32, device=dev),
-        }},
+    attn = {
+        "k": a["k"],
+        "v": a["v"],
+        "block_tbl": write_ids.to(torch.int32).expand(G, 1, -1),
+        "idx": torch.zeros((G, 1), dtype=torch.int32, device=dev),
     }
+    if read_ids is not None:
+        attn["read_tbl"] = read_ids.to(torch.int32).expand(G, 1, -1)
+    return {"pos": torch.zeros((1,), dtype=torch.int32, device=dev), "layers": {"attn": attn}}
 
 
 def commit_paged_prefill(cfg: ModelConfig, cache, filled, lane: int,
@@ -211,14 +217,23 @@ def commit_paged_prefill(cfg: ModelConfig, cache, filled, lane: int,
     return cache
 
 
-def decoder_prefill(params, cfg: ModelConfig, cache, tokens, seg_ids=None, length=None):
+def decoder_prefill(params, cfg: ModelConfig, cache, tokens, seg_ids=None, length=None,
+                    start=None):
     """Fill the cache with a prompt; returns (last-position logits (B,V),
     cache).  ``length`` (int (B,)) marks the true prompt length when
     ``tokens`` is right-padded to a bucket: logits come from row
-    ``length - 1`` and the offsets are set to ``length``."""
+    ``length - 1`` and the offsets are set to ``length``.
+
+    ``start`` (int) marks ``tokens`` as one chunk of a chunked paged prefill
+    beginning at that absolute position: RoPE and the causal mask run at
+    ``start + arange(S)``, and the logits row is ``length - 1 - start``
+    (clamped into the chunk: meaningful on the final chunk only).  The cache
+    must then be a ``paged_prefill_view`` carrying ``read_ids``."""
     x = params["embed"][tokens]
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
+    if start is not None:
+        positions = positions + int(start)
     x = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids)
     attn = cache["layers"]["attn"]
     if length is None:
@@ -227,8 +242,10 @@ def decoder_prefill(params, cfg: ModelConfig, cache, tokens, seg_ids=None, lengt
         attn["idx"].fill_(S)
     else:
         length = torch.as_tensor(length, dtype=torch.int32, device=x.device)
-        row = (length.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
-        x_last = torch.gather(x, 1, row)
+        row = length.long() - 1
+        if start is not None:
+            row = torch.clamp(row - int(start), 0, S - 1)
+        x_last = torch.gather(x, 1, row[:, None, None].expand(-1, 1, x.shape[-1]))
         cache["pos"][...] = length
         attn["idx"][...] = length
     return _logits(params, cfg, x_last)[:, 0], cache

@@ -1,5 +1,5 @@
 """Multi-tenant QR-LoRA serving of the port: λ-store, paged KV block
-allocator, continuous-batching scheduler and the engine."""
+allocator and prefix cache, continuous-batching scheduler and the engine."""
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import (
     MultiTenantEngine,
@@ -14,5 +14,5 @@ from repro_torch.serving.lam_store import (
     lam_digest,
     random_lambda,
 )
-from repro_torch.serving.paging import BlockAllocator, PoolExhausted
+from repro_torch.serving.paging import BlockAllocator, PoolExhausted, PrefixCache
 from repro_torch.serving.scheduler import ContinuousBatchScheduler, Request

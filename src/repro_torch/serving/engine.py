@@ -12,9 +12,26 @@ One decode loop serves many QR-LoRA tenants:
   (``serving/paging.py``).  Admission allocates the prompt's
   ``ceil(P / block_size)`` blocks and prefills block-aligned, scattering the
   prompt's K/V straight into them; decode grows a lane by one block when it
-  crosses a block boundary.  When the pool runs dry the youngest lane is
-  preempted to the queue front (its blocks freed, its tokens re-derived on
-  re-admission), so the oldest lane always finishes.
+  crosses a block boundary.  When the pool runs dry cache-only prefix blocks
+  are evicted first, then the youngest lane is preempted to the queue front
+  (its blocks freed, its tokens re-derived on re-admission), so the oldest
+  lane always finishes.
+
+The reference's production posture (``EngineConfig.serving()``) adds three
+features of the paged layout:
+
+* **Prefix sharing** (``share_prefix``): a :class:`PrefixCache` files every
+  prompt's full blocks under its family key (the tenant's λ digest and the
+  prefill bucket); a later prompt of the same family adopts the cached
+  leading blocks (refcounts, no recompute of their K/V where the prefill is
+  chunked), and a lane about to write into a shared block forks a private
+  copy first (copy-on-write).
+* **The admission watermark** (``watermark``): admission keeps that many
+  blocks free as decode-growth headroom.
+* **Chunked prefill** (``prefill_chunk``): a long prompt (or one with a
+  cached prefix) is admitted dark — blocks allocated, table row still trash
+  — and its prefill runs ``prefill_chunk`` tokens a step, each chunk
+  attending back through the pool, while the resident lanes keep decoding.
 
 Admission prefill pads prompts to power-of-two buckets (floored at the
 block size) with the true length masking the tail, and the decode attend is
@@ -37,12 +54,13 @@ all-gather the factors and all-reduce the batch's λ rows before the rows
 kernel — bitwise the replicated engine.  The group's backend must suit the
 device: NCCL for ``cuda``, gloo for ``cpu``.
 
-The engine is greedy and host-driven: ``step()`` = admit + grow + one
-decode step; ``run()`` loops until queue and lanes drain.
+The engine is greedy and host-driven: ``step()`` = admit + advance chunked
+prefills + grow + one decode step over the committed lanes; ``run()`` loops
+until queue and lanes drain.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,7 +76,7 @@ from repro_torch.models.lane_state import extract_lane, reset_lane
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.lam_store import LamStore, extract_lambda
-from repro_torch.serving.paging import BlockAllocator, PoolExhausted
+from repro_torch.serving.paging import BlockAllocator, PoolExhausted, PrefixCache
 from repro_torch.serving.scheduler import ContinuousBatchScheduler, Request
 from repro_torch.sharding.rules import axis_rules, default_group, rank_divides, shard_factors
 
@@ -131,13 +149,28 @@ class MultiTenantEngine:
         if n_blocks is None:
             n_blocks = 1 + self.n_lanes * self.max_blocks  # dense-equivalent
         self.allocator = BlockAllocator(n_blocks, bs)
+        if not 0 <= config.watermark < self.allocator.capacity:
+            raise ValueError(f"watermark={config.watermark} must be in "
+                             f"[0, capacity={self.allocator.capacity})")
+        self.watermark = config.watermark
+        self.prefix_cache = PrefixCache(self.allocator) if config.share_prefix else None
+        # a tenant LRU pressure drops takes its prefix-cache family with it
+        self.lam_store.on_drop = lambda tenant, dg: self._drop_stale_family(dg)
+        self.prefill_chunk = config.prefill_chunk
         # paged buckets are floored at block_size: block-aligned shapes
         self._prefill_floor = max(_MIN_PREFILL_BUCKET, bs)
         self._lane_blocks: Dict[int, List[int]] = {}
+        # uid → prefix blocks pinned (incref'd) at gate approval, consumed by
+        # the admission of the same round
+        self._gate_matches: Dict[int, List[int]] = {}
+        # uid → in-flight chunked-prefill progress (_begin_chunked_prefill)
+        self._prefilling: Dict[int, Dict[str, Any]] = {}
         self._admit_seq = 0
         self.preemptions = 0
+        self.cow_forks = 0
         self.steps = 0
         self.decoded_tokens = 0
+        self.prefill_buckets: set = set()  # padded prompt lengths prefilled
         self.cache = self.model.init_decode_state(
             self.n_lanes, self.max_len, self.dtype, paged=True, block_size=bs,
             n_blocks=n_blocks,
@@ -153,8 +186,21 @@ class MultiTenantEngine:
     # -- tenants ------------------------------------------------------------
 
     def add_tenant(self, tenant: str, lam_tree) -> int:
-        """Register or hot-swap a tenant's λ checkpoint; returns its slot."""
-        return self.lam_store.register(tenant, lam_tree)
+        """Register or hot-swap a tenant's λ checkpoint; returns its slot.  A
+        hot-swap that retires the tenant's old λ digest drops that family's
+        prefix-cache entries."""
+        old = self.lam_store.digest(tenant) if tenant in self.lam_store else None
+        slot = self.lam_store.register(tenant, lam_tree)
+        self._drop_stale_family(old)
+        return slot
+
+    def _drop_stale_family(self, old_digest: Optional[bytes]) -> None:
+        """Prefix-cache entries keyed on a λ digest no resident tenant
+        carries can never match again: free them now, not at LRU time."""
+        if old_digest is None or self.prefix_cache is None:
+            return
+        if self.lam_store.digest_refcount(old_digest) == 0:
+            self.prefix_cache.drop_family(old_digest)
 
     def _params_view(self):
         return self.lam_store.install(self.params)
@@ -204,24 +250,57 @@ class MultiTenantEngine:
 
     # -- paged block accounting ---------------------------------------------
 
+    def _family_key(self, tenant: str, prompt_len: int) -> bytes:
+        """Prefix-cache family key: the tenant's λ digest plus the prefill
+        bucket.  Two prefills share K/V blocks only when they ran the same
+        adapter at the same padded shape, which keeps shared-prefix output
+        bitwise the unshared engine's."""
+        Pb = _bucket_len(prompt_len, self.max_len, self._prefill_floor)
+        return self.lam_store.digest(tenant) + Pb.to_bytes(4, "little")
+
+    def _family(self, req: Request) -> bytes:
+        return self._family_key(req.tenant, req.prompt.size)
+
     def _admission_gate(self):
-        """Pool gate for ``scheduler.admit``: approving a request reserves
-        its prompt blocks for this admission round."""
+        """Pool gate for ``scheduler.admit``.  Approving a request reserves
+        its uncached prompt blocks for this round and keeps ``watermark``
+        blocks free; it also pins (increfs) the request's matched prefix
+        blocks at once, so a later request's gate evicting cache entries in
+        the same round cannot take them.  When the FIFO head starves while
+        the prefix cache holds blocks, the cache is evicted LRU-first until
+        the head fits or the cache is empty."""
         reserved = [0]
 
         def gate(req: Request) -> bool:
-            need = self.allocator.blocks_for(req.prompt.size)
-            if self.allocator.n_free - reserved[0] >= need:
-                reserved[0] += need
-                return True
-            return False
+            while True:
+                cached: List[int] = []
+                if self.prefix_cache is not None:
+                    cached = self.prefix_cache.match(self._family(req), req.prompt)
+                need = self.allocator.blocks_for(req.prompt.size) - len(cached)
+                if self.allocator.n_free - reserved[0] >= need + self.watermark:
+                    for b in cached:
+                        self.allocator.incref(b)
+                    if self.prefix_cache is not None:
+                        self.prefix_cache.hits += len(cached)
+                        self.prefix_cache.misses += (
+                            req.prompt.size // self.block_size - len(cached))
+                    self._gate_matches[req.uid] = cached
+                    reserved[0] += need
+                    return True
+                if self.prefix_cache is None or not len(self.prefix_cache):
+                    return False
+                self.prefix_cache.evict_one()
 
         return gate
 
     def _reclaim_one_block(self, req: Request) -> Optional[int]:
-        """One block for ``req``'s decode growth, preempting the youngest
-        lane while the pool is empty (possibly ``req`` itself, then None)."""
+        """One block for ``req``'s decode growth: scavenge cache-only prefix
+        blocks first, then preempt the youngest lane while the pool is empty
+        (possibly ``req`` itself, then None)."""
         while not self.allocator.can_alloc(1):
+            if self.prefix_cache is not None and len(self.prefix_cache):
+                self.prefix_cache.evict_one()
+                continue
             active = self.scheduler.active()
             if not active:  # unreachable: req is active when growing
                 raise PoolExhausted("no active lane to preempt")
@@ -233,37 +312,62 @@ class MultiTenantEngine:
 
     def _preempt(self, victim: Request) -> None:
         """Block-pressure preemption: free the lane's blocks, reset the lane
-        and send the request to the queue front."""
+        and send the request to the queue front.  A victim mid chunked
+        prefill drops its progress (its lane was never committed) and
+        restarts on re-admission."""
         lane = victim.lane
+        self._prefilling.pop(victim.uid, None)
         for b in self._lane_blocks.pop(lane):
             self.allocator.decref(b)
         reset_lane(self.cache, self._axes, lane, self._init_snap)
         self.scheduler.preempt(victim)
         self.preemptions += 1
 
+    def _fork_block(self, lane: int, slot: int, src: int, dst: int) -> None:
+        """Copy-on-write: copy pool block ``src`` to ``dst`` on every layer
+        and repoint the lane's table entry at the private copy."""
+        a = self.cache["layers"]["attn"]
+        a["k"][:, dst] = a["k"][:, src]
+        a["v"][:, dst] = a["v"][:, src]
+        a["block_tbl"][:, lane, slot] = dst
+
     def _grow_lanes(self) -> None:
-        """Lazy growth, oldest lane first: a lane whose next decode write
-        crosses into a new block gets one (its table entry repointed)."""
+        """Lazy growth, oldest lane first: a decoding lane whose next write
+        crosses into a new block gets one (its table entry repointed), and
+        one whose write block is shared forks a private copy first."""
         bs = self.block_size
         tbl = self.cache["layers"]["attn"]["block_tbl"]
         for req in sorted(self.scheduler.active(), key=lambda r: r.admit_seq):
             if req.lane < 0:  # preempted by an older lane's growth this pass
                 continue
+            if req.uid in self._prefilling:  # not decoding yet: no growth
+                continue
             blk_idx = (req.prompt.size + len(req.tokens) - 1) // bs
             blocks = self._lane_blocks[req.lane]
-            if blk_idx < len(blocks):
-                continue
-            bid = self._reclaim_one_block(req)
-            if bid is None:  # req itself was the preemption victim
-                continue
-            blocks.append(bid)
-            tbl[:, req.lane, blk_idx] = bid
+            if blk_idx >= len(blocks):
+                bid = self._reclaim_one_block(req)
+                if bid is None:  # req itself was the preemption victim
+                    continue
+                blocks.append(bid)
+                tbl[:, req.lane, blk_idx] = bid
+            elif self.allocator.is_shared(blocks[blk_idx]):
+                # never write into a block another owner reads
+                src = blocks[blk_idx]
+                if self.allocator.can_alloc(1):
+                    dst = self.allocator.fork(src)
+                else:
+                    dst = self._reclaim_one_block(req)
+                    if dst is None:
+                        continue
+                    self.allocator.decref(src)  # the lane's ref moves to the copy
+                blocks[blk_idx] = dst
+                self._fork_block(req.lane, blk_idx, src, dst)
+                self.cow_forks += 1
 
     # -- the serving loop ---------------------------------------------------
 
     def _admit(self, finished: List[Request]) -> None:
         for req in self.scheduler.admit(self._admission_gate()):
-            view = self._params_view()
             req.slot = self.lam_store.lookup(req.tenant)  # pinned since submit
             # prompt-length bucketing: pad to a power of two; the true length
             # masks the tail
@@ -271,35 +375,142 @@ class MultiTenantEngine:
             Pb = _bucket_len(P, self.max_len, self._prefill_floor)
             padded = np.zeros((Pb,), np.int32)
             padded[:P] = req.prompt
-            logits = self._admit_paged(req, view, padded)
+            self.prefill_buckets.add(Pb)
+            C = self.prefill_chunk
+            if C is not None and Pb > C and (P > 2 * C or self._gate_matches.get(req.uid)):
+                # a long prompt streams through the following steps' chunk
+                # budget; a short one (≤ 2 chunks of work) prefills in one
+                # pass, unless a cached prefix lets the chunks skip its blocks
+                self._begin_chunked_prefill(req, padded)
+                continue
+            logits = self._admit_paged(req, padded)
             self._emit(req, logits[0].float().cpu().numpy(), finished)
 
-    def _admit_paged(self, req: Request, view, padded: np.ndarray) -> torch.Tensor:
-        """Allocate the prompt's blocks (generation blocks come lazily) and
-        prefill block-aligned: the prompt's K/V scatter into them through a
-        1-lane view whose write row sends bucket padding to trash block 0,
-        then the lane's table row and offsets are committed."""
-        P, bs, dev = req.prompt.size, self.block_size, self.device
-        blocks = self.allocator.alloc(self.allocator.blocks_for(P))
-        self._lane_blocks[req.lane] = blocks
+    def _adopt_blocks(self, req: Request) -> int:
+        """The prompt's blocks: the prefix blocks its gate pinned (extended
+        by a re-match when an earlier admission of this round filed more of
+        the same prefix) followed by fresh ones for the rest.  Records them
+        as the lane's and stamps the admission order; returns the number of
+        cached blocks at the front."""
+        P, bs = req.prompt.size, self.block_size
+        cached = self._gate_matches.pop(req.uid, [])
+        if self.prefix_cache is not None and len(cached) < P // bs:
+            # only extend the gate's base (it never allocates more than the
+            # gate reserved), and only when the fresh chain agrees with it
+            fresh = self.prefix_cache.match(self._family(req), req.prompt)
+            if len(fresh) > len(cached) and fresh[: len(cached)] == cached:
+                for b in fresh[len(cached):]:
+                    self.allocator.incref(b)
+                self.prefix_cache.hits += len(fresh) - len(cached)
+                self.prefix_cache.misses -= len(fresh) - len(cached)
+                cached = fresh
+        new_ids = self.allocator.alloc(self.allocator.blocks_for(P) - len(cached))
+        self._lane_blocks[req.lane] = cached + new_ids
         req.admit_seq = self._admit_seq
         self._admit_seq += 1
-        write_ids = np.zeros((-(-len(padded) // bs),), np.int32)
-        write_ids[: len(blocks)] = blocks
-        table_row = np.zeros((self.max_blocks,), np.int32)
-        table_row[: len(blocks)] = blocks
-        pview = self.model.paged_prefill_view(self.cache, torch.from_numpy(write_ids).to(dev))
-        seg = torch.full((1,), req.slot, dtype=torch.int32, device=dev)
-        length = torch.full((1,), P, dtype=torch.int32, device=dev)
+        return len(cached)
+
+    def _ids(self, blocks: List[int], width: int, skip: int = 0) -> torch.Tensor:
+        """A block-id row of ``width`` entries on the device: ``blocks`` from
+        entry ``skip`` on, trash block 0 elsewhere."""
+        row = np.zeros((width,), np.int32)
+        row[skip: len(blocks)] = blocks[skip:]
+        return torch.from_numpy(row).to(self.device)
+
+    def _admit_paged(self, req: Request, padded: np.ndarray) -> torch.Tensor:
+        """Adopt the shared prefix blocks, allocate private blocks for the
+        rest of the prompt (generation blocks come lazily) and prefill
+        block-aligned: the prompt's K/V scatter into its blocks through a
+        1-lane view whose write row sends cached blocks and bucket padding
+        to trash block 0, then the lane's table row and offsets are
+        committed and the prompt's full blocks filed for reuse."""
+        P, bs, dev = req.prompt.size, self.block_size, self.device
+        n_cached = self._adopt_blocks(req)
+        blocks = self._lane_blocks[req.lane]
+        pview = self.model.paged_prefill_view(
+            self.cache, self._ids(blocks, -(-len(padded) // bs), skip=n_cached))
         with self._rules_ctx():
             logits, filled = self.model.prefill(
-                view, pview, torch.from_numpy(padded).to(dev)[None, :], seg_ids=seg,
-                length=length,
+                self._params_view(), pview, torch.from_numpy(padded).to(dev)[None, :],
+                seg_ids=torch.full((1,), req.slot, dtype=torch.int32, device=dev),
+                length=torch.full((1,), P, dtype=torch.int32, device=dev),
             )
         self.model.commit_paged_prefill(
-            self.cache, filled, req.lane, torch.from_numpy(table_row).to(dev), P
-        )
+            self.cache, filled, req.lane, self._ids(blocks, self.max_blocks), P)
+        if self.prefix_cache is not None:
+            # the partial tail block, still receiving decode writes, is never cached
+            self.prefix_cache.insert(self._family(req), req.prompt, blocks)
         return logits
+
+    # -- chunked prefill ----------------------------------------------------
+
+    def _begin_chunked_prefill(self, req: Request, padded: np.ndarray) -> None:
+        """Chunked admission: adopt and allocate the prompt's blocks as
+        :meth:`_admit_paged` does, but run no prefill yet.  The lane stays
+        dark (table row trash, offsets zero) until the final chunk commits,
+        so decode steps between chunks neither read nor clobber the
+        half-filled prompt; the lane's own interim decode writes land in the
+        trash block and its outputs are discarded."""
+        P, bs, C = req.prompt.size, self.block_size, self.prefill_chunk
+        n_cached = self._adopt_blocks(req)
+        blocks = self._lane_blocks[req.lane]
+        Pb = len(padded)
+        # chunk starts may overhang the bucket (the cached-prefix skip is
+        # block-aligned, not chunk-aligned): pad the tokens and the write row
+        # by one chunk so overhang positions write trash like any padding
+        tokens = np.zeros((Pb + C,), np.int32)
+        tokens[:P] = req.prompt
+        skip = n_cached * bs
+        # a fully cached prompt: one pass over its last C positions just to
+        # surface the logits row
+        starts = [max(P - C, 0)] if skip >= P else list(range(skip, P, C))
+        req.prefill_pos = starts[0]
+        dev = self.device
+        self._prefilling[req.uid] = {
+            "req": req, "tokens": tokens, "starts": starts, "next": 0,
+            "seg": torch.full((1,), req.slot, dtype=torch.int32, device=dev),
+            "length": torch.full((1,), P, dtype=torch.int32, device=dev),
+            "write_ids": self._ids(blocks, -(-(Pb + C) // bs), skip=n_cached),
+            # chunks attend through the lane's blocks, cached ones included,
+            # at the monolithic bucket's width
+            "read_ids": self._ids(blocks, -(-Pb // bs)),
+            "table_row": self._ids(blocks, self.max_blocks),
+        }
+
+    def _run_prefill_chunks(self, finished: List[Request]) -> None:
+        """Advance in-flight chunked prefills, FIFO by admission, spending at
+        most ``prefill_chunk`` prompt tokens a step (and always at least one
+        chunk, so prefill cannot starve)."""
+        C = self.prefill_chunk
+        budget = C
+        for st in sorted(self._prefilling.values(), key=lambda s: s["req"].admit_seq):
+            while budget > 0 and st["next"] < len(st["starts"]):
+                budget -= C
+                req = st["req"]
+                start = st["starts"][st["next"]]
+                last = st["next"] + 1 == len(st["starts"])
+                toks = torch.from_numpy(st["tokens"][start: start + C]).to(self.device)[None, :]
+                pview = self.model.paged_prefill_view(self.cache, st["write_ids"],
+                                                      st["read_ids"])
+                with self._rules_ctx():
+                    logits, filled = self.model.prefill(
+                        self._params_view(), pview, toks, seg_ids=st["seg"],
+                        length=st["length"], start=start)
+                st["next"] += 1
+                req.prefill_pos = -1 if last else st["starts"][st["next"]]
+                if last:
+                    self.model.commit_paged_prefill(self.cache, filled, req.lane,
+                                                    st["table_row"], req.prompt.size)
+                    self._finish_chunked(req, logits[0].float().cpu().numpy(), finished)
+
+    def _finish_chunked(self, req: Request, row: np.ndarray, finished: List[Request]) -> None:
+        """Final chunk committed: file the prompt in the prefix cache (its
+        blocks only now hold its K/V) and emit the first token."""
+        del self._prefilling[req.uid]
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(self._family(req), req.prompt,
+                                     self._lane_blocks[req.lane])
+        self._emit(req, row, finished)
 
     def _emit(self, req: Request, logits_row: np.ndarray, finished: List[Request]) -> None:
         req.tokens.append(int(logits_row.argmax()))
@@ -329,13 +540,18 @@ class MultiTenantEngine:
         return min(ab, self.max_blocks)
 
     def step(self) -> List[Request]:
-        """Admit waiting requests, grow lanes crossing block boundaries, run
-        one shared decode step over the active lanes; returns the requests
+        """Admit waiting requests, advance chunked prefills under the token
+        budget, grow (or CoW-fork) lanes crossing block boundaries, run one
+        shared decode step over the committed lanes; returns the requests
         that finished this step."""
         finished: List[Request] = []
         self._admit(finished)
+        if self._prefilling:
+            self._run_prefill_chunks(finished)
         self._grow_lanes()
-        decoding = self.scheduler.active()
+        # lanes mid chunked prefill ride the step as masked rows: their
+        # writes hit the trash block, their logits are discarded
+        decoding = [r for r in self.scheduler.active() if r.uid not in self._prefilling]
         if not decoding:
             return finished
         tok = np.zeros((self.n_lanes, 1), np.int32)
@@ -361,6 +577,25 @@ class MultiTenantEngine:
             for req in self.step():
                 out[req.uid] = req
         return out
+
+    # -- accounting ---------------------------------------------------------
+
+    def kv_cache_bytes(self) -> int:
+        """Device bytes held by the decode KV cache (pools, block tables,
+        offsets)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.cache["pos"], *self.cache["layers"]["attn"].values()))
+
+    def blocks_in_use(self) -> int:
+        """Blocks out of the free list (held by lanes or the prefix cache)."""
+        return self.allocator.n_in_use
+
+    def release_prefix_cache(self) -> int:
+        """Drop every prefix-cache entry; returns the blocks freed (entries
+        still held by active lanes free nothing)."""
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -134,6 +134,9 @@ class LamStore:
         }
         self._install_params = None
         self._install_view = None
+        # called as on_drop(tenant, digest) when LRU pressure drops a tenant
+        # (the engine reclaims that prefix-cache family)
+        self.on_drop = None
 
     @classmethod
     def from_params(cls, params, n_slots: int = 8, **kw) -> "LamStore":
@@ -176,6 +179,11 @@ class LamStore:
         """λ content hash of a resident tenant (prefix-sharing family id)."""
         return self._digests[tenant]
 
+    def digest_refcount(self, dg: bytes) -> int:
+        """Resident tenants carrying this λ digest — 0 means the family is
+        extinct and its prefix-cache entries can never match again."""
+        return sum(d == dg for d in self._digests.values())
+
     # -- slot writes ----------------------------------------------------------
 
     def _write_slot(self, slot: int, rows: Dict[Key, np.ndarray]) -> None:
@@ -197,8 +205,10 @@ class LamStore:
             if self._pins.get(tenant, 0) or self._protect.get(tenant, 0):
                 continue
             slot = self._slots.pop(tenant)
-            self._digests.pop(tenant, None)
+            dg = self._digests.pop(tenant, None)
             self._write_slot(slot, self._zero_rows())
+            if self.on_drop is not None:
+                self.on_drop(tenant, dg)
             return slot
         return None
 

@@ -29,6 +29,8 @@ class Request:
     slot: int = -1  # adapter slot id (0 = base model)
     admit_seq: int = -1  # admission ordinal (preemption picks the youngest)
     preemptions: int = 0
+    # next prompt position a chunked prefill computes (-1: none in flight)
+    prefill_pos: int = -1
     tokens: List[int] = dataclasses.field(default_factory=list)
     logits: List[np.ndarray] = dataclasses.field(default_factory=list)
 
@@ -95,6 +97,7 @@ class ContinuousBatchScheduler:
         self.finish(req)
         req.admit_seq = -1
         req.preemptions += 1
+        req.prefill_pos = -1  # an interrupted chunked prefill restarts
         req.tokens.clear()
         req.logits.clear()
         self.queue.appendleft(req)

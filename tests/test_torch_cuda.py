@@ -315,6 +315,72 @@ def test_serving_step_launches_both_kernels(gen):
     assert counts["paged_decode_attention"] == cfg.n_layers * 3
 
 
+# qwen2-0.5b's adapted projections: K 896, wq N 896 and wv N 128 (4 column
+# tiles), rank cap 160; 4 decode lanes, a 32-row prefill chunk and the 64-
+# and 256-row monolithic buckets
+QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (4, 32, 64, 256) for N in (896, 128)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,r", QWEN_BGMV_SHAPES)
+def test_bgmv_kernel_at_qwen2_projection_shapes(gen, x_dtype, M, K, N, r):
+    x, W, B, A, lam, seg = _bgmv_operands(gen, x_dtype, M, K, N, r, n_slots=8)
+    y = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
+    again = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
+    torch.cuda.synchronize()
+    assert _close(y, qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7), "qrlora_bgmv")
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths,cols", [((0, 1, 17, 240), 16), ((240, 100, 0, 33), 24),
+                                          ((0, 0, 0, 0), 16)])
+def test_paged_kernel_at_qwen2_heads_with_a_length_0_lane(gen, dtype, lengths, cols):
+    """14 query heads over 2 kv heads: each group of 7 takes one CTA of 4
+    heads and one of 3; a lane at length 0 (an idle lane, or one mid
+    chunked prefill) writes zeros; a second call is bitwise the first."""
+    q, kp, vp, tbl, lens = _paged_operands(gen, dtype, lengths, H=14, KV=2, mb=24)
+    t, lens = tbl[:, :cols], torch.clamp(lens, max=cols * 16)
+    o = paged_decode_attention_cuda(q, kp, vp, t, lens)
+    again = paged_decode_attention_cuda(q, kp, vp, t, lens)
+    torch.cuda.synchronize()
+    assert _paged_over(o, q, kp, vp, t, lens) <= 1
+    assert torch.equal(o, again)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert (o[b] == 0).all()
+    assert paged_decode_plan(4, 14, 2, 64, 16, cols, dtype)["grid"][1] == 4  # 2 CTAs a group
+
+
+def test_qwen2_serving_posture_launches_both_kernels(gen):
+    """Reduced qwen2-0.5b (float32) under EngineConfig.serving(): a shared
+    prefix and a chunked prompt go through the BGMV and paged kernels, and
+    sharing leaves the tokens of the unshared engine."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving import EngineConfig, MultiTenantEngine, random_lambda
+
+    cfg = get_reduced("qwen2-0.5b").replace(dtype="float32")
+    rng = np.random.default_rng(0)
+    pre = rng.integers(2, 256, size=32)
+    prompts = [np.concatenate([pre, rng.integers(2, 256, size=n)]) for n in (5, 9)]
+    prompts.append(rng.integers(2, 256, size=100))
+    toks = {}
+    for share in (True, False):
+        eng = MultiTenantEngine(cfg, EngineConfig.serving(max_len=128, share_prefix=share))
+        eng.add_tenant("a", random_lambda(gen.manual_seed(1), eng.params, 0.3))
+        for p in prompts:
+            eng.submit("a", p, 4)
+        kernels.reset_launch_counts()
+        done = eng.run()
+        counts = kernels.launch_counts()
+        assert counts["qrlora_bgmv"] > 0 and counts["paged_decode_attention"] > 0
+        toks[share] = [done[u].tokens for u in sorted(done)]
+        if share:
+            assert eng.prefix_cache.hits > 0
+    assert toks[True] == toks[False]
+
+
 def _matmul_inputs(gen, M, K, N, r, x_dtype, rank=None):
     """Factor columns past the selected ``rank`` are zero, as
     ``qr_lora_init_single`` leaves them."""

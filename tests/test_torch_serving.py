@@ -139,9 +139,8 @@ def test_bucket_len_matches_jax(floor):
 # ---------------------------------------------------------------------------
 
 _LATER = {
-    "share_prefix": True, "quantum": 4, "prefill_chunk": 32, "speculate_k": 2,
-    "draft_lam_rank": 2, "telemetry": True, "cold_slots": 4, "cold_path": "/x",
-    "watermark": 1,
+    "quantum": 4, "speculate_k": 2, "draft_lam_rank": 2, "telemetry": True,
+    "cold_slots": 4, "cold_path": "/x",
 }
 
 
@@ -150,6 +149,49 @@ def test_engine_config_refuses_later_slice_fields(field):
     assert set(_LATER) == set(tconfig.LATER_SLICES)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         EngineConfig(**{field: _LATER[field]})
+
+
+@pytest.mark.parametrize("kw", [dict(share_prefix=True), dict(prefill_chunk=32),
+                                dict(watermark=1), dict(prefill_chunk=16, block_size=8)])
+def test_engine_config_accepts_the_serving_fields(kw):
+    for cls in (EngineConfig, JEngineConfig):
+        c = cls(**kw)
+        assert all(getattr(c, k) == v for k, v in kw.items())
+
+
+# the reference's validation cases for these fields (tests/test_engine_config.py:35-47)
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(layout="paged", prefill_chunk=24),  # not a block multiple
+        dict(layout="paged", prefill_chunk=8),  # below one block
+        dict(prefill_chunk=0),
+        dict(watermark=-1),
+        dict(layout="paged", speculate_k=2, prefill_chunk=16),  # verify vs chunk
+    ],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()),
+)
+def test_engine_config_rejects_incoherent_serving_fields(kw):
+    with pytest.raises(ValueError):
+        EngineConfig(**kw)
+    with pytest.raises(ValueError):
+        JEngineConfig(**kw)
+
+
+def test_serving_preset_is_the_production_posture():
+    """The port's copy of ``tests/test_engine_config.py:88``, field for
+    field against the reference's preset."""
+    cfg = EngineConfig.serving()
+    assert cfg.layout == "paged" and cfg.share_prefix and cfg.watermark == 1
+    assert cfg.prefill_chunk == 2 * cfg.block_size
+    # the chunk budget tracks a block_size override unless pinned explicitly
+    assert EngineConfig.serving(block_size=8).prefill_chunk == 16
+    assert EngineConfig.serving(prefill_chunk=64).prefill_chunk == 64
+    for kw in ({}, dict(block_size=8), dict(prefill_chunk=64, n_lanes=2)):
+        mine, ref = EngineConfig.serving(**kw), JEngineConfig.serving(**kw)
+        for f in ("layout", "share_prefix", "watermark", "prefill_chunk", "block_size",
+                  "n_lanes", "max_len"):
+            assert getattr(mine, f) == getattr(ref, f), (kw, f)
 
 
 @pytest.mark.parametrize("field", ["shard_lam", "shard_ba"])
