@@ -2389,7 +2389,8 @@ QWEN_LONG = (160, 220)  # tenants 2 and 3: prompts that stream in chunks
 # 256-row bucket), where cuBLAS picks another kernel and sums in another
 # order, so the two are not bitwise (3 and 5 of 8 streams were, float32 and
 # bf16, on an H100 at --seed 0).  float32: identical tokens and |Δlogits|
-# within the CPU parity bound 1e-4 (read 4.1e-6; the planted fault ≥ 3.3).
+# within 2e-5, about 5 times the sound reading (4.05e-6 on an H100 at --seed
+# 0) and far below the planted faults (0.42, 3.3 and more).
 # bfloat16: BF16_DRIFT, the bar a bf16 serve is held to against a path that
 # rounds at other places, as a fraction of each row's largest |logit| up to
 # a parting, which may only fall where the monolithic stream's own lead is
@@ -2397,14 +2398,19 @@ QWEN_LONG = (160, 220)  # tenants 2 and 3: prompts that stream in chunks
 # fault 24).  Prefix sharing itself is held bitwise: between serves whose
 # requests take the same prefill path (a cached prefix sends a short prompt
 # down the chunked path, so under the posture a hit may not).
-QWEN_CHUNK_FP32_TOL = 1e-4
+QWEN_CHUNK_FP32_TOL = 2e-5
 QWEN_CHUNK_BF16_DRIFT = BF16_DRIFT
 # #1 at qwen2-0.5b's wq (N 896) and wv (N 128), K 896, rank cap 160: 4 decode
-# lanes and a 32-row prefill chunk
-QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (4, 32) for N in (896, 128)]
+# lanes, a 32-row prefill chunk, the 64-row bucket of a short prompt that
+# misses the prefix cache, and the 128- and 256-row buckets of the
+# monolithic serves
+QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (4, 32, 64, 128, 256) for N in (896, 128)]
 # #2 at 14 heads over 2 (7 query heads a group), dh 64: (lengths, columns of
-# a 24-column table); length-0 lanes, the 16-column attend bound of the serve
-QWEN_PAGED_CASES = (((0, 1, 17, 240), 16), ((240, 100, 0, 33), 24), ((0, 0, 16, 15), 16))
+# a 24-column table); length-0 lanes, the serve's attend bounds of 8 columns
+# (short lanes only; a cluster of 2) and 16 (a long lane decoding; 4), a
+# 4-column bound (one CTA a group pair, no cluster) and the whole table
+QWEN_PAGED_CASES = (((0, 1, 17, 240), 16), ((240, 100, 0, 33), 24), ((0, 0, 16, 15), 16),
+                    ((0, 57, 80, 128), 8), ((72, 0, 96, 65), 8), ((64, 0, 3, 49), 4))
 
 
 def check_qwen_kernels(gen, details):
@@ -2502,59 +2508,42 @@ def qwen_engine(dtype: str, seed: int, params=None, **overrides):
 
 
 def qwen_serve(engine, traffic, fork_tail: bool = False) -> dict:
-    """Serve ``traffic`` (16 tokens a request) to the end, counting chunked
-    admissions and chunk dispatches.  With ``fork_tail``, once the first
+    """Serve ``traffic`` (16 tokens a request) to the end.  With ``fork_tail``, once the first
     request decodes, take a reference on its private tail block as another
     owner would, so that its next write must fork a copy; after the run
     ``tail_kept`` says whether that block still holds what it held then.
     Returns the readings (``done``: uid → request)."""
     import torch
 
-    counts = {"chunked_admissions": 0, "chunk_dispatches": 0}
-    chunked = set()  # (tenant, prompt bytes) of the chunked admissions
-    begin, prefill = engine._begin_chunked_prefill, engine.model.prefill
-
-    def counted_begin(req, *a, **kw):
-        counts["chunked_admissions"] += 1
-        chunked.add((req.tenant, req.prompt.tobytes()))
-        return begin(req, *a, **kw)
-
-    def counted_prefill(*a, **kw):
-        counts["chunk_dispatches"] += kw.get("start") is not None
-        return prefill(*a, **kw)
-
     pc, al = engine.prefix_cache, engine.allocator
     hits0, misses0 = (pc.hits, pc.misses) if pc is not None else (0, 0)
-    forks0, pre0, steps0, toks0 = (engine.cow_forks, engine.preemptions, engine.steps,
-                                   engine.decoded_tokens)
-    engine._begin_chunked_prefill, engine.model.prefill = counted_begin, counted_prefill
+    counters = ("cow_forks", "preemptions", "chunked_admissions", "chunk_dispatches", "steps",
+                "decoded_tokens")
+    before0 = {name: getattr(engine, name) for name in counters}
     done, tail, kept = {}, None, None
-    try:
-        reqs = [engine.submit(t, p, QWEN_GEN) for t, p in traffic]
-        t0 = time.perf_counter()
-        while engine.scheduler.has_work:
-            for r in engine.step():
-                done[r.uid] = r
-            if fork_tail and tail is None and reqs[0].tokens:
-                tail = engine._lane_blocks[reqs[0].lane][-1]
-                al.incref(tail)
-                a = engine.cache["layers"]["attn"]
-                before = (a["k"][:, tail].clone(), a["v"][:, tail].clone())
-        torch.cuda.synchronize()
-        serve_s = time.perf_counter() - t0
-    finally:
-        del engine._begin_chunked_prefill, engine.model.prefill
+    reqs = [engine.submit(t, p, QWEN_GEN) for t, p in traffic]
+    t0 = time.perf_counter()
+    while engine.scheduler.has_work:
+        for r in engine.step():
+            done[r.uid] = r
+        if fork_tail and tail is None and reqs[0].tokens:
+            tail = engine._lane_blocks[reqs[0].lane][-1]
+            al.incref(tail)
+            a = engine.cache["layers"]["attn"]
+            before = (a["k"][:, tail].clone(), a["v"][:, tail].clone())
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
     if tail is not None:
         a = engine.cache["layers"]["attn"]
         kept = torch.equal(before[0], a["k"][:, tail]) and torch.equal(before[1], a["v"][:, tail])
         al.decref(tail)
-    hits = (pc.hits - hits0) if pc is not None else 0
-    tokens = engine.decoded_tokens - toks0
-    return {"done": done, "chunked": chunked, "serve_s": serve_s, "tokens": tokens, "tok_per_s": tokens / serve_s,
-            "steps": engine.steps - steps0, "prefix_hits": hits, "blocks_saved": hits,
+    counts = {name: getattr(engine, name) - before0[name] for name in counters}
+    tokens = counts.pop("decoded_tokens")
+    return {"done": done, "serve_s": serve_s, "tokens": tokens, "tok_per_s": tokens / serve_s,
+            "prefix_hits": (pc.hits - hits0) if pc is not None else 0,
             "prefix_misses": (pc.misses - misses0) if pc is not None else 0,
-            "cow_forks": engine.cow_forks - forks0, "preemptions": engine.preemptions - pre0,
-            "pool_peak": al.peak_in_use, "pool_capacity": al.capacity, "tail_kept": kept,
+            "pool_peak": al.peak_in_use, "pool_capacity": al.capacity,
+            "kv_cache_bytes": engine.kv_cache_bytes(), "tail_kept": kept,
             "all_served": len(done) == len(traffic) and all(
                 len(r.tokens) == QWEN_GEN for r in done.values()), **counts}
 
@@ -2585,7 +2574,7 @@ def compare_streams(run, ref_run, drift=None):
         upto = len(req.tokens) if t is None else t + 1
         d = np.abs(a[:upto] - b[:upto]).max(axis=1)
         row = {"tenant": req.tenant, "prompt_len": int(req.prompt.size),
-               "same_path": (key in run["chunked"]) == (key in ref_run["chunked"]),
+               "same_path": (req.prefill_chunks > 0) == (other.prefill_chunks > 0),
                "bitwise": bool(a.shape == b.shape and np.array_equal(a, b)), "parted_at": t,
                "max_abs_dlogits": float(d.max())}
         if drift is not None:
@@ -2662,7 +2651,7 @@ def profile_qwen(engine, traffic) -> dict:
         t0 = time.perf_counter()
         run = qwen_serve(engine, traffic)
         wall_us = (time.perf_counter() - t0) * 1e6
-    del run["done"], run["chunked"]
+    del run["done"]
     return {**_device_busy(prof, wall_us), "serve": run}
 
 
@@ -2711,7 +2700,7 @@ def serving_posture_phase(seed: int) -> dict:
         if dtype == "bfloat16":
             res["profile"] = profile_qwen(engine, traffic)
         for run in runs.values():
-            del run["done"], run["chunked"]
+            del run["done"]
         res["runs"] = runs
         out[dtype] = res
         del engine, params
@@ -2727,7 +2716,7 @@ def print_serving_posture(out: dict, smi: str) -> None:
                   f"{run['prefix_hits']} (blocks saved), misses {run['prefix_misses']}, CoW forks "
                   f"{run['cow_forks']}, chunked admissions {run['chunked_admissions']}, chunk "
                   f"dispatches {run['chunk_dispatches']}, preemptions {run['preemptions']}, pool "
-                  f"peak {run['pool_peak']}/{run['pool_capacity']}"
+                  f"peak {run['pool_peak']}/{run['pool_capacity']}, KV cache {run['kv_cache_bytes']} B"
                   + (f"; init {run['init_s']:.1f} s; launches {run['launches']}; forced tail "
                      f"block kept {run['tail_kept']}" if "launches" in run else "") + f" on {smi}")
         for name in ("shared_vs_unshared", "shared_vs_unshared_monolithic",

@@ -209,7 +209,9 @@ def serve(args, device):
     _say(f"{engine.decoded_tokens} tokens in {dt * 1e3:.1f} ms "
          f"({engine.decoded_tokens / dt:.0f} tok/s) over {engine.steps} shared decode "
          f"steps, pool peak={engine.allocator.peak_in_use}/{engine.allocator.capacity} "
-         f"blocks, preemptions={engine.preemptions}, cow_forks={engine.cow_forks}")
+         f"blocks, preemptions={engine.preemptions}, cow_forks={engine.cow_forks}, "
+         f"chunked admissions={engine.chunked_admissions} in "
+         f"{engine.chunk_dispatches} chunks, KV cache {engine.kv_cache_bytes()} bytes")
     if engine.prefix_cache is not None:
         pc = engine.prefix_cache
         _say(f"prefix hits={pc.hits} misses={pc.misses} cached={pc.cached_blocks} blocks")

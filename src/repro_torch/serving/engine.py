@@ -168,6 +168,8 @@ class MultiTenantEngine:
         self._admit_seq = 0
         self.preemptions = 0
         self.cow_forks = 0
+        self.chunked_admissions = 0
+        self.chunk_dispatches = 0
         self.steps = 0
         self.decoded_tokens = 0
         self.prefill_buckets: set = set()  # padded prompt lengths prefilled
@@ -453,6 +455,7 @@ class MultiTenantEngine:
         trash block and its outputs are discarded."""
         P, bs, C = req.prompt.size, self.block_size, self.prefill_chunk
         n_cached = self._adopt_blocks(req)
+        self.chunked_admissions += 1
         blocks = self._lane_blocks[req.lane]
         Pb = len(padded)
         # chunk starts may overhang the bucket (the cached-prefix skip is
@@ -497,6 +500,8 @@ class MultiTenantEngine:
                         self._params_view(), pview, toks, seg_ids=st["seg"],
                         length=st["length"], start=start)
                 st["next"] += 1
+                req.prefill_chunks += 1
+                self.chunk_dispatches += 1
                 req.prefill_pos = -1 if last else st["starts"][st["next"]]
                 if last:
                     self.model.commit_paged_prefill(self.cache, filled, req.lane,

@@ -31,6 +31,7 @@ class Request:
     preemptions: int = 0
     # next prompt position a chunked prefill computes (-1: none in flight)
     prefill_pos: int = -1
+    prefill_chunks: int = 0  # prompt chunks dispatched (0: one monolithic pass)
     tokens: List[int] = dataclasses.field(default_factory=list)
     logits: List[np.ndarray] = dataclasses.field(default_factory=list)
 

@@ -334,7 +334,8 @@ def test_bgmv_kernel_at_qwen2_projection_shapes(gen, x_dtype, M, K, N, r):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("lengths,cols", [((0, 1, 17, 240), 16), ((240, 100, 0, 33), 24),
-                                          ((0, 0, 0, 0), 16)])
+                                          ((0, 0, 0, 0), 16), ((0, 57, 80, 128), 8),
+                                          ((64, 0, 3, 49), 4)])
 def test_paged_kernel_at_qwen2_heads_with_a_length_0_lane(gen, dtype, lengths, cols):
     """14 query heads over 2 kv heads: each group of 7 takes one CTA of 4
     heads and one of 3; a lane at length 0 (an idle lane, or one mid

@@ -504,6 +504,9 @@ def test_serving_preset_matches_jax_engine(arch, n_blocks):
     assert teng.blocks_in_use() == jeng.blocks_in_use()
     assert teng.prefill_buckets == jeng.prefill_buckets
     assert sum(c is not None for c in calls) >= 2, "the chunked path did not run"
+    assert teng.chunk_dispatches == sum(c is not None for c in calls)
+    assert teng.chunk_dispatches == sum(r.prefill_chunks for r in tdone.values())
+    assert teng.kv_cache_bytes() == jeng.kv_cache_bytes()
 
 
 def test_serve_multi_driver_verifies_the_serving_flags_on_qwen():
