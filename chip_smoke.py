@@ -36,6 +36,17 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   same traffic unshared and monolithic, float32 against the merged-weight
   reference, three planted faults (a family key without the λ digest,
   chunks that attend only to themselves, no CoW fork);
+* the request API and telemetry on the posture's weights and traffic:
+  ``stream()`` against ``run()`` (float32, bitwise) and exactly once under
+  block-pressure preemption; ``step_finish(step_begin())`` against
+  ``step()`` with the decode dispatch under sync debug mode "error";
+  telemetry on against off (tokens, float32 logits, launches, CUDA calls;
+  bf16 tokens/s, medians of three alternating serves); ``cancel``
+  of a queued and an active request; a prefill and a prefix shipped
+  between two engines on the card; three planted faults (no exactly-once
+  guard, a cancel that keeps the lane's blocks, an import written from the
+  payload's first block); the step-phase breakdown and TTFT/TBT chunked
+  against monolithic (bf16);
 * training: 30 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
   held against the same run with the plain version in place of the kernel;
@@ -1447,13 +1458,15 @@ PORT_KERNELS = ("bgmv_cluster_kernel", "paged_decode_kernel", "tc_kernel", "fp32
                 "decode_combine_kernel")
 
 
-def _device_busy(prof, wall_us: float):
+def _device_busy(prof, wall_us: float, api_calls: bool = False):
     """Union of the device-kernel intervals of a torch.profiler run: busy
     time, idle share of ``wall_us``, kernel count, the top kernels by device
     time, the device time and share of busy of each of the port's own
     kernels (:data:`PORT_KERNELS`), and the top host
     operations by self time (ms, calls): where a host-bound run spends its
-    host."""
+    host.  With ``api_calls``, also the count of every CUDA API call
+    (``cuda*`` and ``cu*``: launches, copies, syncs): the device work the
+    run asked for, exactly (the device records themselves can drop a few)."""
     from torch.autograd import DeviceType
 
     spans, by_name, host = [], {}, {}
@@ -1477,11 +1490,15 @@ def _device_busy(prof, wall_us: float):
         if short.split("<")[0] in PORT_KERNELS:
             port[short] = (t / 1e3, t / busy)
     top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "device_idle_share": 1 - busy / wall_us, "kernels": len(spans),
-            "top_kernels_ms": [(n, t / 1e3) for n, t in top],
-            "port_kernels_ms": port,
-            "top_host_ops_ms": [(n, t / 1e3, c) for n, (t, c) in top_host]}
+    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": 1 - busy / wall_us, "kernels": len(spans),
+           "top_kernels_ms": [(n, t / 1e3) for n, t in top],
+           "port_kernels_ms": port,
+           "top_host_ops_ms": [(n, t / 1e3, c) for n, (t, c) in top_host]}
+    if api_calls:
+        out["cuda_api_calls"] = {n: c for n, (_, c) in sorted(host.items())
+                                 if n.startswith("cu")}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2655,14 +2672,15 @@ def profile_qwen(engine, traffic) -> dict:
     return {**_device_busy(prof, wall_us), "serve": run}
 
 
-def serving_posture_phase(seed: int) -> dict:
+def serving_posture_phase(seed: int, keep: dict = None) -> dict:
     """qwen2-0.5b at full width (24 layers, d 896, 14 heads over 2, QKV
     bias, vocab 151936) under ``EngineConfig.serving()``, in float32 and
     bfloat16: the posture's serve (launches counted, one CoW fork forced),
     the same traffic unshared, monolithic, and both; float32 against the
     merged-weight reference; the planted faults; bf16 profiled.  Returns
     every reading (without the request objects); check_serving_posture
-    holds them to the bars."""
+    holds them to the bars.  With ``keep``, each dtype's weights go into it
+    (``keep[dtype]``) for the request-API phase."""
     import torch
     from repro_torch import kernels
 
@@ -2703,6 +2721,8 @@ def serving_posture_phase(seed: int) -> dict:
             del run["done"]
         res["runs"] = runs
         out[dtype] = res
+        if keep is not None:
+            keep[dtype] = params
         del engine, params
         torch.cuda.empty_cache()
     return out
@@ -2765,6 +2785,456 @@ def check_serving_posture(out: dict) -> None:
                    f"{QWEN} {dtype} serve diverged from the merged-weight reference")
         for name, f in res["faults"].items():
             _check(f["rejected"], f"{QWEN} {dtype}: the check let the planted fault {name} through")
+
+
+# ---------------------------------------------------------------------------
+# the request API and telemetry at full width: qwen2-0.5b under the posture
+# ---------------------------------------------------------------------------
+
+# the block-pressure serve: two lanes, a pool of 5 blocks, two 16-token
+# prompts that each grow to 3 blocks (48 positions), so the younger lane is
+# preempted when both cross position 32
+API_PRESSURE = {"n_lanes": 2, "n_blocks": 1 + 5}
+API_PRESSURE_GEN = 32
+# an injected prefill against the same request served whole: the same
+# monolithic prefill and decode kernels, so a float32 difference above this
+# means the shipped K/V or the adopted lane is wrong
+API_INJECT_TOL = 1e-5
+API_ROUNDS = 3  # alternating bf16 serves: telemetry on, off, and monolithic
+
+
+def stream_serve(engine, traffic, gen: int = QWEN_GEN, drive: str = "stream") -> dict:
+    """Submit ``traffic`` (``gen`` tokens a request) and drain it: through
+    ``stream()`` (each event's host time recorded), ``run()``, or
+    ``step_finish(step_begin())`` (``drive``).  Returns the requests,
+    events, their times and the port's kernel launches of the serve."""
+    import torch
+    from repro_torch import kernels
+
+    reqs = [engine.submit(t, p, gen) for t, p in traffic]
+    events, times = [], []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if drive == "stream":
+        for ev in engine.stream():
+            events.append(ev)
+            times.append(time.perf_counter())
+    elif drive == "run":
+        engine.run()
+    else:
+        while engine.scheduler.has_work:
+            engine.step_finish(engine.step_begin())
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    tokens = sum(len(r.tokens) for r in reqs)
+    return {"reqs": reqs, "events": events, "times": times, "t0": t0, "serve_s": serve_s,
+            "tok_per_s": tokens / serve_s, "launches": kernels.launch_counts()}
+
+
+def delivered_once(run) -> dict:
+    """Whether ``run``'s events deliver each request's tokens exactly once,
+    in order (indexes 0, 1, … with the request's own tokens)."""
+    per, dup = {}, 0
+    for ev in run["events"]:
+        got = per.setdefault(ev.uid, [])
+        if ev.index != len(got):
+            dup += 1
+            continue
+        got.append(ev.token)
+    ok = dup == 0 and all(per.get(r.uid) == r.tokens and r.delivered == len(r.tokens)
+                          for r in run["reqs"])
+    return {"ok": ok, "events": len(run["events"]), "out_of_order_or_repeated": dup,
+            "tokens": sum(len(r.tokens) for r in run["reqs"]),
+            "preemptions": sum(r.preemptions for r in run["reqs"])}
+
+
+def same_streams(reqs, ref_reqs, tol: float) -> dict:
+    """Each request of ``reqs`` against the request of the same tenant and
+    prompt in ``ref_reqs``: tokens equal and float32 |Δlogits| within
+    ``tol``; how many are bitwise."""
+    import numpy as np
+
+    ref = {(r.tenant, r.prompt.tobytes()): r for r in ref_reqs}
+    worst, bitwise, ok = 0.0, 0, True
+    for r in reqs:
+        o = ref[(r.tenant, r.prompt.tobytes())]
+        a, b = np.stack(r.logits), np.stack(o.logits)
+        same = r.tokens == o.tokens and a.shape == b.shape
+        ok &= same
+        if same:
+            worst = max(worst, float(np.abs(a - b).max()))
+            bitwise += bool(np.array_equal(a, b))
+    return {"ok": ok and worst <= tol, "requests": len(reqs), "bitwise": bitwise,
+            "max_abs_dlogits": worst, "tol": tol}
+
+
+def latency_readings(runs) -> dict:
+    """TTFT (submit → first event) and TBT (gap between a request's
+    events), ms on the host clock, pooled over ``runs``: count, mean, p50,
+    p99."""
+    import numpy as np
+
+    ttft, tbt = [], []
+    for run in runs:
+        last = {}
+        for ev, t in zip(run["events"], run["times"]):
+            if ev.uid in last:
+                tbt.append((t - last[ev.uid]) * 1e3)
+            else:
+                ttft.append((t - run["t0"]) * 1e3)
+            last[ev.uid] = t
+
+    def summary(xs):
+        xs = np.asarray(xs)
+        return {"count": int(xs.size), "mean": float(xs.mean()),
+                "p50": float(np.percentile(xs, 50)), "p99": float(np.percentile(xs, 99))}
+
+    return {"ttft_ms": summary(ttft), "tbt_ms": summary(tbt)}
+
+
+def histogram_readings(snap, name: str) -> dict:
+    """Each series of the histogram ``name`` of a metrics snapshot: count,
+    sum (ms), mean and the p50/p99 bucket bounds."""
+    out = {}
+    for series in snap[name]["series"]:
+        label = ",".join(f"{v}" for v in series["labels"].values()) or name
+        n, total = series["count"], series["sum"]
+        bound = lambda q: next((float(le) if le != "+Inf" else float("inf")
+                                for le, cum in series["buckets"] if cum >= q * n), 0.0)
+        out[label] = {"count": n, "sum_ms": total, "mean_ms": total / n if n else 0.0,
+                      "p50_le_ms": bound(0.5), "p99_le_ms": bound(0.99)}
+    return out
+
+
+def sync_checked(fn):
+    """``fn`` run under ``torch.cuda.set_sync_debug_mode("error")``: any
+    call in it that would make the host wait for the card raises.  Counts
+    its calls in ``.calls``."""
+    import torch
+
+    def wrapped(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            wrapped.calls += 1
+
+    wrapped.calls = 0
+    return wrapped
+
+
+def sync_mode_catches_a_sync() -> bool:
+    """Control: a planted host read of a device value under the mode raises."""
+    import torch
+
+    x = torch.ones(1, device="cuda")
+    try:
+        sync_checked(lambda: x.item())()
+    except RuntimeError:
+        return True
+    return False
+
+
+def blocks_held(engine) -> int:
+    """Distinct blocks the active lanes and the prefix cache hold."""
+    held = {b for blocks in engine._lane_blocks.values() for b in blocks}
+    if engine.prefix_cache is not None:
+        held |= set(engine.prefix_cache._entries.values())
+    return len(held)
+
+
+def cancel_serve(engine, traffic, faulty: bool = False) -> dict:
+    """The posture's traffic; once the first request has decoded two tokens
+    while requests still queue, cancel it (active, mid-decode) and the last
+    queued request, then run the rest.  ``faulty`` plants a cancel that
+    leaves the lane's blocks referenced."""
+    reqs = [engine.submit(t, p, QWEN_GEN) for t, p in traffic]
+    while engine.scheduler.has_work and not (len(reqs[0].tokens) >= 2 and engine.scheduler.queue):
+        engine.step()
+    _check(reqs[0].lane >= 0 and engine.scheduler.queue,
+           f"{QWEN} cancel: the first request finished before requests stopped queueing")
+    active, queued = reqs[0], engine.scheduler.queue[-1]
+    if faulty:
+        for b in engine._lane_blocks[active.lane]:
+            engine.allocator.incref(b)
+    engine.cancel(active)
+    engine.cancel(queued)
+    out = {"cancelled_tokens": len(active.tokens), "blocks_in_use": engine.blocks_in_use(),
+           "blocks_held": blocks_held(engine), "queue": len(engine.scheduler.queue)}
+    out["ok_after_cancel"] = out["blocks_in_use"] == out["blocks_held"]
+    if faulty:
+        return out
+    engine.run()
+    out["rest"] = [r for r in reqs if r is not active and r is not queued]
+    out["end_blocks_in_use"] = engine.blocks_in_use()
+    out["end_cached"] = engine.prefix_cache.cached_blocks
+    out["released"] = engine.release_prefix_cache()
+    out["ok_at_end"] = (out["end_blocks_in_use"] == out["end_cached"] == out["released"]
+                        and engine.blocks_in_use() == 0)
+    return out
+
+
+def handoff_phase(seed: int, params, traffic, whole, faulty: bool = False) -> dict:
+    """Two engines on the one card (float32).  Request: engine A admits
+    traffic[0] (one step: its monolithic prefill and first token), exports
+    its state and cancels it; engine B injects it and serves it to the end,
+    against the same request served whole (``whole``).  Prefix: A serves
+    traffic[4] (tenant 1: no entry of its family in B's cache yet); B serves
+    a prompt sharing its first block (same tenant and bucket), imports A's
+    export of traffic[4]'s prefix (the two blocks past the local match) and
+    serves traffic[4], a prefix hit, against A's serve at the chunked bar.  ``faulty`` plants an import that writes the
+    shipped blocks from the payload's first block."""
+    import numpy as np
+
+    _, a, _ = qwen_engine("float32", seed, params=params)
+    _, b, _ = qwen_engine("float32", seed, params=params)
+    if faulty:
+        write = b._write_imported_blocks
+        b._write_imported_blocks = lambda ids, payload, skip: write(ids, payload, skip=0)
+    out = {}
+    if not faulty:
+        tenant, p0 = traffic[0]
+        r = a.submit(tenant, p0, QWEN_GEN)
+        a.step()
+        state = a.export_request_state(r)
+        a.cancel(r)
+        out["a_blocks_after_cancel"] = a.blocks_in_use()
+        inj = b.inject_prefilled(tenant, p0, QWEN_GEN, state)
+        b.run()
+        out["inject"] = same_streams([inj], whole, API_INJECT_TOL)
+        # no prompt forward ran on B: no bucket prefilled, no chunk
+        out["inject"]["prefilled_on_b"] = len(b.prefill_buckets) + inj.prefill_chunks
+        out["payload_bytes"] = int(state["k"].nbytes + state["v"].nbytes)
+    tenant, p = traffic[4]
+    rng = np.random.default_rng(seed + 4000)
+    q = np.concatenate([p[:16], rng.integers(2, a.cfg.vocab_size, size=32).astype(np.int32),
+                        p[48:]])
+    ra = a.submit(tenant, p, QWEN_GEN)
+    a.run()
+    rq = b.submit(tenant, q, 2)
+    b.run()
+    payload = a.export_prefix(tenant, p)
+    local = len(b.prefix_cache.match(b._family_key(tenant, p.size), p))
+    hits0 = b.prefix_cache.hits
+    out["imported"] = b.import_prefix(tenant, p, payload)
+    out["local_match"] = local
+    out["shipped_blocks"] = payload["n_blocks"]
+    rb = b.submit(tenant, p, QWEN_GEN)
+    b.run()
+    out["b_prefix_hits"] = b.prefix_cache.hits - hits0
+    out["b_chunked"] = rb.prefill_chunks > 0
+    out["prefix"] = same_streams([rb], [ra], QWEN_CHUNK_FP32_TOL)
+    out["q_tokens"] = len(rq.tokens)
+    return out
+
+
+def request_api_phase(seed: int, params: dict) -> dict:
+    """qwen2-0.5b at full width under ``EngineConfig.serving(n_lanes=4,
+    n_slots=8, max_len=384)`` on the posture phase's weights and traffic:
+    stream against run, exactly once under block-pressure preemption,
+    telemetry on against off, the split step under sync debug mode
+    "error", cancel, the handoff between two engines, the planted faults,
+    and the step-phase, TTFT/TBT and telemetry-cost readings (bf16).
+    Returns every reading; check_request_api holds them to the bars."""
+    import numpy as np
+    import torch
+
+    p32 = params["float32"]
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        out["seconds"][name] = now - t0
+        t0 = now
+
+    # -- float32: run, stream, split step, telemetry off ----------------------
+    cfg, eng, _ = qwen_engine("float32", seed, params=p32)
+    traffic = qwen_traffic(seed, cfg.vocab_size)
+    run = stream_serve(eng, traffic, drive="run")
+    _, eng, _ = qwen_engine("float32", seed, params=p32)
+    st = stream_serve(eng, traffic)
+    out["stream_vs_run"] = {**same_streams(st["reqs"], run["reqs"], 0.0),
+                            **{"delivered_once": delivered_once(st)}}
+    _, eng, _ = qwen_engine("float32", seed, params=p32)
+    eng._dispatch_decode = sync_checked(eng._dispatch_decode)
+    eng._grow_lanes = sync_checked(eng._grow_lanes)
+    split = stream_serve(eng, traffic, drive="split")
+    out["split_vs_step"] = {**same_streams(split["reqs"], run["reqs"], 0.0),
+                            "dispatches_sync_checked": eng._dispatch_decode.calls,
+                            "grows_sync_checked": eng._grow_lanes.calls,
+                            "planted_sync_caught": sync_mode_catches_a_sync()}
+    _, eng, _ = qwen_engine("float32", seed, params=p32, telemetry=False)
+    off = stream_serve(eng, traffic, drive="run")
+    out["telemetry_off_vs_on_fp32"] = {**same_streams(off["reqs"], run["reqs"], 0.0),
+                                       "launches_on": run["launches"],
+                                       "launches_off": off["launches"]}
+
+    lap("fp32_streams")
+    # -- block pressure: exactly once under preemption -------------------------
+    rng = np.random.default_rng(seed + 5000)
+    pressure = [(f"tenant{i}", rng.integers(2, cfg.vocab_size, size=16).astype(np.int32))
+                for i in range(2)]
+    runs = {}
+    for name, kw in (("pressure", API_PRESSURE), ("roomy", {"n_lanes": 2}),
+                     ("pressure_no_guard", API_PRESSURE)):
+        _, eng, _ = qwen_engine("float32", seed, params=p32, **kw)
+        if name == "pressure_no_guard":  # planted: the delivered guard gone
+            emit = eng._emit
+            eng._emit = lambda req, row, fin: (setattr(req, "delivered", 0), emit(req, row, fin))
+        runs[name] = stream_serve(eng, pressure, gen=API_PRESSURE_GEN)
+    out["pressure"] = {**delivered_once(runs["pressure"]),
+                       "vs_roomy": same_streams(runs["pressure"]["reqs"],
+                                                runs["roomy"]["reqs"], QWEN_CHUNK_FP32_TOL)}
+    fault = delivered_once(runs["pressure_no_guard"])
+    out["fault_no_delivered_guard"] = {**fault, "rejected": not fault["ok"]}
+
+    lap("pressure")
+    # -- cancel ----------------------------------------------------------------
+    _, eng, _ = qwen_engine("float32", seed, params=p32)
+    c = cancel_serve(eng, traffic)
+    rest = c.pop("rest")
+    c["rest_vs_run"] = same_streams(rest, run["reqs"], QWEN_CHUNK_FP32_TOL)
+    out["cancel"] = c
+    _, eng, _ = qwen_engine("float32", seed, params=p32)
+    fault = cancel_serve(eng, traffic, faulty=True)
+    out["fault_cancel_keeps_blocks"] = {**fault, "rejected": not fault["ok_after_cancel"]}
+
+    lap("cancel")
+    # -- the handoff between two engines ---------------------------------------
+    out["handoff"] = handoff_phase(seed, p32, traffic, run["reqs"])
+    fault = handoff_phase(seed, p32, traffic, run["reqs"], faulty=True)
+    out["fault_import_from_skip_0"] = {**fault, "rejected": not fault["prefix"]["ok"]}
+    del eng, run, st, split, off, runs
+    torch.cuda.empty_cache()
+
+    lap("handoff")
+    # -- bf16: telemetry on, off and monolithic in alternating rounds ----------
+    p16 = params["bfloat16"]
+    engines = {"on": qwen_engine("bfloat16", seed, params=p16)[1],
+               "off": qwen_engine("bfloat16", seed, params=p16, telemetry=False)[1],
+               "monolithic": qwen_engine("bfloat16", seed, params=p16, prefill_chunk=None)[1]}
+    rounds = {name: [] for name in engines}
+    for _ in range(API_ROUNDS):
+        for name, eng in engines.items():
+            eng.release_prefix_cache()
+            rounds[name].append(stream_serve(eng, traffic))
+    toks = {name: [[r.tokens for r in run["reqs"]] for run in rs] for name, rs in rounds.items()}
+    out["telemetry_bf16"] = {
+        "tokens_identical": all(t == toks["on"][0] for t in toks["on"] + toks["off"]),
+        "launches_identical": all(run["launches"] == rounds["on"][0]["launches"]
+                                  for run in rounds["on"] + rounds["off"]),
+        "launches": rounds["on"][0]["launches"],
+        "tok_per_s": {name: [run["tok_per_s"] for run in rs] for name, rs in rounds.items()},
+        "median_tok_per_s": {name: statistics.median(run["tok_per_s"] for run in rs)
+                             for name, rs in rounds.items()},
+    }
+    snap = engines["on"].metrics()
+    out["phases_bf16"] = histogram_readings(snap, "serve_step_phase_ms")
+    out["latency_bf16"] = {
+        "chunked": latency_readings(rounds["on"]),
+        "monolithic": latency_readings(rounds["monolithic"]),
+        "chunked_histograms": {n: histogram_readings(snap, n)[n]
+                               for n in ("serve_ttft_ms", "serve_tbt_ms")},
+        "monolithic_histograms": {n: histogram_readings(engines["monolithic"].metrics(), n)[n]
+                                  for n in ("serve_ttft_ms", "serve_tbt_ms")},
+        "steps": {name: eng.steps // API_ROUNDS for name, eng in engines.items()},
+    }
+    # one more serve of each, telemetry on and off, under torch.profiler: the
+    # same CUDA calls.  The CUDA activity alone records the kernels and the
+    # CUDA API calls; the host's own operators (most of the events, slow to
+    # parse) are left out
+    prof = {}
+    for name in ("on", "off"):
+        eng = engines[name]
+        eng.release_prefix_cache()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            stream_serve(eng, traffic)
+            wall_us = (time.perf_counter() - t0) * 1e6
+        prof[name] = _device_busy(p, wall_us, api_calls=True)
+    out["profile_bf16"] = prof
+    lap("bf16")
+    del engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_request_api(out: dict, smi: str) -> None:
+    for name in ("stream_vs_run", "split_vs_step", "telemetry_off_vs_on_fp32", "pressure",
+                 "fault_no_delivered_guard", "cancel", "fault_cancel_keeps_blocks", "handoff",
+                 "fault_import_from_skip_0", "telemetry_bf16", "seconds"):
+        print(f"  {QWEN} request API {name}: {out[name]}")
+    for phase, r in out["phases_bf16"].items():
+        print(f"  {QWEN} bf16 step phase {phase}: {r['count']} steps, {r['sum_ms']:.1f} ms in all, "
+              f"mean {r['mean_ms']:.3f} ms, p50 ≤ {r['p50_le_ms']} ms, p99 ≤ {r['p99_le_ms']} ms "
+              f"(host clock, over {API_ROUNDS} serves) on {smi}")
+    lat = out["latency_bf16"]
+    for path in ("chunked", "monolithic"):
+        for name in ("ttft_ms", "tbt_ms"):
+            r = lat[path][name]
+            print(f"  {QWEN} bf16 {path} {name}: {r['count']} readings, mean {r['mean']:.2f}, "
+                  f"p50 {r['p50']:.2f}, p99 {r['p99']:.2f} (stream event times, host clock, "
+                  f"{API_ROUNDS} serves); histogram {lat[path + '_histograms']['serve_' + name]} "
+                  f"on {smi}")
+    print(f"  {QWEN} bf16 decode steps a serve: {lat['steps']}")
+    t = out["telemetry_bf16"]["median_tok_per_s"]
+    print(f"  {QWEN} bf16 tokens/s, median of {API_ROUNDS} alternating serves: telemetry on "
+          f"{t['on']:.2f}, off {t['off']:.2f} ({t['on'] / t['off']:.4f}×), monolithic "
+          f"{t['monolithic']:.2f} on {smi}")
+    for name, p in out["profile_bf16"].items():
+        print(f"  {QWEN} bf16 profiled serve, telemetry {name}: {p}")
+    pr = out["profile_bf16"]
+    print(f"  {QWEN} bf16 telemetry on against off: CUDA calls identical "
+          f"{pr['on']['cuda_api_calls'] == pr['off']['cuda_api_calls']}; device records "
+          f"{pr['on']['kernels']} against {pr['off']['kernels']} (the profiler may drop a few)")
+
+
+def check_request_api(out: dict) -> None:
+    for name in ("stream_vs_run", "split_vs_step", "telemetry_off_vs_on_fp32"):
+        r = out[name]
+        _check(r["ok"] and r["bitwise"] == r["requests"],
+               f"{QWEN} request API {name}: streams differ from run(): {r}")
+    _check(out["stream_vs_run"]["delivered_once"]["ok"],
+           f"{QWEN} stream(): a token delivered twice, skipped or out of order: {out['stream_vs_run']}")
+    s = out["split_vs_step"]
+    _check(s["dispatches_sync_checked"] > 0 and s["grows_sync_checked"] > 0
+           and s["planted_sync_caught"],
+           f"{QWEN} split step: the decode dispatch did not run under sync debug mode, or the "
+           f"mode did not catch a planted sync: {s}")
+    t = out["telemetry_off_vs_on_fp32"]
+    _check(t["launches_on"] == t["launches_off"],
+           f"{QWEN} telemetry on launches other kernels than off (float32): {t}")
+    for name in ("qrlora_bgmv", "paged_decode_attention"):
+        _check(t["launches_on"][name] > 0 and out["telemetry_bf16"]["launches"][name] > 0,
+               f"{QWEN} request API: {name} never launched")
+    _check_no_bench_kernels(out["telemetry_bf16"]["launches"], f"{QWEN} request API bf16")
+    p = out["pressure"]
+    _check(p["ok"] and p["preemptions"] >= 1 and p["vs_roomy"]["ok"],
+           f"{QWEN} block-pressure stream: no preemption, a token delivered twice, or the "
+           f"streams differ from the roomy pool's: {p}")
+    c = out["cancel"]
+    _check(c["ok_after_cancel"] and c["ok_at_end"] and c["rest_vs_run"]["ok"],
+           f"{QWEN} cancel: blocks still held, or the other streams changed: {c}")
+    h = out["handoff"]
+    _check(h["inject"]["ok"] and h["inject"]["prefilled_on_b"] == 0,
+           f"{QWEN} inject_prefilled: not the request served whole: {h}")
+    _check(h["imported"] == h["shipped_blocks"] - h["local_match"] > 0 and h["local_match"] > 0
+           and h["b_prefix_hits"] == h["shipped_blocks"] and h["prefix"]["ok"],
+           f"{QWEN} import_prefix: no hit of every shipped block, or the serve differs: {h}")
+    tb = out["telemetry_bf16"]
+    _check(tb["tokens_identical"] and tb["launches_identical"],
+           f"{QWEN} bf16 telemetry on against off: tokens or launches differ: {tb}")
+    pr = out["profile_bf16"]
+    _check(pr["on"]["cuda_api_calls"] == pr["off"]["cuda_api_calls"]
+           and pr["on"]["cuda_api_calls"].get("cudaLaunchKernel", 0) > 0,
+           f"{QWEN} bf16 telemetry on made other CUDA calls than off: "
+           f"{pr['on']['cuda_api_calls']} against {pr['off']['cuda_api_calls']}")
+    for name in ("fault_no_delivered_guard", "fault_cancel_keeps_blocks",
+                 "fault_import_from_skip_0"):
+        _check(out[name]["rejected"], f"{QWEN}: the check let the planted fault {name} through")
 
 
 def kernel_bench_phase():
@@ -3121,13 +3591,26 @@ def main(argv=None) -> None:
 
     # -- the serving posture: qwen2-0.5b under EngineConfig.serving() --------
     t0 = time.perf_counter()
-    posture = serving_posture_phase(args.seed)
+    qwen_params = {}
+    posture = serving_posture_phase(args.seed, keep=qwen_params)
     report["serving_posture"] = posture
     print_serving_posture(posture, smi)
     check_serving_posture(posture)
     print(f"{QWEN} under EngineConfig.serving() in float32 and bf16: shared bitwise unshared, "
           f"chunked within the bar of monolithic, float32 token-identical to the merged-weight "
           f"reference, every planted fault rejected ({time.perf_counter() - t0:.1f} s)")
+
+    # -- the request API and telemetry on the posture's weights and traffic ---
+    t0 = time.perf_counter()
+    api = request_api_phase(args.seed, qwen_params)
+    report["request_api"] = api
+    print_request_api(api, smi)
+    check_request_api(api)
+    print(f"{QWEN} request API: stream equals run (float32 bitwise), each token delivered once "
+          f"under preemption, the split step's decode dispatch free of syncs, telemetry on "
+          f"equals off, cancel and the handoff between engines hold, every planted fault "
+          f"rejected ({time.perf_counter() - t0:.1f} s)")
+    del qwen_params
     torch.cuda.empty_cache()
 
     # -- the training path: full-width λ-only trains, launches counted -------

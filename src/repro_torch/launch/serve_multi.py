@@ -21,6 +21,15 @@ logit for logit.
 configure the paged layout as the reference's driver takes them (the pool
 size, copy-on-write prefix sharing, admission headroom, chunked prefill).
 
+``--stream`` prints each token as it decodes (``engine.stream()``);
+``--metrics-out PATH`` writes the final metrics snapshot (``.prom``/``.txt``:
+Prometheus text, else JSON) and ``--trace-out PATH`` the request-span
+timeline as Chrome ``trace_event`` JSON (open it in ui.perfetto.dev);
+``--no-telemetry`` turns the engine's telemetry off.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu \
+        --stream --metrics-out /tmp/serve.prom --trace-out /tmp/serve_trace.json
+
 ``--shard-lam`` shards the packed λ tables' slot axis and ``--shard-ba`` the
 QR factors' rank dim over a ``torch.distributed`` process group: the one
 torchrun describes in the environment, else a world of one started here
@@ -53,6 +62,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import BASE_DTYPES
 from repro_torch.core.quantize import resident_base_bytes
 from repro_torch.kernels import _build
+from repro_torch.obs import write_metrics
 from repro_torch.serving import (
     BASE_TENANT,
     EngineConfig,
@@ -145,7 +155,20 @@ def main(argv=None):
     ap.add_argument("--shard-ba", action="store_true",
                     help="shard the QR factors B/A over their rank dim across the process "
                     "group, all-gathered before each contraction (bitwise the replicated serve)")
+    ap.add_argument("--stream", action="store_true",
+                    help="print tokens as they decode (engine.stream() events) instead of "
+                    "per-tenant lines at retirement")
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="turn off the engine's metrics and span tracing")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the final metrics snapshot here (.prom/.txt → Prometheus "
+                    "text exposition, anything else → JSON)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the request-span timeline here as Chrome trace_event JSON "
+                    "(open it in ui.perfetto.dev or chrome://tracing)")
     args = ap.parse_args(argv)
+    if args.no_telemetry and (args.metrics_out or args.trace_out):
+        ap.error("--metrics-out/--trace-out need telemetry; drop --no-telemetry")
     if not (args.shard_lam or args.shard_ba):
         return serve(args, args.device)
     with process_group(args.device) as device:
@@ -164,7 +187,8 @@ def serve(args, device):
         n_lanes=args.lanes, n_slots=n_slots, max_len=args.max_len,
         collect_logits=True, seed=args.seed, block_size=args.block_size,
         n_blocks=args.n_blocks, share_prefix=args.share_prefix, watermark=args.watermark,
-        prefill_chunk=args.prefill_chunk, base_dtype=args.base_dtype, shard_lam=args.shard_lam, shard_ba=args.shard_ba,
+        prefill_chunk=args.prefill_chunk, base_dtype=args.base_dtype, shard_lam=args.shard_lam,
+        shard_ba=args.shard_ba, telemetry=not args.no_telemetry,
     )
     engine = MultiTenantEngine(cfg, econf, device=device)
     lead = not dist.is_initialized() or dist.get_rank() == 0
@@ -195,14 +219,25 @@ def serve(args, device):
         engine.add_tenant(name, lams[name])
 
     rng = np.random.default_rng(args.seed)
+    reqs = {}
     for tenant in lams:
         prompt = rng.integers(2, cfg.vocab_size, size=args.prompt_len).astype(np.int32)
-        engine.submit(tenant, prompt, args.gen_len)
+        r = engine.submit(tenant, prompt, args.gen_len)
+        reqs[r.uid] = r
 
     if engine.device.type == "cuda":
         _build.build()  # compile the kernels now, not inside the timed serve
     t0 = time.perf_counter()
-    done = engine.run()
+    if args.stream:
+        # each event prints when its shared decode step finishes, not when
+        # its request retires
+        for ev in engine.stream():
+            if lead:
+                _say(f"stream step={engine.steps:<4d} {ev.tenant:<10s} lane={ev.lane} "
+                     f"tok[{ev.index}]={ev.token}" + ("  <done>" if ev.done else ""))
+        done = reqs  # stream() drained the queue
+    else:
+        done = engine.run()
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     dt = time.perf_counter() - t0
@@ -215,6 +250,18 @@ def serve(args, device):
     if engine.prefix_cache is not None:
         pc = engine.prefix_cache
         _say(f"prefix hits={pc.hits} misses={pc.misses} cached={pc.cached_blocks} blocks")
+
+    if not args.no_telemetry and lead:
+        tel = engine.telemetry
+        _say(f"latency: ttft p50≤{tel.ttft.quantile(0.5):g}ms p95≤{tel.ttft.quantile(0.95):g}ms"
+             f" · tbt mean={tel.tbt.mean:.2f}ms p95≤{tel.tbt.quantile(0.95):g}ms · e2e "
+             f"p95≤{tel.e2e.quantile(0.95):g}ms (bucket upper bounds, host clock)")
+        if args.metrics_out:
+            write_metrics(args.metrics_out, engine.metrics())
+            _say(f"metrics snapshot → {args.metrics_out}")
+        if args.trace_out:
+            tel.write_trace(args.trace_out)
+            _say(f"request-span trace → {args.trace_out} (open in ui.perfetto.dev)")
 
     params = engine.gathered_params()  # a collective under --shard-ba: every rank
     if not lead:

@@ -3,6 +3,7 @@ allocator and prefix cache, continuous-batching scheduler and the engine."""
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import (
     MultiTenantEngine,
+    TokenEvent,
     base_lambda,
     merge_tenant_params,
     reference_decode,

@@ -23,7 +23,6 @@ LATER_SLICES = {
     "quantum": (None, "quantum time-slicing on the dense layout (ROADMAP Queue 1 item 10c)"),
     "speculate_k": (0, "speculative decoding (ROADMAP Queue 1 item 10d)"),
     "draft_lam_rank": (None, "speculative decoding (ROADMAP Queue 1 item 10d)"),
-    "telemetry": (False, "telemetry (ROADMAP Queue 1 item 10b)"),
     "cold_slots": (0, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
     "cold_path": (None, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
 }
@@ -68,11 +67,13 @@ class EngineConfig:
     #: ``None`` disables (monolithic admission prefill).  A multiple of
     #: ``block_size``.
     prefill_chunk: Optional[int] = None
+    #: Serving metrics and request-span tracing (``repro_torch.obs``): host
+    #: bookkeeping only — no device work, no sync; ``engine.metrics()``.
+    telemetry: bool = True
     # -- later slices: must stay at their defaults (see LATER_SLICES) --------
     quantum: Optional[int] = None
     speculate_k: int = 0
     draft_lam_rank: Optional[int] = None
-    telemetry: bool = False
     cold_slots: int = 0
     cold_path: Optional[str] = None
 

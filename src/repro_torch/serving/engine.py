@@ -54,13 +54,36 @@ all-gather the factors and all-reduce the batch's λ rows before the rows
 kernel — bitwise the replicated engine.  The group's backend must suit the
 device: NCCL for ``cuda``, gloo for ``cpu``.
 
+The request API (``repro/serving/engine.py``'s): ``stream()`` yields each
+token once as a :class:`TokenEvent` (a token re-derived after a preemption
+is not delivered twice); ``step()`` is ``step_finish(step_begin())``, where
+``step_begin`` admits, advances chunked prefills, grows lanes and launches
+the decode step without waiting for it (its inputs go up through pinned
+host buffers) and ``step_finish`` waits for the logits and emits, so a
+caller running several engines can launch every engine's step before it
+waits for any; ``cancel`` withdraws a queued or active request; ``add_tenants``
+registers a cohort in one write; ``export_prefix``/``import_prefix`` ship
+prefix-cache blocks and ``export_request_state``/``inject_prefilled`` a
+committed prefill between engines as host numpy payloads in the pool
+layout ``(n_layers, n, block_size, KV, dh)`` (float32 for a float32 pool,
+so a payload crosses between this engine and the reference's unchanged;
+bfloat16 pools ship widened to float32, exactly).
+
+Telemetry (``EngineConfig.telemetry``, on by default as in the reference)
+records the reference's serving metrics and request spans through
+:mod:`repro_torch.obs` at the reference's sites: host bookkeeping only, no
+device work and no sync.  Its ``dispatch`` phase is the host time spent
+launching the decode step and ``sync`` the time then spent waiting for
+the card; neither is device time.
+
 The engine is greedy and host-driven: ``step()`` = admit + advance chunked
 prefills + grow + one decode step over the committed lanes; ``run()`` loops
 until queue and lanes drain.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import dataclasses
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -74,6 +97,7 @@ from repro_torch.kernels.qrlora_bgmv import ba_gather_sharded
 from repro_torch.models import build_model
 from repro_torch.models.lane_state import extract_lane, reset_lane
 from repro_torch.models.transformer import torch_dtype
+from repro_torch.obs import Telemetry
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.lam_store import LamStore, extract_lambda
 from repro_torch.serving.paging import BlockAllocator, PoolExhausted, PrefixCache
@@ -81,6 +105,18 @@ from repro_torch.serving.scheduler import ContinuousBatchScheduler, Request
 from repro_torch.sharding.rules import axis_rules, default_group, rank_divides, shard_factors
 
 _MIN_PREFILL_BUCKET = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenEvent:
+    """One decoded token, surfaced as it happens (``MultiTenantEngine.stream``)."""
+
+    uid: int
+    tenant: str
+    lane: int
+    token: int
+    index: int  # position of this token in the request's generation
+    done: bool  # True on the request's final token (retirement)
 
 
 def _bucket_len(n: int, max_len: int, floor: int = _MIN_PREFILL_BUCKET) -> int:
@@ -135,8 +171,15 @@ class MultiTenantEngine:
                 self._rules["qr_rank"] = "model"
                 params = shard_factors(params, rank, world)
         self.params = params
+        # telemetry rides on the engine from construction: its handles are
+        # no-op stubs when disabled, so every site below runs unconditionally
+        self.telemetry = Telemetry(enabled=config.telemetry)
+        tel = self.telemetry
+        # pool-full deferrals are counted once per episode (uid), not per step
+        self._deferred_pool_uids: set = set()
         self.lam_store = LamStore.from_params(
             params, n_slots=config.n_slots, group=self._group if config.shard_lam else None)
+        self.lam_store.attach_metrics(tel.registry)
         self.scheduler = ContinuousBatchScheduler(config.n_lanes)
         self.n_lanes, self.max_len = config.n_lanes, config.max_len
         self.collect_logits = config.collect_logits
@@ -148,12 +191,13 @@ class MultiTenantEngine:
         n_blocks = config.n_blocks
         if n_blocks is None:
             n_blocks = 1 + self.n_lanes * self.max_blocks  # dense-equivalent
-        self.allocator = BlockAllocator(n_blocks, bs)
+        self.allocator = BlockAllocator(n_blocks, bs, metrics=tel.registry)
         if not 0 <= config.watermark < self.allocator.capacity:
             raise ValueError(f"watermark={config.watermark} must be in "
                              f"[0, capacity={self.allocator.capacity})")
         self.watermark = config.watermark
-        self.prefix_cache = PrefixCache(self.allocator) if config.share_prefix else None
+        self.prefix_cache = (PrefixCache(self.allocator, metrics=tel.registry)
+                             if config.share_prefix else None)
         # a tenant LRU pressure drops takes its prefix-cache family with it
         self.lam_store.on_drop = lambda tenant, dg: self._drop_stale_family(dg)
         self.prefill_chunk = config.prefill_chunk
@@ -165,6 +209,9 @@ class MultiTenantEngine:
         self._gate_matches: Dict[int, List[int]] = {}
         # uid → in-flight chunked-prefill progress (_begin_chunked_prefill)
         self._prefilling: Dict[int, Dict[str, Any]] = {}
+        # uid → shipped-prefill payload awaiting admission (inject_prefilled)
+        self._imports: Dict[int, Dict[str, Any]] = {}
+        self.events: List[TokenEvent] = []  # tokens delivered by the last step()
         self._admit_seq = 0
         self.preemptions = 0
         self.cow_forks = 0
@@ -173,6 +220,20 @@ class MultiTenantEngine:
         self.steps = 0
         self.decoded_tokens = 0
         self.prefill_buckets: set = set()  # padded prompt lengths prefilled
+        # path → the distinct shapes it was dispatched at: prefill buckets of
+        # monolithic and (non-final) chunked prefills, decode attend bounds —
+        # what the reference compiles a variant of each for
+        self._dispatch_shapes: Dict[str, set] = {
+            "prefill_paged": set(), "prefill_chunk": set(), "decode": set()}
+        # the decode step's inputs reach the card through pinned host buffers
+        # and asynchronous copies, so step_begin does not wait for them; one
+        # buffer each is enough, as step_finish syncs before the next step
+        self._pinned: Dict[str, torch.Tensor] = {}
+        if self.device.type == "cuda":
+            self._pinned = {
+                "tok": torch.zeros((self.n_lanes, 1), dtype=torch.int32, pin_memory=True),
+                "seg": torch.zeros((self.n_lanes,), dtype=torch.int32, pin_memory=True),
+            }
         self.cache = self.model.init_decode_state(
             self.n_lanes, self.max_len, self.dtype, paged=True, block_size=bs,
             n_blocks=n_blocks,
@@ -185,6 +246,32 @@ class MultiTenantEngine:
         )
         self._init_snap = extract_lane(lane0, self._axes, 0)
 
+        # engine-level callback metrics, sampled only at snapshot() time
+        reg = tel.registry
+        reg.callback("serve_queue_depth", lambda: len(self.scheduler.queue),
+                     help="requests waiting for a decode lane")
+        reg.callback("serve_active_lanes",
+                     lambda: sum(r is not None for r in self.scheduler.lanes),
+                     help="decode lanes currently occupied")
+        reg.callback("serve_lane_capacity", lambda: self.n_lanes,
+                     help="fixed decode-lane count")
+        reg.callback("serve_steps_total", lambda: self.steps, kind="counter",
+                     help="engine decode steps executed")
+        reg.callback("serve_decoded_tokens_total",
+                     lambda: self.decoded_tokens, kind="counter",
+                     help="tokens decoded, incl. preemption re-derivation "
+                          "(serve_tokens_total is the delivered subset)")
+        reg.callback("serve_prefill_buckets",
+                     lambda: len(self.prefill_buckets),
+                     help="distinct padded prompt lengths prefilled "
+                          "(= prefill compilations under bucketing)")
+        for name, shapes in self._dispatch_shapes.items():
+            reg.callback(f"serve_jit_compiles_{name}", lambda shapes=shapes: len(shapes),
+                         kind="counter",
+                         help=f"distinct shapes the {name} step was dispatched at (this "
+                              "engine compiles nothing; the reference compiles one "
+                              "variant per shape)")
+
     # -- tenants ------------------------------------------------------------
 
     def add_tenant(self, tenant: str, lam_tree) -> int:
@@ -195,6 +282,22 @@ class MultiTenantEngine:
         slot = self.lam_store.register(tenant, lam_tree)
         self._drop_stale_family(old)
         return slot
+
+    def add_tenants(self, lams: Dict[str, Any]) -> Dict[str, int]:
+        """Batch :meth:`add_tenant`: the cohort's new tenants land in one
+        write per λ table (``LamStore.register_many``)."""
+        olds = {t: self.lam_store.digest(t) if t in self.lam_store else None for t in lams}
+        slots = self.lam_store.register_many(lams)
+        for old in olds.values():
+            self._drop_stale_family(old)
+        return slots
+
+    def remove_tenant(self, tenant: str) -> None:
+        """Drop a tenant (no queued or active request may reference it) and
+        reclaim its prefix-cache family."""
+        old = self.lam_store.digest(tenant)
+        self.lam_store.evict(tenant)
+        self._drop_stale_family(old)
 
     def _drop_stale_family(self, old_digest: Optional[bytes]) -> None:
         """Prefix-cache entries keyed on a λ digest no resident tenant
@@ -248,7 +351,156 @@ class MultiTenantEngine:
             )
         # a queued request keeps its tenant's slot resident until it finishes
         self.lam_store.pin(tenant)
-        return self.scheduler.submit(tenant, prompt, max_new_tokens)
+        req = self.scheduler.submit(tenant, prompt, max_new_tokens)
+        self.telemetry.on_submit(req)
+        return req
+
+    def cancel(self, req: Request) -> None:
+        """Withdraw a request.  A queued one leaves the queue; an active one
+        frees its lane's blocks and the lane resets (tokens already
+        delivered stay on the request)."""
+        if req.lane >= 0:
+            self._prefilling.pop(req.uid, None)
+            self._imports.pop(req.uid, None)
+            lane = req.lane
+            self.scheduler.finish(req)
+            self.lam_store.unpin(req.tenant)
+            for b in self._lane_blocks.pop(lane):
+                self.allocator.decref(b)
+            reset_lane(self.cache, self._axes, lane, self._init_snap)
+            return
+        try:
+            self.scheduler.queue.remove(req)
+        except ValueError:
+            return  # already finished, or never submitted here
+        self._imports.pop(req.uid, None)
+        self.lam_store.unpin(req.tenant)
+
+    # -- handoff between engines ----------------------------------------------
+
+    def _host_blocks(self, blocks: List[int]):
+        """K/V of pool blocks ``blocks`` as host arrays (n_layers, n,
+        block_size, KV, dh), float32 for a bfloat16 pool (exact)."""
+        a = self.cache["layers"]["attn"]
+        ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
+
+        def host(pool):
+            t = pool[:, ids]
+            return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+        return host(a["k"]), host(a["v"])
+
+    def export_prefix(self, tenant: str, prompt) -> Optional[Dict[str, Any]]:
+        """The resident prefix-cache blocks of ``(tenant, prompt)`` as a
+        host payload another engine can :meth:`import_prefix`: full blocks
+        only (the partial tail is never cached).  None when nothing is
+        cached here."""
+        if self.prefix_cache is None or tenant not in self.lam_store:
+            return None
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        blocks = self.prefix_cache.match(self._family_key(tenant, prompt.size), prompt)
+        if not blocks:
+            return None
+        k, v = self._host_blocks(blocks)
+        return {"block_size": self.block_size, "n_blocks": len(blocks),
+                "tokens": prompt[: len(blocks) * self.block_size].copy(), "k": k, "v": v}
+
+    def import_prefix(self, tenant: str, prompt, payload) -> int:
+        """Adopt another engine's exported prefix blocks into this pool and
+        prefix cache: only the blocks past the local match are written;
+        cache entries are evicted LRU-first to make room.  Returns the blocks
+        adopted (0: nothing new or no room, and the request then prefills
+        here as usual)."""
+        if self.prefix_cache is None or payload is None:
+            return 0
+        if payload["block_size"] != self.block_size:
+            raise ValueError("the other engine's block geometry differs")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        fam = self._family_key(tenant, prompt.size)
+        local = self.prefix_cache.match(fam, prompt)
+        n = payload["n_blocks"]
+        take = n - len(local)
+        if take <= 0:
+            return 0
+        while not self.allocator.can_alloc(take) and len(self.prefix_cache):
+            self.prefix_cache.evict_one()
+        if not self.allocator.can_alloc(take):
+            return 0
+        new_ids = self.allocator.alloc(take)
+        self._write_imported_blocks(new_ids, payload, skip=len(local))
+        self.prefix_cache.insert(fam, prompt[: n * self.block_size], local + new_ids)
+        for b in new_ids:
+            self.allocator.decref(b)  # the cache now holds the only reference
+        return take
+
+    def _write_imported_blocks(self, new_ids: List[int], payload, *, skip: int) -> None:
+        """Write payload blocks ``skip:`` into the pool blocks ``new_ids``."""
+        if not new_ids:
+            return
+        a = self.cache["layers"]["attn"]
+        ids = torch.tensor(new_ids, dtype=torch.long, device=self.device)
+        end = skip + len(new_ids)
+        for name in ("k", "v"):
+            # a copy: torch wants a writable array, and a payload may be read-only
+            rows = torch.from_numpy(np.array(payload[name][:, skip:end]))
+            a[name][:, ids] = rows.to(self.device, a[name].dtype)
+
+    def export_request_state(self, req: Request) -> Dict[str, Any]:
+        """The handoff payload of an active request whose prefill has
+        committed (first token emitted): its prompt's K/V blocks, the first
+        token's logits row and the prompt — what another engine needs to
+        put the request in a lane without recompute
+        (:meth:`inject_prefilled`).  The caller then cancels it here."""
+        if req.lane < 0 or not req.tokens or req.uid in self._prefilling:
+            raise ValueError("request has no committed prefill to export")
+        nb = self.allocator.blocks_for(req.prompt.size)
+        blocks = self._lane_blocks[req.lane][:nb]
+        k, v = self._host_blocks(blocks)
+        return {"block_size": self.block_size, "prompt": req.prompt.copy(),
+                "n_blocks": len(blocks), "k": k, "v": v,
+                "logits": req.logits[0] if req.logits else None, "token": req.tokens[0]}
+
+    def inject_prefilled(self, tenant: str, prompt, max_new_tokens: int,
+                         payload: Dict[str, Any]) -> Request:
+        """Submit a request whose prefill already ran on another engine:
+        admission writes the shipped blocks into a lane
+        (:meth:`_adopt_prefilled`) instead of running the prompt forward."""
+        if payload["block_size"] != self.block_size:
+            raise ValueError("the prefill engine's block geometry differs")
+        req = self.submit(tenant, prompt, max_new_tokens)
+        self._imports[req.uid] = payload
+        return req
+
+    def _adopt_prefilled(self, req: Request, payload) -> np.ndarray:
+        """Admission of a shipped prefill: adopt the prefix blocks the gate
+        pinned, write the other shipped blocks into fresh ones, commit the
+        lane's table row and offsets and file the full blocks in the prefix
+        cache.  No prompt forward runs; returns the first token's logits
+        row."""
+        P, bs = req.prompt.size, self.block_size
+        cached = self._gate_matches.pop(req.uid, [])
+        new_ids = self.allocator.alloc(self.allocator.blocks_for(P) - len(cached))
+        blocks = cached + new_ids
+        self._lane_blocks[req.lane] = blocks
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
+        self._write_imported_blocks(new_ids, payload, skip=len(cached))
+        self.model.commit_paged_prefill(self.cache, None, req.lane,
+                                        self._ids(blocks, self.max_blocks), P)
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(self._family(req), req.prompt, blocks)
+            self.telemetry.prefix_hits.inc(len(cached))
+            self.telemetry.prefix_misses.inc(P // bs - len(cached))
+        row = payload["logits"]
+        if row is None:
+            if self.collect_logits:
+                raise ValueError(
+                    "this engine collects logits but the prefill payload carries none — "
+                    "run the prefill engine with collect_logits=True")
+            # token-only handoff: a one-hot row whose argmax is the token
+            row = np.zeros((self.cfg.vocab_size,), np.float32)
+            row[payload["token"]] = 1.0
+        return np.asarray(row, np.float32)
 
     # -- paged block accounting ---------------------------------------------
 
@@ -288,8 +540,12 @@ class MultiTenantEngine:
                             req.prompt.size // self.block_size - len(cached))
                     self._gate_matches[req.uid] = cached
                     reserved[0] += need
+                    self._deferred_pool_uids.discard(req.uid)
                     return True
                 if self.prefix_cache is None or not len(self.prefix_cache):
+                    if req.uid not in self._deferred_pool_uids:
+                        self._deferred_pool_uids.add(req.uid)
+                        self.telemetry.on_defer(req, "pool_full")
                     return False
                 self.prefix_cache.evict_one()
 
@@ -318,6 +574,7 @@ class MultiTenantEngine:
         prefill drops its progress (its lane was never committed) and
         restarts on re-admission."""
         lane = victim.lane
+        self.telemetry.on_preempt(victim, "block_pressure")
         self._prefilling.pop(victim.uid, None)
         for b in self._lane_blocks.pop(lane):
             self.allocator.decref(b)
@@ -365,28 +622,46 @@ class MultiTenantEngine:
                 blocks[blk_idx] = dst
                 self._fork_block(req.lane, blk_idx, src, dst)
                 self.cow_forks += 1
+                self.telemetry.on_cow_fork(req, src, dst)
 
     # -- the serving loop ---------------------------------------------------
 
     def _admit(self, finished: List[Request]) -> None:
+        tel = self.telemetry
         for req in self.scheduler.admit(self._admission_gate()):
+            tel.on_admit(req)
             req.slot = self.lam_store.lookup(req.tenant)  # pinned since submit
+            req.slice_steps = 0
             # prompt-length bucketing: pad to a power of two; the true length
             # masks the tail
             P = req.prompt.size
             Pb = _bucket_len(P, self.max_len, self._prefill_floor)
             padded = np.zeros((Pb,), np.int32)
             padded[:P] = req.prompt
+            t0 = tel.now() if tel.enabled else 0.0
+            payload = self._imports.pop(req.uid, None)
+            if payload is not None:
+                # a shipped prefill: write its blocks in, no prompt forward
+                row = self._adopt_prefilled(req, payload)
+                if tel.enabled:
+                    tel.on_prefill(req, t0, tel.now())
+                self._emit(req, row, finished)
+                continue
             self.prefill_buckets.add(Pb)
             C = self.prefill_chunk
             if C is not None and Pb > C and (P > 2 * C or self._gate_matches.get(req.uid)):
                 # a long prompt streams through the following steps' chunk
                 # budget; a short one (≤ 2 chunks of work) prefills in one
                 # pass, unless a cached prefix lets the chunks skip its blocks
-                self._begin_chunked_prefill(req, padded)
+                self._begin_chunked_prefill(req, padded, t0)
                 continue
             logits = self._admit_paged(req, padded)
-            self._emit(req, logits[0].float().cpu().numpy(), finished)
+            # timed once the logits are on the host: the wait is part of
+            # the prefill the lane paid for
+            row = logits[0].float().cpu().numpy()
+            if tel.enabled:
+                tel.on_prefill(req, t0, tel.now())
+            self._emit(req, row, finished)
 
     def _adopt_blocks(self, req: Request) -> int:
         """The prompt's blocks: the prefix blocks its gate pinned (extended
@@ -439,14 +714,17 @@ class MultiTenantEngine:
             )
         self.model.commit_paged_prefill(
             self.cache, filled, req.lane, self._ids(blocks, self.max_blocks), P)
+        self._dispatch_shapes["prefill_paged"].add(len(padded))
         if self.prefix_cache is not None:
             # the partial tail block, still receiving decode writes, is never cached
             self.prefix_cache.insert(self._family(req), req.prompt, blocks)
+            self.telemetry.prefix_hits.inc(n_cached)
+            self.telemetry.prefix_misses.inc(P // bs - n_cached)
         return logits
 
     # -- chunked prefill ----------------------------------------------------
 
-    def _begin_chunked_prefill(self, req: Request, padded: np.ndarray) -> None:
+    def _begin_chunked_prefill(self, req: Request, padded: np.ndarray, t0: float) -> None:
         """Chunked admission: adopt and allocate the prompt's blocks as
         :meth:`_admit_paged` does, but run no prefill yet.  The lane stays
         dark (table row trash, offsets zero) until the final chunk commits,
@@ -470,7 +748,8 @@ class MultiTenantEngine:
         req.prefill_pos = starts[0]
         dev = self.device
         self._prefilling[req.uid] = {
-            "req": req, "tokens": tokens, "starts": starts, "next": 0,
+            "req": req, "tokens": tokens, "starts": starts, "next": 0, "t0": t0,
+            "cached": n_cached,
             "seg": torch.full((1,), req.slot, dtype=torch.int32, device=dev),
             "length": torch.full((1,), P, dtype=torch.int32, device=dev),
             "write_ids": self._ids(blocks, -(-(Pb + C) // bs), skip=n_cached),
@@ -484,6 +763,7 @@ class MultiTenantEngine:
         """Advance in-flight chunked prefills, FIFO by admission, spending at
         most ``prefill_chunk`` prompt tokens a step (and always at least one
         chunk, so prefill cannot starve)."""
+        tel = self.telemetry
         C = self.prefill_chunk
         budget = C
         for st in sorted(self._prefilling.values(), key=lambda s: s["req"].admit_seq):
@@ -492,6 +772,7 @@ class MultiTenantEngine:
                 req = st["req"]
                 start = st["starts"][st["next"]]
                 last = st["next"] + 1 == len(st["starts"])
+                t0 = tel.now() if tel.enabled else 0.0
                 toks = torch.from_numpy(st["tokens"][start: start + C]).to(self.device)[None, :]
                 pview = self.model.paged_prefill_view(self.cache, st["write_ids"],
                                                       st["read_ids"])
@@ -506,23 +787,49 @@ class MultiTenantEngine:
                 if last:
                     self.model.commit_paged_prefill(self.cache, filled, req.lane,
                                                     st["table_row"], req.prompt.size)
-                    self._finish_chunked(req, logits[0].float().cpu().numpy(), finished)
+                    row = logits[0].float().cpu().numpy()  # host sync: the chunks ran
+                else:
+                    self._dispatch_shapes["prefill_chunk"].add(st["read_ids"].numel()
+                                                               * self.block_size)
+                if tel.enabled:
+                    # a non-final chunk's span is its launch time only: a sync
+                    # per chunk would serialize the very overlap chunking is
+                    # for; the final chunk's sync fences them all
+                    tel.on_prefill_chunk(req, t0, tel.now(), start, C)
+                if last:
+                    self._finish_chunked(st, req, row, finished)
 
-    def _finish_chunked(self, req: Request, row: np.ndarray, finished: List[Request]) -> None:
+    def _finish_chunked(self, st, req: Request, row: np.ndarray, finished: List[Request]) -> None:
         """Final chunk committed: file the prompt in the prefix cache (its
         blocks only now hold its K/V) and emit the first token."""
         del self._prefilling[req.uid]
+        tel = self.telemetry
         if self.prefix_cache is not None:
             self.prefix_cache.insert(self._family(req), req.prompt,
                                      self._lane_blocks[req.lane])
+            tel.prefix_hits.inc(st["cached"])
+            tel.prefix_misses.inc(req.prompt.size // self.block_size - st["cached"])
+        if tel.enabled:
+            tel.on_prefill(req, st["t0"], tel.now())
         self._emit(req, row, finished)
 
     def _emit(self, req: Request, logits_row: np.ndarray, finished: List[Request]) -> None:
-        req.tokens.append(int(logits_row.argmax()))
+        tok = int(logits_row.argmax())
+        req.tokens.append(tok)
         if self.collect_logits:
             req.logits.append(logits_row)
         self.decoded_tokens += 1
+        # delivery is exactly once: a preempted request re-derives its
+        # cleared tokens bit for bit, and indexes already delivered are not
+        # delivered again
+        if len(req.tokens) > req.delivered:
+            req.delivered = len(req.tokens)
+            self.telemetry.on_token(req)
+            self.events.append(TokenEvent(uid=req.uid, tenant=req.tenant, lane=req.lane,
+                                          token=tok, index=len(req.tokens) - 1,
+                                          done=req.done))
         if req.done:
+            self.telemetry.on_retire(req)
             lane = req.lane
             self.scheduler.finish(req)
             self.lam_store.unpin(req.tenant)
@@ -544,36 +851,102 @@ class MultiTenantEngine:
             ab *= 2
         return min(ab, self.max_blocks)
 
-    def step(self) -> List[Request]:
-        """Admit waiting requests, advance chunked prefills under the token
-        budget, grow (or CoW-fork) lanes crossing block boundaries, run one
-        shared decode step over the committed lanes; returns the requests
-        that finished this step."""
+    def _upload(self, name: str, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` on the engine's device without a host sync: on the card
+        through the pinned buffer ``name`` and an asynchronous copy, on the
+        CPU the array itself."""
+        if not self._pinned:
+            return torch.from_numpy(arr)
+        buf = self._pinned[name]
+        buf.numpy()[...] = arr
+        return buf.to(self.device, non_blocking=True)
+
+    def _dispatch_decode(self, decoding: List[Request]) -> torch.Tensor:
+        """Launch one decode step over the committed lanes and return its
+        logits (B, V) on the device, without waiting for them."""
+        tok = np.zeros((self.n_lanes, 1), np.int32)
+        for req in decoding:
+            tok[req.lane, 0] = req.tokens[-1]
+        ab = self._attend_blocks(decoding)
+        self._dispatch_shapes["decode"].add(ab)
+        seg = self._upload("seg", self.scheduler.batch_composition())
+        with self._rules_ctx():
+            logits, self.cache = self.model.decode_step(
+                self._params_view(), self.cache, self._upload("tok", tok),
+                seg_ids=seg, attend_blocks=ab,
+            )
+        return logits
+
+    def step_begin(self) -> Dict[str, Any]:
+        """First half of :meth:`step`: admission, the chunked-prefill
+        advance, lane growth and the decode *launch* — everything up to the
+        host sync on the decode logits.  Returns the pending handle for
+        :meth:`step_finish`.  A caller running several engines launches
+        every engine's step before it waits for any, so their device work
+        overlaps."""
         finished: List[Request] = []
+        self.events = []
+        tel = self.telemetry
+        t = tel.now() if tel.enabled else 0.0
+
+        def phase(name: str) -> None:
+            """Observe the host time since the last phase ended."""
+            nonlocal t
+            if tel.enabled:
+                now = tel.now()
+                tel.phase(name, now - t)
+                t = now
+
         self._admit(finished)
+        phase("admit")
         if self._prefilling:
             self._run_prefill_chunks(finished)
+            phase("prefill_chunk")
         self._grow_lanes()
+        phase("grow")
         # lanes mid chunked prefill ride the step as masked rows: their
         # writes hit the trash block, their logits are discarded
         decoding = [r for r in self.scheduler.active() if r.uid not in self._prefilling]
         if not decoding:
+            return {"finished": finished, "decoding": None}
+        t_disp = t
+        logits = self._dispatch_decode(decoding)
+        phase("dispatch")
+        return {"finished": finished, "decoding": decoding, "logits": logits,
+                "t_disp": t_disp, "t": t}
+
+    def step_finish(self, pending: Dict[str, Any]) -> List[Request]:
+        """Second half of :meth:`step`: wait for the launched decode's
+        logits and emit each decoding lane's token.  Call exactly once per
+        :meth:`step_begin`."""
+        finished = pending["finished"]
+        decoding = pending["decoding"]
+        if decoding is None:
             return finished
-        tok = np.zeros((self.n_lanes, 1), np.int32)
-        for req in decoding:
-            tok[req.lane, 0] = req.tokens[-1]
-        dev = self.device
-        seg = torch.from_numpy(self.scheduler.batch_composition()).to(dev)
-        with self._rules_ctx():
-            logits, self.cache = self.model.decode_step(
-                self._params_view(), self.cache, torch.from_numpy(tok).to(dev),
-                seg_ids=seg, attend_blocks=self._attend_blocks(decoding),
-            )
-        logits_np = logits.float().cpu().numpy()  # host sync: the step ran
+        tel = self.telemetry
+        on = tel.enabled
+        logits_np = pending["logits"].float().cpu().numpy()  # host sync: the step ran
+        t_sync = 0.0
+        if on:
+            t_sync = tel.now()
+            tel.phase("sync", t_sync - pending["t"])
         self.steps += 1
         for req in decoding:
+            req.slice_steps += 1
             self._emit(req, logits_np[req.lane], finished)
+            if on:
+                tel.on_decode_lane(req, pending["t_disp"], t_sync, req.tokens[-1])
+        if on:
+            tel.phase("emit", tel.now() - t_sync)
         return finished
+
+    def step(self) -> List[Request]:
+        """Admit waiting requests, advance chunked prefills under the token
+        budget, grow (or CoW-fork) lanes crossing block boundaries, run one
+        shared decode step over the committed lanes; returns the requests
+        that finished this step.  The tokens it delivered are in
+        ``self.events``.  Exactly ``step_finish(step_begin())``."""
+        return self.step_finish(self.step_begin())
 
     def run(self) -> Dict[int, Request]:
         """Drain the queue; returns uid → finished request."""
@@ -582,6 +955,14 @@ class MultiTenantEngine:
             for req in self.step():
                 out[req.uid] = req
         return out
+
+    def stream(self) -> Iterator[TokenEvent]:
+        """Drain the queue, yielding every token as it decodes: the
+        streaming counterpart of :meth:`run` (same schedule, same tokens;
+        ``event.done`` marks a request's final token)."""
+        while self.scheduler.has_work:
+            self.step()
+            yield from self.events
 
     # -- accounting ---------------------------------------------------------
 
@@ -601,6 +982,19 @@ class MultiTenantEngine:
         if self.prefix_cache is None:
             return 0
         return self.prefix_cache.clear()
+
+    @property
+    def prefill_compilations(self) -> int:
+        """Distinct padded prompt lengths prefilled so far: the reference's
+        prefill compilations for the same traffic."""
+        return len(self.prefill_buckets)
+
+    def metrics(self) -> Dict[str, Any]:
+        """JSON-able snapshot of every serving metric (``repro_torch.obs``):
+        latency histograms (TTFT, TBT, E2E, queue wait, step phases),
+        request, preemption, deferral and prefix-cache counters, and the
+        sampled occupancy callbacks.  ``{}`` when telemetry is off."""
+        return self.telemetry.snapshot()
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """λ-store for multi-tenant QR-LoRA serving, hot tier (port of
-``repro/serving/lam_store.py``; the cold tier and batch register come with
-later slices).
+``repro/serving/lam_store.py``; the cold tier comes with a later slice).
 
 Every QR-LoRA adapter of a layer shares the frozen pivoted-QR factors
 (B, A), so a tenant is its λ tree ``{module: {proj: λ (n_layers,
@@ -13,7 +12,9 @@ indexed by slot id on the second-to-last axis.  Slot 0 is the base model
 (λ ≡ 0) and never changes; other slots are managed LRU.  ``pin`` marks a
 slot referenced by an in-flight request; ``protect`` is a residency pin
 kept as a **count** (two protects need two unprotects).  A register,
-hot-swap or eviction writes one λ row across all tables in place.
+hot-swap or eviction writes one λ row across all tables in place; a batch
+register (``register_many``) writes all its new rows in one indexed write
+per table.
 
 ``install(params)`` returns a parameter view whose adapter ``lam`` leaves
 *are* the tables, so a layer's slice is the ``(n_slots, rank_cap)`` table
@@ -31,7 +32,7 @@ from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,6 +138,8 @@ class LamStore:
         # called as on_drop(tenant, digest) when LRU pressure drops a tenant
         # (the engine reclaims that prefix-cache family)
         self.on_drop = None
+        self.slot_writes = 0  # table writes (register, evict, batch register)
+        self.lru_drops = 0  # tenants dropped by LRU pressure
 
     @classmethod
     def from_params(cls, params, n_slots: int = 8, **kw) -> "LamStore":
@@ -189,11 +192,25 @@ class LamStore:
     def _write_slot(self, slot: int, rows: Dict[Key, np.ndarray]) -> None:
         """Every table gets its row at ``slot`` overwritten in place, on the
         rank that owns the slot."""
+        self.slot_writes += 1
         owner, local = divmod(slot, self.n_local)
         if owner != self.rank:
             return
         for key, tab in self._tables.items():
             tab[..., local, :] = torch.from_numpy(rows[key]).to(tab.device)
+
+    def _write_slots(self, slots: List[int], rows_list: List[Dict[Key, np.ndarray]]) -> None:
+        """Batched :meth:`_write_slot`: k λ rows land in k slots in one
+        indexed write per table (this rank's slots only)."""
+        self.slot_writes += 1
+        mine = [(slot % self.n_local, rows) for slot, rows in zip(slots, rows_list)
+                if slot // self.n_local == self.rank]
+        if not mine:
+            return
+        for key, tab in self._tables.items():
+            idx = torch.tensor([local for local, _ in mine], device=tab.device)
+            stacked = np.stack([rows[key] for _, rows in mine], axis=-2)
+            tab[..., idx, :] = torch.from_numpy(stacked).to(tab.device)
 
     def _zero_rows(self) -> Dict[Key, np.ndarray]:
         return {k: np.zeros(s, np.float32) for k, s in self._lam_shapes.items()}
@@ -207,6 +224,7 @@ class LamStore:
             slot = self._slots.pop(tenant)
             dg = self._digests.pop(tenant, None)
             self._write_slot(slot, self._zero_rows())
+            self.lru_drops += 1
             if self.on_drop is not None:
                 self.on_drop(tenant, dg)
             return slot
@@ -241,14 +259,48 @@ class LamStore:
         else:
             slot = self._free.pop() if self._free else self._try_evict_lru()
             if slot is None:
-                raise RuntimeError(
-                    f"λ-pool exhausted: all {self.n_slots} slots pinned or protected "
-                    "by in-flight requests (raise n_slots or drain the queue)"
-                )
+                raise self._exhausted()
             self._slots[tenant] = slot
         self._write_slot(slot, rows)
         self._digests[tenant] = dg
         return slot
+
+    def register_many(self, lam_trees: Dict[str, Any]) -> Dict[str, int]:
+        """Batch :meth:`register`: every *new* tenant's λ row lands in one
+        indexed write per table; already-resident tenants take the
+        single-tenant hot-swap path (its in-flight guard applies).  Where
+        the reference would spill a tenant to its cold tier, this hot-only
+        store raises the exhaustion :meth:`register` raises, after landing
+        the rows that already got slots.  Returns tenant → slot id."""
+        result: Dict[str, int] = {}
+        fresh = []
+        for tenant, tree in lam_trees.items():
+            if tenant in self:
+                result[tenant] = self.register(tenant, tree)
+            else:
+                fresh.append((tenant, *self._validate(tenant, tree)))
+        slots: List[int] = []
+        rows_list = []
+        for tenant, rows, dg in fresh:
+            slot = self._free.pop() if self._free else self._try_evict_lru()
+            if slot is None:
+                if slots:
+                    self._write_slots(slots, rows_list)
+                raise self._exhausted()
+            slots.append(slot)
+            rows_list.append(rows)
+            self._slots[tenant] = slot
+            self._digests[tenant] = dg
+            result[tenant] = slot
+        if slots:
+            self._write_slots(slots, rows_list)
+        return result
+
+    def _exhausted(self) -> RuntimeError:
+        return RuntimeError(
+            f"λ-pool exhausted: all {self.n_slots} slots pinned or protected "
+            "by in-flight requests (raise n_slots or drain the queue)"
+        )
 
     def evict(self, tenant: str) -> None:
         """Drop a tenant (must not be pinned or protected)."""
@@ -292,6 +344,26 @@ class LamStore:
         self._install_params = params
         self._install_view = {**params, "groups": groups}
         return self._install_view
+
+    # -- accounting ---------------------------------------------------------
+
+    def attach_metrics(self, registry) -> None:
+        """Hot-tier occupancy and churn through a
+        :class:`~repro_torch.obs.metrics.MetricsRegistry`, sampled from the
+        counters the store already keeps (nothing on the register path).
+        The reference's cold-tier series come with the cold tier."""
+        cb = registry.callback
+        cb("lam_hot_slots_in_use", lambda: len(self._slots) - 1,
+           help="hot-tier λ slots holding a tenant (base slot 0 excluded)")
+        cb("lam_hot_slots_capacity", lambda: self.n_slots - 1,
+           help="usable hot-tier λ slots")
+        cb("lam_table_bytes", self.table_bytes,
+           help="device bytes of the packed hot-tier λ tables")
+        cb("lam_lru_drops_total", lambda: self.lru_drops, kind="counter",
+           help="tenants dropped from the store by tier pressure")
+        cb("lam_slot_writes_total", lambda: self.slot_writes, kind="counter",
+           help="device slot writes (register/evict/batch register)")
+
 
 def _dec(counts: Dict[str, int], tenant: str) -> None:
     n = counts.get(tenant, 0) - 1

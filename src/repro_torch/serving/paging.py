@@ -1,5 +1,5 @@
 """Block allocator and prefix cache for the paged KV cache (port of
-``repro/serving/paging.py``, without metrics).
+``repro/serving/paging.py``).
 
 One global pool of fixed-size blocks per layer,
 ``(n_blocks, block_size, n_kv_heads, d_head)``, plus a per-lane block table
@@ -25,6 +25,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from repro_torch.obs.metrics import NULL
+
 
 class PoolExhausted(RuntimeError):
     """Raised when an allocation cannot be satisfied from the free list."""
@@ -32,9 +34,14 @@ class PoolExhausted(RuntimeError):
 
 class BlockAllocator:
     """Ref-counted free list over ``n_blocks`` KV blocks; block 0 reserved
-    for trash (never allocated, never freed, never shared)."""
+    for trash (never allocated, never freed, never shared).
 
-    def __init__(self, n_blocks: int, block_size: int):
+    With a ``metrics`` registry, pool occupancy is tracked as gauges
+    (``kv_pool_blocks_in_use`` / ``kv_pool_blocks_peak``) updated on every
+    alloc and free, so the footprint numbers are exact whenever they are
+    sampled."""
+
+    def __init__(self, n_blocks: int, block_size: int, *, metrics=None):
         if n_blocks < 2:
             raise ValueError("need block 0 (trash) plus at least one usable block")
         if block_size < 1:
@@ -45,9 +52,28 @@ class BlockAllocator:
         self._free: List[int] = list(range(n_blocks - 1, 0, -1))
         self._refs: Dict[int, int] = {}
         self.peak_in_use = 0  # high-water mark of blocks out of the free list
+        self._g_in_use = self._g_peak = NULL
+        if metrics is not None:
+            self.attach_metrics(metrics)
+
+    def attach_metrics(self, registry) -> None:
+        """Wire pool occupancy into a :class:`~repro_torch.obs.metrics.
+        MetricsRegistry` (no-op instruments when the registry is disabled)."""
+        self._g_in_use = registry.gauge(
+            "kv_pool_blocks_in_use", "KV pool blocks out of the free list")
+        self._g_peak = registry.gauge(
+            "kv_pool_blocks_peak", "high-water mark of KV pool blocks in use")
+        registry.callback(
+            "kv_pool_blocks_capacity", lambda: self.capacity,
+            help="usable KV pool blocks (excludes the trash block)")
 
     def _track(self) -> None:
-        self.peak_in_use = max(self.peak_in_use, self.n_in_use)
+        """Occupancy bookkeeping after any alloc or free."""
+        n = self.n_in_use
+        if n > self.peak_in_use:
+            self.peak_in_use = n
+        self._g_in_use.set(n)
+        self._g_peak.set(self.peak_in_use)
 
     # -- capacity -----------------------------------------------------------
 
@@ -99,6 +125,7 @@ class BlockAllocator:
         if n == 1:
             del self._refs[b]
             self._free.append(b)
+            self._track()
             return True
         self._refs[b] = n - 1
         return False
@@ -149,7 +176,7 @@ class PrefixCache:
     writes and stays private to its lane.
     """
 
-    def __init__(self, allocator: BlockAllocator):
+    def __init__(self, allocator: BlockAllocator, *, metrics=None):
         self.allocator = allocator
         self.block_size = allocator.block_size
         # key → block id, least-recently-used first
@@ -159,6 +186,22 @@ class PrefixCache:
         self._by_seed: Dict[bytes, "OrderedDict[bytes, None]"] = {}
         self.hits = 0  # blocks reused across all matches
         self.misses = 0  # full blocks prefilled that were not cached
+        if metrics is not None:
+            self.attach_metrics(metrics)
+
+    def attach_metrics(self, registry) -> None:
+        """Sampled occupancy and efficacy metrics (resolved at snapshot
+        time, nothing on the match/insert path)."""
+        registry.callback(
+            "kv_prefix_cached_blocks", lambda: len(self._entries),
+            help="prefix-cache entries currently holding a block reference")
+        registry.callback(
+            "kv_prefix_hit_rate", self.hit_rate,
+            help="blocks adopted from the cache / full blocks requested")
+
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
 
     def __len__(self) -> int:
         return len(self._entries)

@@ -1,5 +1,5 @@
 """Continuous-batching scheduler: request queue + decode-lane management
-(port of ``repro/serving/scheduler.py``, without metrics).
+(port of ``repro/serving/scheduler.py``).
 
 The decode batch has a fixed number of *lanes*.  Requests queue FIFO;
 whenever a lane frees up the next request is admitted and prefilled into it
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Any, Deque, List, Optional
 
 import numpy as np
 
@@ -29,9 +29,20 @@ class Request:
     slot: int = -1  # adapter slot id (0 = base model)
     admit_seq: int = -1  # admission ordinal (preemption picks the youngest)
     preemptions: int = 0
+    # decode steps since (re-)admission (the reference's time-slicing
+    # quantum counts these; kept so both engines' requests read the same)
+    slice_steps: int = 0
     # next prompt position a chunked prefill computes (-1: none in flight)
     prefill_pos: int = -1
     prefill_chunks: int = 0  # prompt chunks dispatched (0: one monolithic pass)
+    # tokens already surfaced as stream events: monotonic, it survives the
+    # preemption that clears ``tokens``, so a re-derived token is not
+    # delivered twice
+    delivered: int = 0
+    # telemetry span (``repro_torch.obs.tracing.RequestTrace``): the
+    # request's milestone log, attached at submission when the engine's
+    # telemetry is on
+    trace: Any = None
     tokens: List[int] = dataclasses.field(default_factory=list)
     logits: List[np.ndarray] = dataclasses.field(default_factory=list)
 
@@ -94,10 +105,11 @@ class ContinuousBatchScheduler:
     def preempt(self, req: Request) -> None:
         """Kick an active request off its lane to the *front* of the queue
         with its generated tokens discarded; greedy decode re-derives them
-        on re-admission."""
+        on re-admission (``delivered`` stays, so they stream only once)."""
         self.finish(req)
         req.admit_seq = -1
         req.preemptions += 1
+        req.slice_steps = 0
         req.prefill_pos = -1  # an interrupted chunked prefill restarts
         req.tokens.clear()
         req.logits.clear()

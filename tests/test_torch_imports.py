@@ -37,7 +37,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     n, names, bad = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20 and bad == "[]", out.stdout
-    assert "repro_torch.sharding.rules" in names.split(","), names
+    for module in ("repro_torch.sharding.rules", "repro_torch.obs.telemetry"):
+        assert module in names.split(","), names
 
 
 def _imported_roots(path: Path):

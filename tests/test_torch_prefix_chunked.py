@@ -11,8 +11,8 @@ and monolithic ones (the chunked path gathers keys at the monolithic
 bucket's width, so the softmax reduces over the same score rows).  Against
 the merged-weight reference and the JAX engine: identical tokens, logits
 within 1e-4 (``test_torch_serving.py``'s bound, measured ~5e-6).  The
-reference's chunked tests read telemetry (a later slice of the port); these
-count chunk dispatches by wrapping the model's prefill instead."""
+chunked tests read the engine's telemetry as the reference's do, and the
+chunk starts themselves by wrapping the model's prefill."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -303,6 +303,17 @@ def test_chunked_prefill_bit_identical_to_monolithic(arch):
     # one prefills in one pass
     assert sorted(c for c in calls if c is not None) == [0, 0, 0, 16, 16, 16, 32, 32, 32, 48, 48]
     assert calls.count(None) == 1
+    # the chunk machinery actually ran, and telemetry saw it
+    snap = eng.metrics()
+    assert snap["serve_prefill_chunk_ms"]["series"][0]["count"] >= 2
+    phases = {s["labels"]["phase"] for s in snap["serve_step_phase_ms"]["series"]}
+    assert "prefill_chunk" in phases
+    spans = {
+        e["name"]
+        for e in eng.telemetry.tracer.to_chrome()["traceEvents"]
+        if e["ph"] == "X"
+    }
+    assert "prefill_chunk" in spans
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -139,8 +139,7 @@ def test_bucket_len_matches_jax(floor):
 # ---------------------------------------------------------------------------
 
 _LATER = {
-    "quantum": 4, "speculate_k": 2, "draft_lam_rank": 2, "telemetry": True,
-    "cold_slots": 4, "cold_path": "/x",
+    "quantum": 4, "speculate_k": 2, "draft_lam_rank": 2, "cold_slots": 4, "cold_path": "/x",
 }
 
 
