@@ -47,6 +47,20 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   guard, a cancel that keeps the lane's blocks, an import written from the
   payload's first block); the step-phase breakdown and TTFT/TBT chunked
   against monolithic (bf16);
+* the oracle-dense layout on the same weights and traffic:
+  ``EngineConfig.oracle_dense(n_lanes=2)`` in float32 and bfloat16, every
+  decode dispatch under sync debug mode "error", against the merged-weight
+  reference (float32; bf16 teacher-forced), the same with ``quantum=4``
+  (bitwise the unsliced serve) and the paged serve of the same traffic;
+  two planted faults (a snapshot restored into the other lane, a snapshot
+  without its last written position);
+* two replicas on the one card behind the adapter-locality router
+  (float32): routed against one engine in the paged posture and the
+  oracle-dense layout, one replica behind the router, a spill to the
+  sibling that imports the home replica's prefix, a replica killed
+  mid-serve, and prefill/decode disaggregation; two planted faults (a
+  spill import written from the payload's first block, an injected request
+  that emits the previous request's first-token row);
 * training: 30 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
   held against the same run with the plain version in place of the kernel;
@@ -64,7 +78,8 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   version in place of the kernel.
 
 The BGMV and paged kernels are also checked at qwen2-0.5b's shapes (K 896,
-N 896 and 128, r 160; 14 heads over 2 with length-0 lanes).  The one-λ
+N 896 and 128, r 160, the BGMV at 2-256 rows; 14 heads over 2 with length-0
+lanes).  The one-λ
 kernel is also checked at the encoder's shapes (float32 x,
 M = 2048, 768 and a ragged 100, K = N = 768, r = 256 and 2), its backward
 with LoRA's dB and dA against autograd, and ``qr_pivoted`` at 768 × 768
@@ -2397,6 +2412,8 @@ def check_glue(glue: dict, want_launches: dict):
 QWEN = "qwen2-0.5b"
 # the posture's engine: block 16, watermark 1, chunks of 32 tokens a step
 QWEN_ENGINE = {"n_lanes": 4, "n_slots": 8, "max_len": 384, "collect_logits": True}
+# the oracle-dense layout's engine: 2 lanes, each a (384, 2, 64) K/V region
+DENSE_ENGINE = {"n_lanes": 2, "n_slots": 8, "max_len": 384, "collect_logits": True}
 QWEN_GEN = 16
 QWEN_PREFIX = 48  # a system prompt of 3 full blocks
 QWEN_TAILS = (8, 12, 16, 10, 14, 24)  # six requests on the prefix, tenants 0 and 1 in turn
@@ -2425,9 +2442,13 @@ QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (4, 32, 64, 128, 256) for N in (89
 # #2 at 14 heads over 2 (7 query heads a group), dh 64: (lengths, columns of
 # a 24-column table); length-0 lanes, the serve's attend bounds of 8 columns
 # (short lanes only; a cluster of 2) and 16 (a long lane decoding; 4), a
-# 4-column bound (one CTA a group pair, no cluster) and the whole table
+# 4-column bound (one CTA a group pair, no cluster) and the whole table; the
+# same bounds over the 1-lane spill replicas and the 2-lane paged serve
 QWEN_PAGED_CASES = (((0, 1, 17, 240), 16), ((240, 100, 0, 33), 24), ((0, 0, 16, 15), 16),
-                    ((0, 57, 80, 128), 8), ((72, 0, 96, 65), 8), ((64, 0, 3, 49), 4))
+                    ((0, 57, 80, 128), 8), ((72, 0, 96, 65), 8), ((64, 0, 3, 49), 4),
+                    ((57,), 8), ((88,), 8), ((161,), 16), ((236,), 16), ((49,), 4),
+                    ((57, 80), 8), ((0, 72), 8), ((236, 64), 16), ((0, 161), 16),
+                    ((33, 49), 4))
 
 
 def check_qwen_kernels(gen, details):
@@ -2498,19 +2519,28 @@ def qwen_traffic(seed: int, vocab: int):
     return [pfx[0], pfx[1], long[0], pfx[2], pfx[3], long[1], pfx[4], pfx[5]]
 
 
-def qwen_engine(dtype: str, seed: int, params=None, **overrides):
-    """qwen2-0.5b at full width under ``EngineConfig.serving(**QWEN_ENGINE,
-    **overrides)``, 4 tenants registered (λ from ``seed``).  Without
-    ``params``: random weights from ``seed`` (QR-LoRA built on the card),
-    the QKV biases drawn too (the config's init leaves them zero).  Returns
-    (cfg, engine, λ trees)."""
+def qwen_config(seed: int, dense: bool = False, **overrides):
+    """The posture's ``EngineConfig.serving(**QWEN_ENGINE, **overrides)``,
+    or with ``dense`` ``EngineConfig.oracle_dense(**DENSE_ENGINE,
+    **overrides)``."""
+    from repro_torch.serving import EngineConfig
+
+    if dense:
+        return EngineConfig.oracle_dense(seed=seed, **{**DENSE_ENGINE, **overrides})
+    return EngineConfig.serving(seed=seed, **{**QWEN_ENGINE, **overrides})
+
+
+def qwen_engine(dtype: str, seed: int, params=None, dense: bool = False, **overrides):
+    """qwen2-0.5b at full width under :func:`qwen_config`, 4 tenants
+    registered (λ from ``seed``).  Without ``params``: random weights from
+    ``seed`` (QR-LoRA built on the card), the QKV biases drawn too (the
+    config's init leaves them zero).  Returns (cfg, engine, λ trees)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.serving import EngineConfig, MultiTenantEngine, random_lambda
+    from repro_torch.serving import MultiTenantEngine, random_lambda
 
     cfg = get_config(QWEN).replace(dtype=dtype)
-    engine = MultiTenantEngine(
-        cfg, EngineConfig.serving(seed=seed, **{**QWEN_ENGINE, **overrides}), params=params)
+    engine = MultiTenantEngine(cfg, qwen_config(seed, dense, **overrides), params=params)
     gen = torch.Generator(device="cuda")
     if params is None:
         gen.manual_seed(seed + 3000)
@@ -2525,7 +2555,9 @@ def qwen_engine(dtype: str, seed: int, params=None, **overrides):
 
 
 def qwen_serve(engine, traffic, fork_tail: bool = False) -> dict:
-    """Serve ``traffic`` (16 tokens a request) to the end.  With ``fork_tail``, once the first
+    """Serve ``traffic`` (16 tokens a request) to the end (a paged or a
+    dense engine; the pool readings are None on a dense one).  With
+    ``fork_tail``, once the first
     request decodes, take a reference on its private tail block as another
     owner would, so that its next write must fork a copy; after the run
     ``tail_kept`` says whether that block still holds what it held then.
@@ -2535,7 +2567,7 @@ def qwen_serve(engine, traffic, fork_tail: bool = False) -> dict:
     pc, al = engine.prefix_cache, engine.allocator
     hits0, misses0 = (pc.hits, pc.misses) if pc is not None else (0, 0)
     counters = ("cow_forks", "preemptions", "chunked_admissions", "chunk_dispatches", "steps",
-                "decoded_tokens")
+                "slice_preemptions", "decoded_tokens")
     before0 = {name: getattr(engine, name) for name in counters}
     done, tail, kept = {}, None, None
     reqs = [engine.submit(t, p, QWEN_GEN) for t, p in traffic]
@@ -2559,7 +2591,8 @@ def qwen_serve(engine, traffic, fork_tail: bool = False) -> dict:
     return {"done": done, "serve_s": serve_s, "tokens": tokens, "tok_per_s": tokens / serve_s,
             "prefix_hits": (pc.hits - hits0) if pc is not None else 0,
             "prefix_misses": (pc.misses - misses0) if pc is not None else 0,
-            "pool_peak": al.peak_in_use, "pool_capacity": al.capacity,
+            "pool_peak": al.peak_in_use if al is not None else None,
+            "pool_capacity": al.capacity if al is not None else None,
             "kv_cache_bytes": engine.kv_cache_bytes(), "tail_kept": kept,
             "all_served": len(done) == len(traffic) and all(
                 len(r.tokens) == QWEN_GEN for r in done.values()), **counts}
@@ -3237,6 +3270,483 @@ def check_request_api(out: dict) -> None:
         _check(out[name]["rejected"], f"{QWEN}: the check let the planted fault {name} through")
 
 
+# ---------------------------------------------------------------------------
+# the oracle-dense layout, time-slicing and the router at full width:
+# qwen2-0.5b on the posture phase's weights and traffic
+# ---------------------------------------------------------------------------
+
+DENSE_QUANTUM = 4
+# #1 at the decode steps of this phase's 1- and 2-lane engines (the spill
+# replicas; the dense, paged and routed dense serves), qwen2-0.5b's wq and wv
+DENSE_BGMV_SHAPES = [(M, 896, N, 160) for M in (1, 2) for N in (896, 128)]
+# a spilled or failed-over stream against one engine's: bitwise where both
+# took the same path, else identical tokens and float32 |Δlogits| within the
+# chunked-prefill bar (another prefill path, or another attend bound of #2
+# where other lanes share the step, round differently); routed and
+# disaggregated streams are held bitwise
+ROUTE_FP32_TOL = QWEN_CHUNK_FP32_TOL
+
+
+def check_dense_bgmv(gen, details):
+    """#1 against its plain version at :data:`DENSE_BGMV_SHAPES` in bf16 and
+    float32 x (8 slots, the last row on slot 7 so that a 1-row step is
+    adapted), through kernel_bench.TOL; a second call bitwise the first.
+    Returns the worst |Δ| by dtype."""
+    import torch
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
+    from repro_torch.kernels.ref import qrlora_bgmv_ref
+
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        for M, K, N, r in DENSE_BGMV_SHAPES:
+            x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, 8, dt)
+            seg[-1] = 7
+            y = qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+            again = qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+            torch.cuda.synchronize()
+            ref = qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7)
+            err = _max_err(y, ref)
+            ok = (_within(y, ref, _tol("qrlora_bgmv", dt)) and bool(torch.isfinite(y).all())
+                  and torch.equal(y, again))
+            details.append({"kernel": "qrlora_bgmv", "arch": QWEN, "path": "1-2 lane decode",
+                            "x": name, "M": M, "K": K, "N": N, "r": r, "max_abs_err": err,
+                            "ok": ok})
+            _check(ok, f"qrlora_bgmv at {QWEN}'s {M}-lane step x={name} N={N}: max|Δ| "
+                       f"{err:.3e} over {_tol('qrlora_bgmv', dt)}, or a second call differs")
+            worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def bitwise_rows_ok(rows) -> bool:
+    """A time-sliced, routed or disaggregated serve against the serve it
+    must reproduce: bitwise."""
+    return all(r["bitwise"] for r in rows)
+
+
+def route_rows_ok(rows) -> bool:
+    """A spilled or failed-over serve against one engine's (float32):
+    bitwise where both took the same path, else :data:`ROUTE_FP32_TOL` with
+    equal tokens."""
+    return all(r["bitwise"] or (r["parted_at"] is None and r["max_abs_dlogits"] <= ROUTE_FP32_TOL)
+               for r in rows)
+
+
+def dense_faults(seed: int, params, traffic, dense_run) -> dict:
+    """Planted faults of the time-sliced serve (float32), each held to the
+    sliced-against-unsliced check: a snapshot restored into the other lane,
+    and a snapshot missing its last written position (K and V zeroed
+    there)."""
+    from repro_torch.serving import engine as engine_mod
+
+    extract, restore = engine_mod.extract_lane, engine_mod.restore_lane
+
+    def tagged(state, axes, lane, host=False):
+        snap = extract(state, axes, lane, host=host)
+        if host:
+            snap["sliced"] = True  # restore_lane walks the state's keys only
+        return snap
+
+    def other_lane(state, axes, lane, snap):
+        return restore(state, axes, (lane + 1) % DENSE_ENGINE["n_lanes"] if "sliced" in snap
+                       else lane, snap)
+
+    def last_dropped(state, axes, lane, host=False):
+        snap = extract(state, axes, lane, host=host)
+        if host:
+            a = snap["layers"]["attn"]
+            last = int(a["idx"][0, 0]) - 1
+            a["k"][:, :, last] = 0
+            a["v"][:, :, last] = 0
+        return snap
+
+    out = {}
+    for name, patches in (("restored_into_the_other_lane",
+                           (("extract_lane", tagged), ("restore_lane", other_lane))),
+                          ("snapshot_without_its_last_position",
+                           (("extract_lane", last_dropped),))):
+        with contextlib.ExitStack() as stack:
+            for attr, fn in patches:
+                stack.enter_context(swapped(engine_mod, attr, fn))
+            _, eng, _ = qwen_engine("float32", seed, params=params, dense=True,
+                                    quantum=DENSE_QUANTUM)
+            run = qwen_serve(eng, traffic)
+        rows = compare_streams(run, dense_run)
+        out[name] = {"slice_preemptions": run["slice_preemptions"],
+                     "bitwise": sum(r["bitwise"] for r in rows),
+                     "parted": [r["parted_at"] for r in rows],
+                     "rejected": not bitwise_rows_ok(rows)}
+    return out
+
+
+def dense_phase(seed: int, params: dict) -> dict:
+    """qwen2-0.5b at full width under ``EngineConfig.oracle_dense(n_lanes=2,
+    n_slots=8, max_len=384)`` on the posture's weights and traffic, float32
+    and bf16: the dense serve (launches counted, every decode dispatch under
+    sync debug mode "error"), the same with ``quantum`` 4, and the paged
+    serve of the same traffic (2 lanes, monolithic, unshared); float32
+    against the merged-weight reference, bf16 teacher-forced; the planted
+    faults (float32).  Returns every reading (without the requests)."""
+    import torch
+    from repro_torch import kernels
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        p = params[dtype]
+        cfg, eng, lams = qwen_engine(dtype, seed, params=p, dense=True)
+        traffic = qwen_traffic(seed, cfg.vocab_size)
+        eng._dispatch_decode = sync_checked(eng._dispatch_decode)
+        kernels.reset_launch_counts()
+        runs = {"dense": qwen_serve(eng, traffic)}
+        runs["dense"]["launches"] = kernels.launch_counts()
+        runs["dense"]["dispatches_sync_checked"] = eng._dispatch_decode.calls
+        _, sl, _ = qwen_engine(dtype, seed, params=p, dense=True, quantum=DENSE_QUANTUM)
+        runs["sliced"] = qwen_serve(sl, traffic)
+        _, pg, _ = qwen_engine(dtype, seed, params=p, n_lanes=DENSE_ENGINE["n_lanes"],
+                               share_prefix=False, prefill_chunk=None)
+        runs["paged"] = qwen_serve(pg, traffic)
+        a = pg.cache["layers"]["attn"]
+        block_bytes = sum(a[n][:, 0].numel() * a[n].element_size() for n in ("k", "v"))
+        drift = BF16_DRIFT if dtype == "bfloat16" else None
+        res = {"sliced_vs_dense": compare_streams(runs["sliced"], runs["dense"]),
+               "dense_vs_paged": compare_streams(runs["dense"], runs["paged"], drift),
+               "kv_bytes": {"dense_cache": eng.kv_cache_bytes(),
+                            "paged_cache": pg.kv_cache_bytes(),
+                            "paged_peak_blocks": runs["paged"]["pool_peak"],
+                            "paged_peak_bytes": runs["paged"]["pool_peak"] * block_bytes}}
+        if dtype == "float32":
+            res["verify"] = verify(cfg, eng, lams, runs["dense"]["done"], QWEN_GEN)
+            res["faults"] = dense_faults(seed, p, traffic, runs["dense"])
+        else:
+            res["verify_forced"] = verify_forced(cfg, eng, lams, runs["dense"]["done"])
+        for run in runs.values():
+            del run["done"]
+        res["runs"] = runs
+        out[dtype] = res
+        del eng, sl, pg
+        torch.cuda.empty_cache()
+    return out
+
+
+def print_dense(out: dict, smi: str) -> None:
+    for dtype, res in out.items():
+        for name, run in res["runs"].items():
+            print(f"{QWEN} {dtype} {name}: {run['tokens']} tokens in {run['serve_s']:.3f} s = "
+                  f"{run['tok_per_s']:.1f} tok/s over {run['steps']} decode steps; slice "
+                  f"preemptions {run['slice_preemptions']}, KV cache {run['kv_cache_bytes']} B"
+                  + (f"; launches {run['launches']}; decode dispatches under sync debug mode "
+                     f"'error' {run['dispatches_sync_checked']}" if "launches" in run else "")
+                  + f" on {smi}")
+        for name in ("sliced_vs_dense", "dense_vs_paged"):
+            rows = res[name]
+            print(f"  {dtype} {name}: bitwise {sum(r['bitwise'] for r in rows)}/{len(rows)}, "
+                  f"parted {[r['parted_at'] for r in rows]}, max|Δlogits| "
+                  f"{max(r['max_abs_dlogits'] for r in rows):.3e}"
+                  + (f", over the bf16 bound {max(r['max_dlogits_over_bound'] for r in rows):.4f}"
+                     if "max_dlogits_over_bound" in rows[0] else ""))
+        print(f"  {dtype} KV bytes: {res['kv_bytes']}")
+        for row in res.get("verify", []):
+            print(f"  {dtype} dense vs the merged-weight reference: {row}")
+        for row in res.get("verify_forced", []):
+            print(f"  {dtype} dense vs the teacher-forced merged-weight reference: {row}")
+        for name, f in res.get("faults", {}).items():
+            print(f"  {dtype} planted fault {name}: rejected {f['rejected']}; {f}")
+
+
+def check_dense(out: dict) -> None:
+    for dtype, res in out.items():
+        dense, sliced = res["runs"]["dense"], res["runs"]["sliced"]
+        _check(dense["launches"]["qrlora_bgmv"] > 0
+               and dense["launches"]["paged_decode_attention"] == 0,
+               f"{QWEN} {dtype} dense serve: #1 never launched, or #2 launched on the dense "
+               f"attend: {dense['launches']}")
+        _check_no_bench_kernels(dense["launches"], f"{QWEN} {dtype} dense serve")
+        _check(dense["dispatches_sync_checked"] == dense["steps"] > 0,
+               f"{QWEN} {dtype}: not every dense decode dispatch ran under sync debug mode: "
+               f"{dense['dispatches_sync_checked']} of {dense['steps']}")
+        for name, run in res["runs"].items():
+            _check(run["all_served"], f"{QWEN} {dtype} {name}: not every request got its tokens")
+        _check(sliced["slice_preemptions"] >= 4 and dense["slice_preemptions"] == 0,
+               f"{QWEN} {dtype}: the quantum serve time-sliced fewer than 4 times: {sliced}")
+        _check(bitwise_rows_ok(res["sliced_vs_dense"]),
+               f"{QWEN} {dtype}: the time-sliced serve is not bitwise the unsliced one: "
+               f"{res['sliced_vs_dense']}")
+        if dtype == "float32":
+            _check(all(r["parted_at"] is None and r["max_abs_dlogits"] <= QWEN_CHUNK_FP32_TOL
+                       for r in res["dense_vs_paged"]),
+                   f"{QWEN} float32 dense against paged: tokens differ or over "
+                   f"{QWEN_CHUNK_FP32_TOL}: {res['dense_vs_paged']}")
+            _check(all(r["tokens_match"] and r["max_abs_dlogits"] < FP32_LOGIT_TOL
+                       for r in res["verify"]),
+                   f"{QWEN} float32 dense serve diverged from the merged-weight reference")
+            for name, f in res["faults"].items():
+                _check(f["rejected"] and f["slice_preemptions"] > 0,
+                       f"{QWEN}: the sliced check let the planted fault {name} through: {f}")
+        else:
+            _check(chunk_rows_ok(res["dense_vs_paged"], dtype),
+                   f"{QWEN} bf16 dense against paged: over the bf16 bar: {res['dense_vs_paged']}")
+            _check(all(r["ok"] for r in res["verify_forced"]),
+                   f"{QWEN} bf16 dense serve disagrees with the teacher-forced merged-weight "
+                   f"reference: {res['verify_forced']}")
+
+
+def routed_serve(router, traffic, gen: int = QWEN_GEN) -> dict:
+    """Submit ``traffic`` through ``router`` and run it to the end; the
+    readings of :func:`qwen_serve` that apply (``done``: the engines'
+    requests by router uid)."""
+    import torch
+
+    routed = [router.submit(t, p, gen) for t, p in traffic]
+    t0 = time.perf_counter()
+    router.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    tokens = sum(len(r.tokens) for r in routed)
+    return {"routed": routed, "done": {r.uid: r.engine_req for r in routed},
+            "serve_s": serve_s, "tokens": tokens, "tok_per_s": tokens / serve_s,
+            "placement_hit_rate": router.placement_hit_rate(),
+            "transport": router.transport.stats(),
+            "replicas": {r.name: r.engine.decoded_tokens for r in router.replicas},
+            "all_served": all(r.finished and len(r.tokens) == gen for r in routed)}
+
+
+def _routed_readings(run) -> dict:
+    return {k: v for k, v in run.items() if k not in ("routed", "done")}
+
+
+def spill_serve(cfg, seed: int, params, lam, prompt, faulty: bool = False) -> dict:
+    """Two replicas of one lane each, spill threshold 0: the home replica
+    serves ``prompt`` and caches its 3 prefix blocks; then the same prompt
+    twice, the second spilling to the sibling, which imports the home
+    replica's blocks first.  ``faulty`` plants an import that writes the
+    payload's first block into every adopted block."""
+    import numpy as np
+    from repro_torch.serving import Router, build_replicas
+
+    replicas = build_replicas(cfg, qwen_config(seed, n_lanes=1), 2, params=params)
+    router = Router(replicas, spill_threshold=0)
+    router.add_tenant("tenant0", lam)
+    home = router.owner_of(router.digest("tenant0"))
+    sibling = next(r for r in router.replicas if r is not home)
+    if faulty:
+        write = sibling.engine._write_imported_blocks
+
+        def first_block_only(ids, payload, skip):
+            n = payload["n_blocks"]
+            rep = {**payload, "k": np.repeat(payload["k"][:, :1], n, axis=1),
+                   "v": np.repeat(payload["v"][:, :1], n, axis=1)}
+            return write(ids, rep, skip=skip)
+
+        sibling.engine._write_imported_blocks = first_block_only
+    first = router.submit("tenant0", prompt, QWEN_GEN)
+    router.run()
+    primary = router.submit("tenant0", prompt, QWEN_GEN)
+    spill = router.submit("tenant0", prompt, QWEN_GEN)
+    stats = router.transport.stats()
+    router.run()
+    rows = compare_streams({"done": {0: spill.engine_req}}, {"done": {0: primary.engine_req}})
+    return {"first_home": first.replica is home, "primary_home": primary.replica is home,
+            "spilled_to_sibling": spill.replica is sibling,
+            "imports": router.registry.snapshot()["router_prefix_imports_total"]["series"][0][
+                "value"],
+            "shipped_bytes": stats["bytes"].get("prefix", 0),
+            "sibling_cached_blocks": len(sibling.engine.prefix_cache),
+            "placement_hit_rate": router.placement_hit_rate(),
+            "spill_vs_primary": rows, "done": {0: spill.engine_req},
+            "rejected": not (rows[0]["bitwise"] or (rows[0]["parted_at"] is None and rows[0][
+                "max_abs_dlogits"] <= ROUTE_FP32_TOL))}
+
+
+def disaggregated_serve(cfg, seed: int, params, lams, traffic, faulty: bool = False) -> dict:
+    """Two replicas under ``disaggregate=True`` (r0 prefills, r1 decodes) on
+    ``traffic``; each shipped first-token row is recorded.  ``faulty`` plants
+    an inject whose admission emits the previous request's row."""
+    import numpy as np
+    from repro_torch.serving import Router, build_replicas
+
+    replicas = build_replicas(cfg, qwen_config(seed), 2, params=params)
+    router = Router(replicas, disaggregate=True)
+    router.add_tenants(lams)
+    shipped = {}
+    ship = router.transport.ship
+
+    def recording(payload, src, dst, kind):
+        if kind == "prefill":
+            shipped[payload["prompt"].tobytes()] = payload["logits"]
+        return ship(payload, src, dst, kind)
+
+    router.transport.ship = recording
+    decode = router.replicas[1]
+    if faulty:
+        adopt, last = decode.engine._adopt_prefilled, [None]
+
+        def previous_row(req, payload):
+            row = adopt(req, payload)
+            prev, last[0] = last[0], row
+            return row if prev is None else prev
+
+        decode.engine._adopt_prefilled = previous_row
+    run = routed_serve(router, traffic)
+    first_rows = [np.array_equal(r.engine_req.logits[0], shipped[r.prompt.tobytes()])
+                  for r in run["routed"]]
+    run.update({
+        "roles": [r.role for r in router.replicas],
+        "on_decode": all(r.replica is decode and r.placements == 2 for r in run["routed"]),
+        "decode_prefill_buckets": len(decode.engine.prefill_buckets),
+        "decode_chunk_dispatches": decode.engine.chunk_dispatches,
+        "first_rows_shipped_bitwise": sum(first_rows),
+        "shipments": run["transport"]["shipments"].get("prefill", 0)})
+    return run
+
+
+def router_phase(seed: int, params: dict) -> dict:
+    """Two replicas on the one card (float32, the posture's weights and
+    traffic), built with ``build_replicas`` on one shared params tree:
+    routed against one engine in both layouts (launches counted), one
+    replica behind the router, spillover with a prefix import, a replica
+    killed mid-serve, and prefill/decode disaggregation; the planted faults
+    of the spill import and the disaggregated inject."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serving import Router, build_replicas
+
+    p = params["float32"]
+    out = {}
+    singles = {}
+    for layout, dense in (("paged", False), ("oracle_dense", True)):
+        cfg, single, lams = qwen_engine("float32", seed, params=p, dense=dense)
+        traffic = qwen_traffic(seed, cfg.vocab_size)
+        singles[layout] = qwen_serve(single, traffic)
+        replicas = build_replicas(cfg, single.config, 2, params=p)
+        _check(all(r.engine.params is p for r in replicas),
+               f"{QWEN} router: a replica copied the weights")
+        router = Router(replicas)
+        router.add_tenants(lams)
+        kernels.reset_launch_counts()
+        run = routed_serve(router, traffic)
+        run["launches"] = kernels.launch_counts()
+        rows = compare_streams(run, singles[layout])
+        out[layout] = {"single": {k: v for k, v in singles[layout].items() if k != "done"},
+                       "routed": _routed_readings(run), "rows": rows}
+        del router, replicas, single
+    one = Router(build_replicas(cfg, qwen_config(seed), 1, params=p))
+    one.add_tenants(lams)
+    out["paged"]["one_replica"] = _routed_readings(routed_serve(one, traffic))
+    del one
+
+    tenant, prompt = traffic[0]
+    out["spill"] = spill_serve(cfg, seed, p, lams[tenant], prompt)
+    out["spill"]["vs_single"] = compare_streams({"done": out["spill"].pop("done")},
+                                                singles["paged"])
+    out["fault_spill_import_first_block_only"] = {
+        k: v for k, v in spill_serve(cfg, seed, p, lams[tenant], prompt, faulty=True).items()
+        if k != "done"}
+
+    # a replica killed mid-serve: its requests re-place on the survivor
+    replicas = build_replicas(cfg, qwen_config(seed), 2, params=p)
+    router = Router(replicas)
+    router.add_tenants(lams)
+    routed = [router.submit(t, q, QWEN_GEN) for t, q in traffic]
+    for _ in range(2):
+        router.step()
+    on = lambda i: [r for r in routed if r.replica.replica_id == i and not r.finished]
+    victim = 1 if on(1) else 0
+    orphans = on(victim)
+    replaced = router.kill_replica(victim)
+    router.run()
+    rows = compare_streams({"done": {r.uid: r.engine_req for r in routed}}, singles["paged"])
+    out["failover"] = {"victim": victim, "orphans": len(orphans), "replaced": replaced,
+                       "placements": [r.placements for r in orphans],
+                       "all_on_survivors": all(r.finished and r.replica.alive for r in routed),
+                       "rows": rows}
+    del router, replicas
+
+    run = disaggregated_serve(cfg, seed, p, lams, traffic)
+    out["disaggregated"] = {**_routed_readings(run),
+                            "rows": compare_streams(run, singles["paged"])}
+    fault = disaggregated_serve(cfg, seed, p, lams, traffic, faulty=True)
+    fault_rows = compare_streams(fault, singles["paged"])
+    out["fault_inject_previous_row"] = {
+        "first_rows_shipped_bitwise": fault["first_rows_shipped_bitwise"],
+        "parted": [r["parted_at"] for r in fault_rows],
+        "rejected": not (fault["first_rows_shipped_bitwise"] == len(traffic)
+                         and bitwise_rows_ok(fault_rows))}
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_router(out: dict, smi: str) -> None:
+    for layout in ("paged", "oracle_dense"):
+        r = out[layout]
+        print(f"{QWEN} float32 {layout}: one engine {r['single']['tok_per_s']:.1f} tok/s over "
+              f"{r['single']['steps']} steps; 2 replicas routed {r['routed']['tok_per_s']:.1f} "
+              f"tok/s ({r['routed']['replicas']} tokens), placement hit rate "
+              f"{r['routed']['placement_hit_rate']:.3f}, transport {r['routed']['transport']}, "
+              f"launches {r['routed']['launches']} on {smi}")
+        rows = r["rows"]
+        print(f"  routed vs one engine ({layout}): bitwise {sum(x['bitwise'] for x in rows)}/"
+              f"{len(rows)} (same prefill path {sum(x['same_path'] for x in rows)}), parted "
+              f"{[x['parted_at'] for x in rows]}, max|Δlogits| "
+              f"{max(x['max_abs_dlogits'] for x in rows):.3e}")
+    o = out["paged"]["one_replica"]
+    print(f"{QWEN} float32 paged, one replica behind the router: {o['tok_per_s']:.1f} tok/s, "
+          f"placement hit rate {o['placement_hit_rate']:.3f} on {smi}")
+    print(f"  spillover: {out['spill']}")
+    print(f"  planted fault spill_import_first_block_only: rejected "
+          f"{out['fault_spill_import_first_block_only']['rejected']}; "
+          f"{out['fault_spill_import_first_block_only']}")
+    f = out["failover"]
+    print(f"  replica {f['victim']} killed mid-serve: {f['orphans']} orphans re-placed "
+          f"({f['replaced']}), placements {f['placements']}; vs one engine bitwise "
+          f"{sum(x['bitwise'] for x in f['rows'])}/{len(f['rows'])}, parted "
+          f"{[x['parted_at'] for x in f['rows']]}, max|Δlogits| "
+          f"{max(x['max_abs_dlogits'] for x in f['rows']):.3e}")
+    d = out["disaggregated"]
+    print(f"  disaggregated ({d['roles']}): {d['tok_per_s']:.1f} tok/s, {d['shipments']} "
+          f"handoffs, transport {d['transport']}, decode replica prefill buckets "
+          f"{d['decode_prefill_buckets']} and chunks {d['decode_chunk_dispatches']}, first rows "
+          f"bitwise the shipped ones {d['first_rows_shipped_bitwise']}/{len(d['rows'])}; vs one "
+          f"engine bitwise {sum(x['bitwise'] for x in d['rows'])}/{len(d['rows'])}, parted "
+          f"{[x['parted_at'] for x in d['rows']]}, max|Δlogits| "
+          f"{max(x['max_abs_dlogits'] for x in d['rows']):.3e} on {smi}")
+    print(f"  planted fault inject_previous_row: rejected "
+          f"{out['fault_inject_previous_row']['rejected']}; {out['fault_inject_previous_row']}")
+
+
+def check_router(out: dict) -> None:
+    for layout in ("paged", "oracle_dense"):
+        r = out[layout]
+        _check(r["routed"]["all_served"] and r["single"]["all_served"],
+               f"{QWEN} routed {layout}: not every request got its tokens")
+        _check(set(r["routed"]["replicas"].values()) != {0},
+               f"{QWEN} routed {layout}: no replica decoded: {r['routed']['replicas']}")
+        _check(bitwise_rows_ok(r["rows"]),
+               f"{QWEN} routed {layout}: not bitwise one {layout} engine: {r['rows']}")
+        _check(r["routed"]["launches"]["qrlora_bgmv"] > 0,
+               f"{QWEN} routed {layout}: #1 never launched")
+        _check_no_bench_kernels(r["routed"]["launches"], f"{QWEN} routed {layout}")
+    _check(out["oracle_dense"]["routed"]["launches"]["paged_decode_attention"] == 0
+           and out["paged"]["routed"]["launches"]["paged_decode_attention"] > 0,
+           f"{QWEN} routed: #2 launched on the dense replicas or not on the paged ones")
+    s = out["spill"]
+    _check(s["first_home"] and s["primary_home"] and s["spilled_to_sibling"] and s["imports"] >= 1
+           and s["shipped_bytes"] > 0 and not s["rejected"] and route_rows_ok(s["vs_single"]),
+           f"{QWEN} spillover: no spill, no prefix import, or the spilled stream differs: {s}")
+    f = out["failover"]
+    _check(f["orphans"] > 0 and f["replaced"] == f["orphans"] and f["all_on_survivors"]
+           and all(n == 2 for n in f["placements"]) and route_rows_ok(f["rows"]),
+           f"{QWEN} replica failure: orphans not re-placed once, or their streams differ: {f}")
+    d = out["disaggregated"]
+    _check(d["all_served"] and d["roles"] == ["prefill", "decode"] and d["on_decode"]
+           and d["shipments"] == len(d["rows"]) and d["decode_prefill_buckets"] == 0
+           and d["decode_chunk_dispatches"] == 0
+           and d["first_rows_shipped_bitwise"] == len(d["rows"]) and bitwise_rows_ok(d["rows"]),
+           f"{QWEN} disaggregation: a handoff missing, the prompt recomputed on the decode "
+           f"replica, a first row not the shipped one, or streams differ: {d}")
+    for name in ("fault_spill_import_first_block_only", "fault_inject_previous_row"):
+        _check(out[name]["rejected"], f"{QWEN}: the check let the planted fault {name} through")
+
+
 def kernel_bench_phase():
     """The port's kernel bench on the card, in process, launches counted
     around it; its rows go into the report."""
@@ -3407,6 +3917,7 @@ def main(argv=None) -> None:
                "qrlora_bgmv_qwen2_wq": time_bgmv(gen, 896, 4, K=896, r=160),
                "qrlora_bgmv_qwen2_wv": time_bgmv(gen, 128, 4, K=896, r=160),
                "qrlora_bgmv_qwen2_wq_M32": time_bgmv(gen, 896, 32, K=896, r=160),
+               "qrlora_bgmv_qwen2_wq_M2": time_bgmv(gen, 896, 2, K=896, r=160),
                "paged_decode_attention_qwen2": time_paged(gen, (72, 64, 230, 200), H=14, KV=2,
                                                           cols=16, max_blocks=24)}
     for base in ("int8", "fp8"):
@@ -3610,6 +4121,26 @@ def main(argv=None) -> None:
           f"under preemption, the split step's decode dispatch free of syncs, telemetry on "
           f"equals off, cancel and the handoff between engines hold, every planted fault "
           f"rejected ({time.perf_counter() - t0:.1f} s)")
+
+    # -- the oracle-dense layout, time-slicing and the router on the same ----
+    t0 = time.perf_counter()
+    dense_bgmv_err = check_dense_bgmv(gen, report["cases"])
+    print(f"qrlora_bgmv at {QWEN}'s 1- and 2-lane decode steps {DENSE_BGMV_SHAPES}: max|Δ| "
+          f"{dense_bgmv_err}, within tolerance, bitwise on a second call")
+    dense = dense_phase(args.seed, qwen_params)
+    report["dense"] = dense
+    print_dense(dense, smi)
+    check_dense(dense)
+    t_dense = time.perf_counter() - t0
+    routes = router_phase(args.seed, qwen_params)
+    report["router"] = routes
+    print_router(routes, smi)
+    check_router(routes)
+    print(f"{QWEN} oracle-dense layout in float32 and bf16: token-identical to the merged-weight "
+          f"reference (float32), the time-sliced serve bitwise the unsliced one, every dense "
+          f"decode dispatch free of syncs ({t_dense:.1f} s); 2 replicas on one card: routed "
+          f"streams equal one engine's in both layouts, spillover, failover and disaggregation "
+          f"hold; every planted fault rejected ({time.perf_counter() - t0:.1f} s)")
     del qwen_params
     torch.cuda.empty_cache()
 
@@ -3699,6 +4230,20 @@ def main(argv=None) -> None:
          "src/repro_torch/kernels/csrc/paged_attention.cu",
          "src/repro/kernels/paged_attention.py:116",
          posture["bfloat16"]["runs"]["serving"]["launches"]["paged_decode_attention"]),
+        # the oracle-dense serve (bf16, 2 lanes; its attend is plain torch) and
+        # the routed serves (float32, 2 replicas on the card)
+        ("qrlora_bgmv_qwen2_dense", "qrlora_bgmv_qwen2_wq_M2", dense_bgmv_err["bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:172",
+         dense["bfloat16"]["runs"]["dense"]["launches"]["qrlora_bgmv"]),
+        ("qrlora_bgmv_qwen2_routed", "qrlora_bgmv_qwen2_wq", qwen_err["qrlora_bgmv_float32"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:172",
+         routes["paged"]["routed"]["launches"]["qrlora_bgmv"]
+         + routes["oracle_dense"]["routed"]["launches"]["qrlora_bgmv"]),
+        ("paged_decode_attention_qwen2_routed", "paged_decode_attention_qwen2",
+         qwen_err["paged_decode_attention_float32"]["max_abs_err"],
+         "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:116",
+         routes["paged"]["routed"]["launches"]["paged_decode_attention"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -4,14 +4,15 @@ Prints ``name,us_per_call,derived`` CSV rows, as the reference does.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.run --only kernel
   PYTHONPATH=src python -m repro_torch.benchmarks.run --only table2_mrpc
+  PYTHONPATH=src python -m repro_torch.benchmarks.run --only multi_replica --device cpu
   REPRO_BENCH_SCALE=smoke PYTHONPATH=src python -m repro_torch.benchmarks.run \
       --only table3_glue --device cpu
 
 ``REPRO_BENCH_SCALE`` (smoke, tiny, paper) sizes the GLUE runs as in the
-reference (:func:`common.kw`).  It runs on the card unless ``--device cpu``
-(a missing card raises).  Naming one of the reference's serving benches,
-which are not ported yet, raises and names the ROADMAP item that ports
-them.  Unlike the reference, it exits
+reference (:func:`common.kw`) and the multi-replica bench.  It runs on the
+card unless ``--device cpu`` (a missing card raises).  Naming the
+reference's serving bench that is not ported yet raises and names the
+ROADMAP items that port it.  Unlike the reference, it exits
 non-zero when a row's kernel error is over its stated tolerance, as well as
 when a bench fails.  On a card, float32 matrix products stay in full
 float32 (TF32 off) so the plain versions are exact references.
@@ -36,11 +37,13 @@ MODULES = [
     ("fig1_tradeoff", "repro_torch.benchmarks.fig1_tradeoff"),
     ("kernel", "repro_torch.benchmarks.kernel_bench"),
     ("train_throughput", "repro_torch.benchmarks.train_throughput"),
+    ("multi_replica", "repro_torch.benchmarks.multi_replica"),
 ]
 
-#: the reference's serving benches that the port does not have yet: they need
-#: the engine features and replicas of ROADMAP Queue 1 items 10, 12, 13 and 14b
-NOT_PORTED = ("serve_multitenant", "multi_replica")
+#: the reference's serving bench that the port does not have yet: it needs
+#: speculative decoding and the λ-store cold tier (ROADMAP Queue 1 items 10d
+#: and 13)
+NOT_PORTED = ("serve_multitenant",)
 
 
 def main(argv=None) -> dict:
@@ -61,8 +64,8 @@ def main(argv=None) -> dict:
     for name in sel:
         if name in NOT_PORTED:
             raise NotImplementedError(
-                f"bench {name!r} is not ported yet: it needs the serving features of ROADMAP "
-                "Queue 1 item 16")
+                f"bench {name!r} is not ported yet: it needs speculative decoding and the "
+                "λ-store cold tier (items 10d and 13); ROADMAP Queue 1 item 16 ports it")
         if name not in ported:
             raise ValueError(f"unknown bench {name!r}; ported: {sorted(ported)}")
     device = resolve_device(args.device)

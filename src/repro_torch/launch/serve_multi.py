@@ -17,9 +17,26 @@ logit for logit.
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve_multi \
         --reduced --device cpu --shard-lam --shard-ba
 
+``--layout`` picks the KV layout (``auto``, the default, pages unless
+``--quantum`` is set; ``oracle_dense`` gives each lane a dense region).
 ``--n-blocks``, ``--share-prefix``, ``--watermark`` and ``--prefill-chunk``
 configure the paged layout as the reference's driver takes them (the pool
-size, copy-on-write prefix sharing, admission headroom, chunked prefill).
+size, copy-on-write prefix sharing, admission headroom, chunked prefill);
+``--quantum N`` time-slices the dense layout (a lane that has decoded N
+tokens while requests queue is snapshot-preempted and later restored).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu \
+        --layout oracle_dense --quantum 3 --lanes 2
+
+``--replicas N`` serves through N engine replicas behind the
+adapter-locality router (placement by consistent hash of each tenant's λ
+digest, spillover, prefix import between replicas); ``--disaggregate``
+makes replica 0 a prefill replica that hands each committed prompt to a
+decode replica.  Each routed stream is verified like a single engine's.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu --replicas 2
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu \
+        --replicas 2 --disaggregate --share-prefix --prefill-chunk 16
 
 ``--stream`` prints each token as it decodes (``engine.stream()``);
 ``--metrics-out PATH`` writes the final metrics snapshot (``.prom``/``.txt``:
@@ -67,7 +84,9 @@ from repro_torch.serving import (
     BASE_TENANT,
     EngineConfig,
     MultiTenantEngine,
+    Router,
     base_lambda,
+    build_replicas,
     random_lambda,
     reference_decode,
 )
@@ -128,6 +147,21 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--lam-scale", type=float, default=0.3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layout", default="auto", choices=["auto", "paged", "oracle_dense"],
+                    help="KV-cache layout: 'paged' = block pool + per-lane block tables, "
+                    "'oracle_dense' = a dense (max_len) region per lane; 'auto' pages "
+                    "unless --quantum is set")
+    ap.add_argument("--quantum", type=int, default=None, metavar="STEPS",
+                    help="time-slice fairness: snapshot-preempt a lane after this many decode "
+                    "steps while requests queue, restored later without re-prefill (dense "
+                    "layout only)")
+    ap.add_argument("--replicas", type=int, default=1, metavar="N",
+                    help="serve through N engine replicas behind the adapter-locality router "
+                    "(1 = one plain engine)")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="prefill/decode disaggregation (needs --replicas >= 2): replica 0 "
+                    "prefills and ships each committed prompt's blocks and first-token logits "
+                    "to a decode replica")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--n-blocks", type=int, default=None,
                     help="KV pool size (default: dense-equivalent capacity + trash block)")
@@ -169,31 +203,79 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.no_telemetry and (args.metrics_out or args.trace_out):
         ap.error("--metrics-out/--trace-out need telemetry; drop --no-telemetry")
+    if args.quantum is not None and args.layout == "paged":
+        ap.error("--quantum needs the dense oracle layout; drop --layout paged")
+    if args.replicas > 1 or args.disaggregate:
+        if args.disaggregate and args.replicas < 2:
+            ap.error("--disaggregate needs --replicas >= 2 (one to prefill, one to decode)")
+        if args.stream or args.quantum is not None:
+            ap.error("--replicas serves via the router (no --stream/--quantum)")
+        if args.shard_lam or args.shard_ba:
+            ap.error("--replicas serves unsharded engines (no --shard-lam/--shard-ba)")
+        if args.trace_out:
+            ap.error("--replicas writes the router's metrics, not a trace (no --trace-out)")
+        return serve_replicated(args, args.device)
     if not (args.shard_lam or args.shard_ba):
         return serve(args, args.device)
     with process_group(args.device) as device:
         return serve(args, device)
 
 
-def serve(args, device):
-    """Build the engine on ``device``, serve one request per tenant and
-    verify every stream on rank 0 (rank 0 alone when unsharded)."""
+def _config(args):
+    """The model config and the EngineConfig the arguments describe."""
     cfg = (get_reduced if args.reduced else get_config)(args.arch).replace(dtype=args.dtype)
     # the store must hold every tenant the driver submits for at once
     n_slots = max(args.slots, args.tenants + 1)
     if n_slots != args.slots:
         _say(f"raising --slots {args.slots} → {n_slots} to hold all tenants")
     econf = EngineConfig(
-        n_lanes=args.lanes, n_slots=n_slots, max_len=args.max_len,
+        layout=args.layout, n_lanes=args.lanes, n_slots=n_slots, max_len=args.max_len,
         collect_logits=True, seed=args.seed, block_size=args.block_size,
         n_blocks=args.n_blocks, share_prefix=args.share_prefix, watermark=args.watermark,
-        prefill_chunk=args.prefill_chunk, base_dtype=args.base_dtype, shard_lam=args.shard_lam,
-        shard_ba=args.shard_ba, telemetry=not args.no_telemetry,
+        prefill_chunk=args.prefill_chunk, quantum=args.quantum, base_dtype=args.base_dtype,
+        shard_lam=args.shard_lam, shard_ba=args.shard_ba, telemetry=not args.no_telemetry,
     )
+    return cfg, econf
+
+
+def _tenant_lams(args, device, params):
+    """The driver's tenants: the base model and ``--tenants - 1`` random λ."""
+    gen = torch.Generator(device=device)
+    lams = {BASE_TENANT: base_lambda(params)}
+    for i in range(1, args.tenants):
+        lams[f"tenant{i}"] = random_lambda(gen.manual_seed(args.seed + 1000 + i), params,
+                                           args.lam_scale)
+    return lams
+
+
+def _verify(cfg, params, lams, done, args, tol):
+    """Each finished request's tokens and logits against the merged-weight
+    reference; raises SystemExit on a mismatch, returns the worst |Δ|."""
+    worst = 0.0
+    for uid in sorted(done):
+        req = done[uid]
+        ref_toks, ref_logits = reference_decode(
+            cfg, params, lams[req.tenant], req.prompt, args.gen_len, args.max_len
+        )
+        err = float(np.abs(np.stack(req.logits) - ref_logits).max())
+        worst = max(worst, err)
+        ok = req.tokens == ref_toks and err < tol
+        _say(f"verify {req.tenant}: tokens {'OK' if ok else 'MISMATCH'} "
+             f"max|Δlogits|={err:.2e} {req.tokens[:12]}")
+        if not ok:
+            raise SystemExit(f"tenant {req.tenant} diverged from merged-weight reference")
+    return worst
+
+
+def serve(args, device):
+    """Build the engine on ``device``, serve one request per tenant and
+    verify every stream on rank 0 (rank 0 alone when unsharded)."""
+    cfg, econf = _config(args)
     engine = MultiTenantEngine(cfg, econf, device=device)
     lead = not dist.is_initialized() or dist.get_rank() == 0
-    _say(f"arch={cfg.name} layout={engine.layout} device={engine.device} "
-         f"pool={engine.allocator.capacity} blocks of {args.block_size} "
+    pool = (f"pool={engine.allocator.capacity} blocks of {args.block_size}" if engine.paged
+            else f"dense lanes of {args.max_len} positions quantum={args.quantum}")
+    _say(f"arch={cfg.name} layout={engine.layout} device={engine.device} {pool} "
          f"share_prefix={args.share_prefix} watermark={args.watermark} "
          f"prefill_chunk={args.prefill_chunk}")
     if engine.base_dtype != "bf16":
@@ -210,13 +292,10 @@ def serve(args, device):
         _say(f"QR factors B/A rank-sharded over {dist.get_world_size()} rank(s): "
              f"{_factor_bytes(engine.params)} B/rank (replicated would be {full} B)")
 
-    gen = torch.Generator(device=engine.device)
-    lams = {BASE_TENANT: base_lambda(engine.params)}
-    for i in range(1, args.tenants):
-        name = f"tenant{i}"
-        lams[name] = random_lambda(gen.manual_seed(args.seed + 1000 + i), engine.params,
-                                   args.lam_scale)
-        engine.add_tenant(name, lams[name])
+    lams = _tenant_lams(args, engine.device, engine.params)
+    for name, lam in lams.items():
+        if name != BASE_TENANT:
+            engine.add_tenant(name, lam)
 
     rng = np.random.default_rng(args.seed)
     reqs = {}
@@ -241,12 +320,15 @@ def serve(args, device):
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     dt = time.perf_counter() - t0
+    pool = (f"pool peak={engine.allocator.peak_in_use}/{engine.allocator.capacity} blocks, "
+            if engine.paged else "")
     _say(f"{engine.decoded_tokens} tokens in {dt * 1e3:.1f} ms "
          f"({engine.decoded_tokens / dt:.0f} tok/s) over {engine.steps} shared decode "
-         f"steps, pool peak={engine.allocator.peak_in_use}/{engine.allocator.capacity} "
-         f"blocks, preemptions={engine.preemptions}, cow_forks={engine.cow_forks}, "
+         f"steps, {pool}preemptions={engine.preemptions}, cow_forks={engine.cow_forks}, "
          f"chunked admissions={engine.chunked_admissions} in "
          f"{engine.chunk_dispatches} chunks, KV cache {engine.kv_cache_bytes()} bytes")
+    if args.quantum is not None:
+        _say(f"quantum={args.quantum}: {engine.slice_preemptions} snapshot time-slices")
     if engine.prefix_cache is not None:
         pc = engine.prefix_cache
         _say(f"prefix hits={pc.hits} misses={pc.misses} cached={pc.cached_blocks} blocks")
@@ -267,20 +349,60 @@ def serve(args, device):
     if not lead:
         return done
     tol = 1e-3 if engine.base_dtype == "bf16" else 5e-2
-    worst = 0.0
-    for uid in sorted(done):
-        req = done[uid]
-        ref_toks, ref_logits = reference_decode(
-            cfg, params, lams[req.tenant], req.prompt, args.gen_len, args.max_len
-        )
-        err = float(np.abs(np.stack(req.logits) - ref_logits).max())
-        worst = max(worst, err)
-        ok = req.tokens == ref_toks and err < tol
-        _say(f"verify {req.tenant}: tokens {'OK' if ok else 'MISMATCH'} "
-             f"max|Δlogits|={err:.2e} {req.tokens[:12]}")
-        if not ok:
-            raise SystemExit(f"tenant {req.tenant} diverged from merged-weight reference")
+    worst = _verify(cfg, params, lams, done, args, tol)
     _say(f"all {len(done)} tenants match merged-weight refs (worst |Δlogits|={worst:.2e})")
+    return done
+
+
+def serve_replicated(args, device):
+    """``--replicas N``: one engine per replica behind the adapter-locality
+    router, the same tenants, prompts and verification as one engine."""
+    cfg, econf = _config(args)
+    replicas = build_replicas(cfg, econf, args.replicas, device=device)
+    router = Router(replicas, disaggregate=args.disaggregate,
+                    telemetry=not args.no_telemetry)
+    params = replicas[0].engine.params
+    roles = " ".join(f"{r.name}:{r.role}" for r in router.replicas)
+    _say(f"arch={cfg.name} layout={replicas[0].engine.layout} device={replicas[0].engine.device} "
+         f"replicas={args.replicas} ({roles}) disaggregate={args.disaggregate}")
+    lams = _tenant_lams(args, replicas[0].engine.device, params)
+    router.add_tenants(lams)
+    rng = np.random.default_rng(args.seed)
+    routed = {}
+    for tenant in lams:
+        prompt = rng.integers(2, cfg.vocab_size, size=args.prompt_len).astype(np.int32)
+        r = router.submit(tenant, prompt, args.gen_len)
+        routed[r.uid] = r
+
+    if replicas[0].engine.device.type == "cuda":
+        _build.build()
+    t0 = time.perf_counter()
+    done = router.run()
+    if replicas[0].engine.device.type == "cuda":
+        torch.cuda.synchronize(replicas[0].engine.device)
+    dt = time.perf_counter() - t0
+    if set(done) != set(routed):
+        raise SystemExit(f"router lost requests: {sorted(set(routed) - set(done))}")
+    n_tok = sum(len(r.tokens) for r in done.values())
+    stats = router.transport.stats()
+    _say(f"{n_tok} tokens in {dt * 1e3:.1f} ms ({n_tok / dt:.0f} tok/s) across "
+         f"{args.replicas} replicas")
+    _say(f"placement hit rate {router.placement_hit_rate():.0%}; transport "
+         f"{stats['total_bytes']} bytes {stats}")
+    for rep in router.replicas:
+        eng = rep.engine
+        line = (f"  {rep.name} ({rep.role}): {eng.decoded_tokens} tokens, {eng.steps} steps, "
+                f"slice preemptions {eng.slice_preemptions}")
+        if eng.prefix_cache is not None:
+            line += f", prefix hits={eng.prefix_cache.hits} misses={eng.prefix_cache.misses}"
+        _say(line)
+    if args.metrics_out:
+        write_metrics(args.metrics_out, router.metrics())
+        _say(f"router metrics snapshot → {args.metrics_out}")
+    tol = 1e-3 if replicas[0].engine.base_dtype == "bf16" else 5e-2
+    worst = _verify(cfg, params, lams, {u: r.engine_req for u, r in done.items()}, args, tol)
+    _say(f"all {len(done)} routed tenants match merged-weight refs (worst "
+         f"|Δlogits|={worst:.2e})")
     return done
 
 

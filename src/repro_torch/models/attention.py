@@ -1,8 +1,11 @@
-"""GQA attention: full-sequence, dense-cache and paged-cache paths (port of
-``repro/models/attention.py`` for the dense serving slice).
+"""GQA attention: full-sequence, dense-cache (lock-step or per-lane) and
+paged-cache paths (port of ``repro/models/attention.py`` for the dense
+serving slice).
 
-Prefill attention stays plain torch (the reference leaves it to XLA); the
-paged decode attend goes through :func:`repro_torch.kernels.ops.
+Prefill attention stays plain torch (the reference leaves it to XLA), and so
+does the per-lane dense decode attend (the reference's ``_softmax_attend``
+over the lane's whole ``max_len`` region, no Pallas kernel); the paged
+decode attend goes through :func:`repro_torch.kernels.ops.
 paged_decode_attention` — the Hopper kernel for CUDA tensors.  The
 projections go through :func:`repro_torch.core.adapter_api.adapted_matmul`.
 
@@ -100,7 +103,8 @@ def attention(
 
     * ``cache=None``                     — full causal pass, no cache.
     * dense cache (``k``/``v``/``idx``)  — lock-step prefill (S > 1) or
-      decode (S == 1) at the scalar offset ``idx``.
+      decode (S == 1) at the scalar offset ``idx``; with per-lane offsets
+      (``idx`` (B,)) see :func:`_lane_prefill` and :func:`_lane_decode`.
     * paged cache (``block_tbl``)        — block-aligned prefill (S > 1,
       :func:`_paged_prefill`) or one decode step (:func:`_paged_decode`).
 
@@ -118,8 +122,13 @@ def attention(
             out = _paged_prefill(q, k, v, cache, positions, scale)
         else:
             out = _paged_decode(q, k, v, cache, scale, attend_blocks)
+    elif cache is not None and cache["idx"].ndim:
+        if S != 1:
+            out = _lane_prefill(q, k, v, cache, scale)
+        else:
+            out = _lane_decode(q, k, v, cache, scale)
     elif cache is not None:
-        idx = int(cache["idx"])  # lock-step offset (reference decode path)
+        idx = int(cache["idx"])  # lock-step offset (merged-weight reference only)
         cache["k"][:, idx: idx + S] = k.to(cache["k"].dtype)
         cache["v"][:, idx: idx + S] = v.to(cache["v"].dtype)
         if S == 1:
@@ -133,6 +142,35 @@ def attention(
     else:
         out = _softmax_attend(q, k, v, _causal_mask(S, x.device), scale)
     return adapted_matmul(out.reshape(B, S, H * dh), p["wo"], (adp or {}).get("wo"))
+
+
+def _lane_prefill(q, k, v, cache, scale):
+    """Prefill against a per-lane dense cache: positions ``0..S`` of every
+    lane take the prompt's K/V (the bucket's padding included, masked by the
+    lane's offset later), then the plain causal pass over the prompt."""
+    S = q.shape[1]
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    return _softmax_attend(q, k, v, _causal_mask(S, q.device), scale)
+
+
+def _lane_decode(q, k, v, cache, scale):
+    """One decode step against a per-lane dense cache: ``k``/``v`` (B,
+    max_len, KV, dh), ``idx`` (B,) each lane's write offset.  Each lane
+    writes its row at its own offset (an index scatter over ``(arange(B),
+    idx)``: no offset is read on the host), then attends its whole region
+    under ``kpos <= idx``.  An idle lane's offset keeps advancing; its write
+    is clamped to the last row, as the reference's ``dynamic_update_slice``
+    clamps, and its output is discarded."""
+    B, max_len = cache["k"].shape[:2]
+    idx = cache["idx"].long()
+    lanes = torch.arange(B, device=q.device)
+    row = torch.clamp(idx, max=max_len - 1)
+    cache["k"][lanes, row] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][lanes, row] = v[:, 0].to(cache["v"].dtype)
+    kpos = torch.arange(max_len, device=q.device)
+    mask = (kpos[None, :] <= idx[:, None])[:, None, None, None, :]
+    return _softmax_attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask, scale)
 
 
 def _scatter_rows(pool: torch.Tensor, flat: torch.Tensor, rows: torch.Tensor) -> None:
@@ -203,6 +241,13 @@ def _paged_decode(q, k, v, cache, scale, attend_blocks: Optional[int] = None):
     return ops.paged_decode_attention(
         q, cache["k"], cache["v"], tbl, lengths.to(torch.int32)
     )
+
+
+def kv_lane_axes(lead_ndim: int):
+    """Lane axes of a per-lane dense KV cache with ``lead_ndim`` stacked
+    leading axes: k/v ``(*lead, batch, max_len, KV, dh)`` and idx ``(*lead,
+    batch)`` — the lane axis follows the lead axes."""
+    return {"k": lead_ndim, "v": lead_ndim, "idx": lead_ndim}
 
 
 def paged_kv_lane_axes():

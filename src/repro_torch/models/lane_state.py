@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Any
 
+import torch
+
 NO_LANE = -1
 
 
@@ -23,21 +25,27 @@ def _walk(state, axes, fn, *rest):
     return fn(state, axes, *rest)
 
 
-def extract_lane(state: Any, axes: Any, lane: int) -> Any:
+def extract_lane(state: Any, axes: Any, lane: int, host: bool = False) -> Any:
     """Copy of lane ``lane``: every per-lane leaf narrowed to size 1 along
-    its lane axis (``NO_LANE`` leaves become empty placeholders)."""
+    its lane axis (``NO_LANE`` leaves become empty placeholders).  With
+    ``host`` the copy lands in host memory, and the call returns only once
+    it is complete, so the lane may be overwritten right after."""
 
     def ex(t, ax):
         if ax == NO_LANE:
-            return t.new_zeros((0,))
-        return t.narrow(ax, lane, 1).clone()
+            return torch.zeros((0,), dtype=t.dtype, device="cpu" if host else t.device)
+        part = t.narrow(ax, lane, 1)
+        return part.to("cpu", copy=True) if host else part.clone()
 
     return _walk(state, axes, ex)
 
 
 def restore_lane(state: Any, axes: Any, lane: int, snapshot: Any) -> Any:
     """Write a 1-lane ``snapshot`` into lane ``lane`` of ``state`` in place,
-    leaving other lanes and ``NO_LANE`` leaves untouched; returns ``state``."""
+    leaving other lanes and ``NO_LANE`` leaves untouched; returns ``state``.
+    The snapshot may sit on the device (an admission prefill) or on the host
+    (a time-slice snapshot, ``extract_lane(..., host=True)``): either way
+    each leaf is copied straight into the lane's slice of the state."""
 
     def re(t, ax, s):
         if ax != NO_LANE:

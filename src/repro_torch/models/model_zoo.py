@@ -1,8 +1,9 @@
 """Public model API: :class:`Model` (port of ``repro/models/model_zoo.py``
 for the dense decoder and the RoBERTa-style encoder): init with adapters
 (QR-LoRA, LoRA, SVD-LoRA), forward (decoder logits, or ``(logits, aux)``
-for the trainer; encoder task outputs), prefill and decode over the paged
-or lock-step dense cache, the trainable mask and the parameter count."""
+for the trainer; encoder task outputs), prefill and decode over the paged,
+per-lane dense or lock-step dense cache, the trainable mask and the
+parameter count."""
 from __future__ import annotations
 
 import dataclasses
@@ -96,16 +97,17 @@ class Model:
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
 
     def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16,
-                          paged: bool = False, block_size: int = 16,
+                          per_lane: bool = False, paged: bool = False, block_size: int = 16,
                           n_blocks: Optional[int] = None) -> Dict:
         return tfm_lib.init_decode_state(
-            self.cfg, batch, max_len, dtype, paged=paged, block_size=block_size,
-            n_blocks=n_blocks, device=self.device,
+            self.cfg, batch, max_len, dtype, per_lane=per_lane, paged=paged,
+            block_size=block_size, n_blocks=n_blocks, device=self.device,
         )
 
-    def lane_axes(self) -> Dict:
-        """LaneState protocol: lane axes of the paged per-lane cache."""
-        return tfm_lib.decode_state_lane_axes(self.cfg)
+    def lane_axes(self, paged: bool = False) -> Dict:
+        """LaneState protocol: lane axes of the per-lane cache (dense, or
+        paged)."""
+        return tfm_lib.decode_state_lane_axes(self.cfg, paged=paged)
 
     def paged_prefill_view(self, cache, write_ids, read_ids=None):
         return tfm_lib.paged_prefill_view(self.cfg, cache, write_ids, read_ids)

@@ -131,30 +131,32 @@ def decoder_apply(params, cfg: ModelConfig, tokens, seg_ids=None) -> torch.Tenso
 
 def init_decode_state(
     cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, *,
-    paged: bool = False, block_size: int = 16, n_blocks: Optional[int] = None,
-    device=None,
+    per_lane: bool = False, paged: bool = False, block_size: int = 16,
+    n_blocks: Optional[int] = None, device=None,
 ) -> Dict:
     """Decode cache.
 
-    ``paged=False``: the lock-step dense cache the merged-weight reference
-    decodes with — k/v ``(n_layers, batch, max_len, KV, dh)`` and one scalar
-    offset per layer.  ``paged=True``: per-lane offsets (``idx``
-    (n_layers, batch), ``pos`` (batch,)) over a global block pool
+    Default: the lock-step dense cache the merged-weight reference decodes
+    with — k/v ``(n_layers, batch, max_len, KV, dh)`` and one scalar offset
+    per layer.  ``per_lane=True``: the same dense k/v with a write offset
+    per lane (``idx`` (n_layers, batch), ``pos`` (batch,)), so lanes hold
+    sequences of different lengths — the oracle-dense serving layout.
+    ``paged=True`` (implies per-lane): a global block pool
     ``(n_layers, n_blocks, block_size, KV, dh)`` and per-lane block tables
-    ``(n_layers, batch, max_len / block_size)`` int32; block 0 is the
-    reserved trash block (``serving/paging.py``).  The reference's per-lane
-    dense layout comes with a later slice.
+    ``(n_layers, batch, max_len / block_size)`` int32 in place of the dense
+    region; block 0 is the reserved trash block (``serving/paging.py``).
     """
     _check_family(cfg)
     G, KV, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
     zeros = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
     if not paged:
+        lanes = (batch,) if per_lane else ()
         return {
-            "pos": zeros(dt=torch.int32),
+            "pos": zeros(*lanes, dt=torch.int32),
             "layers": {"attn": {
                 "k": zeros(G, batch, max_len, KV, dh),
                 "v": zeros(G, batch, max_len, KV, dh),
-                "idx": zeros(G, dt=torch.int32),
+                "idx": zeros(G, *lanes, dt=torch.int32),
             }},
         }
     if max_len % block_size:
@@ -173,10 +175,12 @@ def init_decode_state(
     }
 
 
-def decode_state_lane_axes(cfg: ModelConfig) -> Dict:
-    """LaneState protocol: the lane axis of each leaf of the paged cache."""
+def decode_state_lane_axes(cfg: ModelConfig, paged: bool = False) -> Dict:
+    """LaneState protocol: the lane axis of each leaf of the per-lane cache
+    (``init_decode_state(..., per_lane=True, paged=paged)``)."""
     _check_family(cfg)
-    return {"pos": 0, "layers": {"attn": attn_lib.paged_kv_lane_axes()}}
+    attn = attn_lib.paged_kv_lane_axes() if paged else attn_lib.kv_lane_axes(1)
+    return {"pos": 0, "layers": {"attn": attn}}
 
 
 def paged_prefill_view(cfg: ModelConfig, cache, write_ids: torch.Tensor,

@@ -1,5 +1,6 @@
 """Multi-tenant QR-LoRA serving of the port: λ-store, paged KV block
-allocator and prefix cache, continuous-batching scheduler and the engine."""
+allocator and prefix cache, continuous-batching scheduler, the engine, and
+engine replicas behind the adapter-locality router."""
 from repro_torch.serving.config import EngineConfig
 from repro_torch.serving.engine import (
     MultiTenantEngine,
@@ -16,4 +17,12 @@ from repro_torch.serving.lam_store import (
     random_lambda,
 )
 from repro_torch.serving.paging import BlockAllocator, PoolExhausted, PrefixCache
+from repro_torch.serving.replica import (
+    EngineReplica,
+    LocalTransport,
+    Transport,
+    build_replicas,
+    payload_nbytes,
+)
+from repro_torch.serving.router import RoutedRequest, Router
 from repro_torch.serving.scheduler import ContinuousBatchScheduler, Request

@@ -1,12 +1,22 @@
 """Typed engine configuration (port of ``repro/serving/config.py``).
 
-The port's engine serves the paged layout; ``layout="auto"`` (the default)
-resolves to it for the dense family.  ``EngineConfig.serving()`` is the
-reference's production posture: paged KV, copy-on-write prefix sharing, one
-watermark block of decode headroom and chunked prefill at two blocks a step.
-The reference's other knobs belong to later slices of the port: the fields
-exist with their disabled defaults so a config that sets one fails here,
-naming the slice, instead of being served without it.
+Layouts, as the reference defines them:
+
+* ``"paged"`` — block-pool KV cache (the serving layout).
+* ``"oracle_dense"`` — the dense per-lane ``(lanes, max_len)`` layout: the
+  test oracle the paged engine is held against, and the layout of
+  time-sliced (``quantum``) serving, whose lane snapshots are dense lane
+  state.
+* ``"auto"`` (the default) — paged for the dense family unless ``quantum``
+  is set, then oracle-dense.
+
+``EngineConfig.serving()`` is the reference's production posture: paged KV,
+copy-on-write prefix sharing, one watermark block of decode headroom and
+chunked prefill at two blocks a step; ``EngineConfig.oracle_dense()`` the
+reference posture the tests compare against.  The reference's other knobs
+belong to later slices of the port: the fields exist with their disabled
+defaults so a config that sets one fails here, naming the slice, instead of
+being served without it.
 """
 from __future__ import annotations
 
@@ -20,7 +30,6 @@ LAYOUTS = ("auto", "paged", "oracle_dense")
 
 #: field → (its disabled default, the slice of the port that brings it)
 LATER_SLICES = {
-    "quantum": (None, "quantum time-slicing on the dense layout (ROADMAP Queue 1 item 10c)"),
     "speculate_k": (0, "speculative decoding (ROADMAP Queue 1 item 10d)"),
     "draft_lam_rank": (None, "speculative decoding (ROADMAP Queue 1 item 10d)"),
     "cold_slots": (0, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
@@ -70,8 +79,11 @@ class EngineConfig:
     #: Serving metrics and request-span tracing (``repro_torch.obs``): host
     #: bookkeeping only — no device work, no sync; ``engine.metrics()``.
     telemetry: bool = True
-    # -- later slices: must stay at their defaults (see LATER_SLICES) --------
+    #: Time-slice fairness (dense layout only): a lane that has decoded this
+    #: many tokens while requests queue is snapshot-preempted to the back of
+    #: the queue and later restored without re-prefill.  ``None`` disables.
     quantum: Optional[int] = None
+    # -- later slices: must stay at their defaults (see LATER_SLICES) --------
     speculate_k: int = 0
     draft_lam_rank: Optional[int] = None
     cold_slots: int = 0
@@ -85,23 +97,34 @@ class EngineConfig:
                 raise ValueError(f"{name}={getattr(self, name)} must be >= 1")
         if self.watermark < 0:
             raise ValueError(f"watermark={self.watermark} must be >= 0")
-        if self.prefill_chunk is not None and (
-            self.prefill_chunk < self.block_size or self.prefill_chunk % self.block_size
-        ):
-            raise ValueError(
-                f"prefill_chunk={self.prefill_chunk} must be a positive multiple of "
-                f"block_size={self.block_size}"
-            )
+        if self.quantum is not None:
+            if self.quantum < 1:
+                raise ValueError(f"quantum={self.quantum} must be >= 1 decode step")
+            if self.layout == "paged":
+                raise ValueError(
+                    "quantum time-slicing snapshots lane state, which a paged lane spreads "
+                    "over pool blocks — use the dense layout (layout='oracle_dense') for "
+                    "time-sliced serving"
+                )
+        if self.prefill_chunk is not None:
+            if self.layout == "oracle_dense":
+                raise ValueError("prefill_chunk requires a paged layout (chunks scatter into "
+                                 "pool blocks)")
+            if self.prefill_chunk < self.block_size or self.prefill_chunk % self.block_size:
+                raise ValueError(
+                    f"prefill_chunk={self.prefill_chunk} must be a positive multiple of "
+                    f"block_size={self.block_size}"
+                )
         if self.speculate_k and self.prefill_chunk is not None:
             raise ValueError(
                 "speculate_k is incompatible with prefill_chunk: a lane mid chunked-prefill "
                 "is dark and cannot draft or verify a window"
             )
         if self.layout == "oracle_dense":
-            raise NotImplementedError(
-                "layout='oracle_dense': the dense per-lane layout comes with the "
-                "oracle-layout slice (ROADMAP Queue 1 item 10c)"
-            )
+            if self.share_prefix:
+                raise ValueError("share_prefix requires a paged layout (blocks to share)")
+            if self.watermark:
+                raise ValueError("watermark requires a paged layout (blocks to reserve)")
         for name, (default, slice_name) in LATER_SLICES.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -128,10 +151,21 @@ class EngineConfig:
         base.update(overrides)
         return cls(**base)
 
+    @classmethod
+    def oracle_dense(cls, **overrides) -> "EngineConfig":
+        """The dense reference layout the paged engine is held against (and
+        the layout of time-sliced serving)."""
+        base = dict(layout="oracle_dense")
+        base.update(overrides)
+        return cls(**base)
+
     def resolved_layout(self, family: str) -> str:
-        """Concrete layout for ``family``: paged, the only layout served."""
+        """Concrete layout for ``family``: an explicit layout as given;
+        ``auto`` pages unless ``quantum`` is set."""
         if family != "dense":
             raise NotImplementedError(
                 f"family {family!r}: the port serves the dense family so far"
             )
+        if self.layout == "oracle_dense" or (self.layout == "auto" and self.quantum is not None):
+            return "oracle_dense"
         return "paged"

@@ -1,5 +1,5 @@
-"""Multi-tenant serving engine, paged dense path (port of
-``repro/serving/engine.py``).
+"""Multi-tenant serving engine of the dense family (port of
+``repro/serving/engine.py``), paged and oracle-dense layouts.
 
 One decode loop serves many QR-LoRA tenants:
 
@@ -33,8 +33,18 @@ features of the paged layout:
   — and its prefill runs ``prefill_chunk`` tokens a step, each chunk
   attending back through the pool, while the resident lanes keep decoding.
 
+The oracle-dense layout (``EngineConfig.oracle_dense()``, or ``auto`` with
+``quantum``) gives each lane its own ``(max_len, KV, dh)`` K/V region with
+per-lane offsets: admission prefills a fresh 1-lane cache and splices it
+into the lane (LaneState ``restore_lane``); there is no pool, no prefix cache
+and no chunking.  ``quantum=N`` adds time-slice fairness there: a lane that
+has decoded N tokens while requests queue is snapshot-preempted — its lane
+state staged to host memory — to the back of the queue, and re-admission
+restores the snapshot with no prefill and no emit, so the sliced serve is
+bitwise the unsliced one.
+
 Admission prefill pads prompts to power-of-two buckets (floored at the
-block size) with the true length masking the tail, and the decode attend is
+block size when paged) with the true length masking the tail, and the decode attend is
 bounded by the decoding lanes' planned final lengths, bucketed to powers of
 two — the reference's padding, so both engines compute the same numbers.
 
@@ -95,7 +105,7 @@ from repro_torch.core.quantize import quantize_base_params
 from repro_torch.device import resolve_device
 from repro_torch.kernels.qrlora_bgmv import ba_gather_sharded
 from repro_torch.models import build_model
-from repro_torch.models.lane_state import extract_lane, reset_lane
+from repro_torch.models.lane_state import extract_lane, reset_lane, restore_lane
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.obs import Telemetry
 from repro_torch.serving.config import EngineConfig
@@ -142,6 +152,7 @@ class MultiTenantEngine:
         if cfg.adapter.mode != "qr_lora":
             raise ValueError("multi-λ serving is defined for qr_lora adapters")
         self.layout = config.resolved_layout(cfg.family)
+        self.paged = paged = self.layout == "paged"
         self.cfg = cfg
         self.config = config
         self.device = resolve_device(device)
@@ -185,24 +196,29 @@ class MultiTenantEngine:
         self.collect_logits = config.collect_logits
         self.dtype = torch_dtype(cfg.dtype)
         self.block_size = bs = config.block_size
-        if self.max_len % bs:
-            raise ValueError(f"max_len={self.max_len} must be a multiple of block_size={bs}")
-        self.max_blocks = self.max_len // bs
-        n_blocks = config.n_blocks
-        if n_blocks is None:
-            n_blocks = 1 + self.n_lanes * self.max_blocks  # dense-equivalent
-        self.allocator = BlockAllocator(n_blocks, bs, metrics=tel.registry)
-        if not 0 <= config.watermark < self.allocator.capacity:
-            raise ValueError(f"watermark={config.watermark} must be in "
-                             f"[0, capacity={self.allocator.capacity})")
-        self.watermark = config.watermark
-        self.prefix_cache = (PrefixCache(self.allocator, metrics=tel.registry)
-                             if config.share_prefix else None)
+        self.quantum = config.quantum
+        self.slice_preemptions = 0  # quantum snapshot-preemptions
+        self.allocator, self.prefix_cache, self.watermark = None, None, 0
+        if paged:
+            if self.max_len % bs:
+                raise ValueError(f"max_len={self.max_len} must be a multiple of "
+                                 f"block_size={bs}")
+            self.max_blocks = self.max_len // bs
+            n_blocks = config.n_blocks
+            if n_blocks is None:
+                n_blocks = 1 + self.n_lanes * self.max_blocks  # dense-equivalent
+            self.allocator = BlockAllocator(n_blocks, bs, metrics=tel.registry)
+            if not 0 <= config.watermark < self.allocator.capacity:
+                raise ValueError(f"watermark={config.watermark} must be in "
+                                 f"[0, capacity={self.allocator.capacity})")
+            self.watermark = config.watermark
+            self.prefix_cache = (PrefixCache(self.allocator, metrics=tel.registry)
+                                 if config.share_prefix else None)
         # a tenant LRU pressure drops takes its prefix-cache family with it
         self.lam_store.on_drop = lambda tenant, dg: self._drop_stale_family(dg)
         self.prefill_chunk = config.prefill_chunk
         # paged buckets are floored at block_size: block-aligned shapes
-        self._prefill_floor = max(_MIN_PREFILL_BUCKET, bs)
+        self._prefill_floor = max(_MIN_PREFILL_BUCKET, bs) if paged else _MIN_PREFILL_BUCKET
         self._lane_blocks: Dict[int, List[int]] = {}
         # uid → prefix blocks pinned (incref'd) at gate approval, consumed by
         # the admission of the same round
@@ -221,10 +237,10 @@ class MultiTenantEngine:
         self.decoded_tokens = 0
         self.prefill_buckets: set = set()  # padded prompt lengths prefilled
         # path → the distinct shapes it was dispatched at: prefill buckets of
-        # monolithic and (non-final) chunked prefills, decode attend bounds —
-        # what the reference compiles a variant of each for
+        # dense, paged monolithic and (non-final) chunked prefills, decode
+        # attend bounds — what the reference compiles a variant of each for
         self._dispatch_shapes: Dict[str, set] = {
-            "prefill_paged": set(), "prefill_chunk": set(), "decode": set()}
+            "prefill": set(), "decode": set(), "prefill_paged": set(), "prefill_chunk": set()}
         # the decode step's inputs reach the card through pinned host buffers
         # and asynchronous copies, so step_begin does not wait for them; one
         # buffer each is enough, as step_finish syncs before the next step
@@ -234,16 +250,22 @@ class MultiTenantEngine:
                 "tok": torch.zeros((self.n_lanes, 1), dtype=torch.int32, pin_memory=True),
                 "seg": torch.zeros((self.n_lanes,), dtype=torch.int32, pin_memory=True),
             }
-        self.cache = self.model.init_decode_state(
-            self.n_lanes, self.max_len, self.dtype, paged=True, block_size=bs,
-            n_blocks=n_blocks,
-        )
-        # LaneState protocol: retirement and preemption reset a lane to this
-        # snapshot (offsets zeroed, table row → trash block 0)
-        self._axes = self.model.lane_axes()
-        lane0 = self.model.init_decode_state(
-            1, self.max_len, self.dtype, paged=True, block_size=bs, n_blocks=2
-        )
+        if paged:
+            self.cache = self.model.init_decode_state(
+                self.n_lanes, self.max_len, self.dtype, paged=True, block_size=bs,
+                n_blocks=n_blocks,
+            )
+            lane0 = self.model.init_decode_state(
+                1, self.max_len, self.dtype, paged=True, block_size=bs, n_blocks=2)
+        else:
+            self.cache = self.model.init_decode_state(
+                self.n_lanes, self.max_len, self.dtype, per_lane=True)
+            lane0 = self.model.init_decode_state(1, self.max_len, self.dtype, per_lane=True)
+        # LaneState protocol: the lane axes drive admission splice (dense),
+        # time-slice snapshot and restore, and the reset of retirement and
+        # preemption to this snapshot (offsets zeroed, table row → trash
+        # block 0)
+        self._axes = self.model.lane_axes(paged=paged)
         self._init_snap = extract_lane(lane0, self._axes, 0)
 
         # engine-level callback metrics, sampled only at snapshot() time
@@ -341,14 +363,15 @@ class MultiTenantEngine:
             raise ValueError(
                 f"prompt({prompt.size}) + gen({max_new_tokens}) exceeds max_len={self.max_len}"
             )
-        # feasibility only — blocks are acquired lazily, but a request whose
-        # worst-case footprint exceeds the pool could never run to completion
-        worst = self.allocator.blocks_for(prompt.size + max_new_tokens)
-        if worst > self.allocator.capacity:
-            raise ValueError(
-                f"request needs {worst} blocks but the pool only has "
-                f"{self.allocator.capacity} — it could never be admitted"
-            )
+        if self.paged:
+            # feasibility only — blocks are acquired lazily, but a request whose
+            # worst-case footprint exceeds the pool could never run to completion
+            worst = self.allocator.blocks_for(prompt.size + max_new_tokens)
+            if worst > self.allocator.capacity:
+                raise ValueError(
+                    f"request needs {worst} blocks but the pool only has "
+                    f"{self.allocator.capacity} — it could never be admitted"
+                )
         # a queued request keeps its tenant's slot resident until it finishes
         self.lam_store.pin(tenant)
         req = self.scheduler.submit(tenant, prompt, max_new_tokens)
@@ -358,16 +381,18 @@ class MultiTenantEngine:
     def cancel(self, req: Request) -> None:
         """Withdraw a request.  A queued one leaves the queue; an active one
         frees its lane's blocks and the lane resets (tokens already
-        delivered stay on the request)."""
+        delivered stay on the request; a dense lane is left as it is, the
+        next admission overwriting all of it)."""
         if req.lane >= 0:
             self._prefilling.pop(req.uid, None)
             self._imports.pop(req.uid, None)
             lane = req.lane
             self.scheduler.finish(req)
             self.lam_store.unpin(req.tenant)
-            for b in self._lane_blocks.pop(lane):
-                self.allocator.decref(b)
-            reset_lane(self.cache, self._axes, lane, self._init_snap)
+            if self.paged:
+                for b in self._lane_blocks.pop(lane):
+                    self.allocator.decref(b)
+                reset_lane(self.cache, self._axes, lane, self._init_snap)
             return
         try:
             self.scheduler.queue.remove(req)
@@ -451,6 +476,8 @@ class MultiTenantEngine:
         token's logits row and the prompt — what another engine needs to
         put the request in a lane without recompute
         (:meth:`inject_prefilled`).  The caller then cancels it here."""
+        if not self.paged:
+            raise ValueError("export_request_state needs a paged layout")
         if req.lane < 0 or not req.tokens or req.uid in self._prefilling:
             raise ValueError("request has no committed prefill to export")
         nb = self.allocator.blocks_for(req.prompt.size)
@@ -465,6 +492,8 @@ class MultiTenantEngine:
         """Submit a request whose prefill already ran on another engine:
         admission writes the shipped blocks into a lane
         (:meth:`_adopt_prefilled`) instead of running the prompt forward."""
+        if not self.paged:
+            raise ValueError("inject_prefilled needs a paged layout")
         if payload["block_size"] != self.block_size:
             raise ValueError("the prefill engine's block geometry differs")
         req = self.submit(tenant, prompt, max_new_tokens)
@@ -582,6 +611,19 @@ class MultiTenantEngine:
         self.scheduler.preempt(victim)
         self.preemptions += 1
 
+    def _preempt_quantum(self, req: Request) -> None:
+        """Time-slice preemption: snapshot the lane and re-queue the request
+        at the back with its tokens and logits; re-admission restores the
+        snapshot, with no recompute.  The snapshot (the lane's whole
+        ``(max_len, KV, dh)`` K/V region and offsets) is staged to host
+        memory, so a deep queue of sliced requests pins no device copies;
+        the copy completes before this returns, so the admission that takes
+        the lane next cannot overwrite it first."""
+        self.telemetry.on_preempt(req, "quantum")
+        req.snapshot = extract_lane(self.cache, self._axes, req.lane, host=True)
+        self.scheduler.preempt(req, to_back=True, keep_progress=True)
+        self.slice_preemptions += 1
+
     def _fork_block(self, lane: int, slot: int, src: int, dst: int) -> None:
         """Copy-on-write: copy pool block ``src`` to ``dst`` on every layer
         and repoint the lane's table entry at the private copy."""
@@ -628,10 +670,17 @@ class MultiTenantEngine:
 
     def _admit(self, finished: List[Request]) -> None:
         tel = self.telemetry
-        for req in self.scheduler.admit(self._admission_gate()):
-            tel.on_admit(req)
+        for req in self.scheduler.admit(self._admission_gate() if self.paged else None):
+            tel.on_admit(req, restored=req.snapshot is not None)
             req.slot = self.lam_store.lookup(req.tenant)  # pinned since submit
             req.slice_steps = 0
+            if req.snapshot is not None:
+                # time-sliced re-admission: the snapshot goes back into the
+                # (possibly different) lane; no prefill, no emit — decode
+                # resumes from the last generated token
+                restore_lane(self.cache, self._axes, req.lane, req.snapshot)
+                req.snapshot = None
+                continue
             # prompt-length bucketing: pad to a power of two; the true length
             # masks the tail
             P = req.prompt.size
@@ -639,6 +688,10 @@ class MultiTenantEngine:
             padded = np.zeros((Pb,), np.int32)
             padded[:P] = req.prompt
             t0 = tel.now() if tel.enabled else 0.0
+            if not self.paged:
+                self.prefill_buckets.add(Pb)
+                self._emit_prefill(req, self._admit_dense(req, padded), t0, finished)
+                continue
             payload = self._imports.pop(req.uid, None)
             if payload is not None:
                 # a shipped prefill: write its blocks in, no prompt forward
@@ -655,13 +708,32 @@ class MultiTenantEngine:
                 # pass, unless a cached prefix lets the chunks skip its blocks
                 self._begin_chunked_prefill(req, padded, t0)
                 continue
-            logits = self._admit_paged(req, padded)
-            # timed once the logits are on the host: the wait is part of
-            # the prefill the lane paid for
-            row = logits[0].float().cpu().numpy()
-            if tel.enabled:
-                tel.on_prefill(req, t0, tel.now())
-            self._emit(req, row, finished)
+            self._emit_prefill(req, self._admit_paged(req, padded), t0, finished)
+
+    def _emit_prefill(self, req: Request, logits: torch.Tensor, t0: float,
+                      finished: List[Request]) -> None:
+        """Emit a monolithic prefill's first token, timed once the logits
+        are on the host: the wait is part of the prefill the lane paid for."""
+        row = logits[0].float().cpu().numpy()
+        if self.telemetry.enabled:
+            self.telemetry.on_prefill(req, t0, self.telemetry.now())
+        self._emit(req, row, finished)
+
+    def _admit_dense(self, req: Request, padded: np.ndarray) -> torch.Tensor:
+        """Dense admission: prefill a fresh 1-lane per-lane cache (the whole
+        bucket written from position 0, the offsets set to the true length)
+        and splice it into the request's lane."""
+        dev = self.device
+        lane_cache = self.model.init_decode_state(1, self.max_len, self.dtype, per_lane=True)
+        with self._rules_ctx():
+            logits, lane_cache = self.model.prefill(
+                self._params_view(), lane_cache, torch.from_numpy(padded).to(dev)[None, :],
+                seg_ids=torch.full((1,), req.slot, dtype=torch.int32, device=dev),
+                length=torch.full((1,), req.prompt.size, dtype=torch.int32, device=dev),
+            )
+        restore_lane(self.cache, self._axes, req.lane, lane_cache)
+        self._dispatch_shapes["prefill"].add(len(padded))
+        return logits
 
     def _adopt_blocks(self, req: Request) -> int:
         """The prompt's blocks: the prefix blocks its gate pinned (extended
@@ -833,11 +905,14 @@ class MultiTenantEngine:
             lane = req.lane
             self.scheduler.finish(req)
             self.lam_store.unpin(req.tenant)
-            for b in self._lane_blocks.pop(lane):
-                self.allocator.decref(b)
-            # repoint the lane's table row at the trash block so its freed
-            # blocks can be reallocated without the idle lane writing into them
-            reset_lane(self.cache, self._axes, lane, self._init_snap)
+            if self.paged:
+                for b in self._lane_blocks.pop(lane):
+                    self.allocator.decref(b)
+                # repoint the lane's table row at the trash block so its freed
+                # blocks can be reallocated without the idle lane writing into
+                # them; dense lanes skip it — admission overwrites every
+                # per-lane leaf, so a reset would copy a lane for nothing
+                reset_lane(self.cache, self._axes, lane, self._init_snap)
             finished.append(req)
 
     def _attend_blocks(self, decoding: List[Request]) -> int:
@@ -867,7 +942,7 @@ class MultiTenantEngine:
         tok = np.zeros((self.n_lanes, 1), np.int32)
         for req in decoding:
             tok[req.lane, 0] = req.tokens[-1]
-        ab = self._attend_blocks(decoding)
+        ab = self._attend_blocks(decoding) if self.paged else None
         self._dispatch_shapes["decode"].add(ab)
         seg = self._upload("seg", self.scheduler.batch_composition())
         with self._rules_ctx():
@@ -878,9 +953,9 @@ class MultiTenantEngine:
         return logits
 
     def step_begin(self) -> Dict[str, Any]:
-        """First half of :meth:`step`: admission, the chunked-prefill
-        advance, lane growth and the decode *launch* — everything up to the
-        host sync on the decode logits.  Returns the pending handle for
+        """First half of :meth:`step`: quantum time-slicing, admission, the
+        chunked-prefill advance, lane growth and the decode *launch* —
+        everything up to the host sync on the decode logits.  Returns the pending handle for
         :meth:`step_finish`.  A caller running several engines launches
         every engine's step before it waits for any, so their device work
         overlaps."""
@@ -897,13 +972,27 @@ class MultiTenantEngine:
                 tel.phase(name, now - t)
                 t = now
 
+        sched = self.scheduler
+        if self.quantum is not None and sched.queue:
+            # preempt only as many over-quantum lanes as waiters the free
+            # lanes cannot absorb (counted before the victims re-queue), most
+            # overdue first: any more would churn lanes through snapshot and
+            # restore that admission could have filled for free
+            need = len(sched.queue) - len(sched.free_lanes())
+            if need > 0:
+                over = [r for r in sched.active() if r.slice_steps >= self.quantum]
+                over.sort(key=lambda r: (-r.slice_steps, r.lane))
+                for req in over[:need]:
+                    self._preempt_quantum(req)
+            phase("quantum")
         self._admit(finished)
         phase("admit")
         if self._prefilling:
             self._run_prefill_chunks(finished)
             phase("prefill_chunk")
-        self._grow_lanes()
-        phase("grow")
+        if self.paged:
+            self._grow_lanes()
+            phase("grow")
         # lanes mid chunked prefill ride the step as masked rows: their
         # writes hit the trash block, their logits are discarded
         decoding = [r for r in self.scheduler.active() if r.uid not in self._prefilling]
@@ -941,7 +1030,8 @@ class MultiTenantEngine:
         return finished
 
     def step(self) -> List[Request]:
-        """Admit waiting requests, advance chunked prefills under the token
+        """Time-slice over-quantum lanes (when work queues), admit waiting
+        requests, advance chunked prefills under the token
         budget, grow (or CoW-fork) lanes crossing block boundaries, run one
         shared decode step over the committed lanes; returns the requests
         that finished this step.  The tokens it delivered are in
@@ -967,8 +1057,8 @@ class MultiTenantEngine:
     # -- accounting ---------------------------------------------------------
 
     def kv_cache_bytes(self) -> int:
-        """Device bytes held by the decode KV cache (pools, block tables,
-        offsets)."""
+        """Device bytes held by the decode KV cache (pools and block tables,
+        or the dense regions; offsets)."""
         return sum(t.numel() * t.element_size()
                    for t in (self.cache["pos"], *self.cache["layers"]["attn"].values()))
 

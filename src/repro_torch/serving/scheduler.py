@@ -29,8 +29,7 @@ class Request:
     slot: int = -1  # adapter slot id (0 = base model)
     admit_seq: int = -1  # admission ordinal (preemption picks the youngest)
     preemptions: int = 0
-    # decode steps since (re-)admission (the reference's time-slicing
-    # quantum counts these; kept so both engines' requests read the same)
+    # decode steps since (re-)admission: the time-slicing quantum counts these
     slice_steps: int = 0
     # next prompt position a chunked prefill computes (-1: none in flight)
     prefill_pos: int = -1
@@ -39,6 +38,9 @@ class Request:
     # preemption that clears ``tokens``, so a re-derived token is not
     # delivered twice
     delivered: int = 0
+    # LaneState snapshot taken at a time-slice preemption (host memory):
+    # when set, re-admission restores the lane instead of re-prefilling
+    snapshot: Any = None
     # telemetry span (``repro_torch.obs.tracing.RequestTrace``): the
     # request's milestone log, attached at submission when the engine's
     # telemetry is on
@@ -102,18 +104,30 @@ class ContinuousBatchScheduler:
         self.lanes[req.lane] = None
         req.lane = -1
 
-    def preempt(self, req: Request) -> None:
-        """Kick an active request off its lane to the *front* of the queue
-        with its generated tokens discarded; greedy decode re-derives them
-        on re-admission (``delivered`` stays, so they stream only once)."""
+    def preempt(self, req: Request, *, to_back: bool = False,
+                keep_progress: bool = False) -> None:
+        """Kick an active request off its lane, back onto the queue.
+
+        Default (block-pressure reclaim): to the *front*, its generated
+        tokens discarded; greedy decode re-derives them on re-admission
+        (``delivered`` stays, so they stream only once).
+        ``keep_progress=True`` (time-slice preemption): tokens and logits
+        survive, the engine having stashed a lane snapshot on
+        ``req.snapshot`` to restore instead of re-prefilling.
+        ``to_back=True`` re-queues at the tail (round-robin fairness)."""
         self.finish(req)
         req.admit_seq = -1
         req.preemptions += 1
         req.slice_steps = 0
         req.prefill_pos = -1  # an interrupted chunked prefill restarts
-        req.tokens.clear()
-        req.logits.clear()
-        self.queue.appendleft(req)
+        if not keep_progress:
+            req.tokens.clear()
+            req.logits.clear()
+            req.snapshot = None
+        if to_back:
+            self.queue.append(req)
+        else:
+            self.queue.appendleft(req)
 
     @property
     def has_work(self) -> bool:

@@ -1,5 +1,6 @@
 """Logical-axis sharding rules of the multi-tenant serve (port of
-``repro/sharding/rules.py``, cut to what the sharded serve reads).
+``repro/sharding/rules.py``, cut to what the sharded serve reads, and
+the per-replica device groups of multi-replica serving).
 
 The reference maps *logical* axis names onto mesh axes through a rule table
 installed by the launcher.  The port's serve has one axis, a
@@ -126,3 +127,21 @@ def default_group():
             "rank=i); 'nccl' for cuda, 'gloo' for cpu)"
         )
     return dist.group.WORLD
+
+
+def replica_device_groups(n: int) -> list:
+    """Partition the local devices into ``n`` per-replica groups — the
+    placement seam of multi-replica serving (``serving/replica.py``).
+
+    Replicas are data-parallel copies of the whole engine, so they split the
+    cards: with ``d`` cards, replica ``i`` owns cards ``i*d//n :
+    (i+1)*d//n``.  On the CPU, or with fewer cards than replicas, every
+    group is the whole device list and the replicas time-share it (two
+    replicas on one card share ``cuda:0``)."""
+    if n < 1:
+        raise ValueError(f"n={n} must be >= 1")
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    devices = [torch.device("cuda", i) for i in range(count)] or [torch.device("cpu")]
+    if len(devices) < n:
+        return [list(devices) for _ in range(n)]
+    return [devices[i * len(devices) // n: (i + 1) * len(devices) // n] for i in range(n)]

@@ -316,9 +316,9 @@ def test_serving_step_launches_both_kernels(gen):
 
 
 # qwen2-0.5b's adapted projections: K 896, wq N 896 and wv N 128 (4 column
-# tiles), rank cap 160; 4 decode lanes, a 32-row prefill chunk and the 64-
-# and 256-row monolithic buckets
-QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (4, 32, 64, 256) for N in (896, 128)]
+# tiles), rank cap 160; 1, 2 and 4 decode lanes, a 32-row prefill chunk and
+# the 64- and 256-row monolithic buckets
+QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (1, 2, 4, 32, 64, 256) for N in (896, 128)]
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
@@ -335,7 +335,8 @@ def test_bgmv_kernel_at_qwen2_projection_shapes(gen, x_dtype, M, K, N, r):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("lengths,cols", [((0, 1, 17, 240), 16), ((240, 100, 0, 33), 24),
                                           ((0, 0, 0, 0), 16), ((0, 57, 80, 128), 8),
-                                          ((64, 0, 3, 49), 4)])
+                                          ((64, 0, 3, 49), 4), ((57,), 8), ((236,), 16),
+                                          ((0, 161), 16), ((33, 49), 4)])
 def test_paged_kernel_at_qwen2_heads_with_a_length_0_lane(gen, dtype, lengths, cols):
     """14 query heads over 2 kv heads: each group of 7 takes one CTA of 4
     heads and one of 3; a lane at length 0 (an idle lane, or one mid
@@ -380,6 +381,66 @@ def test_qwen2_serving_posture_launches_both_kernels(gen):
         if share:
             assert eng.prefix_cache.hits > 0
     assert toks[True] == toks[False]
+
+
+def _dense_serve(gen, quantum=None, sync_checked=False):
+    """Reduced qwen2-0.5b (float32) under EngineConfig.oracle_dense(n_lanes=2,
+    quantum=…): five requests of two tenants; with ``sync_checked`` every
+    decode dispatch runs under sync debug mode "error".  Returns (engine,
+    requests, launches, dispatches checked)."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving import EngineConfig, MultiTenantEngine, random_lambda
+
+    cfg = get_reduced("qwen2-0.5b").replace(dtype="float32")
+    eng = MultiTenantEngine(cfg, EngineConfig.oracle_dense(
+        n_lanes=2, n_slots=4, max_len=64, collect_logits=True, quantum=quantum))
+    for i in (1, 2):
+        eng.add_tenant(f"t{i}", random_lambda(gen.manual_seed(i), eng.params, 0.3))
+    checked = [0]
+    if sync_checked:
+        dispatch = eng._dispatch_decode
+
+        def under_error_mode(decoding):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(decoding)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                checked[0] += 1
+
+        eng._dispatch_decode = under_error_mode
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(f"t{1 + i % 2}", rng.integers(2, 256, size=n), 9)
+            for i, n in enumerate((5, 12, 7, 20, 9))]
+    kernels.reset_launch_counts()
+    eng.run()
+    return eng, reqs, kernels.launch_counts(), checked[0]
+
+
+def test_dense_decode_dispatch_passes_sync_debug_mode_error(gen):
+    """The per-lane dense decode writes each lane's K/V through an index
+    scatter: its whole dispatch (pinned uploads, 2 layers, the BGMV kernel
+    on every adapted projection) makes no host sync, and the streams are
+    the unchecked serve's bit for bit.  The dense attend is plain torch, so
+    the paged kernel does not launch."""
+    _, checked_reqs, launches, n = _dense_serve(gen, sync_checked=True)
+    _, reqs, _, _ = _dense_serve(gen)
+    assert n > 0 and launches["qrlora_bgmv"] > 0 and launches["paged_decode_attention"] == 0
+    for a, b in zip(checked_reqs, reqs):
+        assert a.tokens == b.tokens
+        assert all((x == y).all() for x, y in zip(a.logits, b.logits))
+
+
+def test_quantum_restore_is_bitwise_on_the_card(gen):
+    """Time-sliced lanes snapshot to host memory and restore on the card:
+    every stream is the unsliced serve's bit for bit."""
+    sliced_eng, sliced, _, _ = _dense_serve(gen, quantum=3)
+    _, plain, _, _ = _dense_serve(gen)
+    assert sliced_eng.slice_preemptions >= 3
+    for a, b in zip(sliced, plain):
+        assert a.tokens == b.tokens
+        assert all((x == y).all() for x, y in zip(a.logits, b.logits))
 
 
 def _matmul_inputs(gen, M, K, N, r, x_dtype, rank=None):

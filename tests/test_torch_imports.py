@@ -37,7 +37,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert out.returncode == 0, out.stderr
     n, names, bad = out.stdout.strip().split(" ", 2)
     assert int(n) >= 20 and bad == "[]", out.stdout
-    for module in ("repro_torch.sharding.rules", "repro_torch.obs.telemetry"):
+    for module in ("repro_torch.sharding.rules", "repro_torch.obs.telemetry",
+                   "repro_torch.serving.replica", "repro_torch.serving.router",
+                   "repro_torch.benchmarks.multi_replica"):
         assert module in names.split(","), names
 
 

@@ -142,7 +142,7 @@ def test_paged_prefill_and_decode_with_seg_match_jax(models):
 
 def test_paged_cache_lane_axes_match_jax(models):
     jm, _, tm, _ = models
-    assert tm.lane_axes() == jm.lane_axes(paged=True)
+    assert tm.lane_axes(paged=True) == jm.lane_axes(paged=True)
 
 
 def test_apply_bf16_logits_match_jax_within_rounding():

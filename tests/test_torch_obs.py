@@ -387,11 +387,10 @@ def test_engine_disabled_telemetry_is_inert(tmp_path):
 # the port's engine against the JAX engine on the same traffic
 # ---------------------------------------------------------------------------
 
-# the reference's series that the port's engine leaves to later slices: the
-# λ-store's cold tier (item 13) and the dense layout's prefill (item 10c)
+# the reference's series that the port's engine leaves to a later slice: the
+# λ-store's cold tier (item 13)
 LATER_SERIES = {"lam_cold_bytes", "lam_cold_capacity", "lam_cold_registers_total",
-                "lam_cold_tenants", "lam_promotes_total", "lam_spills_total",
-                "serve_jit_compiles_prefill"}
+                "lam_cold_tenants", "lam_promotes_total", "lam_spills_total"}
 
 
 def _drive(eng, lams, traffic):

@@ -138,9 +138,7 @@ def test_bucket_len_matches_jax(floor):
 # engine config
 # ---------------------------------------------------------------------------
 
-_LATER = {
-    "quantum": 4, "speculate_k": 2, "draft_lam_rank": 2, "cold_slots": 4, "cold_path": "/x",
-}
+_LATER = {"speculate_k": 2, "draft_lam_rank": 2, "cold_slots": 4, "cold_path": "/x"}
 
 
 @pytest.mark.parametrize("field", sorted(_LATER))
@@ -262,8 +260,9 @@ def test_engine_config_defaults_and_layout():
               "watermark", "seed", "collect_logits"):
         assert getattr(c, f) == getattr(j, f), f
     assert c.resolved_layout("dense") == j.resolved_layout("dense") == "paged"
-    with pytest.raises(NotImplementedError):
-        EngineConfig(layout="oracle_dense")
+    dense = EngineConfig(layout="oracle_dense")
+    assert dense.resolved_layout("dense") == JEngineConfig(
+        layout="oracle_dense").resolved_layout("dense") == "oracle_dense"
     with pytest.raises(ValueError):
         EngineConfig(layout="sparse")
     with pytest.raises(ValueError):
