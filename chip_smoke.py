@@ -61,6 +61,18 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   mid-serve, and prefill/decode disaggregation; two planted faults (a
   spill import written from the payload's first block, an injected request
   that emits the previous request's first-token row);
+* speculative decoding on the same weights and traffic (``speculate_k=4``):
+  the paged posture with monolithic prefill in float32 and bf16, the
+  truncated-λ drafter (``draft_lam_rank=8``) and the oracle-dense layout
+  with ``quantum=4``, each beside its ``speculate_k=0`` twin (float32
+  tokens equal, logits within 2e-5; bf16 teacher-forced), base-tenant
+  acceptance 1, one shared block forced into a window (its bytes kept,
+  the window capped before it), every block with another owner unchanged
+  across every step, lanes holding no block past their K/V, the pool
+  drained, the draft, verify and commit under sync debug mode "error";
+  three planted faults (a window committed whole, rejected both by the
+  logits bar and by the acceptance counters of a sound serve of the same
+  traffic; the draft's write limit removed; the rollback skipped);
 * training: 30 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
   held against the same run with the plain version in place of the kernel;
@@ -97,6 +109,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1473,7 +1486,18 @@ PORT_KERNELS = ("bgmv_cluster_kernel", "paged_decode_kernel", "tc_kernel", "fp32
                 "decode_combine_kernel")
 
 
-def _device_busy(prof, wall_us: float, api_calls: bool = False):
+def _union(spans):
+    """The disjoint cover of ``spans`` ((start, end) pairs), in order."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def _device_busy(prof, wall_us: float, api_calls: bool = False, skip=()):
     """Union of the device-kernel intervals of a torch.profiler run: busy
     time, idle share of ``wall_us``, kernel count, the top kernels by device
     time, the device time and share of busy of each of the port's own
@@ -1481,11 +1505,15 @@ def _device_busy(prof, wall_us: float, api_calls: bool = False):
     operations by self time (ms, calls): where a host-bound run spends its
     host.  With ``api_calls``, also the count of every CUDA API call
     (``cuda*`` and ``cu*``: launches, copies, syncs): the device work the
-    run asked for, exactly (the device records themselves can drop a few)."""
+    run asked for, exactly (the device records themselves can drop a few).
+    Device events named in ``skip`` (the device side of
+    ``record_function`` ranges) are not kernels and are left out."""
     from torch.autograd import DeviceType
 
     spans, by_name, host = [], {}, {}
     for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name in skip:
+            continue
         if e.device_type != DeviceType.CUDA:
             t, n = host.get(e.name, (0.0, 0))
             host[e.name] = (t + e.self_cpu_time_total, n + 1)
@@ -1493,11 +1521,7 @@ def _device_busy(prof, wall_us: float, api_calls: bool = False):
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
         by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = sum(b - a for a, b in _union(spans))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     port = {}
     for n, t in by_name.items():
@@ -2435,10 +2459,10 @@ QWEN_LONG = (160, 220)  # tenants 2 and 3: prompts that stream in chunks
 QWEN_CHUNK_FP32_TOL = 2e-5
 QWEN_CHUNK_BF16_DRIFT = BF16_DRIFT
 # #1 at qwen2-0.5b's wq (N 896) and wv (N 128), K 896, rank cap 160: 4 decode
-# lanes, a 32-row prefill chunk, the 64-row bucket of a short prompt that
-# misses the prefix cache, and the 128- and 256-row buckets of the
-# monolithic serves
-QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (4, 32, 64, 128, 256) for N in (896, 128)]
+# lanes, the speculative verify's 4 lanes × 5 window rows, a 32-row prefill
+# chunk, the 64-row bucket of a short prompt that misses the prefix cache,
+# and the 128- and 256-row buckets of the monolithic serves
+QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (4, 20, 32, 64, 128, 256) for N in (896, 128)]
 # #2 at 14 heads over 2 (7 query heads a group), dh 64: (lengths, columns of
 # a 24-column table); length-0 lanes, the serve's attend bounds of 8 columns
 # (short lanes only; a cluster of 2) and 16 (a long lane decoding; 4), a
@@ -3178,15 +3202,25 @@ def request_api_phase(seed: int, params: dict) -> dict:
     # one more serve of each, telemetry on and off, under torch.profiler: the
     # same CUDA calls.  The CUDA activity alone records the kernels and the
     # CUDA API calls; the host's own operators (most of the events, slow to
-    # parse) are left out
+    # parse) are left out.  An engine of an earlier phase that is garbage (its
+    # telemetry callbacks make reference cycles) frees its pinned input
+    # buffers when the collector reaches it, and each such free records a
+    # CUDA event: collect before each serve and keep the collector off inside
+    # it, so that the calls counted are the serve's own
     prof = {}
     for name in ("on", "off"):
         eng = engines[name]
         eng.release_prefix_cache()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
-            t0 = time.perf_counter()
-            stream_serve(eng, traffic)
-            wall_us = (time.perf_counter() - t0) * 1e6
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+                t0 = time.perf_counter()
+                stream_serve(eng, traffic)
+                wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            gc.enable()
         prof[name] = _device_busy(p, wall_us, api_calls=True)
     out["profile_bf16"] = prof
     lap("bf16")
@@ -3277,8 +3311,9 @@ def check_request_api(out: dict) -> None:
 
 DENSE_QUANTUM = 4
 # #1 at the decode steps of this phase's 1- and 2-lane engines (the spill
-# replicas; the dense, paged and routed dense serves), qwen2-0.5b's wq and wv
-DENSE_BGMV_SHAPES = [(M, 896, N, 160) for M in (1, 2) for N in (896, 128)]
+# replicas; the dense, paged and routed dense serves) and at the 2-lane
+# dense speculative verify's 2 × 5 window rows, qwen2-0.5b's wq and wv
+DENSE_BGMV_SHAPES = [(M, 896, N, 160) for M in (1, 2, 10) for N in (896, 128)]
 # a spilled or failed-over stream against one engine's: bitwise where both
 # took the same path, else identical tokens and float32 |Δlogits| within the
 # chunked-prefill bar (another prefill path, or another attend bound of #2
@@ -3747,6 +3782,447 @@ def check_router(out: dict) -> None:
         _check(out[name]["rejected"], f"{QWEN}: the check let the planted fault {name} through")
 
 
+# ---------------------------------------------------------------------------
+# speculative decoding at full width: qwen2-0.5b on the posture's weights
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_DRAFT_RANK = 8  # the truncated-λ drafter keeps each slot's top 8 |λ| of 160
+# the posture's paged engine (prefix sharing, watermark 1) with monolithic
+# prefill, which speculation needs; the oracle-dense layout time-sliced
+SPEC_PAGED = {"prefill_chunk": None, "speculate_k": SPEC_K}
+SPEC_DENSE = {"quantum": DENSE_QUANTUM, "speculate_k": SPEC_K}
+# the device work of a speculative step, each run under sync debug mode
+# "error": the step's only host syncs are the draft tokens and the verify
+# logits, read between these calls
+SPEC_CHECKED = ("_dispatch_draft", "_dispatch_verify", "_commit_window")
+
+
+def lanes_cover_their_kv(engine) -> bool:
+    """The paged invariant every step restores: each active lane holds
+    exactly the blocks its committed K/V (``idx`` positions) spans, none
+    past an accepted frontier."""
+    bs = engine.block_size
+    return all(len(engine._lane_blocks[r.lane]) == -(-(r.prompt.size + len(r.tokens) - 1) // bs)
+               for r in engine.scheduler.active())
+
+
+def _block_kv(engine, b: int):
+    a = engine.cache["layers"]["attn"]
+    return a["k"][:, b].clone(), a["v"][:, b].clone()
+
+
+def _kv_kept(engine, b: int, saved) -> bool:
+    import torch
+
+    a = engine.cache["layers"]["attn"]
+    return torch.equal(saved[0], a["k"][:, b]) and torch.equal(saved[1], a["v"][:, b])
+
+
+def _shared_blocks(engine) -> list:
+    """The blocks the lanes and the prefix cache hold that have more than
+    one owner."""
+    held = {b for blocks in engine._lane_blocks.values() for b in blocks}
+    if engine.prefix_cache is not None:
+        held |= set(engine.prefix_cache._entries.values())
+    return sorted(b for b in held if engine.allocator.is_shared(b))
+
+
+def force_shared_headroom(engine) -> dict:
+    """Rig: after the first growth that gives a lane a block past its write
+    block that its k draft steps would reach, take an extra reference on
+    that block, as another owner would.  The window must cap before it
+    (``cap`` against ``room``, the positions left in the write block) and
+    its bytes must stay as they were.  Returns the rig's record (``block``
+    None until it fires); :func:`spec_serve` reads and releases it."""
+    rig = {"block": None}
+    grow = engine._grow_lanes
+    bs, k = engine.block_size, engine.speculate_k
+
+    def forced(window=1):
+        grow(window)
+        if rig["block"] is not None:
+            return
+        for req in engine.scheduler.active():
+            wp = req.prompt.size + len(req.tokens) - 1
+            nxt = wp // bs + 1
+            blocks = engine._lane_blocks[req.lane]
+            if len(blocks) > nxt and wp + k - 1 >= nxt * bs:
+                b = blocks[nxt]
+                engine.allocator.incref(b)
+                rig.update(block=b, uid=req.uid, room=nxt * bs - wp,
+                           cap=engine._spec_window_cap(req), saved=_block_kv(engine, b))
+                return
+
+    engine._grow_lanes = forced
+    return rig
+
+
+def spec_serve(engine, traffic, gen: int = QWEN_GEN, force_shared: bool = False,
+               sync_check: bool = False) -> dict:
+    """Serve ``traffic`` (``gen`` tokens a request) to the end through a
+    speculative engine or its plain twin, watching every step of a paged
+    one: the bytes of each block with more than one owner across the draft,
+    verify and commit, and after the step that every lane's blocks cover
+    its K/V and no more (:func:`lanes_cover_their_kv`).  With
+    ``force_shared`` the :func:`force_shared_headroom` rig; with
+    ``sync_check`` the draft, verify and commit under sync debug mode
+    "error" (the card only), counted.  Kernel launches and #1's row counts
+    are counted over the serve; then the prefix cache is released and the
+    pool read.  Returns the readings (``done``: uid → request)."""
+    import collections
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import qrlora_bgmv as bgmv_mod
+
+    paged = engine.paged
+    checked = {}
+    if sync_check:
+        for name in SPEC_CHECKED:
+            checked[name] = sync_checked(getattr(engine, name))
+            setattr(engine, name, checked[name])
+    rig = force_shared_headroom(engine) if force_shared else None
+    draft, commit = engine._dispatch_draft, engine._commit_window
+    watch = {"saved": {}, "changed": set(), "covers": True}
+
+    def watched_draft(*a, **kw):
+        watch["saved"] = {b: _block_kv(engine, b) for b in _shared_blocks(engine)} if paged else {}
+        return draft(*a, **kw)
+
+    def watched_commit(*a, **kw):
+        commit(*a, **kw)
+        watch["changed"] |= {b for b, s in watch["saved"].items() if not _kv_kept(engine, b, s)}
+
+    engine._dispatch_draft, engine._commit_window = watched_draft, watched_commit
+    # #1's rows by call, counted at its dispatcher (one launch a call on the
+    # card); the wrapper keeps its own launch count
+    rows = collections.Counter()
+    real = bgmv_mod.qrlora_bgmv
+
+    def counting(x, *a, **kw):
+        rows[x.shape[0]] += 1
+        return real(x, *a, **kw)
+
+    names = ("spec_steps", "drafted_tokens", "accepted_drafts", "steps", "preemptions",
+             "cow_forks", "slice_preemptions", "decoded_tokens")
+    before = {n: getattr(engine, n) for n in names}
+    reqs = [engine.submit(t, p, gen) for t, p in traffic]
+    done = {}
+    kernels.reset_launch_counts()
+    with swapped(bgmv_mod, "qrlora_bgmv", counting):
+        t0 = time.perf_counter()
+        while engine.scheduler.has_work:
+            for r in engine.step():
+                done[r.uid] = r
+            if paged:
+                watch["covers"] = watch["covers"] and lanes_cover_their_kv(engine)
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    out = {name: getattr(engine, name) - before[name] for name in names}
+    tokens = out.pop("decoded_tokens")
+    out.update(done=done, serve_s=serve_s, tokens=tokens, tok_per_s=tokens / serve_s,
+               acceptance=(out["accepted_drafts"] / out["drafted_tokens"]
+                           if out["drafted_tokens"] else None),
+               launches=kernels.launch_counts(), bgmv_rows=dict(sorted(rows.items())),
+               all_served=len(done) == len(reqs) and all(
+                   len(r.tokens) == gen for r in done.values()),
+               sync_checked={n: f.calls for n, f in checked.items()},
+               shared_changed=sorted(watch["changed"]) if paged else None,
+               covers=watch["covers"] if paged else None, forced=None, drained=None)
+    if rig is not None and rig["block"] is not None:
+        b = rig["block"]
+        out["forced"] = {"block": b, "room": rig["room"], "cap": rig["cap"],
+                         "kept": _kv_kept(engine, b, rig["saved"])}
+        engine.allocator.decref(b)
+    if paged:
+        engine.release_prefix_cache()
+        out["drained"] = engine.allocator.n_free == engine.allocator.capacity
+        out["pool_peak"] = engine.allocator.peak_in_use
+    return out
+
+
+def spec_blocks_ok(run) -> bool:
+    """A paged speculative serve's block checks: no block with another
+    owner changed across any step, every step's lanes cover their K/V and
+    no more, the pool drains, and a forced shared block (where the rig ran)
+    capped its lane's window and kept its bytes."""
+    forced = run["forced"]
+    return (not run["shared_changed"] and run["covers"] and run["drained"]
+            and (forced is None or (forced["cap"] <= forced["room"] and forced["kept"])))
+
+
+def spec_rows_ok(rows) -> bool:
+    """A float32 speculative serve against its plain twin: tokens equal,
+    logits within the chunked bar (the verify attends in plain torch where
+    the paged decode runs #2, and reduces over other shapes)."""
+    return all(r["parted_at"] is None and r["max_abs_dlogits"] <= QWEN_CHUNK_FP32_TOL
+               for r in rows)
+
+
+SPEC_COUNTERS = ("spec_steps", "drafted_tokens", "accepted_drafts")
+
+
+def spec_counters(run) -> dict:
+    """A speculative serve's acceptance bookkeeping."""
+    return {n: run[n] for n in SPEC_COUNTERS}
+
+
+def spec_faults(seed: int, params, traffic, plain_run, sound_run) -> dict:
+    """Planted faults of the speculative serve (float32, paged), each on a
+    fresh engine and held to the check it targets: every window committed
+    whole (a rejected draft left committed), the draft's write limit removed
+    (the forced shared block's bytes), and the rollback skipped (the
+    blocks-cover-the-K/V check; the forced block lies past its lane's
+    accepted frontier, so the rollback must release it).  A skipped rollback
+    leaks nothing by the end of a serve (retirement frees every block of a
+    lane), so the drain alone cannot see it.
+
+    A whole window is held to two checks, each of which must reject it:
+    the plain twin's tokens and logits, and the sound serve's acceptance
+    counters on the same traffic (``sound_run``: the same engine config, no
+    rig).  On random weights the target's next token barely depends on the
+    draft it follows, so the fault's tokens can all equal the twin's; only
+    its logits and its counters part."""
+    out = {}
+    _, eng, _ = qwen_engine("float32", seed, params=params, **SPEC_PAGED)
+    eng._accept = lambda decoding, window, greedy, n_valid: n_valid.copy()
+    run = spec_serve(eng, traffic)
+    rows = compare_streams(run, plain_run)
+    by_logits = not spec_rows_ok(rows)
+    by_counters = spec_counters(run) != spec_counters(sound_run)
+    out["window_committed_whole"] = {
+        "acceptance": run["acceptance"], "parted": [r["parted_at"] for r in rows],
+        "max_abs_dlogits": max(r["max_abs_dlogits"] for r in rows),
+        "counters": spec_counters(run), "sound_counters": spec_counters(sound_run),
+        "rejected_by_logits": by_logits, "rejected_by_counters": by_counters,
+        "rejected": by_logits and by_counters}
+    _, eng, _ = qwen_engine("float32", seed, params=params, **SPEC_PAGED)
+    sound = eng._draft_cache
+
+    def unlimited(nv):
+        view = sound(nv)
+        del view["layers"]["attn"]["write_limit"]
+        return view
+
+    eng._draft_cache = unlimited
+    run = spec_serve(eng, traffic, force_shared=True)
+    out["draft_write_limit_removed"] = {"forced": run["forced"],
+                                        "shared_changed": run["shared_changed"],
+                                        "rejected": not spec_blocks_ok(run)}
+    _, eng, _ = qwen_engine("float32", seed, params=params, **SPEC_PAGED)
+    eng._rollback_window_blocks = lambda decoding, adv: None
+    run = spec_serve(eng, traffic, force_shared=True)
+    out["rollback_skipped"] = {"covers": run["covers"], "drained": run["drained"],
+                               "rejected": not spec_blocks_ok(run)}
+    return out
+
+
+def profile_spec(engine, traffic) -> dict:
+    """The traffic served again on the same engine under torch.profiler,
+    the draft and the verify each timed as a range that ends once its
+    device work has (a synchronize inside the range): wall time, device busy
+    and idle share over the serve, and each phase's host time and device
+    busy time (kernel intervals inside its ranges)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(name):
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            return out
+        return wrapped
+
+    draft, verify = engine._dispatch_draft, engine._dispatch_verify
+    engine._dispatch_draft = ranged("spec_draft", draft)
+    engine._dispatch_verify = ranged("spec_verify", verify)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run = spec_serve(engine, traffic)
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        engine._dispatch_draft, engine._dispatch_verify = draft, verify
+    ranges = {"spec_draft": [], "spec_verify": []}
+    kernels_ = []
+    for e in prof.events():
+        if e.name in ranges:  # the range's host side; its device side is no kernel
+            if e.device_type != DeviceType.CUDA:
+                ranges[e.name].append((e.time_range.start, e.time_range.end))
+        elif e.device_type == DeviceType.CUDA:
+            kernels_.append((e.time_range.start, e.time_range.end))
+    phases = {}
+    for name, spans in ranges.items():
+        busy = sum(b - a for a, b in _union([(max(a, s), min(b, t)) for s, t in spans
+                                             for a, b in kernels_ if a < t and b > s]))
+        phases[name.removeprefix("spec_")] = {
+            "calls": len(spans), "host_ms": sum(t - s for s, t in spans) / 1e3,
+            "device_busy_ms": busy / 1e3}
+    del run["done"]
+    return {**_device_busy(prof, wall_us, skip=ranges), "phases": phases, "serve": run}
+
+
+def speculative_phase(seed: int, params: dict) -> dict:
+    """qwen2-0.5b at full width on the posture's weights and traffic with
+    ``speculate_k=4``: the paged posture with monolithic prefill in float32
+    (one shared block forced into a window; the draft, verify and commit
+    under sync debug mode "error"; again without the rig, the planted
+    faults' sound side) and bf16, the truncated-λ drafter
+    (``draft_lam_rank=8``, float32) and the oracle-dense layout with
+    ``quantum=4`` (float32), each beside its ``speculate_k=0`` twin; the
+    float32 serve's engine again on base-tenant requests (acceptance 1);
+    the bf16 serve against the teacher-forced merged-weight reference and
+    profiled beside its twin; the planted faults.  Returns every reading
+    (without the requests); check_speculative holds them to the bars."""
+    import torch
+    from repro_torch.serving import BASE_TENANT
+
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        out["seconds"][name] = now - t0
+        t0 = now
+
+    p32 = params["float32"]
+    cfg, eng, _ = qwen_engine("float32", seed, params=p32, **SPEC_PAGED)
+    traffic = qwen_traffic(seed, cfg.vocab_size)
+    runs = {"paged": spec_serve(eng, traffic, force_shared=True, sync_check=True)}
+    runs["paged_base_tenant"] = spec_serve(eng, [(BASE_TENANT, p) for _, p in traffic[:4]])
+    _, eng, _ = qwen_engine("float32", seed, params=p32, **SPEC_PAGED)
+    runs["paged_unforced"] = spec_serve(eng, traffic)  # the faults' sound side
+    _, eng, _ = qwen_engine("float32", seed, params=p32, **{**SPEC_PAGED, "speculate_k": 0})
+    runs["paged_plain"] = spec_serve(eng, traffic)
+    _, eng, _ = qwen_engine("float32", seed, params=p32, **SPEC_PAGED,
+                            draft_lam_rank=SPEC_DRAFT_RANK)
+    runs["paged_truncated"] = spec_serve(eng, traffic, sync_check=True)
+    _, eng, _ = qwen_engine("float32", seed, params=p32, dense=True, **SPEC_DENSE)
+    runs["dense"] = spec_serve(eng, traffic, sync_check=True)
+    _, eng, _ = qwen_engine("float32", seed, params=p32, dense=True,
+                            **{**SPEC_DENSE, "speculate_k": 0})
+    runs["dense_plain"] = spec_serve(eng, traffic)
+    res = {"float32": {
+        "paged_vs_plain": compare_streams(runs["paged"], runs["paged_plain"]),
+        "unforced_vs_plain": compare_streams(runs["paged_unforced"], runs["paged_plain"]),
+        "truncated_vs_plain": compare_streams(runs["paged_truncated"], runs["paged_plain"]),
+        "dense_vs_plain": compare_streams(runs["dense"], runs["dense_plain"])}}
+    lap("float32")
+    res["float32"]["faults"] = spec_faults(seed, p32, traffic, runs["paged_plain"],
+                                           runs["paged_unforced"])
+    lap("faults")
+    p16 = params["bfloat16"]
+    cfg16, eng16, lams16 = qwen_engine("bfloat16", seed, params=p16, **SPEC_PAGED)
+    runs["paged_bf16"] = spec_serve(eng16, traffic, sync_check=True)
+    _, twin16, _ = qwen_engine("bfloat16", seed, params=p16, **{**SPEC_PAGED, "speculate_k": 0})
+    runs["paged_plain_bf16"] = spec_serve(twin16, traffic)
+    res["bfloat16"] = {
+        "verify_forced": verify_forced(cfg16, eng16, lams16, runs["paged_bf16"]["done"]),
+        "paged_vs_plain": compare_streams(runs["paged_bf16"], runs["paged_plain_bf16"],
+                                          BF16_DRIFT),
+        "profile": profile_spec(eng16, traffic), "profile_plain": profile_spec(twin16, traffic)}
+    lap("bfloat16")
+    res["planted_sync_caught"] = sync_mode_catches_a_sync()
+    for run in runs.values():
+        del run["done"]
+    res["runs"] = runs
+    del eng, eng16, twin16
+    torch.cuda.empty_cache()
+    return {**out, **res}
+
+
+def print_speculative(out: dict, smi: str) -> None:
+    k_rows = {"paged": QWEN_ENGINE["n_lanes"] * (SPEC_K + 1),
+              "dense": DENSE_ENGINE["n_lanes"] * (SPEC_K + 1)}
+    for name, run in out["runs"].items():
+        print(f"{QWEN} speculative {name}: {run['tokens']} tokens in {run['serve_s']:.3f} s = "
+              f"{run['tok_per_s']:.1f} tok/s over {run['steps']} steps ({run['spec_steps']} "
+              f"speculative); drafted {run['drafted_tokens']}, accepted "
+              f"{run['accepted_drafts']} (acceptance {run['acceptance']}); launches "
+              f"{run['launches']}; #1 launches by row count {run['bgmv_rows']} (verify rows "
+              f"{k_rows['dense' if name.startswith('dense') else 'paged']}); slice preemptions "
+              f"{run['slice_preemptions']}, preemptions {run['preemptions']}, CoW forks "
+              f"{run['cow_forks']}; sync-checked calls {run['sync_checked']}; shared blocks "
+              f"changed {run['shared_changed']}, lanes cover their K/V {run['covers']}, pool "
+              f"drained {run['drained']}, forced shared block {run['forced']} on {smi}")
+    for dtype in ("float32", "bfloat16"):
+        for name, rows in out[dtype].items():
+            if not name.endswith("_vs_plain"):
+                continue
+            print(f"  {dtype} {name}: bitwise {sum(r['bitwise'] for r in rows)}/{len(rows)}, "
+                  f"parted {[r['parted_at'] for r in rows]}, max|Δlogits| "
+                  f"{max(r['max_abs_dlogits'] for r in rows):.3e}"
+                  + (f", over the bf16 bound {max(r['max_dlogits_over_bound'] for r in rows):.4f}"
+                     if "max_dlogits_over_bound" in rows[0] else ""))
+    for row in out["bfloat16"]["verify_forced"]:
+        print(f"  bf16 speculative vs the teacher-forced merged-weight reference: {row}")
+    for name in ("profile", "profile_plain"):
+        print(f"  profiled bf16 {name} (a second serve): {out['bfloat16'][name]}")
+    for name, f in out["float32"]["faults"].items():
+        print(f"  float32 planted fault {name}: rejected {f['rejected']}; {f}")
+    print(f"  a planted host read under sync debug mode raises: {out['planted_sync_caught']}; "
+          f"seconds {out['seconds']}")
+
+
+def check_speculative(out: dict) -> None:
+    runs = out["runs"]
+    for name, run in runs.items():
+        _check(run["all_served"], f"{QWEN} speculative {name}: not every request got its tokens")
+        _check_no_bench_kernels(run["launches"], f"{QWEN} speculative {name}")
+        spec = "plain" not in name
+        _check(run["steps"] > 0 and run["spec_steps"] == (run["steps"] if spec else 0),
+               f"{QWEN} speculative {name}: steps {run['steps']}, speculative "
+               f"{run['spec_steps']}")
+        if spec:
+            _check(0.0 < run["acceptance"] <= 1.0,
+                   f"{QWEN} speculative {name}: acceptance {run['acceptance']} not in (0, 1]")
+        if name.startswith("paged"):
+            _check(run["launches"]["paged_decode_attention"] > 0 and (
+                not spec or run["launches"]["qrlora_bgmv"] > 0),
+                   f"{QWEN} speculative {name}: #2 never launched, or #1: {run['launches']}")
+            _check(spec_blocks_ok(run),
+                   f"{QWEN} speculative {name}: a shared block changed, lanes hold blocks past "
+                   f"their K/V, the pool did not drain, or the forced block was written or "
+                   f"not capped at: {run}")
+        else:
+            _check(run["launches"]["paged_decode_attention"] == 0,
+                   f"{QWEN} speculative {name}: #2 launched on the dense layout")
+        if run["sync_checked"]:
+            _check(all(c == run["spec_steps"] for c in run["sync_checked"].values())
+                   and out["planted_sync_caught"],
+                   f"{QWEN} speculative {name}: not every draft, verify and commit ran under "
+                   f"sync debug mode: {run['sync_checked']} of {run['spec_steps']}")
+    paged_rows = QWEN_ENGINE["n_lanes"] * (SPEC_K + 1)
+    _check(runs["paged"]["forced"] is not None,
+           f"{QWEN} speculative: the shared-block rig never found a window to force")
+    _check(runs["paged_base_tenant"]["acceptance"] == 1.0,
+           f"{QWEN} speculative: base-tenant acceptance {runs['paged_base_tenant']['acceptance']}")
+    for name, rows in ((n, runs[n]["bgmv_rows"]) for n in ("paged", "paged_bf16")):
+        _check(paged_rows in rows and QWEN_ENGINE["n_lanes"] not in rows,
+               f"{QWEN} speculative {name}: #1 rows {rows}: no verify at {paged_rows} rows, or "
+               f"the base drafter launched #1")
+    _check(QWEN_ENGINE["n_lanes"] in runs["paged_truncated"]["bgmv_rows"],
+           f"{QWEN} speculative: the truncated-λ drafter never launched #1 at the lanes' rows")
+    _check(DENSE_ENGINE["n_lanes"] * (SPEC_K + 1) in runs["dense"]["bgmv_rows"]
+           and runs["dense"]["slice_preemptions"] >= 1,
+           f"{QWEN} speculative dense: no verify at its rows, or no time slice: {runs['dense']}")
+    for name, rows in out["float32"].items():
+        if name.endswith("_vs_plain"):
+            _check(spec_rows_ok(rows), f"{QWEN} speculative float32 {name}: tokens differ or "
+                                       f"over {QWEN_CHUNK_FP32_TOL}: {rows}")
+    _check(all(r["ok"] for r in out["bfloat16"]["verify_forced"]),
+           f"{QWEN} speculative bf16 disagrees with the teacher-forced merged-weight reference: "
+           f"{out['bfloat16']['verify_forced']}")
+    for name, f in out["float32"]["faults"].items():
+        _check(f["rejected"], f"{QWEN}: the speculative check let the planted fault {name} "
+                              f"through: {f}")
+
+
 def kernel_bench_phase():
     """The port's kernel bench on the card, in process, launches counted
     around it; its rows go into the report."""
@@ -3917,6 +4393,7 @@ def main(argv=None) -> None:
                "qrlora_bgmv_qwen2_wq": time_bgmv(gen, 896, 4, K=896, r=160),
                "qrlora_bgmv_qwen2_wv": time_bgmv(gen, 128, 4, K=896, r=160),
                "qrlora_bgmv_qwen2_wq_M32": time_bgmv(gen, 896, 32, K=896, r=160),
+               "qrlora_bgmv_qwen2_wq_M20": time_bgmv(gen, 896, 20, K=896, r=160),
                "qrlora_bgmv_qwen2_wq_M2": time_bgmv(gen, 896, 2, K=896, r=160),
                "paged_decode_attention_qwen2": time_paged(gen, (72, 64, 230, 200), H=14, KV=2,
                                                           cols=16, max_blocks=24)}
@@ -4141,6 +4618,17 @@ def main(argv=None) -> None:
           f"decode dispatch free of syncs ({t_dense:.1f} s); 2 replicas on one card: routed "
           f"streams equal one engine's in both layouts, spillover, failover and disaggregation "
           f"hold; every planted fault rejected ({time.perf_counter() - t0:.1f} s)")
+    # -- speculative decoding on the same weights and traffic ----------------
+    t0 = time.perf_counter()
+    spec = speculative_phase(args.seed, qwen_params)
+    report["speculative"] = spec
+    print_speculative(spec, smi)
+    check_speculative(spec)
+    print(f"{QWEN} speculative decoding (k={SPEC_K}) in float32 and bf16: float32 tokens equal "
+          f"the plain twins' within {QWEN_CHUNK_FP32_TOL} (paged, truncated-λ drafter, dense "
+          f"time-sliced), bf16 within the teacher-forced bar, no shared block written, the pool "
+          f"drained, every draft, verify and commit free of syncs, every planted fault rejected "
+          f"({time.perf_counter() - t0:.1f} s)")
     del qwen_params
     torch.cuda.empty_cache()
 
@@ -4244,6 +4732,17 @@ def main(argv=None) -> None:
          "src/repro_torch/kernels/csrc/paged_attention.cu",
          "src/repro/kernels/paged_attention.py:116",
          routes["paged"]["routed"]["launches"]["paged_decode_attention"]),
+        # the speculative paged serve (bf16, k=4): #1 in the verify at 4 × 5
+        # rows and the prefills, #2 in every draft step
+        ("qrlora_bgmv_qwen2_speculative", "qrlora_bgmv_qwen2_wq_M20",
+         qwen_err["qrlora_bgmv_bfloat16"], "src/repro_torch/kernels/csrc/qrlora_bgmv.cu",
+         "src/repro/kernels/qrlora_bgmv.py:172",
+         spec["runs"]["paged_bf16"]["launches"]["qrlora_bgmv"]),
+        ("paged_decode_attention_qwen2_speculative", "paged_decode_attention_qwen2",
+         qwen_err["paged_decode_attention_bfloat16"]["max_abs_err"],
+         "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:116",
+         spec["runs"]["paged_bf16"]["launches"]["paged_decode_attention"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -5,14 +5,16 @@ Prints ``name,us_per_call,derived`` CSV rows, as the reference does.
   PYTHONPATH=src python -m repro_torch.benchmarks.run --only kernel
   PYTHONPATH=src python -m repro_torch.benchmarks.run --only table2_mrpc
   PYTHONPATH=src python -m repro_torch.benchmarks.run --only multi_replica --device cpu
+  PYTHONPATH=src python -m repro_torch.benchmarks.run --only serve_multitenant --device cpu
   REPRO_BENCH_SCALE=smoke PYTHONPATH=src python -m repro_torch.benchmarks.run \
       --only table3_glue --device cpu
 
 ``REPRO_BENCH_SCALE`` (smoke, tiny, paper) sizes the GLUE runs as in the
-reference (:func:`common.kw`) and the multi-replica bench.  It runs on the
-card unless ``--device cpu`` (a missing card raises).  Naming the
-reference's serving bench that is not ported yet raises and names the
-ROADMAP items that port it.  Unlike the reference, it exits
+reference (:func:`common.kw`), the multi-replica bench and the serving
+bench.  It runs on the card unless ``--device cpu`` (a missing card
+raises).  Naming a sub-bench of the reference's serving bench that the
+port does not run yet (:data:`NOT_PORTED`) raises and names the ROADMAP
+item that ports it.  Unlike the reference, it exits
 non-zero when a row's kernel error is over its stated tolerance, as well as
 when a bench fails.  On a card, float32 matrix products stay in full
 float32 (TF32 off) so the plain versions are exact references.
@@ -38,12 +40,17 @@ MODULES = [
     ("kernel", "repro_torch.benchmarks.kernel_bench"),
     ("train_throughput", "repro_torch.benchmarks.train_throughput"),
     ("multi_replica", "repro_torch.benchmarks.multi_replica"),
+    ("serve_multitenant", "repro_torch.benchmarks.serve_multitenant"),
 ]
 
-#: the reference's serving bench that the port does not have yet: it needs
-#: speculative decoding and the λ-store cold tier (ROADMAP Queue 1 items 10d
-#: and 13)
-NOT_PORTED = ("serve_multitenant",)
+#: sub-benches of the reference's serving bench that the port does not run
+#: yet, and what each needs
+NOT_PORTED = {
+    "serve_multitenant:adapter_churn":
+        "the λ-store cold tier (cold_slots; ROADMAP Queue 1 item 13)",
+    "serve_multitenant:recurrent_families":
+        "the xlstm and jamba families (ROADMAP Queue 1 item 12b)",
+}
 
 
 def main(argv=None) -> dict:
@@ -64,8 +71,7 @@ def main(argv=None) -> dict:
     for name in sel:
         if name in NOT_PORTED:
             raise NotImplementedError(
-                f"bench {name!r} is not ported yet: it needs speculative decoding and the "
-                "λ-store cold tier (items 10d and 13); ROADMAP Queue 1 item 16 ports it")
+                f"bench {name!r} is not ported yet: it needs {NOT_PORTED[name]}")
         if name not in ported:
             raise ValueError(f"unknown bench {name!r}; ported: {sorted(ported)}")
     device = resolve_device(args.device)

@@ -38,6 +38,17 @@ decode replica.  Each routed stream is verified like a single engine's.
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu \
         --replicas 2 --disaggregate --share-prefix --prefill-chunk 16
 
+``--speculate-k K`` turns on speculative decoding: each step drafts K
+tokens a lane with the base drafter (slot 0, λ ≡ 0: the same weights and KV
+blocks), or with ``--draft-lam-rank R`` each tenant's top-R |λ|, verifies
+every lane's window in one batched forward and accepts the longest prefix
+that matches greedy, so the streams verify as the plain serve's do.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --device cpu --reduced \
+        --layout paged --block-size 8 --speculate-k 3
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --device cpu --reduced \
+        --layout oracle_dense --speculate-k 4 --draft-lam-rank 2
+
 ``--stream`` prints each token as it decodes (``engine.stream()``);
 ``--metrics-out PATH`` writes the final metrics snapshot (``.prom``/``.txt``:
 Prometheus text, else JSON) and ``--trace-out PATH`` the request-span
@@ -172,6 +183,15 @@ def main(argv=None):
                     help="chunked prefill: long prompts stream in chunks of this many tokens "
                     "between resident lanes' decode steps (a multiple of --block-size; "
                     "default: monolithic admission prefill)")
+    ap.add_argument("--speculate-k", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft K tokens per lane per step with the free "
+                    "slot-0 base drafter (λ ≡ 0 — same weights, same KV blocks), batch-verify "
+                    "under the full multi-λ view, accept the longest matching greedy prefix "
+                    "(token-identical output, up to K+1 tokens per host round-trip; 0 disables)")
+    ap.add_argument("--draft-lam-rank", type=int, default=None, metavar="R",
+                    help="drafter variant: keep only the top-R |λ| coefficients per tenant slot "
+                    "instead of dropping the adapter entirely (needs --speculate-k >= 1; "
+                    "default: λ ≡ 0 base drafter)")
     ap.add_argument("--watermark", type=int, default=0,
                     help="free blocks admission keeps in reserve as decode-growth headroom")
     ap.add_argument(
@@ -233,6 +253,7 @@ def _config(args):
         collect_logits=True, seed=args.seed, block_size=args.block_size,
         n_blocks=args.n_blocks, share_prefix=args.share_prefix, watermark=args.watermark,
         prefill_chunk=args.prefill_chunk, quantum=args.quantum, base_dtype=args.base_dtype,
+        speculate_k=args.speculate_k, draft_lam_rank=args.draft_lam_rank,
         shard_lam=args.shard_lam, shard_ba=args.shard_ba, telemetry=not args.no_telemetry,
     )
     return cfg, econf
@@ -329,6 +350,12 @@ def serve(args, device):
          f"{engine.chunk_dispatches} chunks, KV cache {engine.kv_cache_bytes()} bytes")
     if args.quantum is not None:
         _say(f"quantum={args.quantum}: {engine.slice_preemptions} snapshot time-slices")
+    if args.speculate_k:
+        drafter = (f" draft_lam_rank={args.draft_lam_rank}" if args.draft_lam_rank
+                   else " (base drafter)")
+        _say(f"speculative k={args.speculate_k}{drafter}: {engine.drafted_tokens} drafted, "
+             f"{engine.accepted_drafts} accepted (acceptance={engine.acceptance_rate:.0%}) over "
+             f"{engine.spec_steps} draft+verify steps")
     if engine.prefix_cache is not None:
         pc = engine.prefix_cache
         _say(f"prefix hits={pc.hits} misses={pc.misses} cached={pc.cached_blocks} blocks")

@@ -7,10 +7,17 @@ does the per-lane dense decode attend (the reference's ``_softmax_attend``
 over the lane's whole ``max_len`` region, no Pallas kernel); the paged
 decode attend goes through :func:`repro_torch.kernels.ops.
 paged_decode_attention` — the Hopper kernel for CUDA tensors.  The
-projections go through :func:`repro_torch.core.adapter_api.adapted_matmul`.
+speculative verify's multi-row attend (:func:`_dense_verify`,
+:func:`_paged_verify`) is plain torch in both layouts, as in the reference,
+whose paged kernel is single-query.  The projections go through
+:func:`repro_torch.core.adapter_api.adapted_matmul`.
 
 Caches are written in place (the reference returns updated copies); the
-decoder advances the offsets once per step after all layers have run.
+decoder advances the offsets once per step after all layers have run.  A
+speculative draft decodes through a view whose ``write_limit`` (per lane,
+an absolute position) keeps its writes inside the window the verify then
+rewrites: past it a paged write goes to trash block 0 and a dense one is
+dropped.
 """
 from __future__ import annotations
 
@@ -98,6 +105,7 @@ def attention(
     adp: Optional[Dict] = None,
     cache: Optional[Dict] = None,
     attend_blocks: Optional[int] = None,
+    n_valid: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns the attention block's output (B,S,d).
 
@@ -107,9 +115,14 @@ def attention(
       (``idx`` (B,)) see :func:`_lane_prefill` and :func:`_lane_decode`.
     * paged cache (``block_tbl``)        — block-aligned prefill (S > 1,
       :func:`_paged_prefill`) or one decode step (:func:`_paged_decode`).
+    * a per-lane cache with ``n_valid`` (int (B,)) — speculative verify of
+      an S-token window at each lane's own offset (:func:`_dense_verify`,
+      :func:`_paged_verify`): row ``s`` sees what decode at ``idx[b]+s``
+      would see; rows ``s >= n_valid[b]`` write nothing a later read sees.
 
-    ``attend_blocks`` bounds the paged decode attend to the table's first
-    that-many columns (the engine's active-lane high-water mark).
+    ``attend_blocks`` bounds the paged decode (and verify) attend to the
+    table's first that-many columns (the engine's active-lane high-water
+    mark).
     """
     H, dh = cfg.n_heads, cfg.d_head
     B, S = x.shape[:2]
@@ -118,12 +131,16 @@ def attention(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None and "block_tbl" in cache:
-        if S != 1:
+        if n_valid is not None:
+            out = _paged_verify(q, k, v, cache, scale, n_valid, attend_blocks)
+        elif S != 1:
             out = _paged_prefill(q, k, v, cache, positions, scale)
         else:
             out = _paged_decode(q, k, v, cache, scale, attend_blocks)
     elif cache is not None and cache["idx"].ndim:
-        if S != 1:
+        if n_valid is not None:
+            out = _dense_verify(q, k, v, cache, scale, n_valid)
+        elif S != 1:
             out = _lane_prefill(q, k, v, cache, scale)
         else:
             out = _lane_decode(q, k, v, cache, scale)
@@ -154,6 +171,18 @@ def _lane_prefill(q, k, v, cache, scale):
     return _softmax_attend(q, k, v, _causal_mask(S, q.device), scale)
 
 
+def _masked_lane_write(cache, rows, ok, k, v) -> None:
+    """``cache[k/v][b, rows[b, s]] = k/v[b, s]`` where ``ok[b, s]``, in
+    place; a row not ok writes its target's own contents back, so its write
+    is dropped without the mask being read on the host.  The targets of one
+    lane must be distinct."""
+    lanes = torch.arange(rows.shape[0], device=rows.device)[:, None].expand_as(rows)
+    keep = ok[..., None, None]
+    for name, new in (("k", k), ("v", v)):
+        buf = cache[name]
+        buf[lanes, rows] = torch.where(keep, new.to(buf.dtype), buf[lanes, rows])
+
+
 def _lane_decode(q, k, v, cache, scale):
     """One decode step against a per-lane dense cache: ``k``/``v`` (B,
     max_len, KV, dh), ``idx`` (B,) each lane's write offset.  Each lane
@@ -161,13 +190,18 @@ def _lane_decode(q, k, v, cache, scale):
     idx)``: no offset is read on the host), then attends its whole region
     under ``kpos <= idx``.  An idle lane's offset keeps advancing; its write
     is clamped to the last row, as the reference's ``dynamic_update_slice``
-    clamps, and its output is discarded."""
+    clamps, and its output is discarded.  A draft view's ``write_limit``
+    drops the write of a lane at or past its limit."""
     B, max_len = cache["k"].shape[:2]
     idx = cache["idx"].long()
     lanes = torch.arange(B, device=q.device)
     row = torch.clamp(idx, max=max_len - 1)
-    cache["k"][lanes, row] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][lanes, row] = v[:, 0].to(cache["v"].dtype)
+    lim = cache.get("write_limit")
+    if lim is not None:
+        _masked_lane_write(cache, row[:, None], (idx < lim)[:, None], k, v)
+    else:
+        cache["k"][lanes, row] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][lanes, row] = v[:, 0].to(cache["v"].dtype)
     kpos = torch.arange(max_len, device=q.device)
     mask = (kpos[None, :] <= idx[:, None])[:, None, None, None, :]
     return _softmax_attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask, scale)
@@ -222,13 +256,19 @@ def _paged_decode(q, k, v, cache, scale, attend_blocks: Optional[int] = None):
     (idle lanes point at trash block 0, so the write needs no per-lane
     branch), then the kernel attends through the table's first
     ``attend_blocks`` columns; lanes longer than that bound (idle lanes with
-    stale offsets) produce outputs the engine discards."""
+    stale offsets) produce outputs the engine discards.  A draft view's
+    ``write_limit`` sends the write of a lane at or past its limit to trash
+    block 0, so a draft never writes a shared block, or past ``max_len``
+    through the clamped last column."""
     bs = cache["k"].shape[1]
     tbl, idx = cache["block_tbl"], cache["idx"]
     max_blocks = tbl.shape[1]
     idx64 = idx.long()
     col = torch.clamp(idx64 // bs, 0, max_blocks - 1)[:, None]
     blk = torch.gather(tbl.long(), 1, col)[:, 0]
+    lim = cache.get("write_limit")
+    if lim is not None:
+        blk = torch.where(idx64 < lim, blk, torch.zeros_like(blk))
     flat = blk * bs + idx64 % bs
     _scatter_rows(cache["k"], flat, k[:, 0])
     _scatter_rows(cache["v"], flat, v[:, 0])
@@ -241,6 +281,68 @@ def _paged_decode(q, k, v, cache, scale, attend_blocks: Optional[int] = None):
     return ops.paged_decode_attention(
         q, cache["k"], cache["v"], tbl, lengths.to(torch.int32)
     )
+
+
+def _dense_verify(q, k, v, cache, scale, n_valid):
+    """Speculative verify against a per-lane dense cache: W window rows per
+    lane at positions ``idx[b] .. idx[b]+W-1``.
+
+    Rows ``s >= n_valid[b]`` write nothing (idle lanes and lanes near their
+    generation budget): their write is dropped in place
+    (:func:`_masked_lane_write`), aimed at a position no kept row of the lane
+    writes (past the window, or wrapped below ``idx`` where it would run
+    past ``max_len``).  Row ``s``'s mask is ``kpos <= idx+s`` — the
+    single-token decode mask at that position, so row ``s`` is what decode
+    computes after committing the window's first ``s`` tokens; rejected rows
+    leave K/V that stays masked until a later window overwrites it.  ``idx``
+    is left unchanged: the engine advances it by the accepted length."""
+    W = q.shape[1]
+    L = cache["k"].shape[1]
+    idx = cache["idx"].long()
+    s = torch.arange(W, device=q.device)
+    pos = idx[:, None] + s[None, :]  # (B, W)
+    _masked_lane_write(cache, torch.where(pos < L, pos, pos - L),
+                       s[None, :] < n_valid.long()[:, None], k, v)
+    kpos = torch.arange(L, device=q.device)
+    mask = (kpos[None, None, :] <= pos[:, :, None])[:, None, None]  # (B,1,1,W,L)
+    return _softmax_attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), mask, scale)
+
+
+def _paged_verify(q, k, v, cache, scale, n_valid, attend_blocks: Optional[int] = None):
+    """Speculative verify against the paged pool: W window rows per lane
+    scattered through its block table at ``idx .. idx+W-1``.
+
+    Rows ``s >= n_valid[b]`` have their block forced to trash block 0: a
+    lane whose window runs past its owned blocks (or an idle lane) writes
+    only trash, never a shared block.  The attend gathers the K/V back
+    through the table (plain torch: the decode kernel is single-query);
+    ``attend_blocks`` truncation and the per-row mask ``kpos <= min(idx+s,
+    width-1)`` reproduce :func:`_paged_decode`'s reduction, so a live row is
+    what the single-token decode at that position computes.  ``idx`` is left
+    unchanged: the engine commits accepted advances and rolls back the
+    blocks past them."""
+    B, W = q.shape[:2]
+    bs = cache["k"].shape[1]
+    tbl, idx = cache["block_tbl"], cache["idx"]
+    max_blocks = tbl.shape[1]
+    s = torch.arange(W, device=q.device)
+    pos = idx.long()[:, None] + s[None, :]  # (B, W)
+    blk = torch.gather(tbl.long(), 1, torch.clamp(pos // bs, 0, max_blocks - 1))
+    blk = torch.where(s[None, :] < n_valid.long()[:, None], blk, torch.zeros_like(blk))
+    flat = (blk * bs + pos % bs).reshape(-1)
+    _scatter_rows(cache["k"], flat, k.reshape(B * W, *k.shape[2:]))
+    _scatter_rows(cache["v"], flat, v.reshape(B * W, *v.shape[2:]))
+    a_blocks = max_blocks
+    if attend_blocks is not None and attend_blocks < max_blocks:
+        a_blocks = max(attend_blocks, 1)
+        tbl = tbl[:, :a_blocks]
+    ids = tbl.long()
+    kg = cache["k"][ids].reshape(B, a_blocks * bs, *k.shape[2:]).to(q.dtype)
+    vg = cache["v"][ids].reshape(B, a_blocks * bs, *v.shape[2:]).to(q.dtype)
+    kpos = torch.arange(a_blocks * bs, device=q.device)
+    last = torch.clamp(pos, max=a_blocks * bs - 1)
+    mask = (kpos[None, None, :] <= last[:, :, None])[:, None, None]  # (B,1,1,W,a_blocks*bs)
+    return _softmax_attend(q, kg, vg, mask, scale)
 
 
 def kv_lane_axes(lead_ndim: int):

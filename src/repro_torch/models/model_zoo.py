@@ -3,7 +3,7 @@ for the dense decoder and the RoBERTa-style encoder): init with adapters
 (QR-LoRA, LoRA, SVD-LoRA), forward (decoder logits, or ``(logits, aux)``
 for the trainer; encoder task outputs), prefill and decode over the paged,
 per-lane dense or lock-step dense cache, the trainable mask and the
-parameter count."""
+parameter count; the speculative verify step."""
 from __future__ import annotations
 
 import dataclasses
@@ -123,6 +123,16 @@ class Model:
     def decode_step(self, params, cache, token, seg_ids=None, attend_blocks=None):
         return tfm_lib.decoder_decode(
             params, self.cfg, cache, token, seg_ids=seg_ids, attend_blocks=attend_blocks
+        )
+
+    def verify_step(self, params, cache, tokens, seg_ids=None, n_valid=None,
+                    attend_blocks=None):
+        """Speculative verify: ``tokens`` (B, W) windows at each lane's own
+        positions → (logits (B, W, V), cache with its offsets unchanged); see
+        ``transformer.decoder_verify``."""
+        return tfm_lib.decoder_verify(
+            params, self.cfg, cache, tokens, seg_ids=seg_ids, n_valid=n_valid,
+            attend_blocks=attend_blocks,
         )
 
     # ---- PEFT helpers ------------------------------------------------------

@@ -99,7 +99,8 @@ def init_decoder_params(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> D
 # ---------------------------------------------------------------------------
 
 
-def _run_layers(params, cfg, x, positions, cache_layers, seg_ids=None, attend_blocks=None):
+def _run_layers(params, cfg, x, positions, cache_layers, seg_ids=None, attend_blocks=None,
+                n_valid=None):
     groups = params["groups"]
     adapters = groups.get("adapters")
     for l in range(cfg.n_layers):
@@ -110,7 +111,7 @@ def _run_layers(params, cfg, x, positions, cache_layers, seg_ids=None, attend_bl
             p["attn"], h, cfg, positions=positions,
             adp=_adp_for(adp, "attn", seg_ids),
             cache=_tslice(cache_layers["attn"], l) if cache_layers else None,
-            attend_blocks=attend_blocks,
+            attend_blocks=attend_blocks, n_valid=n_valid,
         )
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + gated_mlp(p["mlp"], h, _adp_for(adp, "mlp", seg_ids))
@@ -265,3 +266,26 @@ def decoder_decode(params, cfg: ModelConfig, cache, token, seg_ids=None, attend_
     cache["pos"] += 1
     cache["layers"]["attn"]["idx"] += 1
     return _logits(params, cfg, x)[:, 0], cache
+
+
+def decoder_verify(params, cfg: ModelConfig, cache, tokens, seg_ids=None, n_valid=None,
+                   attend_blocks=None):
+    """Speculative verify: one forward over ``tokens`` (B, W) — each lane's
+    last committed token followed by its drafted continuation — at absolute
+    positions ``pos[b] .. pos[b]+W-1`` of a per-lane (dense or paged)
+    cache, returning the logits of all W rows, (B, W, V) fp32.
+
+    Row ``s`` attends to every cache position ``<= pos+s`` (the window's own
+    earlier rows included, written first), so its logits are what
+    :func:`decoder_decode` computes after committing the window's first
+    ``s`` tokens: greedy acceptance is prefix equality against the per-row
+    argmax.  ``n_valid`` (int (B,)) caps the rows each lane writes into its
+    cache (0 for idle lanes).  The offsets (``pos``/``idx``) are left
+    unchanged: the serving engine advances them by each lane's accepted
+    length, then rolls back the paged blocks the acceptance did not reach."""
+    x = params["embed"][tokens]
+    W = x.shape[1]
+    positions = cache["pos"][:, None] + torch.arange(W, device=x.device)[None, :]
+    x = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids, attend_blocks,
+                    n_valid=n_valid)
+    return _logits(params, cfg, x), cache

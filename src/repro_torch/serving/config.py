@@ -13,10 +13,13 @@ Layouts, as the reference defines them:
 ``EngineConfig.serving()`` is the reference's production posture: paged KV,
 copy-on-write prefix sharing, one watermark block of decode headroom and
 chunked prefill at two blocks a step; ``EngineConfig.oracle_dense()`` the
-reference posture the tests compare against.  The reference's other knobs
-belong to later slices of the port: the fields exist with their disabled
-defaults so a config that sets one fails here, naming the slice, instead of
-being served without it.
+reference posture the tests compare against.  ``speculate_k`` turns on
+speculative decoding (``draft_lam_rank`` picks the truncated-λ drafter);
+engine construction holds it to :data:`SPECULATIVE_FAMILIES`
+(:meth:`EngineConfig.validate_speculation`).  The λ-store cold tier belongs
+to a later slice of the port: its fields exist with their disabled defaults
+so a config that sets one fails here, naming the slice, instead of being
+served without it.
 """
 from __future__ import annotations
 
@@ -28,10 +31,16 @@ from repro_torch.core.quantize import FP8_SUPPORTED
 
 LAYOUTS = ("auto", "paged", "oracle_dense")
 
+#: Families speculative decoding supports.  Accepting a drafted prefix is a
+#: pure KV rewind — offsets advance, rejected positions stay masked until
+#: overwritten — which only attention state allows.  Hybrid's Mamba scan
+#: state advances irreversibly per token and ssm has no KV cache at all, so
+#: neither can roll back a rejected draft.  (The port serves the dense
+#: family so far; the list is the reference's.)
+SPECULATIVE_FAMILIES = ("dense", "audio", "moe")
+
 #: field → (its disabled default, the slice of the port that brings it)
 LATER_SLICES = {
-    "speculate_k": (0, "speculative decoding (ROADMAP Queue 1 item 10d)"),
-    "draft_lam_rank": (None, "speculative decoding (ROADMAP Queue 1 item 10d)"),
     "cold_slots": (0, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
     "cold_path": (None, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
 }
@@ -83,9 +92,16 @@ class EngineConfig:
     #: many tokens while requests queue is snapshot-preempted to the back of
     #: the queue and later restored without re-prefill.  ``None`` disables.
     quantum: Optional[int] = None
-    # -- later slices: must stay at their defaults (see LATER_SLICES) --------
+    #: Speculative decoding: draft this many greedy tokens per lane per step
+    #: with the drafter view, verify every lane's window in one batched
+    #: forward under the full multi-λ view and accept the longest prefix that
+    #: matches greedy (token-identical to plain decoding).  0 disables.
     speculate_k: int = 0
+    #: Drafter: ``None`` drafts with the base model (slot 0, λ ≡ 0, no
+    #: adapter term); ``r`` keeps each slot's top-r |λ| coefficients.  Needs
+    #: ``speculate_k >= 1``.
     draft_lam_rank: Optional[int] = None
+    # -- later slices: must stay at their defaults (see LATER_SLICES) --------
     cold_slots: int = 0
     cold_path: Optional[str] = None
 
@@ -115,11 +131,19 @@ class EngineConfig:
                     f"prefill_chunk={self.prefill_chunk} must be a positive multiple of "
                     f"block_size={self.block_size}"
                 )
+        if self.speculate_k < 0:
+            raise ValueError(f"speculate_k={self.speculate_k} must be >= 0")
         if self.speculate_k and self.prefill_chunk is not None:
             raise ValueError(
                 "speculate_k is incompatible with prefill_chunk: a lane mid chunked-prefill "
                 "is dark and cannot draft or verify a window"
             )
+        if self.draft_lam_rank is not None:
+            if self.draft_lam_rank < 1:
+                raise ValueError(f"draft_lam_rank={self.draft_lam_rank} must be >= 1")
+            if self.speculate_k < 1:
+                raise ValueError("draft_lam_rank configures the speculative drafter — it "
+                                 "needs speculate_k >= 1")
         if self.layout == "oracle_dense":
             if self.share_prefix:
                 raise ValueError("share_prefix requires a paged layout (blocks to share)")
@@ -158,6 +182,17 @@ class EngineConfig:
         base = dict(layout="oracle_dense")
         base.update(overrides)
         return cls(**base)
+
+    def validate_speculation(self, family: str) -> None:
+        """Reject ``speculate_k`` for families whose decode state cannot
+        rewind a rejected draft (engine construction calls this once the
+        model family is known; the config itself is family-agnostic)."""
+        if self.speculate_k and family not in SPECULATIVE_FAMILIES:
+            raise ValueError(
+                f"speculate_k={self.speculate_k} needs a KV-rollback family "
+                f"{SPECULATIVE_FAMILIES}; family {family!r} carries recurrent decode state "
+                "that cannot rewind rejected draft positions"
+            )
 
     def resolved_layout(self, family: str) -> str:
         """Concrete layout for ``family``: an explicit layout as given;

@@ -86,9 +86,28 @@ device work and no sync.  Its ``dispatch`` phase is the host time spent
 launching the decode step and ``sync`` the time then spent waiting for
 the card; neither is device time.
 
+Speculative decoding (``EngineConfig.speculate_k=K``) replaces the decode
+step: each step drafts K greedy tokens per lane with the drafter view (the
+base model — slot 0, no adapter term — or, with ``draft_lam_rank=r``, each
+slot's λ cut to its top-r |λ|), scores every lane's (K+1)-token window in
+one batched forward under the full multi-λ view, accepts each lane's
+longest prefix that matches greedy and commits it: the emitted tokens are
+the plain engine's, up to K+1 a step.  The reference drafts through a
+throwaway copy of its functional cache; this engine's caches are written
+in place, so the draft decodes through a view of the same pools and tables
+with private copies of the offsets, and each lane's draft writes are capped
+at the window the verify rewrites (past it they go to trash block 0, or are
+dropped on the dense layout): a draft never writes a shared block, another
+lane's rows or the engine's offsets, and no pool is copied.  The window cap
+(:meth:`MultiTenantEngine._spec_window_cap`) is host bookkeeping, computed
+before the draft.  The commit advances the offsets in place by each lane's
+accepted length; rejected rows stay masked (``kpos <= idx``) until a later
+step overwrites them, and paged blocks grown past the accepted frontier go
+back to the pool.
+
 The engine is greedy and host-driven: ``step()`` = admit + advance chunked
-prefills + grow + one decode step over the committed lanes; ``run()`` loops
-until queue and lanes drain.
+prefills + grow + one decode step (or a draft-and-verify pair) over the
+committed lanes; ``run()`` loops until queue and lanes drain.
 """
 from __future__ import annotations
 
@@ -151,6 +170,8 @@ class MultiTenantEngine:
         config = config or EngineConfig()
         if cfg.adapter.mode != "qr_lora":
             raise ValueError("multi-λ serving is defined for qr_lora adapters")
+        # speculation rewinds rejected drafts, which only KV state allows
+        config.validate_speculation(cfg.family)
         self.layout = config.resolved_layout(cfg.family)
         self.paged = paged = self.layout == "paged"
         self.cfg = cfg
@@ -198,6 +219,12 @@ class MultiTenantEngine:
         self.block_size = bs = config.block_size
         self.quantum = config.quantum
         self.slice_preemptions = 0  # quantum snapshot-preemptions
+        self.speculate_k = config.speculate_k
+        self.draft_lam_rank = config.draft_lam_rank
+        self.spec_steps = 0  # speculative engine steps executed
+        self.drafted_tokens = 0  # draft tokens proposed across all lanes
+        self.accepted_drafts = 0  # drafted tokens the verify pass accepted
+        self._draft_view_cache = None  # (λ-store slot writes, truncated-λ drafter view)
         self.allocator, self.prefix_cache, self.watermark = None, None, 0
         if paged:
             if self.max_len % bs:
@@ -241,6 +268,8 @@ class MultiTenantEngine:
         # attend bounds — what the reference compiles a variant of each for
         self._dispatch_shapes: Dict[str, set] = {
             "prefill": set(), "decode": set(), "prefill_paged": set(), "prefill_chunk": set()}
+        if self.speculate_k:
+            self._dispatch_shapes.update(draft=set(), verify=set())
         # the decode step's inputs reach the card through pinned host buffers
         # and asynchronous copies, so step_begin does not wait for them; one
         # buffer each is enough, as step_finish syncs before the next step
@@ -250,6 +279,12 @@ class MultiTenantEngine:
                 "tok": torch.zeros((self.n_lanes, 1), dtype=torch.int32, pin_memory=True),
                 "seg": torch.zeros((self.n_lanes,), dtype=torch.int32, pin_memory=True),
             }
+            if self.speculate_k:  # the window, its caps and the accepted advances
+                self._pinned.update(
+                    win=torch.zeros((self.n_lanes, self.speculate_k + 1), dtype=torch.int32,
+                                    pin_memory=True),
+                    nv=torch.zeros((self.n_lanes,), dtype=torch.int32, pin_memory=True),
+                    adv=torch.zeros((self.n_lanes,), dtype=torch.int32, pin_memory=True))
         if paged:
             self.cache = self.model.init_decode_state(
                 self.n_lanes, self.max_len, self.dtype, paged=True, block_size=bs,
@@ -331,6 +366,35 @@ class MultiTenantEngine:
 
     def _params_view(self):
         return self.lam_store.install(self.params)
+
+    def _draft_params_view(self):
+        """Drafter parameter view.  Base drafter (``draft_lam_rank=None``):
+        the adapters stripped — exactly the λ ≡ 0 slot-0 tenant, with the
+        adapter term skipped (no BGMV launch) rather than multiplied by
+        zeros.  Truncated-λ drafter (``draft_lam_rank=r``): each slot row
+        keeps its top-r |λ| coefficients.  Memoized on the λ-store's slot-write
+        count (slot writes invalidate it)."""
+        view = self._params_view()
+        if self.draft_lam_rank is None:
+            return {**view, "groups": {**view["groups"], "adapters": {}}}
+        ver = self.lam_store.slot_writes
+        if self._draft_view_cache is not None and self._draft_view_cache[0] == ver:
+            return self._draft_view_cache[1]
+        r = self.draft_lam_rank
+
+        def trunc(leaf):
+            lam = leaf["lam"]
+            if lam.shape[-1] <= r:
+                return leaf
+            mag = lam.abs()
+            thr = torch.sort(mag, dim=-1).values[..., -r][..., None]
+            return {**leaf, "lam": torch.where(mag >= thr, lam, torch.zeros_like(lam))}
+
+        adapters = {mod: {proj: trunc(leaf) for proj, leaf in projs.items()}
+                    for mod, projs in view["groups"]["adapters"].items()}
+        dview = {**view, "groups": {**view["groups"], "adapters": adapters}}
+        self._draft_view_cache = (ver, dview)
+        return dview
 
     def _rules_ctx(self):
         """The sharding rules every forward runs under (none unsharded)."""
@@ -632,10 +696,15 @@ class MultiTenantEngine:
         a["v"][:, dst] = a["v"][:, src]
         a["block_tbl"][:, lane, slot] = dst
 
-    def _grow_lanes(self) -> None:
-        """Lazy growth, oldest lane first: a decoding lane whose next write
-        crosses into a new block gets one (its table entry repointed), and
-        one whose write block is shared forks a private copy first."""
+    def _grow_lanes(self, window: int = 1) -> None:
+        """Lazy growth, oldest lane first: every decoding lane gets the blocks
+        its next ``window`` writes land in (its table entries repointed),
+        and a lane whose write block is shared forks a private copy first.
+        A speculative engine grows k+1 positions of headroom at once; only
+        the write block is ever forked (acceptance always reaches it, so the
+        plain engine forks it too): a shared block deeper in the window
+        caps that lane's window at its boundary instead
+        (:meth:`_spec_window_cap`), so a rollback never undoes a fork."""
         bs = self.block_size
         tbl = self.cache["layers"]["attn"]["block_tbl"]
         for req in sorted(self.scheduler.active(), key=lambda r: r.admit_seq):
@@ -643,28 +712,199 @@ class MultiTenantEngine:
                 continue
             if req.uid in self._prefilling:  # not decoding yet: no growth
                 continue
-            blk_idx = (req.prompt.size + len(req.tokens) - 1) // bs
+            write_pos = req.prompt.size + len(req.tokens) - 1
+            span = max(min(window, req.max_new_tokens - len(req.tokens)), 1)
+            first_blk = write_pos // bs
             blocks = self._lane_blocks[req.lane]
-            if blk_idx >= len(blocks):
-                bid = self._reclaim_one_block(req)
-                if bid is None:  # req itself was the preemption victim
-                    continue
-                blocks.append(bid)
-                tbl[:, req.lane, blk_idx] = bid
-            elif self.allocator.is_shared(blocks[blk_idx]):
-                # never write into a block another owner reads
-                src = blocks[blk_idx]
-                if self.allocator.can_alloc(1):
-                    dst = self.allocator.fork(src)
-                else:
-                    dst = self._reclaim_one_block(req)
-                    if dst is None:
-                        continue
-                    self.allocator.decref(src)  # the lane's ref moves to the copy
-                blocks[blk_idx] = dst
-                self._fork_block(req.lane, blk_idx, src, dst)
-                self.cow_forks += 1
-                self.telemetry.on_cow_fork(req, src, dst)
+            for blk_idx in range(first_blk, (write_pos + span - 1) // bs + 1):
+                if blk_idx >= len(blocks):
+                    bid = self._reclaim_one_block(req)
+                    if bid is None:  # req itself was the preemption victim
+                        break
+                    blocks.append(bid)
+                    tbl[:, req.lane, blk_idx] = bid
+                elif self.allocator.is_shared(blocks[blk_idx]):
+                    if blk_idx != first_blk:
+                        break  # a shared block deeper in the window: the window caps here
+                    # never write into a block another owner reads
+                    src = blocks[blk_idx]
+                    if self.allocator.can_alloc(1):
+                        dst = self.allocator.fork(src)
+                    else:
+                        dst = self._reclaim_one_block(req)
+                        if dst is None:
+                            break
+                        self.allocator.decref(src)  # the lane's ref moves to the copy
+                    blocks[blk_idx] = dst
+                    self._fork_block(req.lane, blk_idx, src, dst)
+                    self.cow_forks += 1
+                    self.telemetry.on_cow_fork(req, src, dst)
+
+    # -- speculative decoding -------------------------------------------------
+
+    def _spec_window_cap(self, req: Request) -> int:
+        """Largest verify window (the free token plus drafts) this lane can
+        take this step: bounded by its remaining generation budget and,
+        paged, by the blocks it owns — growth stops at the first shared
+        block past the write block and may come up short under pool
+        pressure.  Host bookkeeping only, so the draft knows its write
+        limit before it runs."""
+        nv = min(self.speculate_k + 1, req.max_new_tokens - len(req.tokens))
+        if not self.paged:
+            return max(nv, 1)
+        bs = self.block_size
+        write_pos = req.prompt.size + len(req.tokens) - 1
+        blocks = self._lane_blocks[req.lane]
+        limit_blk = len(blocks)
+        for i in range(write_pos // bs + 1, len(blocks)):
+            if self.allocator.is_shared(blocks[i]):
+                limit_blk = i
+                break
+        return max(1, min(nv, limit_blk * bs - write_pos))
+
+    def _draft_cache(self, nv: torch.Tensor) -> Dict[str, Any]:
+        """The cache a draft decodes through: the engine's K/V (pools and
+        block tables, or dense regions) with private copies of the offsets,
+        so the engine's own advance only in the commit, and each lane's
+        writes capped below ``idx + nv`` (``write_limit``), the window the
+        verify rewrites."""
+        a = self.cache["layers"]["attn"]
+        idx = a["idx"].clone()
+        return {"pos": self.cache["pos"].clone(),
+                "layers": {"attn": {**a, "idx": idx, "write_limit": idx + nv}}}
+
+    def _dispatch_draft(self, tok: np.ndarray, n_valid: np.ndarray, ab: Optional[int]):
+        """Upload the step's inputs and launch the k draft decodes with the
+        drafter view, each taking the previous one's greedy token, without
+        waiting.  Returns the draft tokens (B, k) int32 on the device and the
+        uploaded seg ids and window caps, which the verify reuses."""
+        seg = self._upload("seg", self.scheduler.batch_composition())
+        nv = self._upload("nv", n_valid)
+        t = self._upload("tok", tok)
+        dview, dcache = self._draft_params_view(), self._draft_cache(nv)
+        self._dispatch_shapes["draft"].add(ab)
+        drafts = []
+        with self._rules_ctx():
+            for _ in range(self.speculate_k):
+                logits, dcache = self.model.decode_step(dview, dcache, t, seg_ids=seg,
+                                                        attend_blocks=ab)
+                t = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                drafts.append(t)
+        return torch.cat(drafts, dim=1), seg, nv
+
+    def _dispatch_verify(self, window: np.ndarray, seg: torch.Tensor, nv: torch.Tensor,
+                         ab: Optional[int]) -> torch.Tensor:
+        """Launch the verify of every lane's window under the full multi-λ
+        view, without waiting: returns its logits (B, k+1, V) on the device.
+        The engine's offsets stay where they are."""
+        self._dispatch_shapes["verify"].add(ab)
+        with self._rules_ctx():
+            logits, self.cache = self.model.verify_step(
+                self._params_view(), self.cache, self._upload("win", window), seg_ids=seg,
+                n_valid=nv, attend_blocks=ab)
+        return logits
+
+    def _accept(self, decoding: List[Request], window: np.ndarray, greedy: np.ndarray,
+                n_valid: np.ndarray) -> np.ndarray:
+        """Each lane's accepted advance: its window's longest prefix that
+        matches greedy (``window[0]``, the lane's own last token, always)."""
+        adv = np.zeros((self.n_lanes,), np.int32)
+        for req in decoding:
+            lane, nv = req.lane, int(n_valid[req.lane])
+            a = 1
+            while a < nv and window[lane, a] == greedy[lane, a - 1]:
+                a += 1
+            adv[lane] = a
+        return adv
+
+    def _commit_window(self, decoding: List[Request], adv: np.ndarray) -> None:
+        """Advance each lane's offsets in place by its accepted length (no
+        offset is read on the host) and, paged, roll back the blocks past
+        the accepted frontier.  Window rows past it stay masked (attends
+        read ``kpos <= idx``) until a later step overwrites them."""
+        advd = self._upload("adv", adv)
+        self.cache["pos"] += advd
+        self.cache["layers"]["attn"]["idx"] += advd
+        if self.paged:
+            self._rollback_window_blocks(decoding, adv)
+
+    def _rollback_window_blocks(self, decoding: List[Request], adv: np.ndarray) -> None:
+        """Release window blocks past each lane's accepted frontier: the
+        pre-grown headroom a short acceptance did not reach.  Those are
+        private blocks (growth forks only the write block, and every step
+        restores the blocks-cover-the-KV invariant), so a decref and a
+        table entry repointed at trash block 0 restore the plain engine's
+        refcounts; no fork is undone."""
+        bs = self.block_size
+        tbl = self.cache["layers"]["attn"]["block_tbl"]
+        for req in decoding:
+            lane = req.lane
+            # before the emit, len(tokens) is the pre-step count: this is the
+            # lane's write offset after the commit
+            idx_new = req.prompt.size + len(req.tokens) - 1 + int(adv[lane])
+            keep = (idx_new - 1) // bs + 1  # the plain engine's coverage after the step
+            blocks = self._lane_blocks[lane]
+            while len(blocks) > keep:
+                tbl[:, lane, len(blocks) - 1] = 0
+                self.allocator.decref(blocks.pop())
+
+    def _step_speculative(self, decoding: List[Request], finished: List[Request]) -> None:
+        """One speculative step: draft k tokens a lane, verify every lane's
+        window, accept each lane's longest greedy-matching prefix, commit
+        the offsets and roll back the paged blocks past the accepted
+        frontier, then emit.  Greedy decoding is deterministic, so prefix
+        equality is exact acceptance: the emitted tokens are the plain
+        engine's, up to k+1 a step.  Two host syncs: the draft tokens (the
+        verify's input) and the verify logits."""
+        tel = self.telemetry
+        on = tel.enabled
+        k = self.speculate_k
+        tok = np.zeros((self.n_lanes, 1), np.int32)
+        n_valid = np.zeros((self.n_lanes,), np.int32)
+        for req in decoding:
+            tok[req.lane, 0] = req.tokens[-1]
+            n_valid[req.lane] = self._spec_window_cap(req)
+        ab = self._attend_blocks(decoding) if self.paged else None
+        t_disp = tel.now() if on else 0.0
+        drafts, seg, nv = self._dispatch_draft(tok, n_valid, ab)
+        drafts = drafts.cpu().numpy()  # host sync: the drafts are the verify's input
+        if on:
+            tel.on_spec_phase("draft", t_disp, tel.now())
+        window = np.empty((self.n_lanes, k + 1), np.int32)
+        window[:, 0] = tok[:, 0]
+        window[:, 1:] = drafts
+        t_ver = tel.now() if on else 0.0
+        logits_np = self._dispatch_verify(window, seg, nv, ab).float().cpu().numpy()  # host sync
+        t_sync = tel.now() if on else 0.0
+        if on:
+            tel.on_spec_phase("verify", t_ver, t_sync)
+        # greedy as _emit takes it, so the accepted rows emit the window's own tokens
+        adv = self._accept(decoding, window, logits_np.argmax(axis=-1), n_valid)
+        self._commit_window(decoding, adv)
+        self.steps += 1
+        self.spec_steps += 1
+        drafted = k * len(decoding)
+        accepted = int(adv.sum()) - len(decoding)
+        self.drafted_tokens += drafted
+        self.accepted_drafts += accepted
+        tel.on_speculate(drafted, accepted, drafted - accepted)
+        for req in decoding:
+            lane, a = req.lane, int(adv[req.lane])
+            req.slice_steps += a  # quantum accounting in accepted tokens
+            for j in range(a):
+                self._emit(req, logits_np[lane, j], finished)
+            if on:
+                tel.on_decode_lane(req, t_disp, t_sync, req.tokens[-1])
+        if on:
+            tel.phase("emit", tel.now() - t_sync)
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the verify pass accepted (0.0 before
+        any speculative step has run)."""
+        if not self.drafted_tokens:
+            return 0.0
+        return self.accepted_drafts / self.drafted_tokens
 
     # -- the serving loop ---------------------------------------------------
 
@@ -958,7 +1198,8 @@ class MultiTenantEngine:
         everything up to the host sync on the decode logits.  Returns the pending handle for
         :meth:`step_finish`.  A caller running several engines launches
         every engine's step before it waits for any, so their device work
-        overlaps."""
+        overlaps.  A speculative step syncs inside (the draft feeds the
+        verify), so it completes here and returns a finished handle."""
         finished: List[Request] = []
         self.events = []
         tel = self.telemetry
@@ -991,12 +1232,17 @@ class MultiTenantEngine:
             self._run_prefill_chunks(finished)
             phase("prefill_chunk")
         if self.paged:
-            self._grow_lanes()
+            self._grow_lanes(self.speculate_k + 1)
             phase("grow")
         # lanes mid chunked prefill ride the step as masked rows: their
         # writes hit the trash block, their logits are discarded
         decoding = [r for r in self.scheduler.active() if r.uid not in self._prefilling]
         if not decoding:
+            return {"finished": finished, "decoding": None}
+        if self.speculate_k:
+            # draft feeds verify through the host, so the step completes here
+            # and step_finish gets a finished handle
+            self._step_speculative(decoding, finished)
             return {"finished": finished, "decoding": None}
         t_disp = t
         logits = self._dispatch_decode(decoding)
@@ -1033,7 +1279,8 @@ class MultiTenantEngine:
         """Time-slice over-quantum lanes (when work queues), admit waiting
         requests, advance chunked prefills under the token
         budget, grow (or CoW-fork) lanes crossing block boundaries, run one
-        shared decode step over the committed lanes; returns the requests
+        shared decode step over the committed lanes (a draft-and-verify pair
+        with ``speculate_k``: up to k+1 tokens a lane); returns the requests
         that finished this step.  The tokens it delivered are in
         ``self.events``.  Exactly ``step_finish(step_begin())``."""
         return self.step_finish(self.step_begin())

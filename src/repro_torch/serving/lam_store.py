@@ -324,11 +324,14 @@ class LamStore:
         the install layout)."""
         return {key: torch.movedim(tab, -2, 0) for key, tab in self._tables.items()}
 
+    def bytes_per_tenant(self) -> int:
+        """Bytes of one tenant's λ state: its row across all tables."""
+        return 4 * sum(int(np.prod(s)) for s in self._lam_shapes.values())
+
     def table_bytes(self, per_rank: bool = False) -> int:
         """Device bytes of the packed tables: all slots over the group, or
         (``per_rank``) the slots this rank holds."""
-        per_slot = 4 * sum(int(np.prod(s)) for s in self._lam_shapes.values())
-        return per_slot * (self.n_local if per_rank else self.n_slots)
+        return self.bytes_per_tenant() * (self.n_local if per_rank else self.n_slots)
 
     def install(self, params):
         """Params view whose adapter λ leaves are the packed slot tables.

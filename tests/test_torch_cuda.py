@@ -316,9 +316,11 @@ def test_serving_step_launches_both_kernels(gen):
 
 
 # qwen2-0.5b's adapted projections: K 896, wq N 896 and wv N 128 (4 column
-# tiles), rank cap 160; 1, 2 and 4 decode lanes, a 32-row prefill chunk and
-# the 64- and 256-row monolithic buckets
-QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (1, 2, 4, 32, 64, 256) for N in (896, 128)]
+# tiles), rank cap 160; 1, 2 and 4 decode lanes, the speculative verify's
+# 2 × 5 and 4 × 5 window rows (k = 4), a 32-row prefill chunk and the 64-
+# and 256-row monolithic buckets
+QWEN_BGMV_SHAPES = [(M, 896, N, 160) for M in (1, 2, 4, 10, 20, 32, 64, 256)
+                    for N in (896, 128)]
 
 
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
@@ -441,6 +443,77 @@ def test_quantum_restore_is_bitwise_on_the_card(gen):
     for a, b in zip(sliced, plain):
         assert a.tokens == b.tokens
         assert all((x == y).all() for x, y in zip(a.logits, b.logits))
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports only the standard library at
+    the top), for its speculative serve and rig."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _spec_engine(gen, speculate_k=3, **over):
+    """Reduced qwen2-0.5b (float32), paged, block 8, prefix sharing, two
+    tenants, and four prompts on a shared 16-token prefix."""
+    import numpy as np
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving import EngineConfig, MultiTenantEngine, random_lambda
+
+    cfg = get_reduced("qwen2-0.5b").replace(dtype="float32")
+    eng = MultiTenantEngine(cfg, EngineConfig(
+        layout="paged", n_lanes=2, n_slots=4, max_len=48, block_size=8, share_prefix=True,
+        collect_logits=True, speculate_k=speculate_k, **over))
+    for i in (1, 2):
+        eng.add_tenant(f"t{i}", random_lambda(gen.manual_seed(i), eng.params, 0.3))
+    rng = np.random.default_rng(7)
+    pre = rng.integers(2, 256, size=16).astype(np.int32)
+    traffic = [(t, np.concatenate([pre, rng.integers(2, 256, size=n).astype(np.int32)]))
+               for t, n in (("t1", 3), ("t2", 5), ("t1", 3), ("t2", 6))]
+    return eng, traffic
+
+
+def test_speculative_step_passes_sync_debug_mode_error(gen):
+    """The draft, verify and commit of every speculative step make no host
+    sync (the step's two syncs, the draft tokens and the verify logits, sit
+    between them); #1 runs in the verify and #2 in every draft step; the
+    tokens are the plain engine's and the pool drains."""
+    cs = _chip_smoke()
+    eng, traffic = _spec_engine(gen)
+    run = cs.spec_serve(eng, traffic, sync_check=True)
+    plain_eng, _ = _spec_engine(gen, speculate_k=0)
+    plain = cs.spec_serve(plain_eng, traffic)
+    assert run["spec_steps"] > 0
+    assert all(n == run["spec_steps"] for n in run["sync_checked"].values())
+    assert run["launches"]["qrlora_bgmv"] > 0 and run["launches"]["paged_decode_attention"] > 0
+    assert 2 * 4 in run["bgmv_rows"]  # the verify: 2 lanes × (3 + 1) rows
+    assert cs.spec_rows_ok(cs.compare_streams(run, plain)) and cs.spec_blocks_ok(run)
+
+
+def test_speculative_shared_block_rig_on_the_card(gen):
+    """A block with an extra owner forced into a lane's window keeps its
+    bytes and caps the window; with the draft's write limit removed it does
+    not, and the check rejects the serve."""
+    cs = _chip_smoke()
+    eng, traffic = _spec_engine(gen, speculate_k=4)
+    run = cs.spec_serve(eng, traffic, force_shared=True)
+    assert run["forced"] is not None and cs.spec_blocks_ok(run)
+    eng, _ = _spec_engine(gen, speculate_k=4)
+    sound = eng._draft_cache
+
+    def unlimited(nv):
+        view = sound(nv)
+        del view["layers"]["attn"]["write_limit"]
+        return view
+
+    eng._draft_cache = unlimited
+    fault = cs.spec_serve(eng, traffic, force_shared=True)
+    assert fault["forced"] is not None and not cs.spec_blocks_ok(fault)
 
 
 def _matmul_inputs(gen, M, K, N, r, x_dtype, rank=None):

@@ -39,7 +39,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert int(n) >= 20 and bad == "[]", out.stdout
     for module in ("repro_torch.sharding.rules", "repro_torch.obs.telemetry",
                    "repro_torch.serving.replica", "repro_torch.serving.router",
-                   "repro_torch.benchmarks.multi_replica"):
+                   "repro_torch.benchmarks.multi_replica",
+                   "repro_torch.benchmarks.serve_multitenant"):
         assert module in names.split(","), names
 
 

@@ -138,7 +138,7 @@ def test_bucket_len_matches_jax(floor):
 # engine config
 # ---------------------------------------------------------------------------
 
-_LATER = {"speculate_k": 2, "draft_lam_rank": 2, "cold_slots": 4, "cold_path": "/x"}
+_LATER = {"cold_slots": 4, "cold_path": "/x"}
 
 
 @pytest.mark.parametrize("field", sorted(_LATER))
