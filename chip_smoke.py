@@ -41,7 +41,7 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   block-pressure preemption; ``step_finish(step_begin())`` against
   ``step()`` with the decode dispatch under sync debug mode "error";
   telemetry on against off (tokens, float32 logits, launches, CUDA calls;
-  bf16 tokens/s, medians of three alternating serves); ``cancel``
+  bf16 tokens/s, medians of two alternating serves); ``cancel``
   of a queued and an active request; a prefill and a prefix shipped
   between two engines on the card; three planted faults (no exactly-once
   guard, a cancel that keeps the lane's blocks, an import written from the
@@ -73,7 +73,28 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   three planted faults (a window committed whole, rejected both by the
   logits bar and by the acceptance counters of a sound serve of the same
   traffic; the draft's write limit removed; the rollback skipped);
-* training: 30 λ-only steps at batch 8 × seq 256 through
+* the λ-store's cold tier on the same weights:
+  ``EngineConfig.serving(n_lanes=4, n_slots=3, cold_slots=16)`` (2 usable
+  hot slots), 12 tenants, 16 requests of 16 tokens, in float32 and bf16,
+  each beside the same traffic on an all-hot engine (13 slots; float32
+  tokens equal and logits within 2e-5, bf16 within the drift bar and
+  teacher-forced against the merged-weight reference), promotions, spills
+  and deferrals counted, every admission gate (promotion and spill) under
+  sync debug mode "error", ``lam_cold_bytes`` the cold tenants' bytes; a
+  restart on an mmap ``cold_path`` (the second engine finds the same cold
+  tenants and digests, promotes their rows bitwise, serves the same
+  tokens); three planted faults (a promotion that skips its device write,
+  one that returns another slot than it wrote, a gate that takes no
+  hot-slot pin);
+* the audio family: full-width musicgen-medium (48 layers, d 1536, 24
+  heads over 24, d_ff 6144, vocab 2048; random weights from ``--seed``,
+  QR-LoRA on ``wq``/``wv`` of the last 4 layers): 4 tenants through the
+  default engine in float32 and bf16 against the merged-weight reference
+  (bf16 teacher-forced), the bf16 serve profiled; frame embeddings through
+  ``apply(embeds=)`` against a prefill and a decode of the same frames; 4
+  λ-only bf16 train steps on frame embeddings (batch 4 × seq 256) beside
+  their plain twin;
+* training: 15 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
   held against the same run with the plain version in place of the kernel;
 * the kernel bench (``repro_torch.benchmarks.run --only kernel``, in
@@ -91,7 +112,9 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
 
 The BGMV and paged kernels are also checked at qwen2-0.5b's shapes (K 896,
 N 896 and 128, r 160, the BGMV at 2-256 rows; 14 heads over 2 with length-0
-lanes).  The one-λ
+lanes) and at musicgen-medium's (K = N = 1536, r 128 at 4 and 64 rows; 24
+heads over 24), the one-λ kernel at its train step's (1024 × 1536 × 1536,
+r 128, bf16).  The one-λ
 kernel is also checked at the encoder's shapes (float32 x,
 M = 2048, 768 and a ragged 100, K = N = 768, r = 256 and 2), its backward
 with LoRA's dB and dA against autograd, and ``qr_pivoted`` at 768 × 768
@@ -1280,15 +1303,15 @@ def time_paged_long(gen, L: int = 1000, B: int = 4):
     return res
 
 
-def time_matmul(gen, N: int):
+def time_matmul(gen, N: int, M: int = 2048, K: int = 576):
     """wq (N=576) / wv (N=192) projection of a training step: batch 8 ×
-    seq 256 = 2048 rows, bf16."""
+    seq 256 = 2048 rows, bf16 (smollm-135m's K unless given)."""
     import torch
     from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
     from repro_torch.kernels.ref import qrlora_matmul_ref
 
-    M, K, r = 2048, 576, 128
+    r = 128
     x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.bfloat16, K, r, rank=r)
     lam16 = lam.bfloat16()
     kernel = lambda: qrlora_matmul_cuda(x, W, B, A, lam)
@@ -1546,17 +1569,18 @@ def _device_busy(prof, wall_us: float, api_calls: bool = False, skip=()):
 
 
 def serve(dtype: str, seed: int, n_tenants: int = 6, gen_len: int = 16,
-          base_dtype: str = "bf16", params=None, **shard):
-    """Serve one request per tenant through the default engine (with
-    ``base_dtype`` and the ``shard_lam``/``shard_ba`` flags in ``shard``, on
-    ``params`` when given); returns the engine, the tenants' λ trees and
-    timings.  The tenants and the traffic depend on ``seed`` only."""
+          base_dtype: str = "bf16", params=None, arch: str = "smollm-135m", **shard):
+    """Serve one request per tenant through the default engine (``arch``
+    at full width, with ``base_dtype`` and the ``shard_lam``/``shard_ba``
+    flags in ``shard``, on ``params`` when given); returns the engine, the
+    tenants' λ trees and timings.  The tenants and the traffic depend on
+    ``seed`` only."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.serving import EngineConfig, MultiTenantEngine, random_lambda
 
-    cfg = get_config("smollm-135m").replace(dtype=dtype)
+    cfg = get_config(arch).replace(dtype=dtype)
     t0 = time.perf_counter()
     engine = MultiTenantEngine(
         cfg, EngineConfig(seed=seed, collect_logits=True, base_dtype=base_dtype, **shard),
@@ -1579,10 +1603,18 @@ def serve(dtype: str, seed: int, n_tenants: int = 6, gen_len: int = 16,
     return cfg, engine, lams, done, t_init, t_serve
 
 
-def profile_serve(engine, seed: int, n_tenants: int = 6, gen_len: int = 16):
+# the profiled smollm-135m serves take 3 of the 6 tenants' requests, to keep
+# the whole script within its time limit (PERF.md §4)
+SMOLLM_PROFILE_TENANTS = 3
+
+
+def profile_serve(engine, seed: int, n_tenants: int = SMOLLM_PROFILE_TENANTS,
+                  gen_len: int = 16, host_ops: bool = True):
     """The same traffic served again (weights and kernels warm) under
     torch.profiler: wall time, the union of device-kernel intervals (busy
-    time) and device time by kernel name."""
+    time) and device time by kernel name; without ``host_ops`` the CUDA
+    activity alone (kernels and CUDA API calls: far fewer events to
+    parse)."""
     import numpy as np
     import torch
 
@@ -1591,7 +1623,9 @@ def profile_serve(engine, seed: int, n_tenants: int = 6, gen_len: int = 16):
         n = int(rng.integers(16, 49))
         engine.submit(f"tenant{i}", rng.integers(2, engine.cfg.vocab_size, size=n), gen_len)
     steps0, toks0 = engine.steps, engine.decoded_tokens
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_ops:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         engine.run()
@@ -1640,10 +1674,11 @@ def swapped(module, attr: str, fn):
         setattr(module, attr, sound)
 
 
-def planted_faults(cfg, engine, lams, done):
+def planted_faults(cfg, engine, lams, done, drift: float = BF16_DRIFT):
     """Controls for the bf16 checks: tenant0's request served again under
-    three planted faults, each of which the teacher-forced check must
-    reject.  Returns each fault's row of :func:`verify_forced`."""
+    three planted faults, each of which the teacher-forced check (at
+    ``drift``) must reject.  Returns each fault's row of
+    :func:`verify_forced`."""
     import numpy as np
     from repro_torch.kernels import ops
 
@@ -1652,7 +1687,7 @@ def planted_faults(cfg, engine, lams, done):
 
     def serve_one(tenant):
         engine.submit(tenant, req0.prompt, len(req0.tokens))
-        return verify_forced(cfg, engine, {tenant: lam0}, engine.run())[0]
+        return verify_forced(cfg, engine, {tenant: lam0}, engine.run(), drift)[0]
 
     rows = {}
     # the decode step's seg sends the tenant's lane to slot 0, the base model
@@ -2012,11 +2047,14 @@ def check_sharded(label: str, out: dict, bitwise: bool) -> None:
 # the training path at full width
 # ---------------------------------------------------------------------------
 
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 30, 8, 256, 3e-3
+# 15 steps: cut from 30 so that the whole script stays within its time
+# limit (PERF.md §4)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 15, 8, 256, 3e-3
 # A train through the kernel against the same train with the plain version
 # in place of the kernel (same params, batches and backward): the largest
 # per-step |Δloss|, and the largest |Δλ| over the twin's largest |λ|.  Set
-# from full-width readings on an H100 at --seed 0 (PERF.md, Findings):
+# from full-width readings of 30 steps on an H100 at --seed 0 (PERF.md,
+# Findings):
 #  * float32: the two differ by summation order only — |Δloss| 9.5e-7,
 #    |Δλ| 5.2e-6 of max|λ|.  The planted fault (λ of the last layer's wq left
 #    out of the kernel's forward) reads |Δloss| 4.8e-6 and |Δλ| 1.3e-3 of
@@ -2857,7 +2895,9 @@ API_PRESSURE_GEN = 32
 # monolithic prefill and decode kernels, so a float32 difference above this
 # means the shipped K/V or the adopted lane is wrong
 API_INJECT_TOL = 1e-5
-API_ROUNDS = 3  # alternating bf16 serves: telemetry on, off, and monolithic
+# alternating bf16 serves: telemetry on, off, and monolithic (3 rounds
+# before the whole script needed the time; PERF.md §4)
+API_ROUNDS = 2
 
 
 def stream_serve(engine, traffic, gen: int = QWEN_GEN, drive: str = "stream") -> dict:
@@ -3787,6 +3827,9 @@ def check_router(out: dict) -> None:
 # ---------------------------------------------------------------------------
 
 SPEC_K = 4
+# the profiled bf16 serves (speculative and its twin) take the first 2 of the
+# 8 requests: parsing a profile of the whole traffic took most of the phase
+SPEC_PROFILE_REQUESTS = 2
 SPEC_DRAFT_RANK = 8  # the truncated-λ drafter keeps each slot's top 8 |λ| of 160
 # the posture's paged engine (prefix sharing, watermark 1) with monolithic
 # prefill, which speculation needs; the oracle-dense layout time-sliced
@@ -4125,7 +4168,8 @@ def speculative_phase(seed: int, params: dict) -> dict:
         "verify_forced": verify_forced(cfg16, eng16, lams16, runs["paged_bf16"]["done"]),
         "paged_vs_plain": compare_streams(runs["paged_bf16"], runs["paged_plain_bf16"],
                                           BF16_DRIFT),
-        "profile": profile_spec(eng16, traffic), "profile_plain": profile_spec(twin16, traffic)}
+        "profile": profile_spec(eng16, traffic[:SPEC_PROFILE_REQUESTS]),
+        "profile_plain": profile_spec(twin16, traffic[:SPEC_PROFILE_REQUESTS])}
     lap("bfloat16")
     res["planted_sync_caught"] = sync_mode_catches_a_sync()
     for run in runs.values():
@@ -4223,6 +4267,651 @@ def check_speculative(out: dict) -> None:
                               f"through: {f}")
 
 
+# ---------------------------------------------------------------------------
+# the λ-store cold tier on qwen2-0.5b
+# ---------------------------------------------------------------------------
+
+# EngineConfig.serving(**COLD_ENGINE): 2 usable hot slots for COLD_TENANTS
+# tenants, so admission promotes, spills by LRU and defers; the all-hot twin
+# (COLD_ALL_HOT) holds every tenant in a hot slot and serves the same traffic
+COLD_ENGINE = {"n_lanes": 4, "n_slots": 3, "cold_slots": 16, "max_len": 384,
+               "collect_logits": True}
+COLD_ALL_HOT = {"n_slots": 13, "cold_slots": 0}
+COLD_TENANTS = 12
+COLD_REQUESTS = 16
+COLD_GEN = 16
+# the planted faults serve the first 8 requests (8 tenants behind 2 hot slots)
+COLD_FAULT_REQUESTS = 8
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def cold_traffic(seed: int, vocab: int, n_tenants: int = COLD_TENANTS,
+                 n_requests: int = COLD_REQUESTS):
+    """(tenant, prompt) pairs: every tenant once in a shuffled order, then
+    repeats, prompts of 16-48 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 6000)
+    order = [int(i) for i in rng.permutation(n_tenants)] + [
+        int(i) for i in rng.integers(0, n_tenants, size=n_requests - n_tenants)]
+    return [(f"cold{i}", rng.integers(2, vocab, size=int(rng.integers(16, 49))).astype(np.int32))
+            for i in order]
+
+
+def cold_lams(seed: int, params, n_tenants: int = COLD_TENANTS) -> dict:
+    """The cold phase's tenants: λ at scale 0.3 from ``seed``."""
+    import torch
+    from repro_torch.serving import random_lambda
+
+    gen = torch.Generator(device=params["embed"].device)
+    return {f"cold{i}": random_lambda(gen.manual_seed(seed + 4000 + i), params, 0.3)
+            for i in range(n_tenants)}
+
+
+def cold_engine(cfg, params, seed: int, **overrides):
+    """``EngineConfig.serving(**COLD_ENGINE, **overrides)`` on ``params``'
+    device."""
+    from repro_torch.serving import EngineConfig, MultiTenantEngine
+
+    return MultiTenantEngine(cfg, EngineConfig.serving(seed=seed, **{**COLD_ENGINE, **overrides}),
+                             params=params, device=params["embed"].device)
+
+
+def cold_serve(engine, lams, traffic, gen: int = COLD_GEN, sync_check: bool = False) -> dict:
+    """Register ``lams`` in one batch, submit ``traffic`` and step to the
+    end.  Every step records the tokens it delivered (the schedule) and
+    whether each active lane's tenant still holds the slot it was admitted
+    to; every admission gate call is timed on the host, and the calls whose
+    promotion spilled are counted.  With ``sync_check`` each gate call runs
+    under sync debug mode "error".  Returns the readings (``done``: uid →
+    request)."""
+    from repro_torch import kernels
+
+    store = engine.lam_store
+    engine.add_tenants(lams)
+    before = {n: getattr(store, n) for n in ("spills", "promotes", "cold_registers",
+                                                 "lru_drops")}
+    deferred0 = engine.deferred_promotions
+    reqs = [engine.submit(t, p, gen) for t, p in traffic]
+    gates = {"calls": 0, "promoted": 0, "spilled_and_promoted": 0, "promote_ms": []}
+    sound_make = engine._make_gate
+
+    def make_gate():
+        gate = sound_make()
+        checked = sync_checked(gate) if sync_check else gate
+
+        def timed(req):
+            s0, p0 = store.spills, store.promotes
+            t0 = time.perf_counter()
+            ok = checked(req)
+            ms = (time.perf_counter() - t0) * 1e3
+            gates["calls"] += 1
+            if store.promotes > p0:
+                gates["promoted"] += 1
+                gates["promote_ms"].append(ms)
+                gates["spilled_and_promoted"] += store.spills > s0
+            return ok
+
+        return timed
+
+    engine._make_gate = make_gate
+    kernels.reset_launch_counts()
+    schedule, slot_held = [], True
+    t0 = time.perf_counter()
+    try:
+        while engine.scheduler.has_work:
+            engine.step()
+            schedule.append([(e.uid, e.lane, e.index) for e in engine.events])
+            slot_held &= all(store._slots.get(r.tenant) == r.slot
+                             for r in engine.scheduler.active())
+        _sync(engine.device)
+    finally:
+        del engine._make_gate
+    serve_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    snap = engine.metrics()
+    value = lambda name: snap[name]["series"][0]["value"]
+    tokens = sum(len(r.tokens) for r in reqs)
+    engine.release_prefix_cache()
+    counts = {n: getattr(store, n) - v for n, v in before.items()}
+    pm = sorted(gates.pop("promote_ms"))
+    return {"done": {r.uid: r for r in reqs}, "schedule": schedule, "serve_s": serve_s,
+            "tokens": tokens, "tok_per_s": tokens / serve_s, "steps": len(schedule),
+            "launches": launches, **counts,
+            "deferred_promotions": engine.deferred_promotions - deferred0, "gates": gates,
+            "promote_gate_ms": {"n": len(pm), "median": pm[len(pm) // 2] if pm else None,
+                                "max": pm[-1] if pm else None},
+            "slot_held": slot_held,
+            "all_served": all(len(r.tokens) == gen for r in reqs),
+            "drained": (engine.allocator.n_free == engine.allocator.capacity
+                        and store._pins == {"__base__": 1} and not store._protect),
+            "cold_tenants": len(store.cold_tenants), "bytes_per_tenant": store.bytes_per_tenant(),
+            "lam_cold_bytes": value("lam_cold_bytes"),
+            "cold_bytes_ok": value("lam_cold_bytes") == len(store.cold_tenants)
+            * store.bytes_per_tenant(),
+            "lam_promotes_total": value("lam_promotes_total"),
+            "lam_spills_total": value("lam_spills_total")}
+
+
+def cold_restart(cfg, params, seed: int, lams, traffic, root: str) -> dict:
+    """The cold tier on an mmap file under ``root``: one engine serves the
+    traffic, a second engine opened on the same file finds the same cold
+    tenants and digests, promotes each one bitwise the λ the first engine
+    registered, and serves the same traffic (the first engine's hot
+    tenants registered again)."""
+    import numpy as np
+    from repro_torch.serving.lam_store import _flatten, _host_rows
+
+    path = os.path.join(root, "cold.lam")
+    first = cold_engine(cfg, params, seed, cold_path=path)
+    run_a = cold_serve(first, lams, traffic)
+    cold_a = list(first.lam_store.cold_tenants)
+    digests = {t: first.lam_store.digest(t) for t in cold_a}
+    del first
+    gc.collect()
+    second = cold_engine(cfg, params, seed, cold_path=path)
+    store = second.lam_store
+    found = list(store.cold_tenants) == cold_a and all(
+        store.digest(t) == dg for t, dg in digests.items())
+    bitwise = True
+    for t in cold_a:
+        slot = store.promote(t)
+        want = _host_rows(_flatten(lams[t]))
+        bitwise &= slot is not None and all(
+            np.array_equal(tab[slot].cpu().numpy(), want[key])
+            for key, tab in store.tables.items())
+    run_b = cold_serve(second, {t: lam for t, lam in lams.items() if t not in store}, traffic)
+    rows = compare_streams(run_b, run_a)
+    del second
+    return {"cold_tenants": len(cold_a), "found": found, "promoted_bitwise": bitwise,
+            "rows": rows, "ok": found and bitwise and chunk_rows_ok(rows, "float32"),
+            "runs": (run_a, run_b)}
+
+
+def cold_faults(cfg, params, seed: int, lams, traffic, hot_run) -> dict:
+    """Planted faults of the cold tier (float32), each on a fresh engine
+    and held to the all-hot twin's streams and the slot check: a promotion
+    that skips its device write; a promotion that writes the row into one
+    slot and books the tenant at another (the other hot tenant, or the base,
+    swapped into its slot); an admission that leaves its lane without the
+    hot-slot pin, so a later promotion spills an active lane's tenant
+    mid-generation."""
+    out = {}
+    traffic = traffic[:COLD_FAULT_REQUESTS]
+
+    def judged(name, engine):
+        try:
+            run = cold_serve(engine, lams, traffic)
+        except Exception as e:  # a fault may also break the serve outright
+            out[name] = {"raised": repr(e), "rejected": True}
+            return
+        rows = compare_streams(run, hot_run)
+        out[name] = {"slot_held": run["slot_held"], "promotes": run["promotes"],
+                     "parted": [r["parted_at"] for r in rows],
+                     "max_abs_dlogits": max(r["max_abs_dlogits"] for r in rows),
+                     "rejected": not (run["slot_held"] and chunk_rows_ok(rows, "float32"))}
+
+    eng = cold_engine(cfg, params, seed)
+    store, promote = eng.lam_store, eng.lam_store.promote
+
+    def unwritten(tenant):
+        store._write_slots = lambda slots, rows: None
+        try:
+            return promote(tenant)
+        finally:
+            del store._write_slots
+
+    store.promote = unwritten
+    judged("promotion_skips_its_write", eng)
+    eng = cold_engine(cfg, params, seed)
+    store2, promote2 = eng.lam_store, eng.lam_store.promote
+
+    def misplaced(tenant):
+        slot = promote2(tenant)
+        if slot is None:
+            return None
+        # the other hot tenant (or the base) takes this slot, the tenant its
+        other = next((t for t in store2._slots if t not in (tenant, "__base__")), "__base__")
+        store2._slots[tenant], store2._slots[other] = store2._slots[other], slot
+        return store2._slots[tenant]
+
+    store2.promote = misplaced
+    judged("promotion_returns_another_slot", eng)
+    eng = cold_engine(cfg, params, seed)
+    store3, admit = eng.lam_store, eng._admit
+
+    def unpinned_admit(finished):
+        before = {r.uid for r in eng.scheduler.active()}
+        admit(finished)
+        for r in eng.scheduler.active():
+            if r.uid not in before:
+                store3.unpin(r.tenant)  # the gate's hot-slot pin not kept
+
+    eng._admit = unpinned_admit
+    judged("lane_holds_no_pin", eng)
+    return out
+
+
+def cold_phase(seed: int, params: dict) -> dict:
+    """qwen2-0.5b at full width on the posture's weights with the λ-store's
+    cold tier: ``EngineConfig.serving(n_lanes=4, n_slots=3, cold_slots=16,
+    max_len=384)``, 12 tenants, 16 requests of 16 tokens, in float32 and
+    bf16, each beside the same traffic on an all-hot engine (13 slots);
+    the admission gate (promotion, spill) under sync debug mode "error";
+    bf16 against the teacher-forced merged-weight reference; the restart on
+    an mmap file in a temporary directory; the planted faults.  Returns every reading
+    (without the requests); check_cold holds them to the bars."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_config
+
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        out["seconds"][name] = now - t0
+        t0 = now
+
+    runs, res = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        p = params[dtype]
+        cfg = get_config(QWEN).replace(dtype=dtype)
+        lams = cold_lams(seed, p)
+        traffic = cold_traffic(seed, cfg.vocab_size)
+        cuda = p["embed"].device.type == "cuda"
+        eng = cold_engine(cfg, p, seed)
+        runs[f"cold_{dtype}"] = cold_serve(eng, lams, traffic, sync_check=cuda)
+        hot = cold_engine(cfg, p, seed, **COLD_ALL_HOT)
+        runs[f"hot_{dtype}"] = cold_serve(hot, lams, traffic)
+        drift = None if dtype == "float32" else BF16_DRIFT
+        res[dtype] = {"cold_vs_hot": compare_streams(runs[f"cold_{dtype}"],
+                                                     runs[f"hot_{dtype}"], drift)}
+        if dtype == "bfloat16":
+            res[dtype]["verify_forced"] = verify_forced(cfg, eng, lams,
+                                                        runs[f"cold_{dtype}"]["done"])
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                restart = cold_restart(cfg, p, seed, lams, traffic, tmp)
+            for i, run in enumerate(restart.pop("runs")):
+                runs[f"restart_{'ab'[i]}"] = run
+            res["restart"] = restart
+            lap("float32")
+            res["faults"] = cold_faults(cfg, p, seed, lams, traffic, runs["hot_float32"])
+            lap("faults")
+        del eng, hot
+        _sync(p["embed"].device)
+    lap("bfloat16")
+    if p["embed"].device.type == "cuda":
+        res["planted_sync_caught"] = sync_mode_catches_a_sync()
+        torch.cuda.empty_cache()
+    for run in runs.values():
+        del run["done"]
+    res["runs"] = runs
+    return {**out, **res}
+
+
+def print_cold(out: dict, smi: str) -> None:
+    for name, run in out["runs"].items():
+        print(f"{QWEN} cold tier {name}: {run['tokens']} tokens in {run['serve_s']:.3f} s = "
+              f"{run['tok_per_s']:.1f} tok/s over {run['steps']} steps; promotes "
+              f"{run['promotes']}, spills {run['spills']}, deferred promotions "
+              f"{run['deferred_promotions']}, cold registers {run['cold_registers']}, LRU drops "
+              f"{run['lru_drops']}; gate calls {run['gates']}, promoting gate host ms "
+              f"{run['promote_gate_ms']}; slots held {run['slot_held']}, drained "
+              f"{run['drained']}; lam_cold_bytes {run['lam_cold_bytes']} = "
+              f"{run['cold_tenants']} × {run['bytes_per_tenant']} B: {run['cold_bytes_ok']}; "
+              f"launches {run['launches']} on {smi}")
+    for dtype in ("float32", "bfloat16"):
+        rows = out[dtype]["cold_vs_hot"]
+        print(f"  {dtype} cold vs all-hot: bitwise {sum(r['bitwise'] for r in rows)}/{len(rows)}, "
+              f"parted {[r['parted_at'] for r in rows]}, max|Δlogits| "
+              f"{max(r['max_abs_dlogits'] for r in rows):.3e}"
+              + (f", over the bf16 bound {max(r['max_dlogits_over_bound'] for r in rows):.4f}"
+                 if "max_dlogits_over_bound" in rows[0] else ""))
+    worst = max(r["max_dlogits_over_bound"] for r in out["bfloat16"]["verify_forced"])
+    print(f"  bf16 cold vs the teacher-forced merged-weight reference: worst {worst:.4f} of "
+          f"the bound, all ok {all(r['ok'] for r in out['bfloat16']['verify_forced'])}")
+    r = out["restart"]
+    print(f"  restart on the mmap file: {r['cold_tenants']} cold tenants found "
+          f"{r['found']}, promoted bitwise {r['promoted_bitwise']}, streams bitwise "
+          f"{sum(x['bitwise'] for x in r['rows'])}/{len(r['rows'])}, max|Δlogits| "
+          f"{max(x['max_abs_dlogits'] for x in r['rows']):.3e}")
+    for name, f in out["faults"].items():
+        print(f"  float32 planted fault {name}: rejected {f['rejected']}; {f}")
+    print(f"  a planted host read under sync debug mode raises: "
+          f"{out.get('planted_sync_caught')}; seconds {out['seconds']}")
+
+
+def check_cold(out: dict) -> None:
+    runs = out["runs"]
+    for name, run in runs.items():
+        _check(run["all_served"] and run["drained"] and run["slot_held"] and run["cold_bytes_ok"],
+               f"{QWEN} cold tier {name}: not every request served, the pool or the pins not "
+               f"drained, a lane's slot moved, or lam_cold_bytes off: {run}")
+        _check_no_bench_kernels(run["launches"], f"{QWEN} cold tier {name}")
+        _check(run["launches"]["qrlora_bgmv"] > 0 and run["launches"]["paged_decode_attention"] > 0,
+               f"{QWEN} cold tier {name}: #1 or #2 never launched: {run['launches']}")
+        if name.startswith("cold_"):
+            _check(run["promotes"] > 0 and run["spills"] > 0 and run["deferred_promotions"] > 0
+                   and run["promotes"] == run["lam_promotes_total"],
+                   f"{QWEN} cold tier {name}: no promotion, spill or deferral, or the counters "
+                   f"disagree with the metrics: {run}")
+        if name.startswith("hot_"):
+            _check(run["promotes"] == run["spills"] == run["deferred_promotions"] == 0,
+                   f"{QWEN} cold tier {name}: the all-hot twin promoted or spilled: {run}")
+    cold32 = runs["cold_float32"]["gates"]
+    _check(cold32["spilled_and_promoted"] > 0 and out["planted_sync_caught"],
+           f"{QWEN} cold tier: no admission gate both spilled and promoted under sync debug "
+           f"mode, or the mode caught no planted sync: {cold32}")
+    for dtype in ("float32", "bfloat16"):
+        rows = out[dtype]["cold_vs_hot"]
+        _check(chunk_rows_ok(rows, dtype),
+               f"{QWEN} cold tier {dtype} differs from the all-hot serve: {rows}")
+    _check(all(r["ok"] for r in out["bfloat16"]["verify_forced"]),
+           f"{QWEN} cold tier bf16 disagrees with the teacher-forced merged-weight reference: "
+           f"{out['bfloat16']['verify_forced']}")
+    _check(out["restart"]["ok"], f"{QWEN} cold tier restart: {out['restart']}")
+    for name, f in out["faults"].items():
+        _check(f["rejected"], f"{QWEN}: the cold-tier check let the planted fault {name} "
+                              f"through: {f}")
+
+
+# ---------------------------------------------------------------------------
+# the audio family: musicgen-medium over frame embeddings
+# ---------------------------------------------------------------------------
+
+AUDIO = "musicgen-medium"
+AUDIO_TENANTS = 4
+AUDIO_GEN = 16
+# 16 steps: after 4, λ is still so small that bf16 rounding of Adam's
+# sign-like first updates reads 0.34 of max|λ| between the kernel and its
+# twin; after 16, 0.104 (an H100 at --seed 0), inside TRAIN_TOL's 0.25
+AUDIO_TRAIN_STEPS, AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ = 16, 4, 256
+# bf16 serve vs the merged-weight reference (BF16_DRIFT's check) at
+# musicgen-medium's depth: 48 layers of d 1536 round more than smollm's 30
+# of d 576.  Set from full-width readings on an H100 at --seed 0, in units
+# of 2^-9 of a row's largest |logit|: sound serve 14.45, planted faults
+# 15.17 (decode seg sent to slot 0), 19.1 (λ of one layer left out) and 57.8
+# (attend misses the newest K/V).  The bound sits between the sound serve
+# and the smallest fault (2.4% either side), and every run plants all three.
+# The float32 serve (7e-6 against the 1e-3 bar) carries the fault detection.
+AUDIO_BF16_DRIFT = 14.8 * 2.0**-9
+# #1 at musicgen-medium's wq and wv (K = N = 1536, rank cap 128): 4 decode
+# lanes and a 64-row prefill bucket
+AUDIO_BGMV_SHAPES = [(M, 1536, 1536, 128) for M in (4, 64)]
+# #2 at 24 query heads over 24 KV heads (one query head a group), dh 64,
+# block 16: (lengths, columns of an 8-column table), ragged with 0 and 1
+AUDIO_PAGED_CASES = (((0, 1, 17, 63), 4), ((64, 0, 1, 33), 8), ((1, 16, 48, 127), 8),
+                     ((0, 0, 16, 15), 2))
+# #3 bf16 at the audio train step's projections: batch 4 × seq 256 rows
+AUDIO_MATMUL_SHAPE = (1024, 1536, 1536, 128)
+
+
+def check_audio_kernels(gen, details):
+    """#1, #2 and #3 against their plain versions at musicgen-medium's
+    shapes (bf16 and float32 x; #3 bf16), each also bitwise on a second
+    call, length-0 lanes zeros.  Returns the worst |Δ| of each."""
+    import torch
+    from repro_torch.benchmarks.kernel_bench import TOL as BENCH_TOL
+    from repro_torch.kernels.paged_attention import paged_decode_attention_cuda
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
+    from repro_torch.kernels.ref import paged_decode_attention_ref, qrlora_bgmv_ref
+
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        for M, K, N, r in AUDIO_BGMV_SHAPES:
+            x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, 8, dt)
+            y = qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+            again = qrlora_bgmv_cuda(x, W, B, A, lam, seg, 0.7)
+            torch.cuda.synchronize()
+            ref = qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7)
+            err = _max_err(y, ref)
+            ok = (_within(y, ref, _tol("qrlora_bgmv", dt)) and bool(torch.isfinite(y).all())
+                  and torch.equal(y, again))
+            details.append({"kernel": "qrlora_bgmv", "arch": AUDIO, "x": name, "M": M, "K": K,
+                            "N": N, "r": r, "max_abs_err": err, "ok": ok})
+            _check(ok, f"qrlora_bgmv at {AUDIO} x={name} M={M} K={K} N={N} r={r}: max|Δ|="
+                       f"{err:.3e} over {_tol('qrlora_bgmv', dt)}, or a second call differs")
+            worst[f"qrlora_bgmv_{name}"] = max(worst.get(f"qrlora_bgmv_{name}", 0.0), err)
+        tol = BENCH_TOL["paged_decode_attention"][dt]
+        for lengths, cols in AUDIO_PAGED_CASES:
+            q, kp, vp, tbl, lens = _paged_inputs(gen, lengths, dt, 24, 24, 64, 16, 8)
+            args = (q, kp, vp, tbl[:, :cols], torch.clamp(lens, max=cols * 16))
+            o = paged_decode_attention_cuda(*args)
+            again = paged_decode_attention_cuda(*args)
+            torch.cuda.synchronize()
+            err, over = _max_err(o, paged_decode_attention_ref(*args)), _paged_over(o, args, tol)
+            zero = all(bool((o[b] == 0).all()) for b, n in enumerate(lengths) if n == 0)
+            ok = over <= 1.0 and bool(torch.isfinite(o).all()) and zero and torch.equal(o, again)
+            details.append({"kernel": "paged_decode_attention", "arch": AUDIO, "dtype": name,
+                            "H": 24, "KV": 24, "lengths": list(lengths), "columns": cols,
+                            "max_abs_err": err, "err_over_bound": over, "ok": ok})
+            _check(ok, f"paged_decode_attention at {AUDIO} {name} lengths {lengths} over {cols} "
+                       f"columns: {over:.3f} of the bound, a length-0 lane not zeros, or a "
+                       f"second call differs")
+            w = worst.setdefault(f"paged_decode_attention_{name}",
+                                 {"max_abs_err": 0.0, "err_over_bound": 0.0})
+            w["max_abs_err"] = max(w["max_abs_err"], err)
+            w["err_over_bound"] = max(w["err_over_bound"], over)
+    M, K, N, r = AUDIO_MATMUL_SHAPE
+    row = _matmul_case(gen, "qrlora_matmul", torch.bfloat16, M, K, N, r, rank=r)
+    details.append({**row, "arch": AUDIO})
+    _check(row["ok"], f"qrlora_matmul at {AUDIO} M={M} K={K} N={N} r={r}: max|Δ|="
+                      f"{row['max_abs_err']:.3e} ({row['err_over_bound']:.3f} of the bound), "
+                      f"bitwise on a second call: {row['bitwise_repeat']}")
+    worst["qrlora_matmul_bfloat16"] = row["max_abs_err"]
+    return worst
+
+
+def audio_params(seed: int):
+    """Full-width musicgen-medium's random params from ``seed`` (float32,
+    QR-LoRA built on the card) and the same weights in bf16 (λ stays
+    float32, the QR factors are bf16 either way).  Returns ({dtype:
+    params}, seconds)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = get_config(AUDIO).replace(dtype="float32")
+    p32 = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(seed))
+    groups16 = {k: tree_map(lambda t: t.bfloat16() if t.dtype == torch.float32 else t, v)
+                for k, v in p32["groups"].items() if k != "adapters"}
+    groups16["adapters"] = p32["groups"]["adapters"]
+    p16 = {k: (v.bfloat16() if isinstance(v, torch.Tensor) else v) for k, v in p32.items()
+           if k != "groups"}
+    p16["groups"] = groups16
+    torch.cuda.synchronize()
+    return {"float32": p32, "bfloat16": p16}, time.perf_counter() - t0
+
+
+def audio_embeds_check(seed: int, params) -> dict:
+    """``tests/test_decode_consistency.py:37-42`` at full width (float32):
+    frame embeddings (2 × 12, scale 0.1) through ``apply(embeds=)``, and a
+    prefill of the first 11 frames and a decode of the 12th through the
+    lock-step cache, against the full forward's last two rows."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(AUDIO).replace(dtype="float32")
+    m = build_model(cfg)
+    B, S = 2, 12
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7000)
+    emb = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda") * 0.1
+    with torch.no_grad():
+        full = m.apply(params, embeds=emb)
+        cache = m.init_decode_state(B, 32, torch.float32)
+        pre, cache = m.prefill(params, cache, embeds=emb[:, :S - 1])
+        dec, cache = m.decode_step(params, cache, embeds=emb[:, S - 1:])
+    scale = float(full.abs().max())
+    atol = 3e-5 * max(scale, 1.0)
+    e_pre, e_dec = _max_err(pre, full[:, S - 2]), _max_err(dec, full[:, S - 1])
+    return {"prefill_err": e_pre, "decode_err": e_dec, "atol": atol,
+            "finite": bool(torch.isfinite(full).all()),
+            "ok": e_pre <= atol and e_dec <= atol and bool(torch.isfinite(full).all())}
+
+
+def audio_train(params, seed: int) -> dict:
+    """A few λ-only steps of full-width musicgen-medium (bf16) on frame
+    embeddings (batch 4 × seq 256, code targets) through the train
+    launcher's functions, beside the same run with the plain version in
+    place of the one-λ kernel; launches counted."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import qrlora_matmul as mm
+    from repro_torch.launch import train as tl
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state
+
+    model = build_model(get_config(AUDIO))  # bfloat16, the config's own
+    out, runs = {}, {}
+    for name, fwd in (("kernel", None), ("plain_twin", plain_forward)):
+        kernels.reset_launch_counts()
+        state = init_train_state(model, params=params)
+        step_fn = tl.make_step(model, TRAIN_LR, AUDIO_TRAIN_STEPS)
+        data = tl.batches(model.cfg, AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ, seed, model.device)
+        with contextlib.ExitStack() as stack:
+            if fwd is not None:
+                stack.enter_context(swapped(mm, "qrlora_matmul", fwd))
+            runs[name] = tl.train(step_fn, state, data, AUDIO_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        out[f"launches_{name}"] = kernels.launch_counts()
+    out["losses"] = [h["loss"] for h in runs["kernel"][1]]
+    out.update(tl.summary(runs["kernel"][1], AUDIO_TRAIN_BATCH * AUDIO_TRAIN_SEQ))
+    out["twin"] = compare_trains(runs["kernel"], runs["plain_twin"])
+    out["n_layers"] = model.cfg.n_layers
+    return out
+
+
+def audio_phase(seed: int) -> dict:
+    """musicgen-medium at full width (48 layers, d 1536, 24 heads over 24,
+    vocab 2048; random weights from ``seed``): the default-config serve of
+    4 tenants (prompts of 16-48 codes, 16 new tokens) in float32 and bf16,
+    held against the merged-weight reference (bf16 teacher-forced) and
+    profiled (bf16); the embeds prefill/decode against the full forward;
+    the bf16 train steps beside their plain twin.  Returns every reading."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.tree import tree_leaves
+
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        out["seconds"][name] = now - t0
+        t0 = now
+
+    params, out["init_s"] = audio_params(seed)
+    n_params = sum(t.numel() for t in tree_leaves(params["float32"]))
+    out["n_params"] = n_params
+    lap("init")
+    out["embeds"] = audio_embeds_check(seed, params["float32"])
+    lap("embeds")
+    for dtype in ("float32", "bfloat16"):
+        kernels.reset_launch_counts()
+        cfg, engine, lams, done, _, t_serve = serve(dtype, seed, n_tenants=AUDIO_TENANTS,
+                                                    gen_len=AUDIO_GEN, params=params[dtype],
+                                                    arch=AUDIO)
+        launches = kernels.launch_counts()
+        res = {"serve_s": t_serve, "tokens": engine.decoded_tokens, "steps": engine.steps,
+               "tok_per_s": engine.decoded_tokens / t_serve, "launches": launches,
+               "all_served": len(done) == AUDIO_TENANTS and all(
+                   len(r.tokens) == AUDIO_GEN for r in done.values()),
+               "verify": verify(cfg, engine, lams, done, AUDIO_GEN, drift=AUDIO_BF16_DRIFT)}
+        if dtype == "bfloat16":
+            res["verify_forced"] = verify_forced(cfg, engine, lams, done, drift=AUDIO_BF16_DRIFT)
+            res["profile"] = profile_serve(engine, seed + 1, n_tenants=AUDIO_TENANTS,
+                                           gen_len=AUDIO_GEN, host_ops=False)
+            res["planted_faults"] = planted_faults(cfg, engine, lams, done,
+                                                   drift=AUDIO_BF16_DRIFT)
+        out[f"serve_{dtype}"] = res
+        del engine
+        torch.cuda.empty_cache()
+        lap(f"serve_{dtype}")
+    del params["float32"]
+    torch.cuda.empty_cache()
+    out["train"] = audio_train(params["bfloat16"], seed)
+    lap("train")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_audio(out: dict, smi: str) -> None:
+    print(f"{AUDIO}: {out['n_params']} parameters, init {out['init_s']:.1f} s (random weights "
+          f"+ QR-LoRA on the card); embeds prefill/decode vs the full forward {out['embeds']}")
+    for dtype in ("float32", "bfloat16"):
+        s = out[f"serve_{dtype}"]
+        print(f"{AUDIO} serve {dtype}: {s['tokens']} tokens in {s['serve_s']:.3f} s = "
+              f"{s['tok_per_s']:.1f} tok/s over {s['steps']} steps; launches {s['launches']} on "
+              f"{smi}")
+        for row in s["verify"]:
+            print(f"  {dtype} free-running vs the merged-weight reference: {row}")
+        for row in s.get("verify_forced", ()):
+            print(f"  bf16 vs the teacher-forced merged-weight reference: {row}")
+    faults = out["serve_bfloat16"]["planted_faults"]
+    sound = max(r["max_dlogits_over_bound"] for r in out["serve_bfloat16"]["verify_forced"])
+    print(f"  bf16 drift readings (|Δlogits| over the bound {AUDIO_BF16_DRIFT / 2**-9:.1f}·2^-9 of "
+          f"each row's max): sound serve {sound:.4f}, planted faults "
+          + ", ".join(f"{n} {r['max_dlogits_over_bound']:.4f}" for n, r in faults.items()))
+    print(f"  profiled bf16 serve: {out['serve_bfloat16']['profile']}")
+    t = out["train"]
+    print(f"{AUDIO} train bf16: {AUDIO_TRAIN_STEPS} steps at batch {AUDIO_TRAIN_BATCH} × seq "
+          f"{AUDIO_TRAIN_SEQ} (frame embeddings), median step {t['median_step_ms']:.1f} ms, "
+          f"{t['tokens_per_s']:.0f} train tokens/s, losses {t['losses']}; vs plain twin "
+          f"{t['twin']} (bound {TRAIN_TOL['bfloat16']}); launches {t['launches_kernel']}; "
+          f"seconds {out['seconds']}")
+
+
+def check_audio(out: dict) -> None:
+    _check(out["embeds"]["ok"], f"{AUDIO} embeds prefill/decode vs full forward: {out['embeds']}")
+    for dtype in ("float32", "bfloat16"):
+        s = out[f"serve_{dtype}"]
+        _check(s["all_served"], f"{AUDIO} serve {dtype}: not every tenant got its tokens")
+        _check(s["launches"]["qrlora_bgmv"] > 0 and s["launches"]["paged_decode_attention"] > 0,
+               f"{AUDIO} serve {dtype}: #1 or #2 never launched: {s['launches']}")
+        _check_no_bench_kernels(s["launches"], f"{AUDIO} serve {dtype}")
+        if dtype == "float32":
+            _check(all(r["tokens_match"] and r["max_abs_dlogits"] < FP32_LOGIT_TOL
+                       for r in s["verify"]),
+                   f"{AUDIO} fp32 serve diverged from the merged-weight reference: {s['verify']}")
+        else:
+            _check(all(r["ok"] for r in s["verify_forced"]),
+                   f"{AUDIO} bf16 serve disagrees with the teacher-forced merged-weight "
+                   f"reference: {s['verify_forced']}")
+            for name, row in s["planted_faults"].items():
+                _check(not row["ok"], f"{AUDIO}: the bf16 check let the planted fault {name} "
+                                      f"through: {row}")
+            for r in s["verify"]:
+                _check(r["tokens_match"] or r["parting_margin"] <= r["parting_bound"],
+                       f"{AUDIO} bf16 {r['tenant']} parts from the merged-weight reference "
+                       f"where its lead is above the drift bound: {r}")
+    t = out["train"]
+    want = {name: 0 for name in t["launches_plain_twin"]}
+    matmuls = 2 * t["n_layers"] * AUDIO_TRAIN_STEPS  # wq and wv of every layer, every step
+    _check(t["launches_kernel"] == {**want, "qrlora_matmul": matmuls}
+           and t["launches_plain_twin"] == want,
+           f"{AUDIO} train: launches {t['launches_kernel']} (twin {t['launches_plain_twin']}), "
+           f"want {matmuls} qrlora_matmul and no other kernel")
+    _check(within_train_tol(t["twin"], "bfloat16"),
+           f"{AUDIO} train disagrees with its plain-version twin: {t['twin']}")
+
+
 def kernel_bench_phase():
     """The port's kernel bench on the card, in process, launches counted
     around it; its rows go into the report."""
@@ -4278,7 +4967,16 @@ def main(argv=None) -> None:
             elif "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {name} {kernel}: {line.strip()}")
 
-    report = {"card": smi, "cases": []}
+    report = {"card": smi, "cases": [], "phase_seconds": {}}
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        """Seconds since the previous mark, filed under ``name``."""
+        now = time.perf_counter()
+        report["phase_seconds"][name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
+    mark("build")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bgmv_err = check_bgmv(gen, report["cases"])
     bgmv_faults = planted_bgmv_faults(gen)
@@ -4385,6 +5083,7 @@ def main(argv=None) -> None:
     _check(qr_graph["bitwise"] and qr_graph["perm_equals_cpu"],
            f"qr_pivoted under graph replay differs from eager, or perm from the CPU's: {qr_graph}")
 
+    mark("kernel_checks")
     timings = {"qrlora_bgmv_wq": time_bgmv(gen, 576), "qrlora_bgmv_wv": time_bgmv(gen, 192),
                "qrlora_bgmv_wq_M64": time_bgmv(gen, 576, 64),
                "paged_decode_attention": time_paged(gen),
@@ -4411,6 +5110,12 @@ def main(argv=None) -> None:
     for M in (2048, 768):
         for r in (256, 2):
             timings[f"qrlora_matmul_f32_M{M}_r{r}"] = time_matmul_f32(gen, M, r)
+    # musicgen-medium's shapes: K = N = 1536, MHA
+    timings["qrlora_bgmv_musicgen_wq"] = time_bgmv(gen, 1536, 4, K=1536, r=128)
+    timings["qrlora_bgmv_musicgen_wq_M64"] = time_bgmv(gen, 1536, 64, K=1536, r=128)
+    timings["paged_decode_attention_musicgen"] = time_paged(gen, (40, 33, 57, 21), H=24, KV=24,
+                                                            cols=4, max_blocks=8)
+    timings["qrlora_matmul_musicgen_wq"] = time_matmul(gen, 1536, M=1024, K=1536)
     for B, S in ((8, 256), (1, 2048)):
         timings[f"flash_attention_B{B}_S{S}"] = time_flash(gen, B, S)
     timings["decode_attention"] = time_decode(gen)
@@ -4428,6 +5133,7 @@ def main(argv=None) -> None:
           f"paged, dense, dense, paged {long['turns_ms']}) on {smi}")
     report["timings"] = timings
 
+    mark("timings")
     # -- the kernel bench: flash and dense decode attention's path ----------
     kb = kernel_bench_phase()
     report["kernel_bench"] = kb
@@ -4441,6 +5147,7 @@ def main(argv=None) -> None:
            and all(e["ok"] for e in kb["errors"].values()),
            f"kernel bench: error rows {kb['errors']}")
 
+    mark("kernel_bench")
     # the sharded serves' default process group: NCCL, a world of one on card
     # 0; one collective now creates the communicator outside the timed serves
     group = contextlib.ExitStack()
@@ -4495,6 +5202,7 @@ def main(argv=None) -> None:
     del engine
     torch.cuda.empty_cache()
 
+    mark("smollm_bf16")
     # -- the sharded serve: shard_lam on the same weights and traffic --------
     sh = sharded_serve_phase("bfloat16", args.seed, params_bf16, done_bf16, profile=True)
     report["serve_sharded"] = {"bf16": sh}
@@ -4506,6 +5214,7 @@ def main(argv=None) -> None:
     print(f"profiled sharded bf16 serve: {sh['profile']}")
     check_sharded("serve bf16 shard_lam", sh, bitwise=False)
 
+    mark("smollm_sharded_bf16")
     # -- the quantized base: the bf16 serve's weights in int8, then fp8 ------
     report["serve_quant"] = {}
     for base in ("int8", "fp8"):
@@ -4542,6 +5251,7 @@ def main(argv=None) -> None:
     del params_bf16
     score_launches = report["serve_quant"]["int8"]["score_launches"]
 
+    mark("smollm_quant")
     # -- the same path in float32: token-identical to the merged reference ---
     kernels.reset_launch_counts()
     cfg, engine, lams, done, t_init, t_serve = serve("float32", args.seed)
@@ -4566,6 +5276,7 @@ def main(argv=None) -> None:
     print("sharded serves: token-identical to the replicated serves (float32 logits bitwise), "
           "the rows kernel on every adapted projection")
 
+    mark("smollm_fp32")
     # -- float32 on an int8 base: the plain-version twin and the reference ---
     q32 = quant_fp32_phase(args.seed, params_f32)
     report["serve_fp32_int8"] = q32
@@ -4577,6 +5288,7 @@ def main(argv=None) -> None:
     del params_f32
     torch.cuda.empty_cache()
 
+    mark("smollm_fp32_int8")
     # -- the serving posture: qwen2-0.5b under EngineConfig.serving() --------
     t0 = time.perf_counter()
     qwen_params = {}
@@ -4588,6 +5300,7 @@ def main(argv=None) -> None:
           f"chunked within the bar of monolithic, float32 token-identical to the merged-weight "
           f"reference, every planted fault rejected ({time.perf_counter() - t0:.1f} s)")
 
+    mark("posture")
     # -- the request API and telemetry on the posture's weights and traffic ---
     t0 = time.perf_counter()
     api = request_api_phase(args.seed, qwen_params)
@@ -4599,6 +5312,7 @@ def main(argv=None) -> None:
           f"equals off, cancel and the handoff between engines hold, every planted fault "
           f"rejected ({time.perf_counter() - t0:.1f} s)")
 
+    mark("request_api")
     # -- the oracle-dense layout, time-slicing and the router on the same ----
     t0 = time.perf_counter()
     dense_bgmv_err = check_dense_bgmv(gen, report["cases"])
@@ -4618,6 +5332,7 @@ def main(argv=None) -> None:
           f"decode dispatch free of syncs ({t_dense:.1f} s); 2 replicas on one card: routed "
           f"streams equal one engine's in both layouts, spillover, failover and disaggregation "
           f"hold; every planted fault rejected ({time.perf_counter() - t0:.1f} s)")
+    mark("dense_router")
     # -- speculative decoding on the same weights and traffic ----------------
     t0 = time.perf_counter()
     spec = speculative_phase(args.seed, qwen_params)
@@ -4629,9 +5344,38 @@ def main(argv=None) -> None:
           f"time-sliced), bf16 within the teacher-forced bar, no shared block written, the pool "
           f"drained, every draft, verify and commit free of syncs, every planted fault rejected "
           f"({time.perf_counter() - t0:.1f} s)")
+    mark("speculative")
+    # -- the λ-store cold tier on the same weights -----------------------------
+    t0 = time.perf_counter()
+    cold = cold_phase(args.seed, qwen_params)
+    report["cold"] = cold
+    print_cold(cold, smi)
+    check_cold(cold)
+    print(f"{QWEN} λ-store cold tier (2 hot slots, 12 tenants) in float32 and bf16: tokens equal "
+          f"the all-hot serve's (float32 within {QWEN_CHUNK_FP32_TOL}, bf16 within the drift "
+          f"bar), promotions, spills and deferrals counted, every admission gate free of syncs, "
+          f"the mmap restart bitwise, every planted fault rejected "
+          f"({time.perf_counter() - t0:.1f} s)")
     del qwen_params
     torch.cuda.empty_cache()
 
+    mark("cold")
+    # -- the audio family: musicgen-medium at full width ---------------------
+    t0 = time.perf_counter()
+    audio_err = check_audio_kernels(gen, report["cases"])
+    print(f"qrlora_bgmv, paged_decode_attention and qrlora_matmul at {AUDIO}'s shapes (BGMV "
+          f"{AUDIO_BGMV_SHAPES}; paged 24 heads over 24, dh 64, {AUDIO_PAGED_CASES}; one-λ bf16 "
+          f"{AUDIO_MATMUL_SHAPE}): {audio_err}, within tolerance, length-0 lanes zeros, "
+          f"bitwise on a second call")
+    audio = audio_phase(args.seed)
+    report["audio"] = audio
+    print_audio(audio, smi)
+    check_audio(audio)
+    print(f"{AUDIO} at full width: the serve token-identical to the merged-weight reference "
+          f"(float32; bf16 teacher-forced), the embeds prefill/decode equal to the full forward, "
+          f"the bf16 train within its twin's bar ({time.perf_counter() - t0:.1f} s)")
+
+    mark("audio")
     # -- the training path: full-width λ-only trains, launches counted -------
     want_launches = {name: 0 for name in kernels.KERNEL_WRAPPERS}
     report["train"] = {}
@@ -4670,9 +5414,11 @@ def main(argv=None) -> None:
            "the float32 train check let the planted fault last_wq_lam_dropped through")
     train_launches = report["train"]["bfloat16"]["launches_kernel"]
 
+    mark("train")
     # -- the GLUE path: full-width RoBERTa-base in every mode, launches counted
     report["glue"], glue_launches = check_glue(glue_phase(args.seed), want_launches)
 
+    mark("glue")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
@@ -4743,12 +5489,35 @@ def main(argv=None) -> None:
          "src/repro_torch/kernels/csrc/paged_attention.cu",
          "src/repro/kernels/paged_attention.py:116",
          spec["runs"]["paged_bf16"]["launches"]["paged_decode_attention"]),
+        # the cold-tier serve (bf16, 2 hot slots)
+        ("qrlora_bgmv_qwen2_cold", "qrlora_bgmv_qwen2_wq", qwen_err["qrlora_bgmv_bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:172",
+         cold["runs"]["cold_bfloat16"]["launches"]["qrlora_bgmv"]),
+        ("paged_decode_attention_qwen2_cold", "paged_decode_attention_qwen2",
+         qwen_err["paged_decode_attention_bfloat16"]["max_abs_err"],
+         "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:116",
+         cold["runs"]["cold_bfloat16"]["launches"]["paged_decode_attention"]),
+        # musicgen-medium: the bf16 serve (#1, #2 at 24 heads over 24) and
+        # the bf16 train (#3 at K = N = 1536)
+        ("qrlora_bgmv_musicgen", "qrlora_bgmv_musicgen_wq", audio_err["qrlora_bgmv_bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:172",
+         audio["serve_bfloat16"]["launches"]["qrlora_bgmv"]),
+        ("paged_decode_attention_musicgen", "paged_decode_attention_musicgen",
+         audio_err["paged_decode_attention_bfloat16"]["max_abs_err"],
+         "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:116",
+         audio["serve_bfloat16"]["launches"]["paged_decode_attention"]),
+        ("qrlora_matmul_musicgen", "qrlora_matmul_musicgen_wq", audio_err["qrlora_matmul_bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:161", audio["train"]["launches_kernel"]["qrlora_matmul"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": n, "max_abs_err": err, "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(f"phase seconds: {report['phase_seconds']}")
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,8 +46,6 @@ MODULES = [
 #: sub-benches of the reference's serving bench that the port does not run
 #: yet, and what each needs
 NOT_PORTED = {
-    "serve_multitenant:adapter_churn":
-        "the λ-store cold tier (cold_slots; ROADMAP Queue 1 item 13)",
     "serve_multitenant:recurrent_families":
         "the xlstm and jamba families (ROADMAP Queue 1 item 12b)",
 }

@@ -1,14 +1,16 @@
 """Multi-tenant serving benchmark (port of ``benchmarks/serve_multitenant.py``:
 the same row names and scales, timed on the port's engine and kernels).
 
-Nine of the reference's eleven sub-benches, in its order (:data:`BENCHES`):
-the multi-λ BGMV against the one-λ matmul; shared-decode throughput at
+Ten of the reference's eleven sub-benches, in its order (:data:`BENCHES`):
+the hierarchical λ-store's adapter churn (register, promote and evict rates
+behind a small hot tier); the multi-λ BGMV against the one-λ matmul; shared-decode throughput at
 increasing tenant heterogeneity; chunked-prefill tail latency; speculative
 decoding at draft depth k ∈ {0, 2, 4}; telemetry on against off; the
 device time of one paged decode step's parts (the K/V gather, the paged
 attend, the λ-BGMV on a float and an int8 base); the paged-against-dense
 KV footprint; copy-on-write prefix sharing; and the quantized base.  The
-other two need what the port lacks (``benchmarks/run.py``'s ``NOT_PORTED``).
+eleventh needs the recurrent families (``benchmarks/run.py``'s
+``NOT_PORTED``).
 
 ``REPRO_BENCH_SCALE=paper`` takes the full configs and the reference's
 paper shapes; any other scale the reduced configs and its small shapes, as
@@ -22,7 +24,8 @@ The reference asserts speed orderings measured with JAX on a TPU.  No TPU
 speed target carries over to this card, so each of them is a reading here:
 a ``held=<bool>`` field (``held_stall``/``held_step`` where a row carries
 two) beside both sides' numbers in the row's detail.  Its correctness
-assertions stay hard: the paged KV footprint below the dense one, the
+assertions stay hard: a spilled and promoted λ row bitwise the registered
+one, the paged KV footprint below the dense one, the
 shared prefix's pool peak at most one prefix plus the lanes' tails and the
 unshared peak at least a prefix a lane; and every kernel row's error
 against its plain version within ``kernel_bench.TOL`` (``run.py`` exits 1
@@ -42,7 +45,13 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.core.quantize import quantize_weight, resident_base_bytes
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
-from repro_torch.serving import BASE_TENANT, EngineConfig, MultiTenantEngine, random_lambda
+from repro_torch.serving import (
+    BASE_TENANT,
+    EngineConfig,
+    LamStore,
+    MultiTenantEngine,
+    random_lambda,
+)
 
 
 def _paper() -> bool:
@@ -90,6 +99,74 @@ def _drive_engine(device, arch, *, n_tenants, lanes, prompt_len, gen, max_len, *
         prompt = rng.integers(2, cfg.vocab_size, size=prompt_len).astype(np.int32)
         eng.submit(tenants[lane % len(tenants)], prompt, gen)
     return eng, _drain(eng)
+
+
+def bench_adapter_churn(device):
+    """Adapter churn through the hierarchical λ-store: register, promote and
+    evict rates with a small hot tier (64 device slots) under a tenant
+    population that only the host cold tier holds — the regime of the
+    λ-only pitch (at the paper scale 10⁴ tenants of 30,720 B each).  Every
+    register, hot-swap, promote and evict is one slot write, so each rate is
+    O(one λ row) whatever ``n_slots``; a spill → promote round trip is held
+    bitwise inline.  The times are host wall clock, the card synced at the
+    end of each timed loop: readings, not limits."""
+    n_tenants = 10_000 if _paper() else 2_000
+    n_layers, cap = (12, 160) if _paper() else (4, 32)
+    projs = ("wq", "wk", "wv", "wo")
+    store = LamStore({("attn", p): (n_layers, cap) for p in projs}, n_slots=64,
+                     cold_slots=n_tenants, device=device)
+    rng = np.random.default_rng(0)
+
+    def lam(i):
+        r = np.random.default_rng(i)
+        return {"attn": {p: r.standard_normal((n_layers, cap), np.float32) * 0.1
+                         for p in projs}}
+
+    trees = [lam(i) for i in range(n_tenants)]  # synthesis outside the timer
+    t0 = time.perf_counter()
+    for i, tree in enumerate(trees):
+        store.register(f"t{i}", tree)
+    _sync(device)
+    t_reg = (time.perf_counter() - t0) / n_tenants * 1e6
+    del trees
+    emit("serve_multitenant:churn:register", t_reg,
+         f"tenants={n_tenants};hot={store.hot_capacity};spills={store.spills};"
+         f"bytes_per_tenant={store.bytes_per_tenant()};table_bytes={store.table_bytes()};"
+         f"cold_bytes={store.cold_bytes()};per_s={1e6 / t_reg:.0f}")
+
+    # spill → promote round-trips λ bitwise (the cold tier is a cache of the
+    # truth, not an approximation of it)
+    probe = int(rng.integers(0, n_tenants))
+    name = f"t{probe}"
+    if store.is_hot(name):
+        store.spill(name)
+    assert store.is_cold(name)
+    slot = store.promote(name)
+    want = lam(probe)["attn"]
+    for (_, p), tab in store.tables.items():
+        np.testing.assert_array_equal(
+            tab[slot].cpu().numpy(), want[p],
+            err_msg=f"spill→promote λ row not bit-identical for {p}")
+
+    n_ops = 200
+    picks = rng.choice(n_tenants, size=n_ops, replace=False)
+    t0 = time.perf_counter()
+    for i in picks:
+        store.promote(f"t{i}")  # a hot tenant's promote is a lookup
+    _sync(device)
+    t_promote = (time.perf_counter() - t0) / n_ops * 1e6
+    emit("serve_multitenant:churn:promote", t_promote,
+         f"ops={n_ops};promotes={store.promotes};spills={store.spills};"
+         f"per_s={1e6 / t_promote:.0f}")
+
+    t0 = time.perf_counter()
+    for i in picks:
+        store.evict(f"t{i}")
+    _sync(device)
+    t_evict = (time.perf_counter() - t0) / n_ops * 1e6
+    emit("serve_multitenant:churn:evict", t_evict,
+         f"ops={n_ops};resident={len(store)};slot_writes={store.slot_writes};"
+         f"per_s={1e6 / t_evict:.0f}")
 
 
 def bench_bgmv_overhead(device):
@@ -427,6 +504,7 @@ def bench_quantized(device):
 
 #: the sub-benches, in the reference's order (``main``, ``:724-735``)
 BENCHES = {
+    "adapter_churn": bench_adapter_churn,
     "bgmv_overhead": bench_bgmv_overhead,
     "engine_throughput": bench_engine_throughput,
     "chunked_prefill": bench_chunked_prefill,

@@ -1,7 +1,14 @@
 """Architecture configs of the port: ``get_config(name)`` /
 ``get_reduced(name)`` (``-``, ``_`` and ``.`` alike in names, as the
 reference's registry resolves them)."""
-from repro_torch.configs import qwen2_0_5b, qwen2_5_32b, qwen3_14b, roberta_base, smollm_135m
+from repro_torch.configs import (
+    musicgen_medium,
+    qwen2_0_5b,
+    qwen2_5_32b,
+    qwen3_14b,
+    roberta_base,
+    smollm_135m,
+)
 from repro_torch.configs.base import AdapterConfig, ModelConfig
 
 ARCHS = {
@@ -10,6 +17,7 @@ ARCHS = {
     "qwen3-14b": qwen3_14b,
     "qwen2.5-32b": qwen2_5_32b,
     "roberta-base": roberta_base,
+    "musicgen-medium": musicgen_medium,
 }
 
 

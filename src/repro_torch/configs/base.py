@@ -57,7 +57,7 @@ class AdapterConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" (decoder) or "encoder"
+    family: str  # "dense" or "audio" (decoders), or "encoder"
     n_layers: int
     d_model: int
     n_heads: int

@@ -49,6 +49,15 @@ that matches greedy, so the streams verify as the plain serve's do.
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --device cpu --reduced \
         --layout oracle_dense --speculate-k 4 --draft-lam-rank 2
 
+``--cold-slots N`` adds the λ-store's host cold tier: the hot tier may then
+be smaller than the tenant count (``--slots``), overflow spills to the host
+and admission promotes a tenant back on demand; ``--cold-path PATH`` backs
+the tier with an mmap file whose catalog survives a restart (with
+``--replicas N``, replica i uses ``PATH.ri``).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --device cpu --reduced \
+        --tenants 6 --slots 3 --cold-slots 8
+
 ``--stream`` prints each token as it decodes (``engine.stream()``);
 ``--metrics-out PATH`` writes the final metrics snapshot (``.prom``/``.txt``:
 Prometheus text, else JSON) and ``--trace-out PATH`` the request-span
@@ -76,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import shutil
 import sys
@@ -192,6 +202,14 @@ def main(argv=None):
                     help="drafter variant: keep only the top-R |λ| coefficients per tenant slot "
                     "instead of dropping the adapter entirely (needs --speculate-k >= 1; "
                     "default: λ ≡ 0 base drafter)")
+    ap.add_argument("--cold-slots", type=int, default=0,
+                    help="host cold-tier capacity (tenants): λ evicted from the hot device "
+                    "slots spills to host memory and is promoted back on admission, so the "
+                    "tenant count is bounded by host RAM (0 disables)")
+    ap.add_argument("--cold-path", default=None, metavar="PATH",
+                    help="back the λ cold tier with an mmap file at PATH (its JSON catalog "
+                    "beside it) so the spilled tenants survive a restart; needs --cold-slots "
+                    "> 0 (with --replicas N, replica i uses PATH.ri)")
     ap.add_argument("--watermark", type=int, default=0,
                     help="free blocks admission keeps in reserve as decode-growth headroom")
     ap.add_argument(
@@ -221,6 +239,9 @@ def main(argv=None):
                     help="write the request-span timeline here as Chrome trace_event JSON "
                     "(open it in ui.perfetto.dev or chrome://tracing)")
     args = ap.parse_args(argv)
+    if args.cold_slots and (args.slots - 1) + args.cold_slots < args.tenants - 1:
+        ap.error(f"--tenants {args.tenants} exceeds hot+cold capacity "
+                 f"({args.slots - 1} + {args.cold_slots}); raise --cold-slots")
     if args.no_telemetry and (args.metrics_out or args.trace_out):
         ap.error("--metrics-out/--trace-out need telemetry; drop --no-telemetry")
     if args.quantum is not None and args.layout == "paged":
@@ -244,10 +265,14 @@ def main(argv=None):
 def _config(args):
     """The model config and the EngineConfig the arguments describe."""
     cfg = (get_reduced if args.reduced else get_config)(args.arch).replace(dtype=args.dtype)
-    # the store must hold every tenant the driver submits for at once
-    n_slots = max(args.slots, args.tenants + 1)
-    if n_slots != args.slots:
-        _say(f"raising --slots {args.slots} → {n_slots} to hold all tenants")
+    # the store must hold every tenant this launcher submits for at once: one
+    # hot slot each without a cold tier; with one the hot tier may be small,
+    # overflow spills and admission promotes back (checked in main)
+    n_slots = args.slots
+    if not args.cold_slots:
+        n_slots = max(args.slots, args.tenants + 1)
+        if n_slots != args.slots:
+            _say(f"raising --slots {args.slots} → {n_slots} to hold all tenants")
     econf = EngineConfig(
         layout=args.layout, n_lanes=args.lanes, n_slots=n_slots, max_len=args.max_len,
         collect_logits=True, seed=args.seed, block_size=args.block_size,
@@ -255,6 +280,7 @@ def _config(args):
         prefill_chunk=args.prefill_chunk, quantum=args.quantum, base_dtype=args.base_dtype,
         speculate_k=args.speculate_k, draft_lam_rank=args.draft_lam_rank,
         shard_lam=args.shard_lam, shard_ba=args.shard_ba, telemetry=not args.no_telemetry,
+        cold_slots=args.cold_slots, cold_path=args.cold_path,
     )
     return cfg, econf
 
@@ -308,6 +334,10 @@ def serve(args, device):
         _say(f"λ tables sharded over {store.world} rank(s): {store.n_slots} slots, "
              f"{store.table_bytes(per_rank=True)} B/rank (replicated would be "
              f"{store.table_bytes()} B)")
+    if args.cold_slots:
+        _say(f"λ-store tiers: hot={store.hot_capacity} slots ({store.table_bytes()} B on "
+             f"{engine.device.type}) cold={store.cold_slots} tenants "
+             f"(≤{store.bytes_per_tenant() * store.cold_slots} B host)")
     if args.shard_ba:
         full = _factor_bytes(engine.gathered_params())
         _say(f"QR factors B/A rank-sharded over {dist.get_world_size()} rank(s): "
@@ -356,6 +386,10 @@ def serve(args, device):
         _say(f"speculative k={args.speculate_k}{drafter}: {engine.drafted_tokens} drafted, "
              f"{engine.accepted_drafts} accepted (acceptance={engine.acceptance_rate:.0%}) over "
              f"{engine.spec_steps} draft+verify steps")
+    if args.cold_slots:
+        _say(f"λ churn: {store.spills} spills, {store.promotes} promotes, "
+             f"{store.cold_registers} cold registers, {engine.deferred_promotions} deferred "
+             f"admissions, cold_bytes={store.cold_bytes()}")
     if engine.prefix_cache is not None:
         pc = engine.prefix_cache
         _say(f"prefix hits={pc.hits} misses={pc.misses} cached={pc.cached_blocks} blocks")
@@ -385,7 +419,12 @@ def serve_replicated(args, device):
     """``--replicas N``: one engine per replica behind the adapter-locality
     router, the same tenants, prompts and verification as one engine."""
     cfg, econf = _config(args)
-    replicas = build_replicas(cfg, econf, args.replicas, device=device)
+    overrides = None
+    if econf.cold_path:
+        # one mmap file per replica: the cold catalog is per-store state
+        overrides = lambda i, c: dataclasses.replace(c, cold_path=f"{c.cold_path}.r{i}")
+    replicas = build_replicas(cfg, econf, args.replicas, device=device,
+                              config_overrides=overrides)
     router = Router(replicas, disaggregate=args.disaggregate,
                     telemetry=not args.no_telemetry)
     params = replicas[0].engine.params

@@ -5,10 +5,12 @@ trains), LoRA, SVD-LoRA (B and A train) or full fine-tuning (``--peft``).
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --peft lora
     PYTHONPATH=src python -m repro_torch.launch.train --steps 30 --batch 8 --seq 256
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch musicgen-medium
 
 The last form trains full-width smollm-135m on the card (random weights
 from ``--seed``), where every adapted projection's forward runs the one-λ
-kernel.  It prints the trainable count, the loss every ``--log-every``
+kernel.  ``--arch musicgen-medium`` trains the audio family on frame
+embeddings with code targets.  It prints the trainable count, the loss every ``--log-every``
 steps, the median step time and the train tokens/s.  The reference
 launcher's checkpointing and fault tolerance (``--ckpt-dir``) are not
 ported yet and raise here (ROADMAP Queue 1 item 15).
@@ -21,6 +23,7 @@ import sys
 import time
 from typing import Callable, Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
@@ -57,8 +60,17 @@ def make_step(model: Model, lr: float, steps: int):
 
 def batches(cfg: ModelConfig, batch: int, seq: int, seed: int,
             device) -> Iterator[Dict[str, torch.Tensor]]:
+    """The synthetic LM stream's token batches; for the audio family the
+    tokens are the code targets and the frames beside them are normal draws
+    (scale 0.1) from ``seed``, the stub EnCodec frontend's stand-in."""
+    rng = np.random.default_rng(seed)
     for b in lm_batches(cfg.vocab_size, batch, seq, seed=seed):
-        yield {"tokens": torch.from_numpy(b["tokens"][:, :seq]).to(device)}
+        tokens = torch.from_numpy(b["tokens"][:, :seq]).to(device)
+        if cfg.family != "audio":
+            yield {"tokens": tokens}
+            continue
+        frames = rng.standard_normal((batch, seq, cfg.d_model), np.float32) * 0.1
+        yield {"embeds": torch.from_numpy(frames).to(device), "targets": tokens}
 
 
 def train(step_fn: Callable, state, data: Iterator, steps: int, log_every: int = 0,

@@ -1,5 +1,5 @@
 """Public model API: :class:`Model` (port of ``repro/models/model_zoo.py``
-for the dense decoder and the RoBERTa-style encoder): init with adapters
+for the dense and audio decoders and the RoBERTa-style encoder): init with adapters
 (QR-LoRA, LoRA, SVD-LoRA), forward (decoder logits, or ``(logits, aux)``
 for the trainer; encoder task outputs), prefill and decode over the paged,
 per-lane dense or lock-step dense cache, the trainable mask and the
@@ -20,6 +20,7 @@ from repro_torch.models import transformer as tfm_lib
 # Projections adaptable per family: module key in groups → weight names.
 _ADAPTER_MODULES = {
     "dense": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")},
+    "audio": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")},
     "encoder": {"attn": ("wq", "wk", "wv", "wo")},
 }
 
@@ -82,16 +83,19 @@ class Model:
     # ---- forward ---------------------------------------------------------
     # ``seg_ids`` (int32 (batch,)) selects a per-sequence adapter slot when
     # the params carry a packed multi-tenant λ table (see repro_torch.serving).
-    def apply(self, params, tokens, seg_ids=None, train: bool = False, attn_mask=None):
-        """Full-sequence forward.  Decoder: fp32 logits (B, S, V); encoder:
-        the fp32 task output (B, n_classes), ``attn_mask`` (B, S) marking the
-        keys to attend to.  With ``train=True`` ``(out, aux)`` as the
+    def apply(self, params, tokens=None, seg_ids=None, train: bool = False, attn_mask=None,
+              embeds=None):
+        """Full-sequence forward.  Decoder: fp32 logits (B, S, V) of
+        ``tokens``, or of ``embeds`` (B, S, d; the audio family's frames);
+        encoder: the fp32 task output (B, n_classes), ``attn_mask`` (B, S)
+        marking the keys to attend to.  With ``train=True`` ``(out, aux)`` as the
         reference's trainer takes them (``aux``, the MoE balance loss, is 0
         for these families)."""
         if self.cfg.is_encoder:
             out = enc_lib.encoder_apply(params, self.cfg, tokens, attn_mask)
         else:
-            out = tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids)
+            out = tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids,
+                                        embeds=embeds)
         if not train:
             return out
         return out, torch.zeros((), dtype=torch.float32, device=out.device)
@@ -115,14 +119,18 @@ class Model:
     def commit_paged_prefill(self, cache, filled, lane, table_row, length):
         return tfm_lib.commit_paged_prefill(self.cfg, cache, filled, lane, table_row, length)
 
-    def prefill(self, params, cache, tokens, seg_ids=None, length=None, start=None):
+    def prefill(self, params, cache, tokens=None, seg_ids=None, length=None, start=None,
+                embeds=None):
         return tfm_lib.decoder_prefill(
-            params, self.cfg, cache, tokens, seg_ids=seg_ids, length=length, start=start
+            params, self.cfg, cache, tokens, seg_ids=seg_ids, length=length, start=start,
+            embeds=embeds,
         )
 
-    def decode_step(self, params, cache, token, seg_ids=None, attend_blocks=None):
+    def decode_step(self, params, cache, token=None, seg_ids=None, attend_blocks=None,
+                    embeds=None):
         return tfm_lib.decoder_decode(
-            params, self.cfg, cache, token, seg_ids=seg_ids, attend_blocks=attend_blocks
+            params, self.cfg, cache, token, seg_ids=seg_ids, attend_blocks=attend_blocks,
+            embeds=embeds,
         )
 
     def verify_step(self, params, cache, tokens, seg_ids=None, n_valid=None,

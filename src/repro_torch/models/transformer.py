@@ -1,4 +1,11 @@
-"""Decoder LM, dense family (port of ``repro/models/transformer.py``).
+"""Decoder LM, dense and audio families (port of
+``repro/models/transformer.py``).
+
+The audio family (musicgen-medium) is the dense stack over EnCodec frame
+embeddings: every forward takes ``embeds`` (B, S, d) in place of
+``tokens``, cast to the model dtype, and its head scores the code
+vocabulary.  Given code tokens instead, it embeds them as the dense family
+does (the serving engine's path, as in the reference).
 
 Parameters keep the reference's stacked layout: every per-layer leaf under
 ``params["groups"]`` has a leading ``(n_layers,)`` axis, adapters included
@@ -31,11 +38,24 @@ def _tslice(tree: Tree, i: int) -> Tree:
     return tree[i]
 
 
+#: decoder families the port has: the same layer stack
+DECODER_FAMILIES = ("dense", "audio")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port has the dense family only so far"
+            f"family {cfg.family!r}: the port has the {DECODER_FAMILIES} decoders so far "
+            "(ROADMAP Queue 1 item 12b)"
         )
+
+
+def _embed_input(params, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
+    """The stack's input: ``embeds`` (B, S, d) cast to the model dtype when
+    given (audio frames), else the embedding rows of ``tokens``."""
+    if embeds is not None:
+        return embeds.to(torch_dtype(cfg.dtype))
+    return params["embed"][tokens]
 
 
 def _adp_for(
@@ -123,9 +143,11 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ params["unembed"].float()  # fp32 logits, as the reference
 
 
-def decoder_apply(params, cfg: ModelConfig, tokens, seg_ids=None) -> torch.Tensor:
-    """Full-sequence forward → logits (B, S, V) in fp32."""
-    x = params["embed"][tokens]
+def decoder_apply(params, cfg: ModelConfig, tokens=None, seg_ids=None,
+                  embeds=None) -> torch.Tensor:
+    """Full-sequence forward of ``tokens`` (B, S) or ``embeds`` (B, S, d) →
+    logits (B, S, V) in fp32."""
+    x = _embed_input(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     return _logits(params, cfg, _run_layers(params, cfg, x, positions, None, seg_ids))
 
@@ -222,8 +244,8 @@ def commit_paged_prefill(cfg: ModelConfig, cache, filled, lane: int,
     return cache
 
 
-def decoder_prefill(params, cfg: ModelConfig, cache, tokens, seg_ids=None, length=None,
-                    start=None):
+def decoder_prefill(params, cfg: ModelConfig, cache, tokens=None, seg_ids=None, length=None,
+                    start=None, embeds=None):
     """Fill the cache with a prompt; returns (last-position logits (B,V),
     cache).  ``length`` (int (B,)) marks the true prompt length when
     ``tokens`` is right-padded to a bucket: logits come from row
@@ -233,8 +255,9 @@ def decoder_prefill(params, cfg: ModelConfig, cache, tokens, seg_ids=None, lengt
     beginning at that absolute position: RoPE and the causal mask run at
     ``start + arange(S)``, and the logits row is ``length - 1 - start``
     (clamped into the chunk: meaningful on the final chunk only).  The cache
-    must then be a ``paged_prefill_view`` carrying ``read_ids``."""
-    x = params["embed"][tokens]
+    must then be a ``paged_prefill_view`` carrying ``read_ids``.  ``embeds``
+    (B, S, d) stands in for ``tokens`` (audio frames)."""
+    x = _embed_input(params, cfg, tokens, embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     if start is not None:
@@ -256,10 +279,12 @@ def decoder_prefill(params, cfg: ModelConfig, cache, tokens, seg_ids=None, lengt
     return _logits(params, cfg, x_last)[:, 0], cache
 
 
-def decoder_decode(params, cfg: ModelConfig, cache, token, seg_ids=None, attend_blocks=None):
-    """One decode step; ``token`` (B, 1) int.  ``attend_blocks`` bounds the
-    paged attend to the table's first that-many columns."""
-    x = params["embed"][token]
+def decoder_decode(params, cfg: ModelConfig, cache, token=None, seg_ids=None,
+                   attend_blocks=None, embeds=None):
+    """One decode step; ``token`` (B, 1) int, or ``embeds`` (B, 1, d).
+    ``attend_blocks`` bounds the paged attend to the table's first
+    that-many columns."""
+    x = _embed_input(params, cfg, token, embeds)
     pos = cache["pos"]
     positions = pos[None] if pos.ndim == 0 else pos[:, None]
     x = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids, attend_blocks)

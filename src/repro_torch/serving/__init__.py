@@ -1,4 +1,4 @@
-"""Multi-tenant QR-LoRA serving of the port: λ-store, paged KV block
+"""Multi-tenant QR-LoRA serving of the port: the hierarchical λ-store, paged KV block
 allocator and prefix cache, continuous-batching scheduler, the engine, and
 engine replicas behind the adapter-locality router."""
 from repro_torch.serving.config import EngineConfig
@@ -11,7 +11,9 @@ from repro_torch.serving.engine import (
 )
 from repro_torch.serving.lam_store import (
     BASE_TENANT,
+    COLD_SLOT,
     LamStore,
+    MmapColdTier,
     extract_lambda,
     lam_digest,
     random_lambda,

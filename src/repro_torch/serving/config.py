@@ -16,10 +16,9 @@ chunked prefill at two blocks a step; ``EngineConfig.oracle_dense()`` the
 reference posture the tests compare against.  ``speculate_k`` turns on
 speculative decoding (``draft_lam_rank`` picks the truncated-λ drafter);
 engine construction holds it to :data:`SPECULATIVE_FAMILIES`
-(:meth:`EngineConfig.validate_speculation`).  The λ-store cold tier belongs
-to a later slice of the port: its fields exist with their disabled defaults
-so a config that sets one fails here, naming the slice, instead of being
-served without it.
+(:meth:`EngineConfig.validate_speculation`).  ``cold_slots`` adds the
+λ-store's host cold tier and ``cold_path`` backs it with an mmap file that
+survives a restart.
 """
 from __future__ import annotations
 
@@ -35,15 +34,13 @@ LAYOUTS = ("auto", "paged", "oracle_dense")
 #: pure KV rewind — offsets advance, rejected positions stay masked until
 #: overwritten — which only attention state allows.  Hybrid's Mamba scan
 #: state advances irreversibly per token and ssm has no KV cache at all, so
-#: neither can roll back a rejected draft.  (The port serves the dense
-#: family so far; the list is the reference's.)
+#: neither can roll back a rejected draft.  (The port serves the dense and
+#: audio families so far; the list is the reference's.)
 SPECULATIVE_FAMILIES = ("dense", "audio", "moe")
 
-#: field → (its disabled default, the slice of the port that brings it)
-LATER_SLICES = {
-    "cold_slots": (0, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
-    "cold_path": (None, "the λ-store cold tier (ROADMAP Queue 1 item 13)"),
-}
+#: Families with attention layers to page (the reference's list; the model
+#: refuses the families the port does not have yet).
+PAGED_FAMILIES = ("dense", "audio", "moe", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,8 +98,13 @@ class EngineConfig:
     #: adapter term); ``r`` keeps each slot's top-r |λ| coefficients.  Needs
     #: ``speculate_k >= 1``.
     draft_lam_rank: Optional[int] = None
-    # -- later slices: must stay at their defaults (see LATER_SLICES) --------
+    #: Host cold-tier capacity (tenants): λ evicted from the hot device
+    #: slots spills to host memory and admission promotes it back on demand,
+    #: so the tenant count is bounded by host RAM.  0 disables.
     cold_slots: int = 0
+    #: Back the cold tier with an mmap record file at this path (its JSON
+    #: catalog beside it), so the spilled tenants survive a restart.  Needs
+    #: ``cold_slots > 0``.
     cold_path: Optional[str] = None
 
     def __post_init__(self):
@@ -113,6 +115,10 @@ class EngineConfig:
                 raise ValueError(f"{name}={getattr(self, name)} must be >= 1")
         if self.watermark < 0:
             raise ValueError(f"watermark={self.watermark} must be >= 0")
+        if self.cold_slots < 0:
+            raise ValueError(f"cold_slots={self.cold_slots} must be >= 0")
+        if self.cold_path is not None and self.cold_slots <= 0:
+            raise ValueError("cold_path requires cold_slots > 0 (a tier to back)")
         if self.quantum is not None:
             if self.quantum < 1:
                 raise ValueError(f"quantum={self.quantum} must be >= 1 decode step")
@@ -149,12 +155,6 @@ class EngineConfig:
                 raise ValueError("share_prefix requires a paged layout (blocks to share)")
             if self.watermark:
                 raise ValueError("watermark requires a paged layout (blocks to reserve)")
-        for name, (default, slice_name) in LATER_SLICES.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r}: the port "
-                    f"serves it with {slice_name}"
-                )
         if self.n_slots < 2:
             raise ValueError("n_slots must hold slot 0 (base) plus one tenant")
         if self.base_dtype not in BASE_DTYPES:
@@ -195,12 +195,17 @@ class EngineConfig:
             )
 
     def resolved_layout(self, family: str) -> str:
-        """Concrete layout for ``family``: an explicit layout as given;
-        ``auto`` pages unless ``quantum`` is set."""
-        if family != "dense":
-            raise NotImplementedError(
-                f"family {family!r}: the port serves the dense family so far"
-            )
-        if self.layout == "oracle_dense" or (self.layout == "auto" and self.quantum is not None):
+        """Concrete layout for ``family``; raises when an explicit
+        ``layout="paged"`` names a family with nothing to page.  ``auto``
+        pages unless ``quantum`` is set or the family has no attention."""
+        if self.layout == "oracle_dense":
+            return "oracle_dense"
+        if self.layout == "paged":
+            if family not in PAGED_FAMILIES:
+                raise ValueError(
+                    f"layout='paged' needs attention layers to page; family {family!r} has "
+                    "none — its per-lane state is already O(1), run layout='oracle_dense'")
+            return "paged"
+        if self.quantum is not None or family not in PAGED_FAMILIES:
             return "oracle_dense"
         return "paged"

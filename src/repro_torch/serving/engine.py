@@ -48,6 +48,17 @@ block size when paged) with the true length masking the tail, and the decode att
 bounded by the decoding lanes' planned final lengths, bucketed to powers of
 two — the reference's padding, so both engines compute the same numbers.
 
+The λ-store's host cold tier (``EngineConfig.cold_slots``, optionally
+backed by an mmap file at ``cold_path``) holds tenants beyond the hot
+slots: hot pressure spills the least-recently-used unpinned tenant's λ to
+the host, and admission promotes a cold tenant back into a hot slot on
+demand (:meth:`MultiTenantEngine._make_gate`), deferring, with telemetry's
+``cause="cold_promote"``, while every hot slot is pinned by an active lane.
+Pinning is two-level there: a queued request only protects its tenant's
+residency; the gate takes the hot-slot pin that its lane holds until
+retirement, preemption or cancel.  Promotions and spills are slot writes
+that make the host wait for nothing (``serving/lam_store.py``).
+
 A quantized frozen base (``EngineConfig.base_dtype`` "int8"/"fp8", or the
 model config's) replaces every adapted projection's W with its int8/fp8
 ``{"q", "scale"}`` dict at construction; the engine's projections then go
@@ -207,10 +218,17 @@ class MultiTenantEngine:
         # no-op stubs when disabled, so every site below runs unconditionally
         self.telemetry = Telemetry(enabled=config.telemetry)
         tel = self.telemetry
-        # pool-full deferrals are counted once per episode (uid), not per step
+        # deferrals are counted once per episode (uid), not per step, for a
+        # full pool and for a cold tenant alike
         self._deferred_pool_uids: set = set()
+        self._deferred_uids: set = set()
+        self._defer_cold = tel.defers.labels(cause="cold_promote")
+        # the λ-store's host cold tier: evicted tenants spill to host rows and
+        # admission promotes them back on demand (``_make_gate``)
+        self._cold_tier = config.cold_slots > 0
         self.lam_store = LamStore.from_params(
-            params, n_slots=config.n_slots, group=self._group if config.shard_lam else None)
+            params, n_slots=config.n_slots, cold_slots=config.cold_slots,
+            cold_path=config.cold_path, group=self._group if config.shard_lam else None)
         self.lam_store.attach_metrics(tel.registry)
         self.scheduler = ContinuousBatchScheduler(config.n_lanes)
         self.n_lanes, self.max_len = config.n_lanes, config.max_len
@@ -332,7 +350,8 @@ class MultiTenantEngine:
     # -- tenants ------------------------------------------------------------
 
     def add_tenant(self, tenant: str, lam_tree) -> int:
-        """Register or hot-swap a tenant's λ checkpoint; returns its slot.  A
+        """Register or hot-swap a tenant's λ checkpoint; returns its hot
+        slot, or ``COLD_SLOT`` when it landed in the host cold tier.  A
         hot-swap that retires the tenant's old λ digest drops that family's
         prefix-cache entries."""
         old = self.lam_store.digest(tenant) if tenant in self.lam_store else None
@@ -342,7 +361,8 @@ class MultiTenantEngine:
 
     def add_tenants(self, lams: Dict[str, Any]) -> Dict[str, int]:
         """Batch :meth:`add_tenant`: the cohort's new tenants land in one
-        write per λ table (``LamStore.register_many``)."""
+        write per λ table (``LamStore.register_many``); tenant → hot slot or
+        ``COLD_SLOT``."""
         olds = {t: self.lam_store.digest(t) if t in self.lam_store else None for t in lams}
         slots = self.lam_store.register_many(lams)
         for old in olds.values():
@@ -436,8 +456,14 @@ class MultiTenantEngine:
                     f"request needs {worst} blocks but the pool only has "
                     f"{self.allocator.capacity} — it could never be admitted"
                 )
-        # a queued request keeps its tenant's slot resident until it finishes
-        self.lam_store.pin(tenant)
+        if self._cold_tier:
+            # two-level pinning: submission only protects (the tenant stays
+            # in the store but may spill to the cold tier while queued); the
+            # hot-slot pin is taken at admission, when a lane holds it
+            self.lam_store.protect(tenant)
+        else:
+            # a queued request keeps its tenant's slot resident until it finishes
+            self.lam_store.pin(tenant)
         req = self.scheduler.submit(tenant, prompt, max_new_tokens)
         self.telemetry.on_submit(req)
         return req
@@ -452,7 +478,7 @@ class MultiTenantEngine:
             self._imports.pop(req.uid, None)
             lane = req.lane
             self.scheduler.finish(req)
-            self.lam_store.unpin(req.tenant)
+            self._release_tenant(req)
             if self.paged:
                 for b in self._lane_blocks.pop(lane):
                     self.allocator.decref(b)
@@ -463,7 +489,17 @@ class MultiTenantEngine:
         except ValueError:
             return  # already finished, or never submitted here
         self._imports.pop(req.uid, None)
+        if self._cold_tier:
+            self.lam_store.unprotect(req.tenant)
+        else:
+            self.lam_store.unpin(req.tenant)
+
+    def _release_tenant(self, req: Request) -> None:
+        """A request leaves its lane for good (retired or cancelled): its
+        hot-slot pin goes, and in cold-tier mode its residency protect."""
         self.lam_store.unpin(req.tenant)
+        if self._cold_tier:
+            self.lam_store.unprotect(req.tenant)
 
     # -- handoff between engines ----------------------------------------------
 
@@ -644,6 +680,32 @@ class MultiTenantEngine:
 
         return gate
 
+    def _make_gate(self):
+        """Compose the admission gates: promote-on-demand for cold tenants
+        (deferring, as a full pool defers, when every hot slot is pinned by
+        an active lane) and the paged pool gate.  In cold-tier mode approval
+        also takes the hot-slot pin the lane holds until retirement or
+        preemption."""
+        paged_gate = self._admission_gate() if self.paged else None
+        if not self._cold_tier:
+            return paged_gate
+        store = self.lam_store
+
+        def gate(req: Request) -> bool:
+            if not store.is_hot(req.tenant) and store.promote(req.tenant) is None:
+                if req.uid not in self._deferred_uids:
+                    self._deferred_uids.add(req.uid)
+                    self.telemetry.on_defer(req, "cold_promote")
+                return False
+            self._deferred_uids.discard(req.uid)
+            store.pin(req.tenant)
+            if paged_gate is not None and not paged_gate(req):
+                store.unpin(req.tenant)
+                return False
+            return True
+
+        return gate
+
     def _reclaim_one_block(self, req: Request) -> Optional[int]:
         """One block for ``req``'s decode growth: scavenge cache-only prefix
         blocks first, then preempt the youngest lane while the pool is empty
@@ -672,6 +734,8 @@ class MultiTenantEngine:
         for b in self._lane_blocks.pop(lane):
             self.allocator.decref(b)
         reset_lane(self.cache, self._axes, lane, self._init_snap)
+        if self._cold_tier:
+            self.lam_store.unpin(victim.tenant)  # re-pinned at re-admission
         self.scheduler.preempt(victim)
         self.preemptions += 1
 
@@ -685,6 +749,8 @@ class MultiTenantEngine:
         the lane next cannot overwrite it first."""
         self.telemetry.on_preempt(req, "quantum")
         req.snapshot = extract_lane(self.cache, self._axes, req.lane, host=True)
+        if self._cold_tier:
+            self.lam_store.unpin(req.tenant)  # re-pinned at re-admission
         self.scheduler.preempt(req, to_back=True, keep_progress=True)
         self.slice_preemptions += 1
 
@@ -910,9 +976,11 @@ class MultiTenantEngine:
 
     def _admit(self, finished: List[Request]) -> None:
         tel = self.telemetry
-        for req in self.scheduler.admit(self._admission_gate() if self.paged else None):
+        for req in self.scheduler.admit(self._make_gate()):
             tel.on_admit(req, restored=req.snapshot is not None)
-            req.slot = self.lam_store.lookup(req.tenant)  # pinned since submit
+            # pinned since submit, or by the gate in cold-tier mode; the
+            # tables a promotion wrote are the ones the view holds (in place)
+            req.slot = self.lam_store.lookup(req.tenant)
             req.slice_steps = 0
             if req.snapshot is not None:
                 # time-sliced re-admission: the snapshot goes back into the
@@ -1144,7 +1212,7 @@ class MultiTenantEngine:
             self.telemetry.on_retire(req)
             lane = req.lane
             self.scheduler.finish(req)
-            self.lam_store.unpin(req.tenant)
+            self._release_tenant(req)
             if self.paged:
                 for b in self._lane_blocks.pop(lane):
                     self.allocator.decref(b)
@@ -1319,6 +1387,13 @@ class MultiTenantEngine:
         if self.prefix_cache is None:
             return 0
         return self.prefix_cache.clear()
+
+    @property
+    def deferred_promotions(self) -> int:
+        """Admissions deferred on a cold tenant, counted once per deferral
+        episode: ``serve_deferrals_total{cause="cold_promote"}`` (reads 0
+        when telemetry is disabled; the episode dedup runs regardless)."""
+        return int(self._defer_cold.value)
 
     @property
     def prefill_compilations(self) -> int:

@@ -28,7 +28,7 @@ hosts would pay for.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -116,20 +116,25 @@ class EngineReplica:
                 f"alive={self.alive})")
 
 
-def build_replicas(cfg, config: EngineConfig, n: int, *, params=None,
-                   device=None) -> List[EngineReplica]:
+def build_replicas(
+    cfg, config: EngineConfig, n: int, *, params=None, device=None,
+    config_overrides: Optional[Callable[[int, EngineConfig], EngineConfig]] = None,
+) -> List[EngineReplica]:
     """Build ``n`` replicas on ``device`` sharing one frozen parameter tree.
 
     Replica 0 initializes (or adopts ``params``); the rest are built with
     ``params=`` the same tree — no re-init, no copy.  Every replica starts
     as ``"both"``; a disaggregating :class:`~repro_torch.serving.router.Router`
-    assigns the prefill and decode roles."""
+    assigns the prefill and decode roles.  ``config_overrides(i, config)``
+    gives replica ``i`` its own engine config (each replica its own
+    ``cold_path``, say: the cold catalog is per-store state)."""
     if n < 1:
         raise ValueError(f"n={n} must be >= 1")
     groups = replica_device_groups(n)
     replicas: List[EngineReplica] = []
     for i in range(n):
-        eng = MultiTenantEngine(cfg, config, params=params, device=device)
+        rcfg = config if config_overrides is None else config_overrides(i, config)
+        eng = MultiTenantEngine(cfg, rcfg, params=params, device=device)
         if params is None:
             params = eng.params  # replica 0 initialized; its siblings share
         replicas.append(EngineReplica(i, eng, devices=groups[i]))

@@ -1,5 +1,5 @@
-"""The PEFT-aware train step (port of ``repro/training/steps.py`` for the
-dense family).
+"""The PEFT-aware train step and the serving prefill/decode steps (port of
+``repro/training/steps.py`` for the dense and audio families).
 
 Parameters are partitioned into (trainable, frozen) by the model's mask:
 only the trainable leaves require grad (λ for QR-LoRA, a few thousand
@@ -7,6 +7,11 @@ scalars; B and A for LoRA and SVD-LoRA; every weight for ft), while the
 frozen tree flows through as constants.  Gradient
 accumulation (``cfg.microbatches``) is a Python loop over microbatch slices
 whose fp32 gradients add up in each leaf's ``.grad``.
+
+A batch is ``{"tokens"}`` (B, S) for the dense family: each position
+predicts the next token.  The audio family trains on frame embeddings:
+``{"embeds"}`` (B, S, d) with the code ``{"targets"}`` (B, S) given, every
+position weighted one.
 """
 from __future__ import annotations
 
@@ -34,13 +39,19 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, weights: torch.Tensor):
     return ((lse - gold) * w).sum() / denom, (torch.square(lse) * w).sum() / denom
 
 
-def _model_inputs(tokens: torch.Tensor):
-    """tokens (B, S) → (targets, weights): each position predicts the next
-    token; the last position's (wrapped) target has weight 0."""
+def _model_inputs(cfg, batch: Dict[str, torch.Tensor]):
+    """batch → (apply kwargs, targets, weights).  Audio: the frames in, the
+    given targets, every weight one.  Otherwise each position predicts the
+    next token; the last position's (wrapped) target has weight 0."""
+    if cfg.family == "audio":
+        tgt = batch["targets"]
+        return ({"embeds": batch["embeds"]}, tgt,
+                torch.ones(tgt.shape, dtype=torch.float32, device=tgt.device))
+    tokens = batch["tokens"]
     tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     w = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     w[:, -1] = 0.0
-    return tgt, w
+    return {"tokens": tokens}, tgt, w
 
 
 def init_train_state(model: Model, gen: Optional[torch.Generator] = None,
@@ -58,24 +69,24 @@ def init_train_state(model: Model, gen: Optional[torch.Generator] = None,
 def make_train_step(model: Model, opt_cfg: AdamWConfig):
     cfg = model.cfg
 
-    def loss_fn(trainable, frozen, tokens):
+    def loss_fn(trainable, frozen, mb):
         params = adapter_api.merge(trainable, frozen)
-        tgt, w = _model_inputs(tokens)
-        logits, aux = model.apply(params, tokens, train=True)
+        kw, tgt, w = _model_inputs(cfg, mb)
+        logits, aux = model.apply(params, train=True, **kw)
         ce, zl = lm_loss(logits, tgt, w)
         return ce + Z_LOSS_COEF * zl + MOE_AUX_COEF * aux, ce
 
     def train_step(state: Tree, batch: Dict[str, torch.Tensor]):
-        """One optimizer step over ``batch["tokens"]`` (B, S) → ``(new
+        """One optimizer step over ``batch`` (module docstring) → ``(new
         state, metrics)``; the values in ``state`` are left as they were."""
         trainable, frozen = state["trainable"], state["frozen"]
         k = cfg.microbatches
-        tokens = batch["tokens"]
         for p in tree_leaves(trainable):
             p.grad = None
         loss_sum = ce_sum = 0.0
-        for mb in tokens.reshape(k, tokens.shape[0] // k, *tokens.shape[1:]):
-            loss, ce = loss_fn(trainable, frozen, mb)
+        mbs = {name: x.reshape(k, x.shape[0] // k, *x.shape[1:]) for name, x in batch.items()}
+        for i in range(k):
+            loss, ce = loss_fn(trainable, frozen, {name: x[i] for name, x in mbs.items()})
             loss.backward()  # each leaf's .grad sums the microbatches' gradients
             loss_sum, ce_sum = loss_sum + loss.detach(), ce_sum + ce.detach()
         grads = tree_map(lambda p: (torch.zeros_like(p) if p.grad is None else p.grad) / k,
@@ -86,3 +97,37 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
         return new_state, {"loss": loss_sum / k, "ce": ce_sum / k, **om}
 
     return train_step
+
+
+def _step_inputs(cfg, batch: Dict[str, torch.Tensor], token_key: str) -> Dict:
+    kw = {"embeds": batch["embeds"]} if cfg.family == "audio" else {token_key: batch[token_key]}
+    if "seg_ids" in batch:  # multi-tenant λ-slot ids (repro_torch.serving)
+        kw["seg_ids"] = batch["seg_ids"]
+    return kw
+
+
+def make_prefill_step(model: Model):
+    """``prefill_step(params, cache, batch)`` → (last-position logits,
+    cache): ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S, d) for
+    the audio family, and optionally ``batch["seg_ids"]``."""
+    cfg = model.cfg
+
+    def prefill_step(params, cache, batch):
+        return model.prefill(params, cache, **_step_inputs(cfg, batch, "tokens"))
+
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    """``decode_step(params, cache, batch)`` → (greedy next token (B, 1)
+    int32, logits (B, V), cache): ``batch["token"]`` (B, 1), or
+    ``batch["embeds"]`` (B, 1, d) for the audio family, and optionally
+    ``batch["seg_ids"]``."""
+    cfg = model.cfg
+
+    def decode_step(params, cache, batch):
+        logits, cache = model.decode_step(params, cache, **_step_inputs(cfg, batch, "token"))
+        # greedy next token, shaped (B, 1) so it feeds the next decode step
+        return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], logits, cache
+
+    return decode_step

@@ -1104,3 +1104,67 @@ def test_attention_ops_launch_the_kernels(gen):
     assert o.shape == q.shape and od.shape == (2, 1, 9, 64)
     assert kernels.launch_counts() == {**{n: 0 for n in kernels.KERNEL_WRAPPERS},
                                        "flash_attention": 1, "decode_attention": 1}
+
+
+# musicgen-medium: #1 at K = N = 1536 (4 decode lanes, a 64-row bucket), #2
+# at 24 query heads over 24 kv heads (one query head a group), #3 bf16 at its
+# train step's 1024 rows
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [4, 64])
+def test_bgmv_kernel_at_musicgen_projection_shapes(gen, x_dtype, M):
+    x, W, B, A, lam, seg = _bgmv_operands(gen, x_dtype, M, 1536, 1536, 128, n_slots=8)
+    y = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
+    again = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
+    torch.cuda.synchronize()
+    assert _close(y, qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7), "qrlora_bgmv")
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lengths,cols", [((0, 1, 17, 63), 4), ((64, 0, 1, 33), 8),
+                                          ((1, 16, 48, 127), 8), ((0, 0, 16, 15), 2)])
+def test_paged_kernel_at_musicgen_heads_one_query_head_a_group(gen, dtype, lengths, cols):
+    """MHA: each kv head serves one query head; ragged lengths with 0 and 1
+    (a length-0 lane writes zeros); a second call is bitwise the first."""
+    q, kp, vp, tbl, lens = _paged_operands(gen, dtype, lengths, H=24, KV=24, mb=8)
+    t, lens = tbl[:, :cols], torch.clamp(lens, max=cols * 16)
+    o = paged_decode_attention_cuda(q, kp, vp, t, lens)
+    again = paged_decode_attention_cuda(q, kp, vp, t, lens)
+    torch.cuda.synchronize()
+    assert _paged_over(o, q, kp, vp, t, lens) <= 1
+    assert torch.equal(o, again)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert (o[b] == 0).all()
+
+
+def test_qrlora_matmul_kernel_at_the_musicgen_train_shape(gen):
+    args = _matmul_inputs(gen, 1024, 1536, 1536, 128, torch.bfloat16, rank=128)
+    y = qrlora_matmul_cuda(*args, scale=0.7)
+    torch.cuda.synchronize()
+    assert _close(y, qrlora_matmul_ref(*args, 0.7), "qrlora_matmul")
+
+
+def test_cold_tier_promote_and_spill_make_no_host_sync(gen):
+    """A promotion that spills the least-recently-used tenant, and a batch
+    promote and spill, run under sync debug mode "error" (rows staged
+    through pinned memory, slot writes on the card); the rows land bitwise."""
+    from repro_torch.serving import LamStore
+
+    shapes = {("attn", "wq"): (4, 16), ("attn", "wv"): (4, 16)}
+    store = LamStore(shapes, n_slots=3, cold_slots=8)
+    rows = {f"t{i}": {"attn": {p: torch.randn(s, generator=gen, device="cuda")
+                               for (_, p), s in shapes.items()}} for i in range(5)}
+    for name, tree in rows.items():
+        store.register(name, tree)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slot = store.promote("t0")  # spills the LRU hot tenant
+        store.promote_many(["t1"])
+        store.spill_many(["t1"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert store.spills >= 6 and store.promotes == 2
+    for (_, p), tab in store.tables.items():
+        assert torch.equal(tab[slot], rows["t0"]["attn"][p])

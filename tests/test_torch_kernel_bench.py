@@ -104,8 +104,7 @@ def test_json_out_holds_every_row(bench):
 
 # the reference serving bench's sub-benches the port refuses, and the item
 # that ports what each needs
-_REFUSED = {"serve_multitenant:adapter_churn": "13",
-            "serve_multitenant:recurrent_families": "12b"}
+_REFUSED = {"serve_multitenant:recurrent_families": "12b"}
 
 
 @pytest.mark.parametrize("name", sorted(_REFUSED))
@@ -113,6 +112,25 @@ def test_unported_bench_raises_naming_its_roadmap_item(name):
     assert set(run.NOT_PORTED) == set(_REFUSED)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {_REFUSED[name]}\)"):
         run.main(["--only", f"kernel,{name}", "--device", "cpu"])
+
+
+def test_adapter_churn_runs_at_the_smoke_scale(monkeypatch):
+    """The serving bench's adapter-churn sub-bench, once refused with item
+    13, runs through the cold tier: its three rows, every tenant beyond the
+    64 hot slots spilled to the host, its spill → promote bitwise."""
+    from repro_torch.benchmarks import serve_multitenant
+
+    monkeypatch.setenv("REPRO_BENCH_SCALE", "smoke")
+    common.reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_multitenant.bench_adapter_churn(torch.device("cpu"))
+    rows = [ln.split(",", 2) for ln in buf.getvalue().splitlines()
+            if ln.startswith("serve_multitenant:churn:")]
+    assert [r[0] for r in rows] == [f"serve_multitenant:churn:{op}"
+                                    for op in ("register", "promote", "evict")]
+    fields = dict(kv.split("=", 1) for kv in rows[0][2].split(";"))
+    assert int(fields["hot"]) == 63 and int(fields["spills"]) == int(fields["tenants"]) - 63
 
 
 def test_unknown_bench_and_missing_card_raise(monkeypatch):

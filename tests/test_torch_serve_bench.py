@@ -1,5 +1,5 @@
 """The port's serving bench (``python -m repro_torch.benchmarks.run --only
-serve_multitenant``) on the CPU at the smoke scale, in process: the nine
+serve_multitenant``) on the CPU at the smoke scale, in process: the ten
 sub-benches' rows under the reference's names and in its order, each speed
 ordering the reference asserts carried as a ``held`` reading with both
 sides' numbers, the correctness bounds it keeps hard (and a planted fault
@@ -12,6 +12,7 @@ import io
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -21,6 +22,7 @@ from repro_torch.serving import MultiTenantEngine
 ROOT = Path(__file__).resolve().parents[1]
 
 ROWS = {
+    "adapter_churn": [f"churn:{op}" for op in ("register", "promote", "evict")],
     "bgmv_overhead": ["bgmv_vs_single"],
     "engine_throughput": [f"engine:tenants={n}" for n in (1, 4, 8)],
     "chunked_prefill": ["chunked_prefill:off", "chunked_prefill:on"],
@@ -85,12 +87,11 @@ def test_the_nine_sub_benches_run_in_the_reference_order(bench):
 def _reference_templates():
     """The row names ``benchmarks/serve_multitenant.py`` emits, as regular
     expressions (each ``{…}`` of its f-strings matches one field), apart
-    from the two sub-benches the port refuses (``churn:*`` and
-    ``engine:family=*``)."""
+    from the sub-bench the port refuses (``engine:family=*``)."""
     source = (ROOT / "benchmarks" / "serve_multitenant.py").read_text()
     out = []
     for t in re.findall(r'emit\(\s*f?"serve_multitenant:([^"]*)"', source):
-        if not t.startswith(("churn:", "engine:family=")):
+        if not t.startswith("engine:family="):
             out.append(re.compile(re.sub(r"\\\{[^}]*\\\}", "[^:]+", re.escape(t)) + "$"))
     return out
 
@@ -137,6 +138,9 @@ def test_the_hard_bounds_hold(bench):
     assert int(share["shared_peak"]) < int(share["unshared_peak"])
     _, spec = rows["speculative:k=4"]
     assert float(spec["acceptance"]) == 1.0  # base-tenant traffic: the drafter is the target
+    _, reg = rows["churn:register"]
+    assert int(reg["tenants"]) == 2000 and int(reg["spills"]) == 2000 - int(reg["hot"])
+    assert int(reg["cold_bytes"]) == int(reg["spills"]) * int(reg["bytes_per_tenant"])
 
 
 def test_a_paged_footprint_not_below_dense_fails_the_bench(monkeypatch):
@@ -159,8 +163,25 @@ def test_one_sub_bench_runs_alone():
 
 def test_an_unknown_sub_bench_raises():
     """``run.py`` names whole benches; a sub-bench's name is refused (the
-    two the port lacks with their ROADMAP items, any other as unknown)."""
+    one the port lacks with its ROADMAP item, any other as unknown)."""
     with pytest.raises(ValueError, match="unknown bench"):
         run.main(["--only", "serve_multitenant:churn", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run.main(["--only", "serve_multitenant:adapter_churn", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        run.main(["--only", "serve_multitenant:recurrent_families", "--device", "cpu"])
+
+
+def test_adapter_churn_spill_promote_is_bitwise(monkeypatch):
+    """The churn bench's spill → promote bit-identity assertion is hard: a
+    promotion that lands a row scaled by (1 + 2⁻²⁰) fails the bench."""
+    from repro_torch.serving import LamStore
+
+    sound = LamStore._write_slots
+
+    def perturbed(self, slots, rows_list):
+        return sound(self, slots, [{k: v * np.float32(1 + 2**-20) for k, v in r.items()}
+                                   for r in rows_list])
+
+    monkeypatch.setattr(LamStore, "_write_slots", perturbed)
+    with contextlib.redirect_stdout(io.StringIO()), \
+            pytest.raises(AssertionError, match="not bit-identical"):
+        serve_multitenant.bench_adapter_churn(torch.device("cpu"))

@@ -138,16 +138,6 @@ def test_bucket_len_matches_jax(floor):
 # engine config
 # ---------------------------------------------------------------------------
 
-_LATER = {"cold_slots": 4, "cold_path": "/x"}
-
-
-@pytest.mark.parametrize("field", sorted(_LATER))
-def test_engine_config_refuses_later_slice_fields(field):
-    assert set(_LATER) == set(tconfig.LATER_SLICES)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        EngineConfig(**{field: _LATER[field]})
-
-
 @pytest.mark.parametrize("kw", [dict(share_prefix=True), dict(prefill_chunk=32),
                                 dict(watermark=1), dict(prefill_chunk=16, block_size=8)])
 def test_engine_config_accepts_the_serving_fields(kw):
@@ -156,7 +146,8 @@ def test_engine_config_accepts_the_serving_fields(kw):
         assert all(getattr(c, k) == v for k, v in kw.items())
 
 
-# the reference's validation cases for these fields (tests/test_engine_config.py:35-47)
+# the reference's validation cases for these fields (tests/test_engine_config.py:35-47,
+# and its cold-tier checks, repro/serving/config.py:132-135)
 @pytest.mark.parametrize(
     "kw",
     [
@@ -165,6 +156,8 @@ def test_engine_config_accepts_the_serving_fields(kw):
         dict(prefill_chunk=0),
         dict(watermark=-1),
         dict(layout="paged", speculate_k=2, prefill_chunk=16),  # verify vs chunk
+        dict(cold_slots=-1),
+        dict(cold_path="/x"),  # a cold file needs cold slots
     ],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()),
 )

@@ -73,7 +73,7 @@ def test_lm_loss_and_model_inputs_match_jax():
     logits = (rng.standard_normal((2, 8, 32)) * 3).astype(np.float32)
     tokens = rng.integers(0, 32, size=(2, 8)).astype(np.int32)
     jkw, jtgt, jw = jsteps._model_inputs(jax_reduced("smollm-135m"), {"tokens": jnp.asarray(tokens)})
-    ttgt, tw = _model_inputs(torch.from_numpy(tokens))
+    tkw, ttgt, tw = _model_inputs(get_reduced("smollm-135m"), {"tokens": torch.from_numpy(tokens)})
     np.testing.assert_array_equal(ttgt.numpy(), np.asarray(jtgt))
     np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
     want = jsteps.lm_loss(jnp.asarray(logits), jtgt, jw)
