@@ -2,6 +2,8 @@
 ``get_reduced(name)`` (``-``, ``_`` and ``.`` alike in names, as the
 reference's registry resolves them)."""
 from repro_torch.configs import (
+    mixtral_8x22b,
+    moonshot_v1_16b_a3b,
     musicgen_medium,
     qwen2_0_5b,
     qwen2_5_32b,
@@ -18,6 +20,8 @@ ARCHS = {
     "qwen2.5-32b": qwen2_5_32b,
     "roberta-base": roberta_base,
     "musicgen-medium": musicgen_medium,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+    "mixtral-8x22b": mixtral_8x22b,
 }
 
 

@@ -1,6 +1,7 @@
 """Model and adapter configuration — the port's copy of
-``repro/configs/base.py``, cut to the fields the dense decoder (serving,
-training, quantized bases; QKV bias and QK-norm) and the paper's RoBERTa-style encoder read.
+``repro/configs/base.py``, cut to the fields the dense, audio and moe
+decoders (serving, training, quantized bases; QKV bias and QK-norm; the
+experts) and the paper's RoBERTa-style encoder read.
 
 The dimensions of a published model are plain numbers, so the port keeps its
 own copy instead of importing the JAX package (see ``smollm_135m.py``).
@@ -57,7 +58,7 @@ class AdapterConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense" or "audio" (decoders), or "encoder"
+    family: str  # "dense", "audio" or "moe" (decoders), or "encoder"
     n_layers: int
     d_model: int
     n_heads: int
@@ -71,6 +72,14 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     causal: bool = True
+    # MoE: top-``experts_per_token`` of ``n_experts`` per token, each expert
+    # a buffer of ``capacity_factor``·T·k/E rows over a call's T rows
+    # (models/moe.py); ``moe_every`` > 1 interleaves dense and moe layers,
+    # as the hybrid family does (not ported: 1 only)
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_every: int = 1
+    capacity_factor: float = 1.25
     # Encoder (the paper's RoBERTa-style model)
     is_encoder: bool = False
     n_classes: int = 0
@@ -95,10 +104,19 @@ class ModelConfig:
             )
         if self.adapter.mode not in ADAPTER_MODES:
             raise ValueError(f"adapter mode {self.adapter.mode!r} not in {ADAPTER_MODES}")
+        if self.moe_every != 1:
+            raise NotImplementedError(
+                f"{self.name}: moe_every={self.moe_every} interleaves moe layers as the "
+                "hybrid family does, which is not ported yet (ROADMAP Queue 1 item 12b)"
+            )
         if self.base_dtype not in BASE_DTYPES:
             raise ValueError(
                 f"{self.name}: base_dtype={self.base_dtype!r} not in {BASE_DTYPES}"
             )
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -6,7 +6,8 @@ params, QR-LoRA, LoRA or SVD-LoRA adapters with ``B``/``A``/``lam``/``ranks``,
 or a bare λ tree) into the same tree of
 torch tensors, leaf for leaf.  The port keeps the reference's layouts, so
 the conversion is a plain copy, quantized ``{"q", "scale"}`` leaves
-included.  This module imports neither ``jax`` nor ``ml_dtypes``: bfloat16
+included, and each leaf keeps its dtype (a moe layer's float32 router
+beside its bf16 experts).  This module imports neither ``jax`` nor ``ml_dtypes``: bfloat16
 and float8_e4m3fn leaves cross as their raw bit patterns (torch cannot
 read an ml_dtypes array itself).
 

@@ -11,6 +11,8 @@ logit for logit.
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --arch qwen2-0.5b \
         --device cpu --share-prefix --prefill-chunk 32 --max-len 64
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --arch moonshot-v1-16b-a3b \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_multi          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --base-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve_multi --reduced --device cpu --shard-lam --shard-ba

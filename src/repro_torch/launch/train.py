@@ -6,11 +6,13 @@ trains), LoRA, SVD-LoRA (B and A train) or full fine-tuning (``--peft``).
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --peft lora
     PYTHONPATH=src python -m repro_torch.launch.train --steps 30 --batch 8 --seq 256
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch musicgen-medium
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch moonshot-v1-16b-a3b
 
-The last form trains full-width smollm-135m on the card (random weights
+The third form trains full-width smollm-135m on the card (random weights
 from ``--seed``), where every adapted projection's forward runs the one-λ
 kernel.  ``--arch musicgen-medium`` trains the audio family on frame
-embeddings with code targets.  It prints the trainable count, the loss every ``--log-every``
+embeddings with code targets; a moe arch (``moonshot-v1-16b-a3b``,
+``mixtral-8x22b``) adds its experts' load-balancing aux to the loss.  It prints the trainable count, the loss every ``--log-every``
 steps, the median step time and the train tokens/s.  The reference
 launcher's checkpointing and fault tolerance (``--ckpt-dir``) are not
 ported yet and raise here (ROADMAP Queue 1 item 15).
@@ -76,7 +78,7 @@ def batches(cfg: ModelConfig, batch: int, seq: int, seed: int,
 def train(step_fn: Callable, state, data: Iterator, steps: int, log_every: int = 0,
           log: Callable[[str], None] = _say):
     """Run ``steps`` steps; returns (state, history of per-step
-    ``{"loss", "ce", "grad_norm", "lr", "ms"}``).  A step's time ends when
+    ``{"loss", "ce", "aux", "grad_norm", "lr", "ms"}``).  A step's time ends when
     its loss reaches the host, so it covers all of the step's device work."""
     hist: List[Dict[str, float]] = []
     for i in range(steps):
@@ -85,8 +87,8 @@ def train(step_fn: Callable, state, data: Iterator, steps: int, log_every: int =
         state, m = step_fn(state, batch)
         loss = float(m["loss"])
         ms = (time.perf_counter() - t0) * 1e3
-        hist.append({"loss": loss, "ce": float(m["ce"]), "grad_norm": float(m["grad_norm"]),
-                     "lr": float(m["lr"]), "ms": ms})
+        hist.append({"loss": loss, "ce": float(m["ce"]), "aux": float(m["aux"]),
+                     "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]), "ms": ms})
         if log_every and (i % log_every == 0 or i == steps - 1):
             log(f"step {i:4d}  loss {loss:.4f}  |grad| {hist[-1]['grad_norm']:.2e}  "
                 f"lr {hist[-1]['lr']:.2e}  {ms:.1f} ms")

@@ -49,6 +49,17 @@ def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     return (t * std).to(dtype)
 
 
+def stacked_normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    """:func:`normal` drawn one leading index at a time into a stack
+    allocated in ``dtype``: the float32 temporary is one layer's, not the
+    whole stack's (moonshot-v1-16b-a3b's ``we_gate`` stack would be 35 GB
+    of float32).  The distribution is :func:`normal`'s."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = normal(gen, shape[1:], std, dtype)
+    return out
+
+
 def stacked_dense_init(
     gen: torch.Generator, n: int, d_in: int, d_out: int, dtype, scale: float = 1.0
 ) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Public model API: :class:`Model` (port of ``repro/models/model_zoo.py``
-for the dense and audio decoders and the RoBERTa-style encoder): init with adapters
+for the dense, audio and moe decoders and the RoBERTa-style encoder): init with adapters
 (QR-LoRA, LoRA, SVD-LoRA), forward (decoder logits, or ``(logits, aux)``
 for the trainer; encoder task outputs), prefill and decode over the paged,
 per-lane dense or lock-step dense cache, the trainable mask and the
@@ -21,6 +21,7 @@ from repro_torch.models import transformer as tfm_lib
 _ADAPTER_MODULES = {
     "dense": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")},
     "audio": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")},
+    "moe": {"attn": ("wq", "wk", "wv", "wo")},
     "encoder": {"attn": ("wq", "wk", "wv", "wo")},
 }
 
@@ -89,16 +90,15 @@ class Model:
         ``tokens``, or of ``embeds`` (B, S, d; the audio family's frames);
         encoder: the fp32 task output (B, n_classes), ``attn_mask`` (B, S)
         marking the keys to attend to.  With ``train=True`` ``(out, aux)`` as the
-        reference's trainer takes them (``aux``, the MoE balance loss, is 0
-        for these families)."""
+        reference's trainer takes them (``aux``: the moe layers' summed
+        load-balancing loss, 0 for the other families)."""
         if self.cfg.is_encoder:
             out = enc_lib.encoder_apply(params, self.cfg, tokens, attn_mask)
+            aux = torch.zeros((), dtype=torch.float32, device=out.device)
         else:
-            out = tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids,
-                                        embeds=embeds)
-        if not train:
-            return out
-        return out, torch.zeros((), dtype=torch.float32, device=out.device)
+            out, aux = tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids,
+                                             embeds=embeds)
+        return (out, aux) if train else out
 
     def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16,
                           per_lane: bool = False, paged: bool = False, block_size: int = 16,

@@ -1,4 +1,4 @@
-"""Decoder LM, dense and audio families (port of
+"""Decoder LM, dense, audio and moe families (port of
 ``repro/models/transformer.py``).
 
 The audio family (musicgen-medium) is the dense stack over EnCodec frame
@@ -6,6 +6,11 @@ embeddings: every forward takes ``embeds`` (B, S, d) in place of
 ``tokens``, cast to the model dtype, and its head scores the code
 vocabulary.  Given code tokens instead, it embeds them as the dense family
 does (the serving engine's path, as in the reference).
+
+The moe family (moonshot-v1-16b-a3b, mixtral-8x22b) is the same stack with
+``models/moe.py``'s routed experts in place of every layer's gated MLP
+(``groups["moe"]``); each call routes its own B·S rows, and the layers'
+load-balancing aux losses add up for the trainer.
 
 Parameters keep the reference's stacked layout: every per-layer leaf under
 ``params["groups"]`` has a leading ``(n_layers,)`` axis, adapters included
@@ -23,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter_api import adapted_matmul
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import normal, rms_norm, stacked_dense_init
 
 Tree = Any
@@ -38,8 +44,9 @@ def _tslice(tree: Tree, i: int) -> Tree:
     return tree[i]
 
 
-#: decoder families the port has: the same layer stack
-DECODER_FAMILIES = ("dense", "audio")
+#: decoder families the port has: the same layer stack (moe: routed experts
+#: in place of the MLP)
+DECODER_FAMILIES = ("dense", "audio", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -100,12 +107,15 @@ def init_decoder_params(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> D
         "ln1": ones(G, d),
         "ln2": ones(G, d),
         "attn": attn_lib.init_attn_params(gen, cfg, G, dtype),
-        "mlp": {
+    }
+    if cfg.is_moe:
+        groups["moe"] = moe_lib.init_moe_params(gen, cfg, G, dtype)
+    else:
+        groups["mlp"] = {
             "w_gate": stacked_dense_init(gen, G, d, cfg.d_ff, dtype),
             "w_up": stacked_dense_init(gen, G, d, cfg.d_ff, dtype),
             "w_down": stacked_dense_init(gen, G, cfg.d_ff, d, dtype, scale=down_scale),
-        },
-    }
+        }
     return {
         "embed": normal(gen, (V, d), 0.02, dtype),
         "final_norm": ones(d),
@@ -121,7 +131,10 @@ def init_decoder_params(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> D
 
 def _run_layers(params, cfg, x, positions, cache_layers, seg_ids=None, attend_blocks=None,
                 n_valid=None):
+    """The layer stack over ``x`` → ``(x, aux)``: ``aux`` sums the moe
+    layers' load-balancing losses (None for the other families)."""
     groups = params["groups"]
+    aux = None
     adapters = groups.get("adapters")
     for l in range(cfg.n_layers):
         p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, l)
@@ -134,8 +147,13 @@ def _run_layers(params, cfg, x, positions, cache_layers, seg_ids=None, attend_bl
             attend_blocks=attend_blocks, n_valid=n_valid,
         )
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + gated_mlp(p["mlp"], h, _adp_for(adp, "mlp", seg_ids))
-    return x
+        if cfg.is_moe:
+            y, a = moe_lib.moe_ffn(p["moe"], h, cfg)
+            aux = a if aux is None else aux + a
+        else:
+            y = gated_mlp(p["mlp"], h, _adp_for(adp, "mlp", seg_ids))
+        x = x + y
+    return x, aux
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -143,13 +161,16 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ params["unembed"].float()  # fp32 logits, as the reference
 
 
-def decoder_apply(params, cfg: ModelConfig, tokens=None, seg_ids=None,
-                  embeds=None) -> torch.Tensor:
+def decoder_apply(params, cfg: ModelConfig, tokens=None, seg_ids=None, embeds=None):
     """Full-sequence forward of ``tokens`` (B, S) or ``embeds`` (B, S, d) →
-    logits (B, S, V) in fp32."""
+    ``(logits (B, S, V) fp32, aux)``: ``aux`` the layers' summed moe
+    load-balancing loss, a float32 0 for the other families."""
     x = _embed_input(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    return _logits(params, cfg, _run_layers(params, cfg, x, positions, None, seg_ids))
+    x, aux = _run_layers(params, cfg, x, positions, None, seg_ids)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, cfg, x), aux
 
 
 def init_decode_state(
@@ -262,7 +283,7 @@ def decoder_prefill(params, cfg: ModelConfig, cache, tokens=None, seg_ids=None, 
     positions = torch.arange(S, device=x.device)
     if start is not None:
         positions = positions + int(start)
-    x = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids)
+    x, _ = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids)
     attn = cache["layers"]["attn"]
     if length is None:
         x_last = x[:, -1:]
@@ -287,7 +308,7 @@ def decoder_decode(params, cfg: ModelConfig, cache, token=None, seg_ids=None,
     x = _embed_input(params, cfg, token, embeds)
     pos = cache["pos"]
     positions = pos[None] if pos.ndim == 0 else pos[:, None]
-    x = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids, attend_blocks)
+    x, _ = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids, attend_blocks)
     cache["pos"] += 1
     cache["layers"]["attn"]["idx"] += 1
     return _logits(params, cfg, x)[:, 0], cache
@@ -311,6 +332,6 @@ def decoder_verify(params, cfg: ModelConfig, cache, tokens, seg_ids=None, n_vali
     x = params["embed"][tokens]
     W = x.shape[1]
     positions = cache["pos"][:, None] + torch.arange(W, device=x.device)[None, :]
-    x = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids, attend_blocks,
+    x, _ = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids, attend_blocks,
                     n_valid=n_valid)
     return _logits(params, cfg, x), cache

@@ -1,5 +1,10 @@
-"""Multi-tenant serving engine of the dense family (port of
-``repro/serving/engine.py``), paged and oracle-dense layouts.
+"""Multi-tenant serving engine of the dense, audio and moe decoders (port
+of ``repro/serving/engine.py``), paged and oracle-dense layouts.
+
+Every dispatch sends the reference's rows — a prefill's whole padded
+bucket, a decode step's every lane (idle ones too), a chunk's rows, a
+verify's ``lanes·(k+1)`` — so a moe layer's capacity, and with it which
+copies drop, is the JAX engine's.
 
 One decode loop serves many QR-LoRA tenants:
 

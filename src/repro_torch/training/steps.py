@@ -1,12 +1,16 @@
 """The PEFT-aware train step and the serving prefill/decode steps (port of
-``repro/training/steps.py`` for the dense and audio families).
+``repro/training/steps.py`` for the dense, audio and moe families).
 
 Parameters are partitioned into (trainable, frozen) by the model's mask:
 only the trainable leaves require grad (λ for QR-LoRA, a few thousand
 scalars; B and A for LoRA and SVD-LoRA; every weight for ft), while the
 frozen tree flows through as constants.  Gradient
 accumulation (``cfg.microbatches``) is a Python loop over microbatch slices
-whose fp32 gradients add up in each leaf's ``.grad``.
+whose fp32 gradients add up in each leaf's ``.grad``; each microbatch is
+its own forward, so a moe layer routes that microbatch's rows alone, as the
+reference's scan does.  The loss carries ``MOE_AUX_COEF`` times the moe
+layers' load-balancing aux (0 for the other families), and the metrics
+report ``aux``.
 
 A batch is ``{"tokens"}`` (B, S) for the dense family: each position
 predicts the next token.  The audio family trains on frame embeddings:
@@ -74,7 +78,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
         kw, tgt, w = _model_inputs(cfg, mb)
         logits, aux = model.apply(params, train=True, **kw)
         ce, zl = lm_loss(logits, tgt, w)
-        return ce + Z_LOSS_COEF * zl + MOE_AUX_COEF * aux, ce
+        return ce + Z_LOSS_COEF * zl + MOE_AUX_COEF * aux, ce, aux
 
     def train_step(state: Tree, batch: Dict[str, torch.Tensor]):
         """One optimizer step over ``batch`` (module docstring) → ``(new
@@ -83,18 +87,19 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
         k = cfg.microbatches
         for p in tree_leaves(trainable):
             p.grad = None
-        loss_sum = ce_sum = 0.0
+        loss_sum = ce_sum = aux_sum = 0.0
         mbs = {name: x.reshape(k, x.shape[0] // k, *x.shape[1:]) for name, x in batch.items()}
         for i in range(k):
-            loss, ce = loss_fn(trainable, frozen, {name: x[i] for name, x in mbs.items()})
+            loss, ce, aux = loss_fn(trainable, frozen, {name: x[i] for name, x in mbs.items()})
             loss.backward()  # each leaf's .grad sums the microbatches' gradients
             loss_sum, ce_sum = loss_sum + loss.detach(), ce_sum + ce.detach()
+            aux_sum = aux_sum + aux.detach()
         grads = tree_map(lambda p: (torch.zeros_like(p) if p.grad is None else p.grad) / k,
                          trainable)
         new_trainable, new_opt, om = adamw_update(grads, state["opt"], trainable, opt_cfg)
         new_trainable = tree_map(lambda p: p.requires_grad_(True), new_trainable)
         new_state = {"trainable": new_trainable, "frozen": frozen, "opt": new_opt}
-        return new_state, {"loss": loss_sum / k, "ce": ce_sum / k, **om}
+        return new_state, {"loss": loss_sum / k, "ce": ce_sum / k, "aux": aux_sum / k, **om}
 
     return train_step
 

@@ -1145,6 +1145,80 @@ def test_qrlora_matmul_kernel_at_the_musicgen_train_shape(gen):
     assert _close(y, qrlora_matmul_ref(*args, 0.7), "qrlora_matmul")
 
 
+# the moe family: #1 at moonshot-v1-16b-a3b's wq/wv (K = N = 2048, r 160; 4
+# decode lanes and a 64-row bucket) and mixtral-8x22b's (K 6144, N 6144 and
+# 1024, r 256); #2 at dh 128 (16 heads over 16; 48 over 8); #3 bf16 at a
+# moonshot train microbatch's 256 rows
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N,r", [(4, 2048, 2048, 160), (64, 2048, 2048, 160),
+                                     (4, 6144, 6144, 256), (4, 6144, 1024, 256)])
+def test_bgmv_kernel_at_moe_projection_shapes(gen, x_dtype, M, K, N, r):
+    x, W, B, A, lam, seg = _bgmv_operands(gen, x_dtype, M, K, N, r, n_slots=8)
+    y = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
+    again = qrlora_bgmv_cuda(x, W, B, A, lam, seg, scale=0.7)
+    torch.cuda.synchronize()
+    assert _close(y, qrlora_bgmv_ref(x, W, B, A, lam, seg, 0.7), "qrlora_bgmv")
+    assert torch.equal(y, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,KV", [(16, 16), (48, 8)])
+@pytest.mark.parametrize("lengths,cols", [((0, 1, 17, 63), 4), ((1, 16, 48, 127), 8)])
+def test_paged_kernel_at_moe_heads_dh128(gen, dtype, H, KV, lengths, cols):
+    q, kp, vp, tbl, lens = _paged_operands(gen, dtype, lengths, H=H, KV=KV, dh=128, mb=8)
+    t, lens = tbl[:, :cols], torch.clamp(lens, max=cols * 16)
+    o = paged_decode_attention_cuda(q, kp, vp, t, lens)
+    again = paged_decode_attention_cuda(q, kp, vp, t, lens)
+    torch.cuda.synchronize()
+    assert _paged_over(o, q, kp, vp, t, lens) <= 1
+    assert torch.equal(o, again)
+    for b, n in enumerate(lengths):
+        if n == 0:
+            assert (o[b] == 0).all()
+
+
+def test_qrlora_matmul_kernel_at_the_moonshot_train_shape(gen):
+    args = _matmul_inputs(gen, 256, 2048, 2048, 160, torch.bfloat16, rank=160)
+    y = qrlora_matmul_cuda(*args, scale=0.7)
+    torch.cuda.synchronize()
+    assert _close(y, qrlora_matmul_ref(*args, 0.7), "qrlora_matmul")
+
+
+def test_moe_dispatch_on_the_card_equals_the_cpus(gen):
+    """The routed FFN at 64 rows over 64 experts, top-6, C = 8 (copies
+    drop): float32 on the card gives every copy the CPU's slot, y within
+    1e-5·max(1, |y|), bitwise run to run; bf16 (the card's float32-output
+    batched matmul against the CPU's upcast) within two bf16 ulps of max|y|,
+    and its input gradient through the custom backward within the same."""
+    from repro_torch.models import moe
+
+    T, d, E, f, k, C = 64, 256, 64, 128, 6, 8
+    rnd = lambda *s, std=1.0: torch.randn(s, generator=gen, device="cuda") * std
+    x, wr = rnd(T, d), rnd(d, E, std=d**-0.5)
+    wg, wu, wd = rnd(E, d, f, std=d**-0.5), rnd(E, d, f, std=d**-0.5), rnd(E, f, d, std=f**-0.5)
+    cpu = [t.cpu() for t in (x, wr, wg, wu, wd)]
+    r, rc = moe.route(x, wr, k, C), moe.route(cpu[0], cpu[1], k, C)
+    assert torch.equal(r.copy_slot.cpu(), rc.copy_slot)
+    assert (rc.copy_slot == E * C).any()
+    y, aux = moe._local_moe(x, wr, wg, wu, wd, k=k, capacity=C)
+    y2, aux2 = moe._local_moe(x, wr, wg, wu, wd, k=k, capacity=C)
+    yc, auxc = moe._local_moe(*cpu, k=k, capacity=C)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    assert float((y.cpu() - yc).abs().max()) <= 1e-5 * max(1.0, float(yc.abs().max()))
+    assert abs(float(aux) - float(auxc)) <= 1e-6
+
+    def bf16_run(dev):
+        xb = x.to(dev).bfloat16().requires_grad_(True)
+        ws = [t.to(dev).bfloat16() for t in (wg, wu, wd)]
+        yb, _ = moe._local_moe(xb, wr.to(dev), *ws, k=k, capacity=C)
+        yb.float().square().sum().backward()
+        return yb.detach().float().cpu(), xb.grad.float().cpu()
+
+    (yb, gb), (ybc, gbc) = bf16_run("cuda"), bf16_run("cpu")
+    assert float((yb - ybc).abs().max()) <= 2 * 2.0**-8 * float(ybc.abs().max())
+    assert float((gb - gbc).abs().max()) <= 2 * 2.0**-8 * float(gbc.abs().max())
+
+
 def test_cold_tier_promote_and_spill_make_no_host_sync(gen):
     """A promotion that spills the least-recently-used tenant, and a batch
     promote and spill, run under sync debug mode "error" (rows staged

@@ -84,7 +84,7 @@ def test_names_resolve_as_the_reference_registry(name):
 
 def test_unknown_arch_is_refused():
     with pytest.raises(NotImplementedError, match="the port has"):
-        get_config("mixtral-8x22b")
+        get_config("xlstm-125m")
 
 
 @pytest.mark.parametrize("arch", QWEN)
