@@ -118,6 +118,21 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   two planted faults, and 4 float32 λ-only train steps on the last of
   those layers beside their plain twin and a planted fault (λ of the last
   layer's wq dropped), loss and λ held;
+* the vlm family: full-width, full-depth llama-3.2-vision-11b (40 layers
+  in 8 groups of 4 self layers and a gated cross layer, d 4096, 32 heads
+  over 8, d_ff 14336, vocab 128256, 1600 image rows of width 1280; ≈ 9.8 B
+  random bf16 weights from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last
+  4 self and the last 4 cross layers, timed; nonzero gates and one random
+  λ, both of which start at zero): 4 lanes with 4 distinct stub images
+  through ``repro_torch.launch.serve.generate`` (prompts of 32, 16 tokens;
+  launches counted), teacher-forced against the merged-weight plain path,
+  with three planted faults (the lanes' images permuted, a causal cross
+  mask, the cross wv adapter dropped); the same weights on an int8 base; a
+  profiled decode step; a float32 twin on the last 2 groups token for
+  token against the plain path, with the same faults; 4 λ-only train steps
+  with images in 4 microbatches beside their plain twin, in bf16 at full
+  depth (the loss held) and in float32 on the 2 groups (the loss and the
+  first step's λ gradients held, with a planted fault);
 * training: 10 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
   held against the same run with the plain version in place of the kernel;
@@ -141,7 +156,9 @@ heads over 24), the one-λ kernel at its train step's (1024 × 1536 × 1536,
 r 128, bf16); all three at moonshot-v1-16b-a3b's (K = N = 2048, r 160; 16
 heads over 16, dh 128; 256 × 2048 × 2048), and the BGMV and paged kernels
 at mixtral-8x22b's (K 6144, N 6144 and 1024, r 256; 48 heads over 8, dh
-128), whose 141 B parameters no single card holds.  The one-λ
+128), whose 141 B parameters no single card holds; the one-λ kernel and
+its quantized twin at llama-3.2-vision-11b's (K 4096, r 256: a 4-lane
+decode wq, a cross layer's wv over 6400 image rows, a 1024-row wq).  The one-λ
 kernel is also checked at the encoder's shapes (float32 x,
 M = 2048, 768 and a ragged 100, K = N = 768, r = 256 and 2), its backward
 with LoRA's dB and dA against autograd, and ``qr_pivoted`` at 768 × 768
@@ -1446,15 +1463,15 @@ def time_bgmv_rows(gen, N: int, base: str, M: int = 4):
     return res
 
 
-def time_matmul_quant(gen, M: int, N: int, base: str):
+def time_matmul_quant(gen, M: int, N: int, base: str, K: int = 576, r: int = 128):
     """The one-λ projection on a quantized base: M rows (a scoring forward's
-    sequence, or 2048), bf16 x, int8 or fp8 q."""
+    sequence, or 2048), bf16 x, int8 or fp8 q (smollm-135m's K and rank cap
+    unless given)."""
     import torch
     from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_quant_cuda
     from repro_torch.kernels.ref import qrlora_matmul_quant_ref
 
-    K, r = 576, 128
     x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.bfloat16, K, r, rank=r)
     q, ws = _quantized(W, base)
     lam16, ws16 = lam.bfloat16(), ws.bfloat16()
@@ -5849,6 +5866,490 @@ def check_moe(out: dict) -> None:
            f"{tf['fault_last_wq_lam_dropped']}")
 
 
+# ---------------------------------------------------------------------------
+# the vlm family: llama-3.2-vision-11b at full width and depth
+# ---------------------------------------------------------------------------
+
+VLM = "llama-3.2-vision-11b"
+VLM_LANES, VLM_PROMPT, VLM_GEN = 4, 32, 16
+# xa_gate and λ both start at zero, where the cross layers and the adapters
+# add nothing: the phase serves one random λ (N(0, 0.5²) on every adapted
+# wq/wv) and gates ±U[0.5, 1.5] (a numpy draw from the seed)
+VLM_LAM_SCALE = 0.5
+# the float32 twin: the last 2 of 8 groups (10 layers; the adapted self
+# layers are group 7's, the adapted cross layers groups 4-7's), ≈ 13 GB
+VLM_FP32_GROUPS = 2
+VLM_TRAIN_STEPS, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ = 4, 4, 256
+# bf16 serve vs the merged-weight plain path, teacher-forced, as a fraction
+# of a logits row's largest |logit|: 16·2^-9 = 8 bf16 rounding steps (2^-8)
+# of it, the other decoders' order (smollm 14, musicgen 14.8), fixed before
+# the first full-width run.  Read on an H100 at --seed 0: sound 13.2·2^-9;
+# planted faults: images permuted 40.7, causal cross mask 348; the cross wv
+# adapter dropped 13.8 — bf16 cannot separate it from the sound serve, so
+# the float32 twin holds it (0.051 against its 1e-3 bar)
+VLM_BF16_DRIFT = 16 * 2.0**-9
+# the same weights on an int8 base against its own merged (dequantized)
+# plain path: read 15.8·2^-9 at --seed 0; #4 itself is held against its
+# plain version at the vlm shapes
+VLM_INT8_DRIFT = 20 * 2.0**-9
+# #3 at the vlm path's new shapes (M, K, N, r): wq of a 4-lane decode step,
+# a cross layer's wv over 4 lanes' 1600 image rows, a 4 × 256-row train wq;
+# #4 (int8, fp8) at the first two
+VLM_MATMUL_SHAPES = ((4, 4096, 4096, 256), (6400, 4096, 1024, 256), (1024, 4096, 4096, 256))
+VLM_QUANT_SHAPES = VLM_MATMUL_SHAPES[:2]
+
+
+def vlm_inputs(seed: int, cfg, device):
+    """4 prompts of 32 tokens and 4 distinct stub images (standard normal
+    patch embeddings, 1600 × 1280, bf16 on ``device``), from ``seed``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 8000)
+    prompts = rng.integers(2, cfg.vocab_size, size=(VLM_LANES, VLM_PROMPT)).astype(np.int32)
+    img = rng.standard_normal((VLM_LANES, cfg.n_image_tokens, cfg.d_image), np.float32)
+    return prompts, torch.from_numpy(img).to(device, torch.bfloat16)
+
+
+def vlm_params(seed: int):
+    """Full-width, full-depth llama-3.2-vision-11b in bf16 from ``seed``:
+    the weights drawn on the card, then QR-LoRA on the 16 adapted 4096-wide
+    projections (wq and wv of the last 4 self and the last 4 cross layers;
+    timed apart), then the gates and one random λ set.  Returns (model,
+    params, readings)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(VLM)
+    model = build_model(cfg)
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(gen, with_adapters=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params = model.attach_adapters(gen, params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    G = cfg.n_layers // cfg.cross_attn_every
+    rng = np.random.default_rng(seed + 8100)
+    gates = rng.choice([-1.0, 1.0], G) * rng.uniform(0.5, 1.5, G)
+    params["groups"]["xattn"]["xa_gate"] = torch.tensor(gates, dtype=torch.float32, device=dev)
+    params = with_lam(params, lambda lam: torch.randn(
+        lam.shape, generator=gen, device=dev) * VLM_LAM_SCALE)
+    ranks = {f"{mod}/{proj}": leaf["ranks"].flatten().tolist()
+             for mod, projs in params["groups"]["adapters"].items() for proj, leaf in projs.items()}
+    return model, params, {"draw_s": t1 - t0, "qr_lora_s": t2 - t1,
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "gates": gates.tolist(), "ranks": ranks}
+
+
+def with_lam(params, fn):
+    """``params`` with every adapter's λ replaced by ``fn(λ)`` (new dicts
+    down to the adapters; every other leaf shared)."""
+    groups = dict(params["groups"])
+    groups["adapters"] = {mod: {proj: {**leaf, "lam": fn(leaf["lam"])}
+                                for proj, leaf in projs.items()}
+                          for mod, projs in groups["adapters"].items()}
+    return {**params, "groups": groups}
+
+
+def merged(params, cfg):
+    """The plain path's params: every adapter folded into its weight
+    (the engine's ``merge_tenant_params``, λ from the tree itself)."""
+    from repro_torch.serving import merge_tenant_params
+    from repro_torch.serving.lam_store import extract_lambda
+
+    return merge_tenant_params(params, cfg, extract_lambda(params))
+
+
+def causal_cross_mask(S: int, Sk: int, device):
+    """Planted fault: a causal mask in the cross layer (query s sees image
+    rows 0..s only)."""
+    import torch
+
+    k, q = torch.arange(Sk, device=device), torch.arange(S, device=device)
+    return (k[None, :] <= q[:, None])[None, None, None]
+
+
+def xattn_wv_adapter_dropped():
+    """Planted fault: the cross layers' wv adapter term left out (their
+    ``_project_qkv`` called without the wv adapter: the plain x·W)."""
+    from repro_torch.models import attention
+
+    sound = attention._project_qkv
+
+    def fwd(p, x, cfg, adp, kv_input=None):
+        if kv_input is not None and adp:
+            adp = {k: v for k, v in adp.items() if k != "wv"}
+        return sound(p, x, cfg, adp, kv_input)
+
+    return fwd
+
+
+def vlm_fault_runs(images):
+    """(name, the run's images, context) of the three planted faults."""
+    from repro_torch.models import attention
+
+    return (("images_permuted", images.roll(1, 0), contextlib.nullcontext),
+            ("causal_cross_mask", images,
+             lambda: swapped(attention, "_cross_mask", causal_cross_mask)),
+            ("xattn_wv_adapter_dropped", images,
+             lambda: swapped(attention, "_project_qkv", xattn_wv_adapter_dropped())))
+
+
+def teacher_forced(model, ref_params, prompts, run, images, drift: float) -> dict:
+    """The plain path (merged weights, one forward over each lane's prompt
+    and the run's own tokens, the true images) against a run's logits: at
+    every generated position |Δlogits| and the run's token's margin within
+    ``drift`` of the row's largest |logit|."""
+    import numpy as np
+    import torch
+
+    dev = run["logits"].device
+    toks = torch.from_numpy(run["tokens"]).to(dev)
+    seq = torch.cat([torch.from_numpy(prompts).to(dev), toks[:, :-1]], dim=1)
+    with torch.no_grad():
+        ref = model.apply(ref_params, seq, image_embeds=images)[:, prompts.shape[1] - 1:]
+    got = run["logits"]
+    bound = drift * ref.abs().amax(-1)
+    dlog = (got - ref).abs().amax(-1)
+    margin = ref.amax(-1) - torch.gather(ref, -1, toks.long()[..., None])[..., 0]
+    over = (dlog / bound).cpu().numpy()
+    m_over = (margin / bound).cpu().numpy()
+    finite = bool(torch.isfinite(got).all())
+    return {"max_abs_dlogits": float(dlog.max()), "max_dlogits_over_bound": float(over.max()),
+            "lane_dlogits_over_bound": over.max(1).tolist(),
+            "max_token_margin_over_bound": float(m_over.max()),
+            "argmax_agree": int((margin == 0).sum()), "finite": finite,
+            "ok": bool(finite and (over <= 1).all() and (m_over <= 1).all())}
+
+
+def free_running(run, ref) -> dict:
+    """A float32 run against its plain twin: tokens equal, logits within
+    ``FP32_LOGIT_TOL``."""
+    import numpy as np
+
+    same = bool(np.array_equal(run["tokens"], ref["tokens"]))
+    err = float((run["logits"] - ref["logits"]).abs().max())
+    return {"tokens_match": same, "max_abs_dlogits": err,
+            "ok": same and err < FP32_LOGIT_TOL}
+
+
+def profile_vlm_decode(model, params, prompts, images, steps: int = 3) -> dict:
+    """``steps`` decode steps after a prefill (weights and kernels warm)
+    under torch.profiler, the CUDA activity alone: wall time, device busy
+    and idle share of a step, device time by kernel."""
+    import torch
+    from repro_torch.models.transformer import torch_dtype
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    B, P = prompts.shape
+    cache = model.init_decode_state(B, P + steps + 1, torch_dtype(model.cfg.dtype))
+    with torch.no_grad():
+        logits, cache = make_prefill_step(model)(
+            params, cache, {"tokens": torch.from_numpy(prompts).to(model.device),
+                            "image_embeds": images})
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        decode = make_decode_step(model)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                tok, _, cache = decode(params, cache, {"token": tok, "image_embeds": images})
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    return {**_device_busy(prof, wall_us), "steps": steps}
+
+
+def vlm_kernel_checks(gen, details) -> dict:
+    """#3 bf16 at :data:`VLM_MATMUL_SHAPES` and float32 at the decode wq and
+    the cross wv; #4 int8 and fp8 at :data:`VLM_QUANT_SHAPES`: each against
+    its plain version, bitwise on a second call, every rank column live.
+    Returns the worst |Δ| of each."""
+    import torch
+
+    worst = {}
+    cases = [("qrlora_matmul", torch.bfloat16, s, None) for s in VLM_MATMUL_SHAPES]
+    cases += [("qrlora_matmul", torch.float32, s, None) for s in VLM_QUANT_SHAPES]
+    cases += [("qrlora_matmul_quant", torch.bfloat16, s, b) for b in ("int8", "fp8")
+              for s in VLM_QUANT_SHAPES]
+    for kind, dt, (M, K, N, r), base in cases:
+        row = _matmul_case(gen, kind, dt, M, K, N, r, base=base, rank=r)
+        details.append({**row, "arch": VLM})
+        _check(row["ok"], f"{kind} at {VLM} q={base} x={row['x']} M={M} K={K} N={N} r={r}: "
+                          f"max|Δ|={row['max_abs_err']:.3e} ({row['err_over_bound']:.3f} of the "
+                          f"bound), bitwise on a second call: {row['bitwise_repeat']}")
+        key = f"{kind}_{row['x']}" + (f"_{base}" if base else "")
+        worst[key] = max(worst.get(key, 0.0), row["max_abs_err"])
+    return worst
+
+
+def vlm_kernel_timings(gen) -> dict:
+    """#3 and #4 at the vlm shapes by CUDA-graph replay beside their plain
+    versions and cuBLAS's composition."""
+    out = {"qrlora_matmul_vlm_wq_decode": time_matmul(gen, 4096, M=4, K=4096, r=256),
+           "qrlora_matmul_vlm_xattn_wv": time_matmul(gen, 1024, M=6400, K=4096, r=256),
+           "qrlora_matmul_vlm_wq_train": time_matmul(gen, 4096, M=1024, K=4096, r=256)}
+    for base in ("int8", "fp8"):
+        out[f"qrlora_matmul_quant_vlm_wq_decode_{base}"] = time_matmul_quant(
+            gen, 4, 4096, base, K=4096, r=256)
+        out[f"qrlora_matmul_quant_vlm_xattn_wv_{base}"] = time_matmul_quant(
+            gen, 6400, 1024, base, K=4096, r=256)
+    return out
+
+
+def vlm_train(model, params, seed: int, runs) -> dict:
+    """λ-only steps from λ = 0 at batch 4 × seq 256, each row with its own
+    stub image, in the config's microbatches, through the train launcher's
+    functions: ``runs`` (name, context), the first the kernel's own run,
+    the others compared with it (``compare_trains``, and ``dlam0_rel``: the
+    first step's λ gradients, max |Δ| over the largest |dλ| of the kernel's
+    run); launches counted."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import train as tl
+    from repro_torch.training import init_train_state
+    from repro_torch.tree import tree_leaves
+
+    params = with_lam(params, torch.zeros_like)
+    out, done, grads = {}, {}, {}
+    for name, ctx in runs:
+        kernels.reset_launch_counts()
+        state = init_train_state(model, params=params)
+        step_fn = tl.make_step(model, TRAIN_LR, VLM_TRAIN_STEPS)
+        data = tl.batches(model.cfg, VLM_TRAIN_BATCH, VLM_TRAIN_SEQ, seed, model.device)
+        with ctx():
+            done[name] = tl.train(step_fn, state, data, VLM_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        out[f"launches_{name}"] = kernels.launch_counts()
+        # the first step left its summed microbatch gradients on the first
+        # state's leaves (every later step takes new ones); a λ the run
+        # never reached has none
+        grads[name] = [torch.zeros_like(p) if p.grad is None else p.grad
+                       for p in tree_leaves(state["trainable"])]
+    hist = done[runs[0][0]][1]
+    out["losses"] = [h["loss"] for h in hist]
+    out["step_ms"] = [h["ms"] for h in hist]
+    out.update(tl.summary(hist, VLM_TRAIN_BATCH * VLM_TRAIN_SEQ))
+    g0 = grads[runs[0][0]]
+    scale = max(float(g.abs().max()) for g in g0)
+    for name, _ in runs[1:]:
+        out[name] = compare_trains(done[runs[0][0]], done[name])
+        out[name]["dlam0_rel"] = max(_max_err(a, b) for a, b in zip(grads[name], g0)) / scale
+    out["n_layers"] = model.cfg.n_layers
+    out["microbatches"] = model.cfg.microbatches
+    return out
+
+
+def vlm_phase(seed: int) -> dict:
+    """llama-3.2-vision-11b at full width and depth (40 layers, d 4096, 32
+    heads over 8, d_ff 14336, vocab 128256, a gated cross layer every 5th
+    over 1600 image rows of width 1280; random bf16 weights from ``seed``,
+    QR-LoRA on wq/wv of the last 4 self and the last 4 cross layers, one
+    random λ, nonzero gates), one set of params for every sub-phase:
+    the serve through ``launch/serve.py``'s ``generate`` (4 lanes, 4
+    distinct images, prompts of 32, 16 new tokens; launches counted) held
+    teacher-forced against the merged-weight plain path, three planted
+    faults, an int8-base serve (#4), a profiled decode step, the float32
+    twin on the last 2 groups against the plain path (free-running, the
+    faults again), 4 bf16 train steps beside a plain twin, a float32 train
+    on the 2 groups beside its plain twin and a planted fault.  Returns
+    every reading."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.quantize import quantize_base_params
+    from repro_torch.kernels import qrlora_matmul as mm
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import attention, build_model
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        out["seconds"][name] = now - t0
+        t0 = now
+
+    model, params, out["init"] = vlm_params(seed)
+    cfg = model.cfg
+    out["n_params"] = sum(t.numel() for t in tree_leaves(params))
+    out["n_layers"] = cfg.n_layers
+    prompts, images = vlm_inputs(seed, cfg, model.device)
+    lap("init")
+    # -- the serve: full depth, bf16, launches counted --------------------------
+    generate(model, params, prompts[:, :8], images, 2)  # warm: the kernels loaded
+    kernels.reset_launch_counts()
+    run = generate(model, params, prompts, images, VLM_GEN, keep_logits=True)
+    launches = kernels.launch_counts()
+    ref_params = merged(params, cfg)
+    serve_out = {"prefill_s": run["prefill_s"], "decode_s": run["decode_s"],
+                 "tok_per_s": VLM_LANES * (VLM_GEN - 1) / run["decode_s"],
+                 "launches": launches, "tokens": run["tokens"].tolist(),
+                 "lanes_differ": len({tuple(t) for t in run["tokens"].tolist()}) == VLM_LANES,
+                 "check": teacher_forced(model, ref_params, prompts, run, images, VLM_BF16_DRIFT)}
+    faults = {}
+    for name, imgs, ctx in vlm_fault_runs(images):
+        with ctx():
+            bad = generate(model, params, prompts, imgs, VLM_GEN, keep_logits=True)
+        faults[name] = teacher_forced(model, ref_params, prompts, bad, images, VLM_BF16_DRIFT)
+    serve_out["planted_faults"] = faults
+    closed = {**params, "groups": {**params["groups"], "xattn": {
+        **params["groups"]["xattn"],
+        "xa_gate": torch.zeros_like(params["groups"]["xattn"]["xa_gate"])}}}
+    shut = generate(model, closed, prompts, images, 2, keep_logits=True)
+    serve_out["gates_closed_dlogits"] = float((shut["logits"][:, 0] - run["logits"][:, 0])
+                                              .abs().max())
+    del ref_params
+    out["serve"] = serve_out
+    lap("serve_bf16")
+    out["profile"] = profile_vlm_decode(model, params, prompts, images)
+    lap("profile")
+    # -- #4 on the path: the same weights on an int8 base ------------------------
+    q8 = quantize_base_params(params, "int8")
+    kernels.reset_launch_counts()
+    run8 = generate(model, q8, prompts, images, VLM_GEN, keep_logits=True)
+    out["serve_int8"] = {"launches": kernels.launch_counts(), "decode_s": run8["decode_s"],
+                         "check": teacher_forced(model, merged(q8, cfg), prompts, run8, images,
+                                                 VLM_INT8_DRIFT),
+                         "vs_bf16_dlogits": float((run8["logits"] - run["logits"]).abs().max())}
+    del q8, run8
+    lap("serve_int8")
+    # -- the bf16 train at full depth ---------------------------------------------
+    out["train"] = vlm_train(model, params, seed, (
+        ("kernel", contextlib.nullcontext),
+        ("plain_twin", lambda: swapped(mm, "qrlora_matmul", plain_forward))))
+    lap("train_bf16")
+    # -- the float32 twin on the last 2 groups ------------------------------------
+    host = last_layers_on_host(params, VLM_FP32_GROUPS)
+    del params, closed, run, shut
+    gc.collect()
+    torch.cuda.empty_cache()
+    p32 = tree_map(lambda t: t.to(model.device), host)
+    del host
+    cfg32 = get_config(VLM).replace(dtype="float32",
+                                    n_layers=VLM_FP32_GROUPS * cfg.cross_attn_every)
+    m32 = build_model(cfg32)
+    kernels.reset_launch_counts()
+    run32 = generate(m32, p32, prompts, images, VLM_GEN, keep_logits=True)
+    launches32 = kernels.launch_counts()
+    ref32 = generate(m32, merged(p32, cfg32), prompts, images, VLM_GEN, keep_logits=True)
+    twin = {"launches": launches32, "check": free_running(run32, ref32), "planted_faults": {}}
+    for name, imgs, ctx in vlm_fault_runs(images):
+        with ctx():
+            bad = generate(m32, p32, prompts, imgs, VLM_GEN, keep_logits=True)
+        twin["planted_faults"][name] = free_running(bad, ref32)
+    out["twin_fp32"] = twin
+    del run32, ref32
+    lap("twin_fp32")
+    out["train_fp32"] = vlm_train(m32, p32, seed, (
+        ("kernel", contextlib.nullcontext),
+        ("plain_twin", lambda: swapped(mm, "qrlora_matmul", plain_forward)),
+        ("fault_xattn_wv_adapter_dropped",
+         lambda: swapped(attention, "_project_qkv", xattn_wv_adapter_dropped()))))
+    del p32, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train_fp32")
+    return out
+
+
+def print_vlm(out: dict, smi: str) -> None:
+    i = out["init"]
+    print(f"{VLM}: {out['n_params']} parameters; drawn on the card in {i['draw_s']:.1f} s, "
+          f"QR-LoRA on the 16 adapted 4096-wide projections in {i['qr_lora_s']:.1f} s, peak "
+          f"{i['peak_gib']:.2f} GiB allocated; gates {[round(g, 3) for g in i['gates']]}; "
+          f"selected ranks {i['ranks']} on {smi}")
+    s = out["serve"]
+    print(f"{VLM} serve bf16 (launch/serve.py generate, {VLM_LANES} lanes × {VLM_PROMPT} + "
+          f"{VLM_GEN} tokens, 4 images): prefill {s['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{s['decode_s'] * 1e3:.1f} ms = {s['tok_per_s']:.1f} tok/s; launches {s['launches']}; "
+          f"lanes' streams differ {s['lanes_differ']}; gates closed move the first logits by "
+          f"{s['gates_closed_dlogits']:.3f}")
+    print(f"  vs the teacher-forced merged-weight plain path (bar {VLM_BF16_DRIFT / 2**-9:.1f}·2^-9 "
+          f"of a row's max): {s['check']}")
+    for name, row in s["planted_faults"].items():
+        print(f"  planted fault {name} (bf16): {row}")
+    print(f"  profiled decode steps: {out['profile']}")
+    q = out["serve_int8"]
+    print(f"{VLM} serve on an int8 base: launches {q['launches']}, decode {q['decode_s'] * 1e3:.1f} "
+          f"ms; vs its merged plain path (bar {VLM_INT8_DRIFT / 2**-9:.1f}·2^-9) {q['check']}; "
+          f"vs the bf16 serve max|Δlogits| "
+          f"{q['vs_bf16_dlogits']:.3f} (reported)")
+    t = out["twin_fp32"]
+    print(f"{VLM} float32 twin ({VLM_FP32_GROUPS} groups, {VLM_FP32_GROUPS * 5} layers): vs the "
+          f"merged-weight plain path {t['check']}; launches {t['launches']}")
+    for name, row in t["planted_faults"].items():
+        print(f"  planted fault {name} (float32): {row}")
+    for key, dtype in (("train", "bfloat16"), ("train_fp32", "float32")):
+        tr = out[key]
+        print(f"{VLM} train {dtype} ({tr['n_layers']} layers): {VLM_TRAIN_STEPS} steps at batch "
+              f"{VLM_TRAIN_BATCH} × seq {VLM_TRAIN_SEQ} with images in {tr['microbatches']} "
+              f"microbatches, median step {tr['median_step_ms']:.1f} ms, "
+              f"{tr['tokens_per_s']:.0f} train tokens/s, losses {tr['losses']}; launches "
+              f"{tr['launches_kernel']}; vs plain twin {tr['plain_twin']} (bound "
+              f"{TRAIN_TOL[dtype]})" + (f"; planted fault xattn wv adapter dropped "
+                                         f"{tr['fault_xattn_wv_adapter_dropped']}"
+                                         if dtype == "float32" else ""))
+    print(f"{VLM} phase seconds: { {k: round(v, 1) for k, v in out['seconds'].items()} }")
+
+
+def check_vlm(out: dict) -> None:
+    s = out["serve"]
+    forwards = VLM_GEN  # the prefill and 15 decode steps
+    want = 2 * out["n_layers"] * forwards  # wq and wv of every layer (self and cross), each forward
+    _check(s["launches"]["qrlora_matmul"] == want,
+           f"{VLM} serve: {s['launches']['qrlora_matmul']} qrlora_matmul launches, want {want}")
+    _check_no_bench_kernels(s["launches"], f"{VLM} serve")
+    _check(s["lanes_differ"] and s["gates_closed_dlogits"] > 0.05,
+           f"{VLM} serve: the lanes' streams are alike or the gates do not move the logits")
+    _check(s["check"]["ok"], f"{VLM} bf16 serve vs the teacher-forced plain path: {s['check']}")
+    t = out["twin_fp32"]
+    _check(t["check"]["ok"], f"{VLM} float32 twin vs the plain path: {t['check']}")
+    _check(t["launches"]["qrlora_matmul"] == 2 * VLM_FP32_GROUPS * 5 * forwards,
+           f"{VLM} float32 twin launches {t['launches']}")
+    for name in s["planted_faults"]:
+        bf16_caught = not s["planted_faults"][name]["ok"]
+        fp32_caught = not t["planted_faults"][name]["ok"]
+        _check(fp32_caught, f"{VLM}: the float32 twin let the planted fault {name} through")
+        if not bf16_caught:
+            print(f"  {VLM}: the bf16 check cannot separate {name}; the float32 twin holds it")
+    q = out["serve_int8"]
+    _check(q["launches"]["qrlora_matmul_quant"] == want and q["check"]["ok"],
+           f"{VLM} int8 serve: launches {q['launches']}; vs its merged plain path {q['check']}")
+    for key, dtype in (("train", "bfloat16"), ("train_fp32", "float32")):
+        tr = out[key]
+        matmuls = 2 * tr["n_layers"] * tr["microbatches"] * VLM_TRAIN_STEPS
+        zero = {name: 0 for name in tr["launches_kernel"]}
+        _check(tr["launches_kernel"] == {**zero, "qrlora_matmul": matmuls}
+               and tr["launches_plain_twin"] == zero,
+               f"{VLM} train {dtype}: launches {tr['launches_kernel']} (twin "
+               f"{tr['launches_plain_twin']}), want {matmuls} qrlora_matmul and no other kernel")
+        _check(all(math.isfinite(x) for x in tr["losses"]), f"{VLM} train {dtype}: a loss is not finite")
+        tw = tr["plain_twin"]
+        _check(tw["finite"] and tw["max_dloss"] <= TRAIN_TOL[dtype]["dloss"],
+               f"{VLM} train {dtype}: the loss disagrees with its plain-version twin: {tw}")
+    # after 4 steps λ is lr-sized, and Adam's sign-like updates turn the
+    # gradients' rounding into λ differences that grow with depth (bf16
+    # 0.38 of max|λ|; float32 2.2e-4 over 10 layers of d 4096, where moe's
+    # 2 layers read 2.7e-5): λ through #3's backward and the cross layers is
+    # held at the first step's gradients, |Δdλ| ≤ DLAM_RTOL of max|dλ| in
+    # float32, as the one-λ backward check holds them
+    tf = out["train_fp32"]
+    _check(tf["plain_twin"]["dlam0_rel"] <= DLAM_RTOL,
+           f"{VLM} float32 train: the first step's λ gradients disagree with the plain twin's: "
+           f"{tf['plain_twin']}")
+    _check(tf["fault_xattn_wv_adapter_dropped"]["dlam0_rel"] > DLAM_RTOL,
+           f"{VLM}: the float32 train check let the dropped xattn wv adapter through: "
+           f"{tf['fault_xattn_wv_adapter_dropped']}")
+
+
 def kernel_bench_phase():
     """The port's kernel bench on the card, in process, launches counted
     around it; its rows go into the report."""
@@ -6055,6 +6556,8 @@ def main(argv=None) -> None:
     timings["qrlora_matmul_musicgen_wq"] = time_matmul(gen, 1536, M=1024, K=1536)
     # moonshot-v1-16b-a3b's and mixtral-8x22b's shapes (dh 128)
     timings.update(moe_kernel_timings(gen))
+    # llama-3.2-vision-11b's shapes (K 4096, r 256; a cross layer's 6400 image rows)
+    timings.update(vlm_kernel_timings(gen))
     for B, S in ((8, 256), (1, 2048)):
         timings[f"flash_attention_B{B}_S{S}"] = time_flash(gen, B, S)
     timings["decode_attention"] = time_decode(gen)
@@ -6335,6 +6838,21 @@ def main(argv=None) -> None:
           f"depth, float32 at {MOE_FP32_LAYERS} layers token-identical), the bf16 train within "
           f"its twin's bar ({time.perf_counter() - t0:.1f} s)")
     mark("moe")
+    # -- the vlm family: llama-3.2-vision-11b at full width and depth ---------
+    t0 = time.perf_counter()
+    vlm_err = vlm_kernel_checks(gen, report["cases"])
+    print(f"qrlora_matmul (bf16 {VLM_MATMUL_SHAPES}, float32 {VLM_QUANT_SHAPES}) and "
+          f"qrlora_matmul_quant (int8, fp8 {VLM_QUANT_SHAPES}) at {VLM}'s shapes: {vlm_err}, "
+          f"within tolerance, bitwise on a second call")
+    vlm_out = vlm_phase(args.seed)
+    report["vlm"] = vlm_out
+    print_vlm(vlm_out, smi)
+    check_vlm(vlm_out)
+    print(f"{VLM} at full width and depth: the bf16 serve through launch/serve.py within the "
+          f"teacher-forced bar, the float32 twin token-identical to the plain path, every planted "
+          f"fault rejected, the bf16 and float32 trains within their twins' bars "
+          f"({time.perf_counter() - t0:.1f} s)")
+    mark("vlm")
     # -- the training path: full-width λ-only trains, launches counted -------
     want_launches = {name: 0 for name in kernels.KERNEL_WRAPPERS}
     report["train"] = {}
@@ -6484,6 +7002,16 @@ def main(argv=None) -> None:
          "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
          "src/repro/kernels/qrlora_matmul.py:161",
          moe_out["train"]["launches_kernel"]["qrlora_matmul"]),
+        # llama-3.2-vision-11b: the bf16 serve through launch/serve.py (#3 at
+        # K 4096, r 256; a cross layer's wv over 6400 image rows) and the
+        # same weights on an int8 base (#4)
+        ("qrlora_matmul_vlm", "qrlora_matmul_vlm_xattn_wv", vlm_err["qrlora_matmul_bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:161", vlm_out["serve"]["launches"]["qrlora_matmul"]),
+        ("qrlora_matmul_quant_vlm", "qrlora_matmul_quant_vlm_xattn_wv_int8",
+         vlm_err["qrlora_matmul_quant_bfloat16_int8"], "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:110",
+         vlm_out["serve_int8"]["launches"]["qrlora_matmul_quant"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

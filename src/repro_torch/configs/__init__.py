@@ -2,6 +2,7 @@
 ``get_reduced(name)`` (``-``, ``_`` and ``.`` alike in names, as the
 reference's registry resolves them)."""
 from repro_torch.configs import (
+    llama_3_2_vision_11b,
     mixtral_8x22b,
     moonshot_v1_16b_a3b,
     musicgen_medium,
@@ -22,6 +23,7 @@ ARCHS = {
     "musicgen-medium": musicgen_medium,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
     "mixtral-8x22b": mixtral_8x22b,
+    "llama-3.2-vision-11b": llama_3_2_vision_11b,
 }
 
 

@@ -1,7 +1,8 @@
 """Model and adapter configuration — the port's copy of
-``repro/configs/base.py``, cut to the fields the dense, audio and moe
+``repro/configs/base.py``, cut to the fields the dense, audio, moe and vlm
 decoders (serving, training, quantized bases; QKV bias and QK-norm; the
-experts) and the paper's RoBERTa-style encoder read.
+experts; the gated cross-attention layers) and the paper's RoBERTa-style
+encoder read.
 
 The dimensions of a published model are plain numbers, so the port keeps its
 own copy instead of importing the JAX package (see ``smollm_135m.py``).
@@ -58,7 +59,7 @@ class AdapterConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # "dense", "audio" or "moe" (decoders), or "encoder"
+    family: str  # "dense", "audio", "moe" or "vlm" (decoders), or "encoder"
     n_layers: int
     d_model: int
     n_heads: int
@@ -80,6 +81,12 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_every: int = 1
     capacity_factor: float = 1.25
+    # VLM: one gated cross-attention layer against the image rows every
+    # ``cross_attn_every`` layers (the last of each group); the stub vision
+    # frontend feeds ``n_image_tokens`` patch embeddings of width ``d_image``
+    cross_attn_every: int = 0
+    n_image_tokens: int = 0
+    d_image: int = 0
     # Encoder (the paper's RoBERTa-style model)
     is_encoder: bool = False
     n_classes: int = 0
@@ -109,6 +116,11 @@ class ModelConfig:
                 f"{self.name}: moe_every={self.moe_every} interleaves moe layers as the "
                 "hybrid family does, which is not ported yet (ROADMAP Queue 1 item 12b)"
             )
+        if self.cross_attn_every and self.n_layers % self.cross_attn_every:
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} is not a whole number of "
+                f"cross_attn_every={self.cross_attn_every} groups"
+            )
         if self.base_dtype not in BASE_DTYPES:
             raise ValueError(
                 f"{self.name}: base_dtype={self.base_dtype!r} not in {BASE_DTYPES}"
@@ -117,6 +129,35 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def group_size(self) -> int:
+        """Layers per group of the stacked layout: the vlm family's
+        ``cross_attn_every`` (P-1 self-attention layers and one cross
+        layer), 1 for the other decoders."""
+        return self.cross_attn_every or 1
+
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's analytic count (``repro/configs/base.py:197-242``)
+        for the families the port has: embedding and unembedding, every
+        layer's attention projections (a vlm cross layer's are the same
+        shapes as a self layer's, since the image rows are projected to d
+        first) and its gated FFN or experts.  Like the reference it leaves
+        out the RMS-norm scales, the vlm image projection (d_image × d) and
+        gates (one a group), and the routers' float32 leaves are counted
+        with the experts (d · E a layer)."""
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        dh, H, KV = self.d_head, self.n_heads, self.n_kv_heads
+        attn = d * H * dh + 2 * d * KV * dh + H * dh * d
+        dense_ffn = 3 * d * ff  # gated (gate, up, down)
+        total = V * d * 2 + self.n_layers * attn
+        if self.is_moe:
+            total += self.n_layers * (self.n_experts * dense_ffn + d * self.n_experts)
+            if active_only:
+                total -= self.n_layers * (self.n_experts - self.experts_per_token) * dense_ffn
+        elif ff:
+            total += self.n_layers * dense_ffn
+        return total
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -52,8 +52,9 @@ _QMAX = {"int8": 127.0, "fp8": 448.0}
 INT8_LOGIT_EPS = 0.15
 
 #: Modules whose projection weights may be quantized.  The reference also
-#: lists ``mamba``, ``xattn`` and ``moe``; they come with their families.
-_QUANTIZABLE_MODULES = ("attn", "mlp")
+#: lists ``mamba`` and ``moe``; they come with their families (the port's
+#: moe layers carry no adapter, so nothing of theirs is quantized).
+_QUANTIZABLE_MODULES = ("attn", "mlp", "xattn")
 
 
 def is_quantized(W: Any) -> bool:

@@ -7,12 +7,15 @@ trains), LoRA, SVD-LoRA (B and A train) or full fine-tuning (``--peft``).
     PYTHONPATH=src python -m repro_torch.launch.train --steps 30 --batch 8 --seq 256
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch musicgen-medium
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch moonshot-v1-16b-a3b
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch llama-3.2-vision-11b
 
 The third form trains full-width smollm-135m on the card (random weights
 from ``--seed``), where every adapted projection's forward runs the one-λ
 kernel.  ``--arch musicgen-medium`` trains the audio family on frame
 embeddings with code targets; a moe arch (``moonshot-v1-16b-a3b``,
-``mixtral-8x22b``) adds its experts' load-balancing aux to the loss.  It prints the trainable count, the loss every ``--log-every``
+``mixtral-8x22b``) adds its experts' load-balancing aux to the loss;
+``--arch llama-3.2-vision-11b`` trains the vlm family on token batches
+beside stub patch embeddings.  It prints the trainable count, the loss every ``--log-every``
 steps, the median step time and the train tokens/s.  The reference
 launcher's checkpointing and fault tolerance (``--ckpt-dir``) are not
 ported yet and raise here (ROADMAP Queue 1 item 15).
@@ -64,10 +67,16 @@ def batches(cfg: ModelConfig, batch: int, seq: int, seed: int,
             device) -> Iterator[Dict[str, torch.Tensor]]:
     """The synthetic LM stream's token batches; for the audio family the
     tokens are the code targets and the frames beside them are normal draws
-    (scale 0.1) from ``seed``, the stub EnCodec frontend's stand-in."""
+    (scale 0.1) from ``seed``, the stub EnCodec frontend's stand-in; for the
+    vlm family each row gets its own image, standard normal patch embeddings
+    (n_image_tokens × d_image) from ``seed``, the stub vision frontend's."""
     rng = np.random.default_rng(seed)
     for b in lm_batches(cfg.vocab_size, batch, seq, seed=seed):
         tokens = torch.from_numpy(b["tokens"][:, :seq]).to(device)
+        if cfg.family == "vlm":
+            img = rng.standard_normal((batch, cfg.n_image_tokens, cfg.d_image), np.float32)
+            yield {"tokens": tokens, "image_embeds": torch.from_numpy(img).to(device)}
+            continue
         if cfg.family != "audio":
             yield {"tokens": tokens}
             continue

@@ -9,7 +9,10 @@ decode attend goes through :func:`repro_torch.kernels.ops.
 paged_decode_attention` — the Hopper kernel for CUDA tensors.  The
 speculative verify's multi-row attend (:func:`_dense_verify`,
 :func:`_paged_verify`) is plain torch in both layouts, as in the reference,
-whose paged kernel is single-query.  The projections go through
+whose paged kernel is single-query.  The vlm family's cross-attention
+(``cross_kv``: keys and values from the projected image rows, no RoPE, no
+cache, every image row visible to every query) is plain torch too, as the
+reference leaves it to XLA.  The projections go through
 :func:`repro_torch.core.adapter_api.adapted_matmul`.
 
 Caches are written in place (the reference returns updated copies); the
@@ -34,10 +37,12 @@ from repro_torch.models.layers import apply_rope, rms_norm, stacked_dense_init
 _NEG = -1e30
 
 
-def init_attn_params(gen: torch.Generator, cfg: ModelConfig, n: int, dtype) -> Dict:
-    """Stacked projections; with ``qkv_bias`` zero biases ``bq``/``bk``/``bv``
-    and with ``qk_norm`` unit per-head norm scales ``q_norm``/``k_norm``, as
-    the reference initialises them."""
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig, n: int, dtype,
+                     cross: bool = False) -> Dict:
+    """Stacked projections; with ``qkv_bias`` zero biases ``bq``/``bk``/``bv``,
+    with ``qk_norm`` unit per-head norm scales ``q_norm``/``k_norm``, and for
+    a cross-attention stack (``cross``) the gate ``xa_gate`` (n,), float32
+    whatever ``dtype`` and zero, as the reference initialises them."""
     H, KV, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
     p = {
         "wq": stacked_dense_init(gen, n, d, H * dh, dtype),
@@ -53,19 +58,23 @@ def init_attn_params(gen: torch.Generator, cfg: ModelConfig, n: int, dtype) -> D
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((n, dh), dtype=dtype, device=dev)
         p["k_norm"] = torch.ones((n, dh), dtype=dtype, device=dev)
+    if cross:
+        p["xa_gate"] = torch.zeros((n,), dtype=torch.float32, device=dev)
     return p
 
 
-def _project_qkv(p, x, cfg: ModelConfig, adp):
-    """Project to q (B,S,H,dh) and k, v (B,S,KV,dh): the bias (plain add,
-    outside the adapted matmul) before the reshape, the per-head RMS norm
-    after it (RoPE comes later, in :func:`attention`)."""
+def _project_qkv(p, x, cfg: ModelConfig, adp, kv_input=None):
+    """Project to q (B,S,H,dh) and k, v (B,Skv,KV,dh): k and v from
+    ``kv_input`` (a cross layer's image rows) when given, else from x; the
+    bias (plain add, outside the adapted matmul) before the reshape, the
+    per-head RMS norm after it (RoPE comes later, in :func:`attention`)."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     B = x.shape[0]
     adp = adp or {}
+    kv_x = x if kv_input is None else kv_input
     q = adapted_matmul(x, p["wq"], adp.get("wq"))
-    k = adapted_matmul(x, p["wk"], adp.get("wk"))
-    v = adapted_matmul(x, p["wv"], adp.get("wv"))
+    k = adapted_matmul(kv_x, p["wk"], adp.get("wk"))
+    v = adapted_matmul(kv_x, p["wv"], adp.get("wv"))
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q, k, v = q.reshape(B, -1, H, dh), k.reshape(B, -1, KV, dh), v.reshape(B, -1, KV, dh)
@@ -96,6 +105,12 @@ def _causal_mask(S: int, device) -> torch.Tensor:
     return (pos[None, :] <= pos[:, None])[None, None, None]
 
 
+def _cross_mask(S: int, Sk: int, device) -> torch.Tensor:
+    """A cross layer's mask: every one of the ``Sk`` image rows is visible
+    to each of the ``S`` queries (the reference's ``jnp.ones``)."""
+    return torch.ones((1, 1, 1, S, Sk), dtype=torch.bool, device=device)
+
+
 def attention(
     p: Dict,
     x: torch.Tensor,
@@ -106,9 +121,12 @@ def attention(
     cache: Optional[Dict] = None,
     attend_blocks: Optional[int] = None,
     n_valid: Optional[torch.Tensor] = None,
+    cross_kv: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns the attention block's output (B,S,d).
 
+    * ``cross_kv`` (B,Sk,d)              — cross-attention: k and v from
+      these rows, no RoPE, no cache, no causal mask (:func:`_cross_mask`).
     * ``cache=None``                     — full causal pass, no cache.
     * dense cache (``k``/``v``/``idx``)  — lock-step prefill (S > 1) or
       decode (S == 1) at the scalar offset ``idx``; with per-lane offsets
@@ -127,7 +145,10 @@ def attention(
     H, dh = cfg.n_heads, cfg.d_head
     B, S = x.shape[:2]
     scale = dh**-0.5
-    q, k, v = _project_qkv(p, x, cfg, adp)
+    q, k, v = _project_qkv(p, x, cfg, adp, kv_input=cross_kv)
+    if cross_kv is not None:
+        out = _softmax_attend(q, k, v, _cross_mask(S, k.shape[1], x.device), scale)
+        return adapted_matmul(out.reshape(B, S, H * dh), p["wo"], (adp or {}).get("wo"))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None and "block_tbl" in cache:

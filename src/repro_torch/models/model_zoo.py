@@ -1,5 +1,5 @@
 """Public model API: :class:`Model` (port of ``repro/models/model_zoo.py``
-for the dense, audio and moe decoders and the RoBERTa-style encoder): init with adapters
+for the dense, audio, moe and vlm decoders and the RoBERTa-style encoder): init with adapters
 (QR-LoRA, LoRA, SVD-LoRA), forward (decoder logits, or ``(logits, aux)``
 for the trainer; encoder task outputs), prefill and decode over the paged,
 per-lane dense or lock-step dense cache, the trainable mask and the
@@ -22,6 +22,7 @@ _ADAPTER_MODULES = {
     "dense": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")},
     "audio": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")},
     "moe": {"attn": ("wq", "wk", "wv", "wo")},
+    "vlm": {"attn": ("wq", "wk", "wv", "wo"), "xattn": ("wq", "wk", "wv", "wo")},
     "encoder": {"attn": ("wq", "wk", "wv", "wo")},
 }
 
@@ -66,17 +67,23 @@ class Model:
         """Factors of the current weights (pivoted QR, LoRA drawn from
         ``gen``, or SVD) installed under ``groups["adapters"]``; on the
         svd_lora path with subtract-init the weights they came from are
-        replaced by the subtracted ones."""
+        replaced by the subtracted ones.  A stack with more than one lead
+        axis (the vlm self layers' (G, P-1)) is flattened first, so the layer
+        selection ("last4") counts its layers in stack order, each stack on
+        its own, and the factors take the lead axes back."""
         groups = dict(params["groups"])
         adapters = {}
         for mod, weights in self._adapter_targets().items():
             mod_params = dict(groups[mod])
+            lead = {w: mod_params[w].shape[:-2] for w in weights}
             sub, new_w = adapter_api.init_adapters(
-                gen, self.cfg, {w: mod_params[w] for w in weights})
+                gen, self.cfg,
+                {w: mod_params[w].reshape(-1, *mod_params[w].shape[-2:]) for w in weights})
             for w in weights:
-                mod_params[w] = new_w[w]
+                mod_params[w] = new_w[w].reshape(*lead[w], *new_w[w].shape[1:])
                 if w in sub:
-                    adapters.setdefault(mod, {})[w] = sub[w]
+                    adapters.setdefault(mod, {})[w] = {
+                        k: t.reshape(*lead[w], *t.shape[1:]) for k, t in sub[w].items()}
             groups[mod] = mod_params
         groups["adapters"] = adapters
         return {**params, "groups": groups}
@@ -85,9 +92,10 @@ class Model:
     # ``seg_ids`` (int32 (batch,)) selects a per-sequence adapter slot when
     # the params carry a packed multi-tenant λ table (see repro_torch.serving).
     def apply(self, params, tokens=None, seg_ids=None, train: bool = False, attn_mask=None,
-              embeds=None):
+              embeds=None, image_embeds=None):
         """Full-sequence forward.  Decoder: fp32 logits (B, S, V) of
-        ``tokens``, or of ``embeds`` (B, S, d; the audio family's frames);
+        ``tokens``, or of ``embeds`` (B, S, d; the audio family's frames),
+        with ``image_embeds`` (B, n_image_tokens, d_image) for vlm;
         encoder: the fp32 task output (B, n_classes), ``attn_mask`` (B, S)
         marking the keys to attend to.  With ``train=True`` ``(out, aux)`` as the
         reference's trainer takes them (``aux``: the moe layers' summed
@@ -97,7 +105,7 @@ class Model:
             aux = torch.zeros((), dtype=torch.float32, device=out.device)
         else:
             out, aux = tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids,
-                                             embeds=embeds)
+                                             embeds=embeds, image_embeds=image_embeds)
         return (out, aux) if train else out
 
     def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -120,17 +128,17 @@ class Model:
         return tfm_lib.commit_paged_prefill(self.cfg, cache, filled, lane, table_row, length)
 
     def prefill(self, params, cache, tokens=None, seg_ids=None, length=None, start=None,
-                embeds=None):
+                embeds=None, image_embeds=None):
         return tfm_lib.decoder_prefill(
             params, self.cfg, cache, tokens, seg_ids=seg_ids, length=length, start=start,
-            embeds=embeds,
+            embeds=embeds, image_embeds=image_embeds,
         )
 
     def decode_step(self, params, cache, token=None, seg_ids=None, attend_blocks=None,
-                    embeds=None):
+                    embeds=None, image_embeds=None):
         return tfm_lib.decoder_decode(
             params, self.cfg, cache, token, seg_ids=seg_ids, attend_blocks=attend_blocks,
-            embeds=embeds,
+            embeds=embeds, image_embeds=image_embeds,
         )
 
     def verify_step(self, params, cache, tokens, seg_ids=None, n_valid=None,

@@ -1,4 +1,4 @@
-"""Decoder LM, dense, audio and moe families (port of
+"""Decoder LM, dense, audio, moe and vlm families (port of
 ``repro/models/transformer.py``).
 
 The audio family (musicgen-medium) is the dense stack over EnCodec frame
@@ -11,6 +11,19 @@ The moe family (moonshot-v1-16b-a3b, mixtral-8x22b) is the same stack with
 ``models/moe.py``'s routed experts in place of every layer's gated MLP
 (``groups["moe"]``); each call routes its own B·S rows, and the layers'
 load-balancing aux losses add up for the trainer.
+
+The vlm family (llama-3.2-vision-11b) stacks its layers in groups of
+``P = cross_attn_every``: P-1 self-attention layers, then one gated
+cross-attention layer against the image rows, ``x + tanh(xa_gate)·out``
+(the tanh in float32, cast to x's dtype), each followed by its gated MLP.
+Its leaves carry two lead axes where the reference's scan carries them:
+``ln1``/``ln2`` (G, P, d), ``attn`` (G, P-1, …), ``xattn`` (G, …), ``mlp``
+(G, P, …), adapters alike; the dense cache is (G, P-1, batch, …).  The
+stub vision frontend's patch embeddings ``image_embeds`` (B, n_image_tokens,
+d_image) are cast to the model dtype and projected by ``img_proj``
+(d_image, d) in every forward, prefill and decode step, and every decode
+step projects the cross layers' K/V from them again, as the reference does.
+Only the self layers carry a KV cache, and it is dense (no paged layout).
 
 Parameters keep the reference's stacked layout: every per-layer leaf under
 ``params["groups"]`` has a leading ``(n_layers,)`` axis, adapters included
@@ -45,8 +58,12 @@ def _tslice(tree: Tree, i: int) -> Tree:
 
 
 #: decoder families the port has: the same layer stack (moe: routed experts
-#: in place of the MLP)
-DECODER_FAMILIES = ("dense", "audio", "moe")
+#: in place of the MLP; vlm: groups of self layers and a gated cross layer)
+DECODER_FAMILIES = ("dense", "audio", "moe", "vlm")
+
+#: families whose attention layers the paged KV cache holds (vlm is served
+#: through the lock-step dense cache only, as in the reference)
+PAGED_FAMILIES = ("dense", "audio", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -103,6 +120,8 @@ def init_decoder_params(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> D
     d, V, G = cfg.d_model, cfg.vocab_size, cfg.n_layers
     ones = lambda *s: torch.ones(s, dtype=dtype, device=gen.device)
     down_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+    if cfg.family == "vlm":
+        return _init_vlm_params(gen, cfg, dtype, ones, down_scale)
     groups = {
         "ln1": ones(G, d),
         "ln2": ones(G, d),
@@ -124,15 +143,93 @@ def init_decoder_params(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> D
     }
 
 
+def _lead(tree: Tree, *lead: int) -> Tree:
+    """Every leaf's flat leading axis split into ``lead``."""
+    if isinstance(tree, dict):
+        return {k: _lead(v, *lead) for k, v in tree.items()}
+    return tree.reshape(*lead, *tree.shape[1:])
+
+
+def _init_vlm_params(gen: torch.Generator, cfg: ModelConfig, dtype, ones, down_scale) -> Dict:
+    """The vlm tree (``repro/models/transformer.py:126-137``, ``:153-154``):
+    G groups of P-1 self layers and one cross layer, the MLP and norms of
+    all P, and the image projection ``img_proj`` (d_image, d)."""
+    d, V, P = cfg.d_model, cfg.vocab_size, cfg.cross_attn_every
+    G = cfg.n_layers // P
+    groups = {
+        "ln1": ones(G, P, d),
+        "ln2": ones(G, P, d),
+        "attn": _lead(attn_lib.init_attn_params(gen, cfg, G * (P - 1), dtype), G, P - 1),
+        "xattn": attn_lib.init_attn_params(gen, cfg, G, dtype, cross=True),
+        "mlp": _lead({
+            "w_gate": stacked_dense_init(gen, G * P, d, cfg.d_ff, dtype),
+            "w_up": stacked_dense_init(gen, G * P, d, cfg.d_ff, dtype),
+            "w_down": stacked_dense_init(gen, G * P, cfg.d_ff, d, dtype, scale=down_scale),
+        }, G, P),
+    }
+    return {
+        "embed": normal(gen, (V, d), 0.02, dtype),
+        "final_norm": ones(d),
+        "unembed": normal(gen, (d, V), d**-0.5, dtype),
+        "groups": groups,
+        "img_proj": stacked_dense_init(gen, 1, cfg.d_image, d, dtype)[0],
+    }
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
 
 
+def _image_rows(params, cfg: ModelConfig, x: torch.Tensor, image_embeds) -> Optional[torch.Tensor]:
+    """The cross layers' key/value input: ``image_embeds`` (B, n_image_tokens,
+    d_image) cast to x's dtype, times ``img_proj``, in x's dtype; None
+    outside the vlm family."""
+    if cfg.family != "vlm":
+        return None
+    if image_embeds is None:
+        raise ValueError(f"{cfg.name}: the vlm family needs image_embeds (B, "
+                         f"{cfg.n_image_tokens}, {cfg.d_image})")
+    return (image_embeds.to(x.dtype) @ params["img_proj"]).to(x.dtype)
+
+
+def _run_vlm_groups(params, cfg: ModelConfig, x, positions, cache_layers, img):
+    """The vlm group body (``repro/models/transformer.py:284-318``) over the
+    G groups: P-1 self layers (adapters ``attn`` at [g, i]), then the gated
+    cross layer (adapters ``xattn`` at [g]), each followed by its MLP (no
+    adapters, as the reference's vlm body passes none)."""
+    groups = params["groups"]
+    P = cfg.cross_attn_every
+    adapters = groups.get("adapters") or {}
+    for g in range(cfg.n_layers // P):
+        p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, g)
+        adp = _tslice(adapters, g) if adapters else None
+        self_adp = _adp_for(adp, "attn")
+        for i in range(P - 1):
+            h = rms_norm(x, p["ln1"][i], cfg.norm_eps)
+            x = x + attn_lib.attention(
+                _tslice(p["attn"], i), h, cfg, positions=positions,
+                adp=_tslice(self_adp, i) if self_adp else None,
+                cache=_tslice(_tslice(cache_layers["attn"], g), i) if cache_layers else None,
+            )
+            h = rms_norm(x, p["ln2"][i], cfg.norm_eps)
+            x = x + gated_mlp(_tslice(p["mlp"], i), h)
+        h = rms_norm(x, p["ln1"][P - 1], cfg.norm_eps)
+        out = attn_lib.attention(p["xattn"], h, cfg, positions=positions,
+                                 adp=_adp_for(adp, "xattn"), cross_kv=img)
+        x = x + torch.tanh(p["xattn"]["xa_gate"]).to(x.dtype) * out
+        h = rms_norm(x, p["ln2"][P - 1], cfg.norm_eps)
+        x = x + gated_mlp(_tslice(p["mlp"], P - 1), h)
+    return x, None
+
+
 def _run_layers(params, cfg, x, positions, cache_layers, seg_ids=None, attend_blocks=None,
-                n_valid=None):
+                n_valid=None, img=None):
     """The layer stack over ``x`` → ``(x, aux)``: ``aux`` sums the moe
-    layers' load-balancing losses (None for the other families)."""
+    layers' load-balancing losses (None for the other families).  ``img``:
+    the vlm family's projected image rows (:func:`_run_vlm_groups`)."""
+    if cfg.family == "vlm":
+        return _run_vlm_groups(params, cfg, x, positions, cache_layers, img)
     groups = params["groups"]
     aux = None
     adapters = groups.get("adapters")
@@ -161,13 +258,16 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x.float() @ params["unembed"].float()  # fp32 logits, as the reference
 
 
-def decoder_apply(params, cfg: ModelConfig, tokens=None, seg_ids=None, embeds=None):
+def decoder_apply(params, cfg: ModelConfig, tokens=None, seg_ids=None, embeds=None,
+                  image_embeds=None):
     """Full-sequence forward of ``tokens`` (B, S) or ``embeds`` (B, S, d) →
     ``(logits (B, S, V) fp32, aux)``: ``aux`` the layers' summed moe
-    load-balancing loss, a float32 0 for the other families."""
+    load-balancing loss, a float32 0 for the other families.  The vlm
+    family takes ``image_embeds`` (B, n_image_tokens, d_image)."""
     x = _embed_input(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _run_layers(params, cfg, x, positions, None, seg_ids)
+    x, aux = _run_layers(params, cfg, x, positions, None, seg_ids,
+                         img=_image_rows(params, cfg, x, image_embeds))
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, cfg, x), aux
@@ -189,18 +289,25 @@ def init_decode_state(
     ``(n_layers, n_blocks, block_size, KV, dh)`` and per-lane block tables
     ``(n_layers, batch, max_len / block_size)`` int32 in place of the dense
     region; block 0 is the reserved trash block (``serving/paging.py``).
+    The vlm family's dense cache holds its self layers only, under two lead
+    axes (G, P-1); it has no paged layout.
     """
     _check_family(cfg)
-    G, KV, dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+    KV, dh = cfg.n_kv_heads, cfg.d_head
     zeros = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
+    if paged and cfg.family not in PAGED_FAMILIES:
+        raise NotImplementedError(
+            f"paged KV cache: family {cfg.family!r} is served through the dense cache "
+            "only, as in the reference")
+    lead = _kv_lead(cfg)
     if not paged:
         lanes = (batch,) if per_lane else ()
         return {
             "pos": zeros(*lanes, dt=torch.int32),
             "layers": {"attn": {
-                "k": zeros(G, batch, max_len, KV, dh),
-                "v": zeros(G, batch, max_len, KV, dh),
-                "idx": zeros(G, *lanes, dt=torch.int32),
+                "k": zeros(*lead, batch, max_len, KV, dh),
+                "v": zeros(*lead, batch, max_len, KV, dh),
+                "idx": zeros(*lead, *lanes, dt=torch.int32),
             }},
         }
     if max_len % block_size:
@@ -211,20 +318,33 @@ def init_decode_state(
     return {
         "pos": zeros(batch, dt=torch.int32),
         "layers": {"attn": {
-            "k": zeros(G, n_blocks, block_size, KV, dh),
-            "v": zeros(G, n_blocks, block_size, KV, dh),
-            "block_tbl": zeros(G, batch, max_blocks, dt=torch.int32),
-            "idx": zeros(G, batch, dt=torch.int32),
+            "k": zeros(*lead, n_blocks, block_size, KV, dh),
+            "v": zeros(*lead, n_blocks, block_size, KV, dh),
+            "block_tbl": zeros(*lead, batch, max_blocks, dt=torch.int32),
+            "idx": zeros(*lead, batch, dt=torch.int32),
         }},
     }
 
 
+def _kv_lead(cfg: ModelConfig) -> tuple:
+    """Lead axes of the dense KV cache: (n_layers,), or the vlm family's
+    (G, P-1) self layers."""
+    if cfg.family == "vlm":
+        P = cfg.cross_attn_every
+        return (cfg.n_layers // P, P - 1)
+    return (cfg.n_layers,)
+
+
 def decode_state_lane_axes(cfg: ModelConfig, paged: bool = False) -> Dict:
     """LaneState protocol: the lane axis of each leaf of the per-lane cache
-    (``init_decode_state(..., per_lane=True, paged=paged)``)."""
+    (``init_decode_state(..., per_lane=True, paged=paged)``): after the
+    lead axes, one for most families, two (G, P-1) for vlm."""
     _check_family(cfg)
-    attn = attn_lib.paged_kv_lane_axes() if paged else attn_lib.kv_lane_axes(1)
-    return {"pos": 0, "layers": {"attn": attn}}
+    if paged:
+        if cfg.family not in PAGED_FAMILIES:
+            raise NotImplementedError(f"family {cfg.family!r} has no paged KV cache")
+        return {"pos": 0, "layers": {"attn": attn_lib.paged_kv_lane_axes()}}
+    return {"pos": 0, "layers": {"attn": attn_lib.kv_lane_axes(len(_kv_lead(cfg)))}}
 
 
 def paged_prefill_view(cfg: ModelConfig, cache, write_ids: torch.Tensor,
@@ -266,7 +386,7 @@ def commit_paged_prefill(cfg: ModelConfig, cache, filled, lane: int,
 
 
 def decoder_prefill(params, cfg: ModelConfig, cache, tokens=None, seg_ids=None, length=None,
-                    start=None, embeds=None):
+                    start=None, embeds=None, image_embeds=None):
     """Fill the cache with a prompt; returns (last-position logits (B,V),
     cache).  ``length`` (int (B,)) marks the true prompt length when
     ``tokens`` is right-padded to a bucket: logits come from row
@@ -277,13 +397,15 @@ def decoder_prefill(params, cfg: ModelConfig, cache, tokens=None, seg_ids=None, 
     ``start + arange(S)``, and the logits row is ``length - 1 - start``
     (clamped into the chunk: meaningful on the final chunk only).  The cache
     must then be a ``paged_prefill_view`` carrying ``read_ids``.  ``embeds``
-    (B, S, d) stands in for ``tokens`` (audio frames)."""
+    (B, S, d) stands in for ``tokens`` (audio frames); the vlm family takes
+    ``image_embeds``."""
     x = _embed_input(params, cfg, tokens, embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     if start is not None:
         positions = positions + int(start)
-    x, _ = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids)
+    x, _ = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids,
+                       img=_image_rows(params, cfg, x, image_embeds))
     attn = cache["layers"]["attn"]
     if length is None:
         x_last = x[:, -1:]
@@ -301,14 +423,16 @@ def decoder_prefill(params, cfg: ModelConfig, cache, tokens=None, seg_ids=None, 
 
 
 def decoder_decode(params, cfg: ModelConfig, cache, token=None, seg_ids=None,
-                   attend_blocks=None, embeds=None):
+                   attend_blocks=None, embeds=None, image_embeds=None):
     """One decode step; ``token`` (B, 1) int, or ``embeds`` (B, 1, d).
     ``attend_blocks`` bounds the paged attend to the table's first
-    that-many columns."""
+    that-many columns.  The vlm family takes ``image_embeds`` at every step
+    and projects them again, as the reference does."""
     x = _embed_input(params, cfg, token, embeds)
     pos = cache["pos"]
     positions = pos[None] if pos.ndim == 0 else pos[:, None]
-    x, _ = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids, attend_blocks)
+    x, _ = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids, attend_blocks,
+                       img=_image_rows(params, cfg, x, image_embeds))
     cache["pos"] += 1
     cache["layers"]["attn"]["idx"] += 1
     return _logits(params, cfg, x)[:, 0], cache

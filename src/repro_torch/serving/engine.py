@@ -184,6 +184,12 @@ class MultiTenantEngine:
         device=None,
     ):
         config = config or EngineConfig()
+        if cfg.is_encoder or cfg.family == "vlm":
+            raise NotImplementedError(
+                f"continuous batching needs a token decode path (family "
+                f"{cfg.family!r}: vlm lanes would need per-lane image "
+                "embeds, encoders don't decode)"
+            )
         if cfg.adapter.mode != "qr_lora":
             raise ValueError("multi-λ serving is defined for qr_lora adapters")
         # speculation rewinds rejected drafts, which only KV state allows

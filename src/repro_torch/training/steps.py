@@ -1,5 +1,5 @@
 """The PEFT-aware train step and the serving prefill/decode steps (port of
-``repro/training/steps.py`` for the dense, audio and moe families).
+``repro/training/steps.py`` for the dense, audio, moe and vlm families).
 
 Parameters are partitioned into (trainable, frozen) by the model's mask:
 only the trainable leaves require grad (λ for QR-LoRA, a few thousand
@@ -15,7 +15,10 @@ report ``aux``.
 A batch is ``{"tokens"}`` (B, S) for the dense family: each position
 predicts the next token.  The audio family trains on frame embeddings:
 ``{"embeds"}`` (B, S, d) with the code ``{"targets"}`` (B, S) given, every
-position weighted one.
+position weighted one.  The vlm family's batches carry the stub vision
+frontend's patch embeddings ``{"image_embeds"}`` (B, n_image_tokens,
+d_image) beside the tokens, in the loss and in every prefill and decode
+step, and a microbatch takes its rows' images.
 """
 from __future__ import annotations
 
@@ -55,7 +58,10 @@ def _model_inputs(cfg, batch: Dict[str, torch.Tensor]):
     tgt = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     w = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     w[:, -1] = 0.0
-    return {"tokens": tokens}, tgt, w
+    kw = {"tokens": tokens}
+    if cfg.family == "vlm":
+        kw["image_embeds"] = batch["image_embeds"]
+    return kw, tgt, w
 
 
 def init_train_state(model: Model, gen: Optional[torch.Generator] = None,
@@ -106,6 +112,8 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
 
 def _step_inputs(cfg, batch: Dict[str, torch.Tensor], token_key: str) -> Dict:
     kw = {"embeds": batch["embeds"]} if cfg.family == "audio" else {token_key: batch[token_key]}
+    if cfg.family == "vlm":
+        kw["image_embeds"] = batch["image_embeds"]
     if "seg_ids" in batch:  # multi-tenant λ-slot ids (repro_torch.serving)
         kw["seg_ids"] = batch["seg_ids"]
     return kw
@@ -114,7 +122,8 @@ def _step_inputs(cfg, batch: Dict[str, torch.Tensor], token_key: str) -> Dict:
 def make_prefill_step(model: Model):
     """``prefill_step(params, cache, batch)`` → (last-position logits,
     cache): ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S, d) for
-    the audio family, and optionally ``batch["seg_ids"]``."""
+    the audio family, ``batch["image_embeds"]`` for vlm, and optionally
+    ``batch["seg_ids"]``."""
     cfg = model.cfg
 
     def prefill_step(params, cache, batch):
@@ -126,8 +135,8 @@ def make_prefill_step(model: Model):
 def make_decode_step(model: Model):
     """``decode_step(params, cache, batch)`` → (greedy next token (B, 1)
     int32, logits (B, V), cache): ``batch["token"]`` (B, 1), or
-    ``batch["embeds"]`` (B, 1, d) for the audio family, and optionally
-    ``batch["seg_ids"]``."""
+    ``batch["embeds"]`` (B, 1, d) for the audio family, ``batch["image_embeds"]``
+    for vlm (every step), and optionally ``batch["seg_ids"]``."""
     cfg = model.cfg
 
     def decode_step(params, cache, batch):

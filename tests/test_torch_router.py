@@ -354,10 +354,11 @@ def test_router_trace_and_metrics():
 
 
 def test_multi_replica_bench_runs_at_the_smoke_scale(monkeypatch):
-    """Both replica counts serve the same tokens as one engine, two
-    replicas at ≥ 1.8× one (the bench's own bar), and the disaggregated
-    segment hands every request over without a prefill on the decode
-    replica (the bench asserts each; a failure exits 1)."""
+    """Both replica counts serve the same tokens as one engine, one replica
+    prefills ≥ 1.8× the prompt rows two do (the bench's own work bar; the
+    throughput ratio is a ``held=`` reading on the CPU), and the
+    disaggregated segment hands every request over without a prefill on the
+    decode replica (the bench asserts each; a failure exits 1)."""
     monkeypatch.setenv("REPRO_BENCH_SCALE", "smoke")
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
@@ -370,6 +371,11 @@ def test_multi_replica_bench_runs_at_the_smoke_scale(monkeypatch):
                      "multi_replica:scaling", "multi_replica:disaggregated"]
     r2 = next(row for row in common.rows() if row.startswith("multi_replica:throughput:r2"))
     assert "placement_hit=1.00" in r2
+    scaling = next(row for row in common.rows() if row.startswith("multi_replica:scaling"))
+    fields = dict(kv.split("=") for kv in scaling.split(",", 2)[2].split(";"))
+    r1_rows, r2_rows = int(fields["r1_prefill_rows"]), int(fields["r2_prefill_rows"])
+    assert r2_rows > 0 and r1_rows >= 1.8 * r2_rows, scaling
+    assert fields["held"] in ("True", "False") and float(fields["ratio"][:-1]) > 0, scaling
 
 
 @pytest.mark.parametrize("extra", [[], ["--disaggregate", "--share-prefix",
