@@ -26,9 +26,9 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   ``shard_ba``) float32 serves' weights, tenants and traffic, in a NCCL
   world of one, through the rows BGMV kernel — token-identical to the
   replicated serves, float32 logits bit for bit;
-* the serving posture: full-width qwen2-0.5b (24 layers, d 896, 14 heads
-  over 2, QKV bias, vocab 151936; random weights and biases from
-  ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers) under
+* the serving posture: full-width qwen2-0.5b cut to 6 of its 24 layers
+  (d 896, 14 heads over 2, QKV bias, vocab 151936; random weights and
+  biases from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers) under
   ``EngineConfig.serving()`` (prefix sharing, chunked prefill at 32 tokens a
   step, a watermark of one block), 4 tenants, 8 requests — six on a
   48-token system prefix, two of 160 and 220 tokens that stream in chunks
@@ -133,6 +133,22 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   with images in 4 microbatches beside their plain twin, in bf16 at full
   depth (the loss held) and in float32 on the 2 groups (the loss and the
   first step's λ gradients held, with a planted fault);
+* the recurrent families: full-width, full-depth xlstm-125m (12 layers of
+  alternating mLSTM and sLSTM blocks, d 768, 4 heads, vocab 50304; random
+  bf16 weights from ``--seed``, QR-LoRA on ``x_qkv`` of the last 4 blocks of
+  each kind) through the default engine (the dense layout: no KV cache), 4
+  tenants, prompts in buckets 32 and 64, 16 new tokens: float32 (the same
+  weights upcast) token for token against the merged-weight reference with
+  three planted faults (decode seg sent to slot 0, the mLSTM v adapter
+  dropped, the bucket padding left in the recurrent state), bf16
+  teacher-forced and profiled, a 2-lane ``quantum=3`` serve bitwise the
+  unsliced one; 4 λ-only train steps at batch 8 × seq 256 in bf16 beside a
+  plain twin and a float32 twin that holds the loss; one Mamba layer at
+  jamba-1.5-large-398b's width (d 8192, d_in 16384) in float32 and bf16, a
+  4-lane bucketed prefill and decode steps against the step recurrence;
+  reduced jamba (one group of 8 layers) through the engine in the dense
+  and paged layouts, float32, token for token against the merged-weight
+  reference and paged against dense;
 * training: 10 λ-only steps at batch 8 × seq 256 through
   ``repro_torch.launch.train``'s functions, in bfloat16 and float32, each
   held against the same run with the plain version in place of the kernel;
@@ -162,7 +178,13 @@ decode wq, a cross layer's wv over 6400 image rows, a 1024-row wq).  The one-λ
 kernel is also checked at the encoder's shapes (float32 x,
 M = 2048, 768 and a ragged 100, K = N = 768, r = 256 and 2), its backward
 with LoRA's dB and dA against autograd, and ``qr_pivoted`` at 768 × 768
-captured whole in one CUDA graph, replayed bitwise.
+captured whole in one CUDA graph, replayed bitwise.  The BGMV kernel is
+checked at xlstm-125m's x_qkv (K 1536 × N 4608 and K 768 × N 3072, r 160)
+and jamba-1.5-large's wq/wv (K 8192, N 8192 and 1024, r 256), the paged
+kernel at jamba's 64 heads over 8 (dh 128), the one-λ kernel at the xlstm
+train step's x_qkv, and both adapter kernels on the mLSTM v projection, a
+column slice read by row stride (bitwise the contiguous call; rows read N
+apart rejected).
 
 Planted faults check that each check rejects what it targets.  Without a
 CUDA card it exits non-zero before printing any result.
@@ -305,6 +327,18 @@ def _bgmv_inputs(gen, M, K, N, r, n_slots, x_dtype):
     if pad:
         seg[M - pad:] = 0
     return x, W, B, A, lam, seg
+
+
+def _strided(t, ld: int):
+    """``t`` (rows, N) as the last N columns of a (rows, ld) matrix whose
+    other columns hold 1e3 (a kernel that reads them is far off): the same
+    values, rows ld apart."""
+    import torch
+
+    rows, N = t.shape
+    wide = torch.full((rows, ld), 1e3, dtype=t.dtype, device=t.device)
+    wide[:, ld - N:] = t
+    return wide[:, ld - N:]
 
 
 def _replayed(fn):
@@ -1254,9 +1288,11 @@ def planted_factor_backward_fault(gen):
 # ---------------------------------------------------------------------------
 
 
-def time_bgmv(gen, N: int, M: int = 4, K: int = 576, r: int = 128):
+def time_bgmv(gen, N: int, M: int = 4, K: int = 576, r: int = 128, ld: int = 0):
     """wq (N=576) / wv (N=192) projection, bf16: 4 decode lanes, or a
-    prefill bucket of M rows (smollm-135m's K and rank cap unless given)."""
+    prefill bucket of M rows (smollm-135m's K and rank cap unless given);
+    with ``ld`` W and A are the last N columns of (·, ld) matrices (rows
+    read by stride, as the xLSTM v projection's)."""
     import torch
     from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
@@ -1264,6 +1300,8 @@ def time_bgmv(gen, N: int, M: int = 4, K: int = 576, r: int = 128):
 
     n_slots = 8
     x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, n_slots, torch.bfloat16)
+    if ld:
+        W, A = _strided(W, ld), _strided(A, ld)
     seg64 = seg.long()
     kernel = lambda: qrlora_bgmv_cuda(x, W, B, A, lam, seg)
     res = {"ms": graph_ms(kernel),
@@ -1274,7 +1312,8 @@ def time_bgmv(gen, N: int, M: int = 4, K: int = 576, r: int = 128):
     n_bytes = 2 * (M * K + K * N + K * r + r * N + M * N) + 4 * (n_slots * r + M)
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
-    res["shape"] = {"M": M, "K": K, "N": N, "r": r, "n_slots": n_slots, "dtype": "bfloat16"}
+    res["shape"] = {"M": M, "K": K, "N": N, "r": r, "n_slots": n_slots, "dtype": "bfloat16",
+                    "ld": ld or N}
     return res
 
 
@@ -1347,15 +1386,18 @@ def time_paged_long(gen, L: int = 1000, B: int = 4):
     return res
 
 
-def time_matmul(gen, N: int, M: int = 2048, K: int = 576, r: int = 128):
+def time_matmul(gen, N: int, M: int = 2048, K: int = 576, r: int = 128, ld: int = 0):
     """wq (N=576) / wv (N=192) projection of a training step: batch 8 ×
-    seq 256 = 2048 rows, bf16 (smollm-135m's K and rank cap unless given)."""
+    seq 256 = 2048 rows, bf16 (smollm-135m's K and rank cap unless given);
+    ``ld`` as :func:`time_bgmv`'s."""
     import torch
     from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
     from repro_torch.kernels.ref import qrlora_matmul_ref
 
     x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.bfloat16, K, r, rank=r)
+    if ld:
+        W, A = _strided(W, ld), _strided(A, ld)
     lam16 = lam.bfloat16()
     kernel = lambda: qrlora_matmul_cuda(x, W, B, A, lam)
     res = {"ms": graph_ms(kernel),
@@ -1366,7 +1408,7 @@ def time_matmul(gen, N: int, M: int = 2048, K: int = 576, r: int = 128):
     n_bytes = 2 * (M * K + K * N + K * r + r * N + M * N) + 4 * r
     n_ops = 2 * M * K * N + 2 * M * K * r + M * r + 2 * M * r * N
     res["bound_ms"], res["bound_by"] = _bound_ms(n_bytes, n_ops, "bfloat16")
-    res["shape"] = {"M": M, "K": K, "N": N, "r": r, "dtype": "bfloat16"}
+    res["shape"] = {"M": M, "K": K, "N": N, "r": r, "dtype": "bfloat16", "ld": ld or N}
     return res
 
 
@@ -1563,7 +1605,64 @@ def _union(spans):
     return out
 
 
-def _device_busy(prof, wall_us: float, api_calls: bool = False, skip=()):
+# names torch.profiler's own event list leaves out (its _filter_name)
+_UNLISTED_EVENTS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+    "aten::is_leaf", "aten::output_nr", "aten::_version"))
+
+
+def _profile_events(prof):
+    """The events of a finished torch.profiler run as (name, on the device,
+    start µs, end µs, self host µs) tuples, read straight from its kineto
+    results: the records and host self times ``prof.events()`` gives, without
+    building its per-event objects and call tree (minutes over a whole
+    script's profiles).  A host event's self time is its span less its
+    direct children's on the same thread, a CUDA runtime call counted on the
+    thread of the operator that made it; asynchronous and device events have
+    none, as in ``FunctionEvent.self_cpu_time_total``."""
+    from torch.autograd import DeviceType
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    rows, front, linked = [], {}, []
+    for k in res.events():
+        name = k.name()
+        if name in _UNLISTED_EVENTS or getattr(k, "is_hidden_event", lambda: False)():
+            continue
+        dev = k.device_type()
+        tid = k.start_thread_id()
+        is_async = k.is_async() or tid != k.end_thread_id()
+        row = [name, dev == DeviceType.CUDA, (k.start_ns() - t0) / 1000,
+               (k.end_ns() - t0) / 1000, tid, dev == DeviceType.CPU and not is_async]
+        rows.append(row)
+        corr = k.linked_correlation_id()
+        if corr > 0:
+            linked.append((corr, row))
+        elif row[5]:
+            front.setdefault(k.correlation_id(), row)
+    for corr, row in linked:
+        op = front.get(corr)
+        if op is not None:
+            row[4] = op[4]
+    child = [0.0] * len(rows)
+    nested = sorted((i for i, r in enumerate(rows) if r[5]),
+                    key=lambda i: (rows[i][4], rows[i][2], -rows[i][3]))
+    stack, thread = [], None
+    for i in nested:
+        _, _, a, b, tid, _ = rows[i]
+        if tid != thread:
+            stack, thread = [], tid
+        while stack and (a >= rows[stack[-1]][3] or b > rows[stack[-1]][3]):
+            stack.pop()
+        if stack:
+            child[stack[-1]] += b - a
+        stack.append(i)
+    return [(r[0], r[1], r[2], r[3], (r[3] - r[2] - child[i]) if r[5] else 0.0)
+            for i, r in enumerate(rows)]
+
+
+def _device_busy(prof, wall_us: float, api_calls: bool = False, skip=(), events=None):
     """Union of the device-kernel intervals of a torch.profiler run: busy
     time, idle share of ``wall_us``, kernel count, the top kernels by device
     time, the device time and share of busy of each of the port's own
@@ -1573,20 +1672,19 @@ def _device_busy(prof, wall_us: float, api_calls: bool = False, skip=()):
     (``cuda*`` and ``cu*``: launches, copies, syncs): the device work the
     run asked for, exactly (the device records themselves can drop a few).
     Device events named in ``skip`` (the device side of
-    ``record_function`` ranges) are not kernels and are left out."""
-    from torch.autograd import DeviceType
-
+    ``record_function`` ranges) are not kernels and are left out.
+    ``events``: :func:`_profile_events` of ``prof`` where the caller has
+    read them already."""
     spans, by_name, host = [], {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name in skip:
+    for name, on_device, a, b, self_us in events or _profile_events(prof):
+        if on_device and name in skip:
             continue
-        if e.device_type != DeviceType.CUDA:
-            t, n = host.get(e.name, (0.0, 0))
-            host[e.name] = (t + e.self_cpu_time_total, n + 1)
+        if not on_device:
+            t, n = host.get(name, (0.0, 0))
+            host[name] = (t + self_us, n + 1)
             continue
-        a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
-        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a)
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
     busy = sum(b - a for a, b in _union(spans))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     port = {}
@@ -2521,6 +2619,12 @@ def check_glue(glue: dict, want_launches: dict):
 # ---------------------------------------------------------------------------
 
 QWEN = "qwen2-0.5b"
+# its depth here: 6 of its 24 layers at the published widths (the 4 adapted
+# ones and 2 below them), a run-length cut that keeps the script's
+# qwen2-0.5b phases (posture, request API, dense layout, router, speculation,
+# cold tier: 418 s of 1,029 at 24 layers on an H100) well inside its time
+# limit (PERF.md §4)
+QWEN_LAYERS = 6
 # the posture's engine: block 16, watermark 1, chunks of 32 tokens a step
 QWEN_ENGINE = {"n_lanes": 4, "n_slots": 8, "max_len": 384, "collect_logits": True}
 # the oracle-dense layout's engine: 2 lanes, each a (384, 2, 64) K/V region
@@ -2630,6 +2734,13 @@ def qwen_traffic(seed: int, vocab: int):
     return [pfx[0], pfx[1], long[0], pfx[2], pfx[3], long[1], pfx[4], pfx[5]]
 
 
+def qwen_cfg(dtype: str):
+    """qwen2-0.5b's config at its widths, :data:`QWEN_LAYERS` deep."""
+    from repro_torch.configs import get_config
+
+    return get_config(QWEN).replace(dtype=dtype, n_layers=QWEN_LAYERS)
+
+
 def qwen_config(seed: int, dense: bool = False, **overrides):
     """The posture's ``EngineConfig.serving(**QWEN_ENGINE, **overrides)``,
     or with ``dense`` ``EngineConfig.oracle_dense(**DENSE_ENGINE,
@@ -2647,10 +2758,9 @@ def qwen_engine(dtype: str, seed: int, params=None, dense: bool = False, **overr
     ``seed`` (QR-LoRA built on the card), the QKV biases drawn too (the
     config's init leaves them zero).  Returns (cfg, engine, λ trees)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.serving import MultiTenantEngine, random_lambda
 
-    cfg = get_config(QWEN).replace(dtype=dtype)
+    cfg = qwen_cfg(dtype)
     engine = MultiTenantEngine(cfg, qwen_config(seed, dense, **overrides), params=params)
     gen = torch.Generator(device="cuda")
     if params is None:
@@ -2817,7 +2927,7 @@ def profile_qwen(engine, traffic) -> dict:
 
 
 def serving_posture_phase(seed: int, keep: dict = None) -> dict:
-    """qwen2-0.5b at full width (24 layers, d 896, 14 heads over 2, QKV
+    """qwen2-0.5b at full width (6 of 24 layers, d 896, 14 heads over 2, QKV
     bias, vocab 151936) under ``EngineConfig.serving()``, in float32 and
     bfloat16: the posture's serve (launches counted, one CoW fork forced),
     the same traffic unshared, monolithic, and both; float32 against the
@@ -3406,8 +3516,11 @@ DENSE_BGMV_SHAPES = [(M, 896, N, 160) for M in (1, 2, 10) for N in (896, 128)]
 # a spilled or failed-over stream against one engine's: bitwise where both
 # took the same path, else identical tokens and float32 |Δlogits| within the
 # chunked-prefill bar (another prefill path, or another attend bound of #2
-# where other lanes share the step, round differently); routed and
-# disaggregated streams are held bitwise
+# where other lanes share the step, round differently); disaggregated
+# streams are held bitwise, routed ones too unless the router spilled a
+# request: a spill leaves the tenant's prefix uncached on its primary, so a
+# later request of that tenant may take another prefill path there, and
+# such a stream is held as a spilled one
 ROUTE_FP32_TOL = QWEN_CHUNK_FP32_TOL
 
 
@@ -3446,6 +3559,14 @@ def bitwise_rows_ok(rows) -> bool:
     """A time-sliced, routed or disaggregated serve against the serve it
     must reproduce: bitwise."""
     return all(r["bitwise"] for r in rows)
+
+
+def routed_rows_ok(rows, spills: int) -> bool:
+    """A routed serve against one engine's (float32): bitwise, or, where the
+    router spilled (``spills`` requests), :func:`route_rows_ok` for the
+    streams that took another prefill path."""
+    return all(r["bitwise"] or (spills > 0 and not r["same_path"] and route_rows_ok([r]))
+               for r in rows)
 
 
 def route_rows_ok(rows) -> bool:
@@ -3749,6 +3870,8 @@ def router_phase(seed: int, params: dict) -> dict:
         kernels.reset_launch_counts()
         run = routed_serve(router, traffic)
         run["launches"] = kernels.launch_counts()
+        run["spills"] = sum(r.replica is not router.owner_of(router.digest(r.tenant))
+                            for r in run["routed"])
         rows = compare_streams(run, singles[layout])
         out[layout] = {"single": {k: v for k, v in singles[layout].items() if k != "done"},
                        "routed": _routed_readings(run), "rows": rows}
@@ -3808,8 +3931,9 @@ def print_router(out: dict, smi: str) -> None:
               f"{r['routed']['placement_hit_rate']:.3f}, transport {r['routed']['transport']}, "
               f"launches {r['routed']['launches']} on {smi}")
         rows = r["rows"]
-        print(f"  routed vs one engine ({layout}): bitwise {sum(x['bitwise'] for x in rows)}/"
-              f"{len(rows)} (same prefill path {sum(x['same_path'] for x in rows)}), parted "
+        print(f"  routed vs one engine ({layout}, {r['routed']['spills']} spilled): bitwise "
+              f"{sum(x['bitwise'] for x in rows)}/{len(rows)} (same prefill path "
+              f"{sum(x['same_path'] for x in rows)}), parted "
               f"{[x['parted_at'] for x in rows]}, max|Δlogits| "
               f"{max(x['max_abs_dlogits'] for x in rows):.3e}")
     o = out["paged"]["one_replica"]
@@ -3844,8 +3968,9 @@ def check_router(out: dict) -> None:
                f"{QWEN} routed {layout}: not every request got its tokens")
         _check(set(r["routed"]["replicas"].values()) != {0},
                f"{QWEN} routed {layout}: no replica decoded: {r['routed']['replicas']}")
-        _check(bitwise_rows_ok(r["rows"]),
-               f"{QWEN} routed {layout}: not bitwise one {layout} engine: {r['rows']}")
+        _check(routed_rows_ok(r["rows"], r["routed"]["spills"]),
+               f"{QWEN} routed {layout} ({r['routed']['spills']} spilled): not one {layout} "
+               f"engine's streams: {r['rows']}")
         _check(r["routed"]["launches"]["qrlora_bgmv"] > 0,
                f"{QWEN} routed {layout}: #1 never launched")
         _check_no_bench_kernels(r["routed"]["launches"], f"{QWEN} routed {layout}")
@@ -4118,7 +4243,6 @@ def profile_spec(engine, traffic) -> dict:
     and idle share over the serve, and each phase's host time and device
     busy time (kernel intervals inside its ranges)."""
     import torch
-    from torch.autograd import DeviceType
 
     def ranged(name, fn):
         def wrapped(*a, **kw):
@@ -4141,12 +4265,13 @@ def profile_spec(engine, traffic) -> dict:
         engine._dispatch_draft, engine._dispatch_verify = draft, verify
     ranges = {"spec_draft": [], "spec_verify": []}
     kernels_ = []
-    for e in prof.events():
-        if e.name in ranges:  # the range's host side; its device side is no kernel
-            if e.device_type != DeviceType.CUDA:
-                ranges[e.name].append((e.time_range.start, e.time_range.end))
-        elif e.device_type == DeviceType.CUDA:
-            kernels_.append((e.time_range.start, e.time_range.end))
+    events = _profile_events(prof)
+    for name, on_device, a, b, _ in events:
+        if name in ranges:  # the range's host side; its device side is no kernel
+            if not on_device:
+                ranges[name].append((a, b))
+        elif on_device:
+            kernels_.append((a, b))
     phases = {}
     for name, spans in ranges.items():
         busy = sum(b - a for a, b in _union([(max(a, s), min(b, t)) for s, t in spans
@@ -4155,7 +4280,8 @@ def profile_spec(engine, traffic) -> dict:
             "calls": len(spans), "host_ms": sum(t - s for s, t in spans) / 1e3,
             "device_busy_ms": busy / 1e3}
     del run["done"]
-    return {**_device_busy(prof, wall_us, skip=ranges), "phases": phases, "serve": run}
+    return {**_device_busy(prof, wall_us, skip=ranges, events=events), "phases": phases,
+            "serve": run}
 
 
 def speculative_phase(seed: int, params: dict) -> dict:
@@ -4559,7 +4685,6 @@ def cold_phase(seed: int, params: dict) -> dict:
     import tempfile
 
     import torch
-    from repro_torch.configs import get_config
 
     out = {"seconds": {}}
     t0 = time.perf_counter()
@@ -4573,7 +4698,7 @@ def cold_phase(seed: int, params: dict) -> dict:
     runs, res = {}, {}
     for dtype in ("float32", "bfloat16"):
         p = params[dtype]
-        cfg = get_config(QWEN).replace(dtype=dtype)
+        cfg = qwen_cfg(dtype)
         lams = cold_lams(seed, p)
         traffic = cold_traffic(seed, cfg.vocab_size)
         cuda = p["embed"].device.type == "cuda"
@@ -6350,6 +6475,635 @@ def check_vlm(out: dict) -> None:
            f"{tf['fault_xattn_wv_adapter_dropped']}")
 
 
+# ---------------------------------------------------------------------------
+# the recurrent families: xlstm-125m at full width, jamba's Mamba and attention
+# ---------------------------------------------------------------------------
+
+XLSTM = "xlstm-125m"
+JAMBA = "jamba-1.5-large-398b"
+XLSTM_GEN = 16
+# the 4 tenants' prompt lengths: buckets 32 and 64, none a bucket's own
+# length, so every prefill masks padding out of the recurrent state
+XLSTM_PROMPTS = (20, 45, 27, 38)
+XLSTM_QUANTUM = 3
+# bf16 serve vs the merged-weight reference (BF16_DRIFT's check), in units of
+# 2^-9 (bf16's half ulp) of a row's largest |logit|.  The two paths round
+# differently at every adapted x_qkv (W + BλA rounded to bf16 against the
+# kernel's fp32 sum) and the exponential gates and the sLSTM recurrence carry
+# each rounding along the prompt: an H100 at --seed 0 read 55.3·2^-9 for the
+# sound serve (smollm-135m's 30 layers: 12.1), so the bar sits 16% above it.
+# Its faults are the float32 serve's to reject (1e-3 bar; they read 0.77-6.2).
+XLSTM_BF16_DRIFT = 64 * 2.0**-9
+XLSTM_TRAIN_STEPS, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 4, 8, 256
+# the bf16 train's loss against its float32 twin's (the same weights upcast,
+# the kernel's float32 route), step by step: bf16 rounding of 12 layers'
+# activations moves a near-uniform cross-entropy (≈ 11.3) by 3.5e-3 on an
+# H100 at --seed 0
+XLSTM_TRAIN_FP32_DLOSS = 1e-2
+# #1 at xlstm-125m's adapted projections (M, K, N, r): the mLSTM x_qkv at 4
+# decode lanes and a 64-row bucket, the sLSTM x_qkv; #3 at the train step's
+XLSTM_BGMV_SHAPES = [(4, 1536, 4608, 160), (64, 1536, 4608, 160), (4, 768, 3072, 160)]
+XLSTM_MATMUL_SHAPE = (2048, 1536, 4608, 160)
+# the mLSTM v projection: x_qkv's last third, W and A read by row stride
+# (M, K, N, r, ld) for #1 and #3
+XLSTM_V_BGMV = [(4, 1536, 1536, 160, 4608), (64, 1536, 1536, 160, 4608)]
+XLSTM_V_MATMUL = [(2048, 1536, 1536, 160, 4608), (64, 1536, 1536, 160, 4608)]
+# jamba-1.5-large's attention at full width: wq and wv (K 8192, r 256) at 4
+# decode lanes; 64 query heads over 8, dh 128
+JAMBA_BGMV_SHAPES = [(4, 8192, 8192, 256), (4, 8192, 1024, 256)]
+JAMBA_PAGED_CASES = (((0, 1, 17, 63), 4), ((64, 0, 1, 33), 8), ((1, 16, 48, 127), 8))
+# one Mamba layer at jamba's width: a 4-lane prefill of a 64-row bucket
+# (true lengths below), then decode steps, against the step recurrence
+JAMBA_MAMBA_LENGTHS = (64, 40, 17, 1)
+JAMBA_MAMBA_DECODE = 3
+# |Δ| over the largest |reference| of the prefill's outputs and states and
+# the decode steps' outputs: the prefill's products run at 256 rows, the
+# steps' at 4 (cuBLAS picks other kernels), and the scan's float32 state
+# sums in another order; bf16 rounds every activation
+JAMBA_MAMBA_TOL = {"float32": 1e-4, "bfloat16": 2.0**-5}
+# reduced jamba through the engine in both layouts (float32): 6 requests on
+# 2 lanes over buckets 8 and 16 and a lane reused, block 8
+JAMBA_REDUCED_PROMPTS = (6, 9, 7, 13, 11, 5)
+JAMBA_REDUCED_GEN = 8
+
+
+def upcast(params):
+    """``params`` with every bf16 weight in float32 (the QR factors, bf16 in
+    every model dtype, and λ stay as they are): the float32 twin of a bf16
+    model on the same weights."""
+    import torch
+    from repro_torch.tree import tree_map
+
+    up = lambda t: t.float() if t.dtype == torch.bfloat16 else t
+    groups = {k: tree_map(up, v) for k, v in params["groups"].items() if k != "adapters"}
+    groups["adapters"] = params["groups"]["adapters"]
+    return {**{k: up(v) for k, v in params.items() if k != "groups"}, "groups": groups}
+
+
+def recurrent_serve(cfg, seed: int, prompts, gen_len: int, params=None, lams=None, **conf):
+    """One request a tenant (tenant i: a prompt of ``prompts[i]`` tokens
+    from ``seed``) through a MultiTenantEngine under the EngineConfig
+    fields ``conf``; the tenants' λ drawn from ``seed`` unless given.
+    Returns (engine, λ trees, finished requests, serve seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import EngineConfig, MultiTenantEngine, random_lambda
+
+    engine = MultiTenantEngine(cfg, EngineConfig(seed=seed, collect_logits=True, **conf),
+                               params=params)
+    if lams is None:
+        gen = torch.Generator(device="cuda")
+        lams = {f"tenant{i}": random_lambda(gen.manual_seed(seed + 1000 + i), engine.params, 0.3)
+                for i in range(len(prompts))}
+    for t, lam in lams.items():
+        engine.add_tenant(t, lam)
+    rng = np.random.default_rng(seed)
+    for t, n in zip(lams, prompts):
+        engine.submit(t, rng.integers(2, cfg.vocab_size, size=n), gen_len)
+    _sync(engine.device)
+    t0 = time.perf_counter()
+    done = engine.run()
+    _sync(engine.device)
+    return engine, lams, done, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def counting_strided(module, attr: str, counts: dict):
+    """Count the calls of ``module.attr`` (a kernel's dispatcher: on the
+    card one call, one launch) whose W is a column slice read by stride."""
+    real = getattr(module, attr)
+
+    def fn(x, W, *args, **kw):
+        if not W.is_contiguous():
+            counts[attr] = counts.get(attr, 0) + 1
+        return real(x, W, *args, **kw)
+
+    with swapped(module, attr, fn):
+        yield
+
+
+def v_adapter_dropped():
+    """Planted fault: the mLSTM v projection (x_qkv's last third, the one
+    strided W) served without its adapter."""
+    from repro_torch.models import xlstm
+
+    real = xlstm.adapted_matmul
+
+    def fn(x, W, adp, scale=1.0):
+        return real(x, W, None if not W.is_contiguous() else adp, scale)
+
+    return fn
+
+
+def padding_unmasked(mixer):
+    """Planted fault: a recurrent mixer that ignores the prefill's true
+    lengths, so the bucket's padding steps reach the state it leaves."""
+    def fn(p, x, cfg, state=None, adp=None, length=None):
+        return mixer(p, x, cfg, state=state, adp=adp, length=None)
+
+    return fn
+
+
+def profile_decode_step(engine, lams, prompts, gen_len: int) -> dict:
+    """One decode step of ``len(prompts)`` requests (one a tenant of
+    ``lams``, admitted by the steps before it) under torch.profiler, CUDA
+    activity alone: the kernels a decode step launches and its idle share;
+    the queue then drained."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    for t, n in zip(lams, prompts):
+        engine.submit(t, rng.integers(2, engine.cfg.vocab_size, size=n), gen_len)
+    while engine.scheduler.queue:
+        engine.step()
+    engine.step()  # warm: every lane decoding
+    _sync(engine.device)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        _sync(engine.device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    engine.run()
+    busy = _device_busy(prof, wall_us)
+    return {k: busy[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernels",
+                                 "port_kernels_ms")}
+
+
+def xlstm_faults(cfg, engine, lams, done) -> dict:
+    """tenant0's request (20 tokens in a 32-row bucket) served again under
+    three planted faults, each held to the float32 check (tokens equal to
+    the merged-weight reference, logits within FP32_LOGIT_TOL), which must
+    reject it."""
+    import numpy as np
+    from repro_torch.models import xlstm
+
+    req0 = next(r for r in done.values() if r.tenant == "tenant0")
+    lam0 = {"tenant0": lams["tenant0"]}
+
+    def serve_one(*ctxs):
+        with contextlib.ExitStack() as stack:
+            for c in ctxs:
+                stack.enter_context(c)
+            engine.submit("tenant0", req0.prompt, len(req0.tokens))
+            got = engine.run()
+        row = verify(cfg, engine, lam0, got, len(req0.tokens))[0]
+        row["ok"] = row["tokens_match"] and row["max_abs_dlogits"] < FP32_LOGIT_TOL
+        return row
+
+    rows = {}
+    engine.scheduler.batch_composition = lambda: np.zeros((engine.n_lanes,), np.int32)
+    try:
+        rows["decode_seg_to_slot0"] = serve_one()
+    finally:
+        del engine.scheduler.batch_composition
+    rows["v_adapter_dropped"] = serve_one(swapped(xlstm, "adapted_matmul", v_adapter_dropped()))
+    rows["padding_unmasked"] = serve_one(
+        swapped(xlstm, "mlstm_mixer", padding_unmasked(xlstm.mlstm_mixer)),
+        swapped(xlstm, "slstm_mixer", padding_unmasked(xlstm.slstm_mixer)))
+    return rows
+
+
+def xlstm_serves(seed: int, p16) -> dict:
+    """xlstm-125m at full width and depth through the default engine (the
+    dense layout, 4 lanes; 4 tenants, prompts of XLSTM_PROMPTS, 16 new
+    tokens): float32 (the bf16 weights upcast) against the merged-weight
+    reference, token for token, with three planted faults; bf16
+    teacher-forced, its #1 launches and strided (v) launches counted,
+    profiled; the same bf16 traffic on 2 lanes with quantum=3 against
+    quantum off, bitwise."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import qrlora_bgmv
+
+    out = {}
+    for dtype, params in (("float32", upcast(p16)), ("bfloat16", p16)):
+        cfg = get_config(XLSTM).replace(dtype=dtype)
+        counts = {}
+        kernels.reset_launch_counts()
+        with counting_strided(qrlora_bgmv, "qrlora_bgmv", counts):
+            engine, lams, done, t_serve = recurrent_serve(cfg, seed, XLSTM_PROMPTS, XLSTM_GEN,
+                                                          params=params)
+        res = {"serve_s": t_serve, "tokens": engine.decoded_tokens, "steps": engine.steps,
+               "tok_per_s": engine.decoded_tokens / t_serve, "launches": kernels.launch_counts(),
+               "v_launches": counts.get("qrlora_bgmv", 0), "layout": engine.layout,
+               "prefill_buckets": sorted(engine.prefill_buckets),
+               "state_bytes_per_lane": engine.kv_cache_bytes() / engine.n_lanes,
+               "all_served": len(done) == len(XLSTM_PROMPTS) and all(
+                   len(r.tokens) == XLSTM_GEN for r in done.values()),
+               "verify": verify(cfg, engine, lams, done, XLSTM_GEN, drift=XLSTM_BF16_DRIFT)}
+        if dtype == "float32":
+            res["planted_faults"] = xlstm_faults(cfg, engine, lams, done)
+        else:
+            res["verify_forced"] = verify_forced(cfg, engine, lams, done, drift=XLSTM_BF16_DRIFT)
+            prof = profile_serve(engine, seed + 1, n_tenants=len(XLSTM_PROMPTS),
+                                 gen_len=XLSTM_GEN, host_ops=False)
+            res["profile"] = prof
+            res["decode_step"] = profile_decode_step(engine, lams, XLSTM_PROMPTS, XLSTM_GEN)
+            sliced = {}
+            for q in (None, XLSTM_QUANTUM):
+                eng, _, d, t = recurrent_serve(cfg, seed, XLSTM_PROMPTS, XLSTM_GEN,
+                                               params=params, lams=lams, n_lanes=2, quantum=q)
+                sliced[q] = (eng.slice_preemptions, [d[u] for u in sorted(d)], t)
+                del eng
+            (n0, plain, _), (nq, cut, tq) = sliced[None], sliced[XLSTM_QUANTUM]
+            res["quantum"] = {
+                "quantum": XLSTM_QUANTUM, "lanes": 2, "slice_preemptions": nq,
+                "unsliced_preemptions": n0, "serve_s": tq,
+                "bitwise": all(a.tokens == b.tokens and all(
+                    (x == y).all() for x, y in zip(a.logits, b.logits)) for a, b in zip(plain, cut))}
+        out[dtype] = res
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_train(p16, seed: int) -> dict:
+    """λ-only steps from λ = 0 of full-width xlstm-125m at batch 8 × seq 256
+    through the train launcher's functions: bf16 through #3 (its strided v
+    calls counted), the bf16 plain twin, and the float32 twin on the same
+    weights upcast (the kernel's float32 route), which holds the loss."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import qrlora_matmul as mm
+    from repro_torch.launch import train as tl
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state
+
+    zero = lambda p: with_lam(p, torch.zeros_like)
+    runs = (("kernel", "bfloat16", p16, contextlib.nullcontext),
+            ("plain_twin", "bfloat16", p16, lambda: swapped(mm, "qrlora_matmul", plain_forward)),
+            ("fp32_twin", "float32", upcast(p16), contextlib.nullcontext))
+    out, done = {}, {}
+    for name, dtype, params, ctx in runs:
+        model = build_model(get_config(XLSTM).replace(dtype=dtype))
+        kernels.reset_launch_counts()
+        counts = {}
+        state = init_train_state(model, params=zero(params))
+        step_fn = tl.make_step(model, TRAIN_LR, XLSTM_TRAIN_STEPS)
+        data = tl.batches(model.cfg, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, seed, model.device)
+        with ctx(), counting_strided(mm, "qrlora_matmul", counts):
+            done[name] = tl.train(step_fn, state, data, XLSTM_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        out[f"launches_{name}"] = kernels.launch_counts()
+        out[f"v_calls_{name}"] = counts.get("qrlora_matmul", 0)
+    hist = done["kernel"][1]
+    out["losses"] = [h["loss"] for h in hist]
+    out["fp32_losses"] = [h["loss"] for h in done["fp32_twin"][1]]
+    out.update(tl.summary(hist, XLSTM_TRAIN_BATCH * XLSTM_TRAIN_SEQ))
+    out["twin"] = compare_trains(done["kernel"], done["plain_twin"])
+    out["fp32_twin"] = compare_trains(done["kernel"], done["fp32_twin"])
+    # x_qkv of every block carries factors (those outside "last4" rank 0),
+    # so a forward calls #3 three times a group: the mLSTM's q, k (with v)
+    # and its v third again (strided), the sLSTM's
+    out["groups"] = model.cfg.n_layers // model.cfg.group_size
+    out["matmuls_per_step"] = 3 * out["groups"]
+    return out
+
+
+def mamba_width_check(seed: int) -> dict:
+    """One Mamba layer at jamba-1.5-large's width (d 8192, d_in 16384, N 16,
+    dt rank 512, random weights from ``seed``) in float32 and bf16: a 4-lane
+    prefill of a 64-row bucket with true lengths JAMBA_MAMBA_LENGTHS, then
+    JAMBA_MAMBA_DECODE decode steps, against the step recurrence from
+    position 0 (the mixer's own decode step over each lane's valid tokens,
+    each lane's state kept at its length, then the same decode inputs).
+    Holds the valid prefill outputs, the conv carry and h the prefill
+    leaves, and the decode outputs, each as |Δ| over the largest
+    |reference|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+
+    out = {}
+    B, S = len(JAMBA_MAMBA_LENGTHS), max(JAMBA_MAMBA_LENGTHS)
+    rel = lambda a, b: _max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        cfg = get_config(JAMBA).replace(dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 8000)
+        dev = gen.device
+        p = {k: v[0] for k, v in mamba.init_mamba_params(gen, cfg, 1, dt).items()}
+        x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(dt)
+        xd = torch.randn((JAMBA_MAMBA_DECODE, B, 1, cfg.d_model), generator=gen,
+                         device=dev).to(dt)
+        length = torch.tensor(JAMBA_MAMBA_LENGTHS, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, pre = mamba.mamba_mixer(p, x, cfg, state=mamba.init_mamba_state(cfg, B, (), dt, dev),
+                                       length=length)
+            torch.cuda.synchronize()
+            t_prefill = time.perf_counter() - t0
+            st, dec = pre, []
+            for i in range(JAMBA_MAMBA_DECODE):
+                yd, st = mamba.mamba_mixer(p, xd[i], cfg, state=st)
+                dec.append(yd)
+            ref = mamba.init_mamba_state(cfg, B, (), dt, dev)
+            kept = {k: torch.empty_like(v) for k, v in ref.items()}
+            y_ref = []
+            for t in range(S):
+                yt, ref = mamba.mamba_mixer(p, x[:, t:t + 1], cfg, state=ref)
+                y_ref.append(yt)
+                for b, n in enumerate(JAMBA_MAMBA_LENGTHS):
+                    if t == n - 1:
+                        for k in kept:
+                            kept[k][b] = ref[k][b]
+            y_ref, st, dec_ref = torch.cat(y_ref, dim=1), kept, []
+            for i in range(JAMBA_MAMBA_DECODE):
+                yd, st = mamba.mamba_mixer(p, xd[i], cfg, state=st)
+                dec_ref.append(yd)
+        torch.cuda.synchronize()
+        valid = torch.arange(S, device=dev)[None, :] < length[:, None]
+        row = {"prefill_y": rel(y[valid], y_ref[valid]), "conv": rel(pre["conv"], kept["conv"]),
+               "h": rel(pre["h"], kept["h"]),
+               "decode_y": max(rel(a, b) for a, b in zip(dec, dec_ref)),
+               "prefill_s": t_prefill, "tol": JAMBA_MAMBA_TOL[dtype],
+               "finite": bool(torch.isfinite(y).all() and all(torch.isfinite(a).all()
+                                                             for a in dec))}
+        row["ok"] = row["finite"] and max(row[k] for k in ("prefill_y", "conv", "h",
+                                                           "decode_y")) <= row["tol"]
+        out[dtype] = row
+        del p, x, xd, y, pre, st, kept, ref, y_ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def jamba_reduced_serves(seed: int) -> dict:
+    """Reduced jamba-1.5-large-398b (8 layers in one group: attention at 4,
+    7 Mamba layers, 4 moe layers; d 64; float32) on the card through the
+    engine in the oracle-dense and the paged layout on the same weights,
+    tenants and traffic: each token for token against the merged-weight
+    reference (FP32_LOGIT_TOL), paged against dense (tokens equal, logits
+    within QWEN_CHUNK_FP32_TOL), the pool drained, launches counted."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_reduced
+
+    cfg = get_reduced(JAMBA).replace(dtype="float32")
+    conf = {"n_lanes": 2, "max_len": 64, "block_size": 8}
+    out, params, lams, runs = {}, None, None, {}
+    for layout in ("oracle_dense", "paged"):
+        kernels.reset_launch_counts()
+        engine, lams, done, t = recurrent_serve(cfg, seed, JAMBA_REDUCED_PROMPTS,
+                                                JAMBA_REDUCED_GEN, params=params, lams=lams,
+                                                layout=layout, **conf)
+        params = engine.params
+        runs[layout] = [done[u] for u in sorted(done)]
+        out[layout] = {"serve_s": t, "steps": engine.steps, "launches": kernels.launch_counts(),
+                       "verify": verify(cfg, engine, lams, done, JAMBA_REDUCED_GEN),
+                       "all_served": len(done) == len(JAMBA_REDUCED_PROMPTS)}
+        if engine.paged:
+            out[layout]["pool_drained"] = engine.allocator.n_free == engine.allocator.capacity
+            out[layout]["pool_peak"] = engine.allocator.peak_in_use
+        del engine
+    out["paged_vs_dense"] = {
+        "tokens_equal": all(a.tokens == b.tokens for a, b in zip(runs["oracle_dense"],
+                                                                   runs["paged"])),
+        "max_abs_dlogits": max(float(np.abs(np.stack(a.logits) - np.stack(b.logits)).max())
+                               for a, b in zip(runs["oracle_dense"], runs["paged"]))}
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_strided_kernels(gen, details) -> dict:
+    """#1 (bf16 and float32 x) and #3 (bf16 and float32) on W and A that are
+    the last third of wider matrices (XLSTM_V_BGMV, XLSTM_V_MATMUL: the mLSTM
+    v projection), against their plain versions, and bitwise the same
+    kernel on contiguous copies; a planted fault (W's rows read N apart, as
+    if it were contiguous) must fall outside the tolerance."""
+    import torch
+    from repro_torch.benchmarks.common import err_over_bound
+    from repro_torch.kernels.qrlora_bgmv import qrlora_bgmv_cuda
+    from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
+    from repro_torch.kernels.ref import qrlora_bgmv_ref, qrlora_matmul_ref
+
+    worst = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        cases = [("qrlora_bgmv", sh) for sh in XLSTM_V_BGMV] + [("qrlora_matmul", sh)
+                                                                for sh in XLSTM_V_MATMUL]
+        for kind, (M, K, N, r, ld) in cases:
+            if kind == "qrlora_bgmv":
+                x, W, B, A, lam, seg = _bgmv_inputs(gen, M, K, N, r, 8, dt)
+                kernel, plain = qrlora_bgmv_cuda, qrlora_bgmv_ref
+                rest = (lam, seg)
+            else:
+                x, W, B, A, lam = _matmul_inputs(gen, M, N, dt, K=K, r=r, rank=r)
+                kernel, plain = qrlora_matmul_cuda, qrlora_matmul_ref
+                rest = (lam,)
+            Ws, As = _strided(W, ld), _strided(A, ld)
+            y = kernel(x, Ws, B, As, *rest, scale=0.7)
+            y_contig = kernel(x, W, B, A, *rest, scale=0.7)
+            # planted fault: the slice's rows read N apart (its first row,
+            # then 1e3 fill where the second row should be)
+            W_bad = torch.as_strided(Ws, (K, N), (N, 1))
+            y_bad = kernel(x, W_bad, B, As, *rest, scale=0.7)
+            torch.cuda.synchronize()
+            ref = plain(x, W, B, A, *rest, scale=0.7)
+            tol = _tol(kind, dt)
+            err = _max_err(y, ref)
+            fault = err_over_bound(y_bad, ref, (*tol, 0.0))
+            ok = (_within(y, ref, tol) and bool(torch.isfinite(y).all())
+                  and torch.equal(y, y_contig) and fault > 1.0)
+            details.append({"kernel": kind, "arch": XLSTM, "x": name, "M": M, "K": K, "N": N,
+                            "r": r, "ld": ld, "max_abs_err": err, "bitwise_contiguous":
+                            torch.equal(y, y_contig), "fault_rows_n_apart_over_bound": fault,
+                            "ok": ok})
+            _check(ok, f"{kind} on a column slice ({name}, M={M} K={K} N={N} r={r} ld={ld}): "
+                       f"max|Δ|={err:.3e} over {tol}, not bitwise the contiguous call, or the "
+                       f"planted stride fault ({fault:.1f} of the bound) went through")
+            key = f"{kind}_{name}"
+            worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def recurrent_kernel_timings(gen) -> dict:
+    """#1, #2 and #3 at xlstm-125m's and jamba-1.5-large's shapes by
+    CUDA-graph replay beside their plain versions and cuBLAS's composition
+    (the v slices read by stride)."""
+    return {
+        "qrlora_bgmv_xlstm_qkv": time_bgmv(gen, 4608, 4, K=1536, r=160),
+        "qrlora_bgmv_xlstm_v": time_bgmv(gen, 1536, 4, K=1536, r=160, ld=4608),
+        "qrlora_bgmv_xlstm_slstm": time_bgmv(gen, 3072, 4, K=768, r=160),
+        "qrlora_bgmv_xlstm_qkv_M64": time_bgmv(gen, 4608, 64, K=1536, r=160),
+        "qrlora_matmul_xlstm_qkv": time_matmul(gen, 4608, M=2048, K=1536, r=160),
+        "qrlora_matmul_xlstm_v": time_matmul(gen, 1536, M=2048, K=1536, r=160, ld=4608),
+        "qrlora_bgmv_jamba_wq": time_bgmv(gen, 8192, 4, K=8192, r=256),
+        "qrlora_bgmv_jamba_wv": time_bgmv(gen, 1024, 4, K=8192, r=256),
+        "paged_decode_attention_jamba": time_paged(gen, (40, 33, 57, 21), H=64, KV=8, cols=4,
+                                                   max_blocks=8, dh=128),
+    }
+
+
+def recurrent_phase(seed: int, gen) -> dict:
+    """The recurrent families on the card: #1, #2 and #3 at xlstm-125m's and
+    jamba-1.5-large's full-width shapes (the v slices by stride included);
+    full-width, full-depth xlstm-125m (random bf16 weights from ``seed``,
+    QR-LoRA on x_qkv of the last 4 of each block kind) served in float32 and
+    bf16 with its planted faults and time-slicing (:func:`xlstm_serves`) and
+    trained (:func:`xlstm_train`); one Mamba layer at jamba's width
+    (:func:`mamba_width_check`); reduced jamba in both layouts
+    (:func:`jamba_reduced_serves`).  Returns every reading."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    out = {"seconds": {}, "cases": []}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        now = time.perf_counter()
+        out["seconds"][name] = now - t0
+        t0 = now
+
+    out["xlstm_kernels"] = check_shape_kernels(gen, out["cases"], XLSTM, XLSTM_BGMV_SHAPES,
+                                               (1, 1, 64), (), XLSTM_MATMUL_SHAPE)
+    out["jamba_kernels"] = check_shape_kernels(gen, out["cases"], JAMBA, JAMBA_BGMV_SHAPES,
+                                               (64, 8, 128), JAMBA_PAGED_CASES)
+    out["strided"] = check_strided_kernels(gen, out["cases"])
+    lap("kernel_checks")
+    out["timings"] = recurrent_kernel_timings(gen)
+    lap("timings")
+    model = build_model(get_config(XLSTM))
+    t1 = time.perf_counter()
+    p16 = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    out["xlstm_init_s"] = time.perf_counter() - t1
+    out["xlstm_params"] = sum(t.numel() for t in tree_leaves(p16))
+    lap("xlstm_init")
+    out["serve"] = xlstm_serves(seed, p16)
+    lap("xlstm_serve")
+    out["train"] = xlstm_train(p16, seed)
+    lap("xlstm_train")
+    del p16, model
+    torch.cuda.empty_cache()
+    out["mamba"] = mamba_width_check(seed)
+    lap("mamba")
+    out["jamba"] = jamba_reduced_serves(seed)
+    lap("jamba_reduced")
+    return out
+
+
+def print_recurrent(out: dict, smi: str) -> None:
+    print(f"qrlora_bgmv and qrlora_matmul at {XLSTM}'s shapes (BGMV {XLSTM_BGMV_SHAPES}; one-λ "
+          f"bf16 {XLSTM_MATMUL_SHAPE}): {out['xlstm_kernels']}; on the strided v slice (BGMV "
+          f"{XLSTM_V_BGMV}, one-λ {XLSTM_V_MATMUL}, (M, K, N, r, row stride)): {out['strided']}, "
+          f"bitwise the contiguous calls, rows read N apart rejected; #1 and #2 at {JAMBA}'s "
+          f"(BGMV {JAMBA_BGMV_SHAPES}; paged 64 heads over 8, dh 128): {out['jamba_kernels']}")
+    for name, t in out["timings"].items():
+        print(f"{name}: kernel {t['ms']:.5f} ms (eager call {t['eager_ms']:.5f} ms), plain "
+              f"{t['plain_ms']:.5f} ms, library {t['library_ms']} ms, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']}) at {t['shape']} on {smi}; timed by "
+              f"CUDA-graph replay")
+    print(f"{XLSTM}: {out['xlstm_params']} parameters, init {out['xlstm_init_s']:.1f} s")
+    for dtype in ("float32", "bfloat16"):
+        s = out["serve"][dtype]
+        print(f"{XLSTM} serve {dtype} ({s['layout']}, buckets {s['prefill_buckets']}): "
+              f"{s['tokens']} tokens in {s['serve_s']:.3f} s = {s['tok_per_s']:.1f} tok/s over "
+              f"{s['steps']} steps; launches {s['launches']} ({s['v_launches']} #1 on the strided "
+              f"v slice); decode state {s['state_bytes_per_lane']:.0f} B a lane on {smi}")
+        for row in s["verify"]:
+            print(f"  {dtype} free-running vs the merged-weight reference: {row}")
+        for row in s.get("verify_forced", ()):
+            print(f"  bf16 vs the teacher-forced merged-weight reference: {row}")
+    for name, row in out["serve"]["float32"]["planted_faults"].items():
+        print(f"  float32 planted fault {name}: {row}")
+    b = out["serve"]["bfloat16"]
+    sound = max(r["max_dlogits_over_bound"] for r in b["verify_forced"])
+    print(f"  bf16 drift reading (|Δlogits| over the bound {XLSTM_BF16_DRIFT / 2**-9:.1f}·2^-9 "
+          f"of each row's max): sound serve {sound:.4f}")
+    print(f"  profiled bf16 serve (4 prefills, {b['profile']['steps']} decode steps): "
+          f"{b['profile']}")
+    print(f"  one profiled bf16 decode step of 4 lanes: {b['decode_step']}")
+    print(f"  quantum={XLSTM_QUANTUM} on 2 lanes vs unsliced: {b['quantum']}")
+    t = out["train"]
+    print(f"{XLSTM} train bf16: {XLSTM_TRAIN_STEPS} steps at batch {XLSTM_TRAIN_BATCH} × seq "
+          f"{XLSTM_TRAIN_SEQ}, median step {t['median_step_ms']:.1f} ms, {t['tokens_per_s']:.0f} "
+          f"train tokens/s, losses {t['losses']} (float32 twin {t['fp32_losses']}); vs plain "
+          f"twin {t['twin']} (bound {TRAIN_TOL['bfloat16']}); vs float32 twin {t['fp32_twin']} "
+          f"(loss bound {XLSTM_TRAIN_FP32_DLOSS}); launches {t['launches_kernel']} "
+          f"({t['v_calls_kernel']} on the strided v slice)")
+    for dtype, row in out["mamba"].items():
+        print(f"{JAMBA} Mamba layer at full width, {dtype}: prefill of lengths "
+              f"{JAMBA_MAMBA_LENGTHS} + {JAMBA_MAMBA_DECODE} decode steps vs the step "
+              f"recurrence: {row}")
+    j = out["jamba"]
+    for layout in ("oracle_dense", "paged"):
+        print(f"{JAMBA} reduced, float32, {layout}: {j[layout]}")
+    print(f"  paged vs dense: {j['paged_vs_dense']}; phase seconds {out['seconds']}")
+
+
+def check_recurrent(out: dict) -> None:
+    for dtype in ("float32", "bfloat16"):
+        s = out["serve"][dtype]
+        _check(s["all_served"] and s["layout"] == "oracle_dense",
+               f"{XLSTM} serve {dtype}: not every tenant got its tokens, or layout {s['layout']}")
+        _check(s["launches"]["qrlora_bgmv"] > 0 and s["v_launches"] > 0,
+               f"{XLSTM} serve {dtype}: #1 never launched, or never on the v slice: "
+               f"{s['launches']}, {s['v_launches']}")
+        _check(s["launches"]["paged_decode_attention"] == 0,
+               f"{XLSTM} serve {dtype}: an attention kernel launched: {s['launches']}")
+        _check_no_bench_kernels(s["launches"], f"{XLSTM} serve {dtype}")
+        _check(len(s["prefill_buckets"]) == 2,
+               f"{XLSTM} serve {dtype}: prompts in buckets {s['prefill_buckets']}, want two")
+    f32 = out["serve"]["float32"]
+    _check(all(r["tokens_match"] and r["max_abs_dlogits"] < FP32_LOGIT_TOL for r in f32["verify"]),
+           f"{XLSTM} fp32 serve diverged from the merged-weight reference: {f32['verify']}")
+    for name, row in f32["planted_faults"].items():
+        _check(not row["ok"], f"{XLSTM}: the float32 check let the planted fault {name} "
+                              f"through: {row}")
+    b = out["serve"]["bfloat16"]
+    _check(all(r["ok"] for r in b["verify_forced"]),
+           f"{XLSTM} bf16 serve disagrees with the teacher-forced merged-weight reference: "
+           f"{b['verify_forced']}")
+    for r in b["verify"]:
+        _check(r["tokens_match"] or r["parting_margin"] <= r["parting_bound"],
+               f"{XLSTM} bf16 {r['tenant']} parts from the merged-weight reference where its "
+               f"lead is above the drift bound: {r}")
+    q = b["quantum"]
+    _check(q["slice_preemptions"] >= 1 and q["unsliced_preemptions"] == 0 and q["bitwise"],
+           f"{XLSTM} quantum={XLSTM_QUANTUM}: not bitwise the unsliced serve, or it never "
+           f"sliced: {q}")
+    t = out["train"]
+    want = {name: 0 for name in t["launches_plain_twin"]}
+    matmuls = t["matmuls_per_step"] * XLSTM_TRAIN_STEPS
+    _check(t["launches_kernel"] == {**want, "qrlora_matmul": matmuls}
+           and t["launches_plain_twin"] == want
+           and t["v_calls_kernel"] == t["groups"] * XLSTM_TRAIN_STEPS,
+           f"{XLSTM} train: launches {t['launches_kernel']} ({t['v_calls_kernel']} strided; twin "
+           f"{t['launches_plain_twin']}), want {matmuls} qrlora_matmul and no other kernel")
+    # after 4 warm-up steps λ is lr-sized and Adam's sign-like updates turn
+    # bf16 gradient noise into whole-λ differences (1.37 of max|λ| at --seed
+    # 0), so the bf16 twin holds the loss, as moe's and vlm's do
+    _check(t["twin"]["finite"] and t["twin"]["max_dloss"] <= TRAIN_TOL["bfloat16"]["dloss"],
+           f"{XLSTM} train: the loss disagrees with its plain-version twin: {t['twin']}")
+    _check(t["fp32_twin"]["finite"] and t["fp32_twin"]["max_dloss"] <= XLSTM_TRAIN_FP32_DLOSS,
+           f"{XLSTM} bf16 train's loss is off its float32 twin's: {t['fp32_twin']}")
+    for dtype, row in out["mamba"].items():
+        _check(row["ok"], f"{JAMBA} Mamba layer {dtype} disagrees with the step recurrence: "
+                          f"{row}")
+    j = out["jamba"]
+    for layout in ("oracle_dense", "paged"):
+        _check(j[layout]["all_served"] and all(
+            r["tokens_match"] and r["max_abs_dlogits"] < FP32_LOGIT_TOL
+            for r in j[layout]["verify"]),
+            f"{JAMBA} reduced {layout} diverged from the merged-weight reference: {j[layout]}")
+        _check_no_bench_kernels(j[layout]["launches"], f"{JAMBA} reduced {layout}")
+    p = j["paged"]
+    _check(p["pool_drained"] and p["launches"]["qrlora_bgmv"] > 0
+           and p["launches"]["paged_decode_attention"] > 0,
+           f"{JAMBA} reduced paged: the pool not drained, or #1/#2 never launched: {p}")
+    _check(j["paged_vs_dense"]["tokens_equal"]
+           and j["paged_vs_dense"]["max_abs_dlogits"] <= QWEN_CHUNK_FP32_TOL,
+           f"{JAMBA} reduced paged vs dense: {j['paged_vs_dense']}")
+
+
 def kernel_bench_phase():
     """The port's kernel bench on the card, in process, launches counted
     around it; its rows go into the report."""
@@ -6853,6 +7607,20 @@ def main(argv=None) -> None:
           f"fault rejected, the bf16 and float32 trains within their twins' bars "
           f"({time.perf_counter() - t0:.1f} s)")
     mark("vlm")
+    # -- the recurrent families: xlstm-125m at full width, jamba's parts ------
+    t0 = time.perf_counter()
+    rec = recurrent_phase(args.seed, gen)
+    report["recurrent"] = rec
+    report["cases"].extend(rec.pop("cases"))
+    timings.update(rec["timings"])
+    print_recurrent(rec, smi)
+    check_recurrent(rec)
+    print(f"{XLSTM} at full width and depth: the float32 serve token-identical to the "
+          f"merged-weight reference, every planted fault rejected, bf16 within the teacher-forced "
+          f"bar, quantum={XLSTM_QUANTUM} bitwise the unsliced serve, the bf16 train within its "
+          f"twins' bars; {JAMBA}'s Mamba layer at full width on the step recurrence's bar, the "
+          f"reduced hybrid token-identical in both layouts ({time.perf_counter() - t0:.1f} s)")
+    mark("recurrent")
     # -- the training path: full-width λ-only trains, launches counted -------
     want_launches = {name: 0 for name in kernels.KERNEL_WRAPPERS}
     report["train"] = {}
@@ -7012,6 +7780,33 @@ def main(argv=None) -> None:
          vlm_err["qrlora_matmul_quant_bfloat16_int8"], "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
          "src/repro/kernels/qrlora_matmul.py:110",
          vlm_out["serve_int8"]["launches"]["qrlora_matmul_quant"]),
+        # xlstm-125m: the bf16 serve (#1 at the mLSTM x_qkv, K 1536 × N 4608,
+        # r 160; its v third by row stride, the strided launches of the same
+        # serve) and the bf16 train (#3 at batch 8 × seq 256)
+        ("qrlora_bgmv_xlstm", "qrlora_bgmv_xlstm_qkv", rec["xlstm_kernels"]["qrlora_bgmv_bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:172",
+         rec["serve"]["bfloat16"]["launches"]["qrlora_bgmv"]),
+        ("qrlora_bgmv_xlstm_v_strided", "qrlora_bgmv_xlstm_v", rec["strided"]["qrlora_bgmv_bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:172",
+         rec["serve"]["bfloat16"]["v_launches"]),
+        ("qrlora_matmul_xlstm", "qrlora_matmul_xlstm_qkv",
+         rec["xlstm_kernels"]["qrlora_matmul_bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:161", rec["train"]["launches_kernel"]["qrlora_matmul"]),
+        ("qrlora_matmul_xlstm_v_strided", "qrlora_matmul_xlstm_v",
+         rec["strided"]["qrlora_matmul_bfloat16"], "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:161", rec["train"]["v_calls_kernel"]),
+        # jamba-1.5-large: #1 and #2 timed at its full-width shapes (wq K
+        # 8192 × N 8192, r 256; 64 heads over 8, dh 128); the launches are
+        # the reduced hybrid's paged serve, the path one card can run
+        ("qrlora_bgmv_jamba", "qrlora_bgmv_jamba_wq", rec["jamba_kernels"]["qrlora_bgmv_bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:172",
+         rec["jamba"]["paged"]["launches"]["qrlora_bgmv"]),
+        ("paged_decode_attention_jamba", "paged_decode_attention_jamba",
+         rec["jamba_kernels"]["paged_decode_attention_bfloat16"]["max_abs_err"],
+         "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:116",
+         rec["jamba"]["paged"]["launches"]["paged_decode_attention"]),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -44,11 +44,8 @@ MODULES = [
 ]
 
 #: sub-benches of the reference's serving bench that the port does not run
-#: yet, and what each needs
-NOT_PORTED = {
-    "serve_multitenant:recurrent_families":
-        "the xlstm and jamba families (ROADMAP Queue 1 item 12b)",
-}
+#: yet, and what each needs (none left)
+NOT_PORTED: dict = {}
 
 
 def main(argv=None) -> dict:

@@ -1,20 +1,20 @@
 """Multi-tenant serving benchmark (port of ``benchmarks/serve_multitenant.py``:
 the same row names and scales, timed on the port's engine and kernels).
 
-Ten of the reference's eleven sub-benches, in its order (:data:`BENCHES`):
+The reference's eleven sub-benches, in its order (:data:`BENCHES`):
 the hierarchical λ-store's adapter churn (register, promote and evict rates
 behind a small hot tier); the multi-λ BGMV against the one-λ matmul; shared-decode throughput at
-increasing tenant heterogeneity; chunked-prefill tail latency; speculative
+increasing tenant heterogeneity; the recurrent families' decode path (an
+xlstm batch, a jamba hybrid batch); chunked-prefill tail latency; speculative
 decoding at draft depth k ∈ {0, 2, 4}; telemetry on against off; the
 device time of one paged decode step's parts (the K/V gather, the paged
 attend, the λ-BGMV on a float and an int8 base); the paged-against-dense
-KV footprint; copy-on-write prefix sharing; and the quantized base.  The
-eleventh needs the recurrent families (``benchmarks/run.py``'s
-``NOT_PORTED``).
+KV footprint; copy-on-write prefix sharing; and the quantized base.
 
 ``REPRO_BENCH_SCALE=paper`` takes the full configs and the reference's
 paper shapes; any other scale the reduced configs and its small shapes, as
-the reference does.  Engine timings are host wall clock around work that
+the reference does.  The one exception: jamba-1.5-large-398b's full config
+needs four cards, so its paper-scale case raises (ROADMAP item 14c).  Engine timings are host wall clock around work that
 ends in a host sync (the engine reads every step's logits), a
 ``torch.cuda.synchronize`` included on a card; kernel timings are device
 times on a card (CUDA-graph replay, :func:`common.graph_ms`).  On the CPU
@@ -199,6 +199,33 @@ def bench_engine_throughput(device):
         emit(f"serve_multitenant:engine:tenants={n_tenants}", dt / max(eng.steps, 1) * 1e6,
              f"tok_s={eng.decoded_tokens / dt:.0f};lanes={lanes};"
              f"bytes_per_tenant={eng.lam_store.bytes_per_tenant()}")
+
+
+def bench_recurrent_families(device):
+    """LaneState serving throughput of the families without (or beside) a
+    KV cache: an xlstm batch (recurrent lanes only, O(1) state a lane) and a
+    jamba hybrid batch (paged attention KV beside dense Mamba state, one
+    ``step()``).  ``state_bytes`` is the whole decode cache.  At the paper
+    scale xlstm-125m runs at its full config; jamba-1.5-large-398b's needs
+    four cards and raises."""
+    cases = (
+        ("xlstm-125m", "ssm", {}),
+        ("jamba-1.5-large-398b", "hybrid", dict(layout="paged", block_size=8)),
+    )
+    lanes, gen, prompt_len, max_len = (8, 32, 32, 128) if _paper() else (4, 8, 9, 32)
+    for arch, fam, kw in cases:
+        if _paper() and fam == "hybrid":
+            raise NotImplementedError(
+                f"{arch} at its full config holds ≈ 87 GB of bf16 weights a group of 8 "
+                "layers, more than one card: its serve needs four (ROADMAP Queue 1 item 14c)")
+        eng, dt = _drive_engine(device, arch, n_tenants=lanes, lanes=lanes,
+                                prompt_len=prompt_len, gen=gen, max_len=max_len, **kw)
+        extra = ""
+        if eng.paged:
+            extra = f";pool_peak={eng.allocator.peak_in_use}/{eng.allocator.capacity}"
+        emit(f"serve_multitenant:engine:family={fam}", dt / max(eng.steps, 1) * 1e6,
+             f"tok_s={eng.decoded_tokens / dt:.0f};lanes={lanes};"
+             f"state_bytes={eng.kv_cache_bytes()}{extra}")
 
 
 def bench_chunked_prefill(device):
@@ -507,6 +534,7 @@ BENCHES = {
     "adapter_churn": bench_adapter_churn,
     "bgmv_overhead": bench_bgmv_overhead,
     "engine_throughput": bench_engine_throughput,
+    "recurrent_families": bench_recurrent_families,
     "chunked_prefill": bench_chunked_prefill,
     "speculative": bench_speculative,
     "telemetry_overhead": bench_telemetry_overhead,

@@ -2,6 +2,7 @@
 ``get_reduced(name)`` (``-``, ``_`` and ``.`` alike in names, as the
 reference's registry resolves them)."""
 from repro_torch.configs import (
+    jamba_1_5_large_398b,
     llama_3_2_vision_11b,
     mixtral_8x22b,
     moonshot_v1_16b_a3b,
@@ -11,6 +12,7 @@ from repro_torch.configs import (
     qwen3_14b,
     roberta_base,
     smollm_135m,
+    xlstm_125m,
 )
 from repro_torch.configs.base import AdapterConfig, ModelConfig
 
@@ -24,6 +26,8 @@ ARCHS = {
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
     "mixtral-8x22b": mixtral_8x22b,
     "llama-3.2-vision-11b": llama_3_2_vision_11b,
+    "jamba-1.5-large-398b": jamba_1_5_large_398b,
+    "xlstm-125m": xlstm_125m,
 }
 
 

@@ -51,10 +51,11 @@ _QMAX = {"int8": 127.0, "fp8": 448.0}
 #: reference at reduced scale, over matched-context decode positions.
 INT8_LOGIT_EPS = 0.15
 
-#: Modules whose projection weights may be quantized.  The reference also
-#: lists ``mamba`` and ``moe``; they come with their families (the port's
-#: moe layers carry no adapter, so nothing of theirs is quantized).
-_QUANTIZABLE_MODULES = ("attn", "mlp", "xattn")
+#: Modules whose projection weights may be quantized (the adapted ones
+#: only).  xLSTM's ``x_qkv`` is consumed through a column slice (the v
+#: third), which a ``{"q", "scale"}`` dict cannot serve, so ssm modules stay
+#: in the native dtype, as in the reference.
+_QUANTIZABLE_MODULES = ("attn", "mlp", "mamba", "xattn", "moe")
 
 
 def is_quantized(W: Any) -> bool:

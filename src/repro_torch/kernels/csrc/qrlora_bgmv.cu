@@ -272,7 +272,7 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
                     const float* __restrict__ w_scale, const bf16* __restrict__ B,
                     const bf16* __restrict__ A, const float* __restrict__ lam,
                     const int* __restrict__ seg, TX* __restrict__ y, int M, int K, int N, int r,
-                    int n_slots, float scale, Geo g, bool vec) {
+                    int n_slots, int ldw, int lda, float scale, Geo g, bool vec) {
   constexpr bool kMma = std::is_same<TX, bf16>::value;
   constexpr bool kQuant = sizeof(TW) == 1;
   static_assert(kQuant || std::is_same<TW, TX>::value, "W is in x's dtype or a 1-byte q");
@@ -297,7 +297,7 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
   // q's w_scale for the rank's columns): issued after the first round's
   // copies, so their loads (seg, then Λ) overlap it
   auto stage_a_and_lam = [&] {
-    stage<2>(smem + g.o_a, TN * 2, A + (size_t)j0 * N + n0, N, g.js, TN, jn, N - n0, vec);
+    stage<2>(smem + g.o_a, TN * 2, A + (size_t)j0 * lda + n0, lda, g.js, TN, jn, N - n0, vec);
     if constexpr (kQuant) {
       const int n = n0 + rank * OUT + threadIdx.x;
       if (threadIdx.x < OUT) ws_s[threadIdx.x] = n < N ? w_scale[n] : 0.f;
@@ -337,9 +337,9 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
       const int kn = min(g.kc, k1 - kc0);
       stage<2>(smem, g.xs, x + (size_t)m0 * K + kc0, K, m_tiles * 16, g.kx, tm, kn, vec);
       if constexpr (kQuant)
-        stage<1>(smem + g.o_q, g.qs, W + (size_t)kc0 * N + n0, N, g.kx, TN, kn, N - n0, vec);
+        stage<1>(smem + g.o_q, g.qs, W + (size_t)kc0 * ldw + n0, ldw, g.kx, TN, kn, N - n0, vec);
       else
-        stage<2>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, g.kx, TN, kn, N - n0, vec);
+        stage<2>(smem + g.o_w, g.ws, W + (size_t)kc0 * ldw + n0, ldw, g.kx, TN, kn, N - n0, vec);
       stage<2>(smem + g.o_b, g.bs, B + (size_t)kc0 * r, r, g.kx, g.rp, kn, r, vec);
       if (kc0 == k0) stage_a_and_lam();
       cp_async_wait_all();
@@ -408,7 +408,7 @@ bgmv_cluster_kernel(const TX* __restrict__ x, const TW* __restrict__ W,
     for (int kc0 = k0; kc0 < k1; kc0 += g.kc) {
       const int kn = min(g.kc, k1 - kc0);
       stage<4>(smem, g.xs, x + (size_t)m0 * K + kc0, K, tm, g.kx, tm, kn, vec);
-      stage<sizeof(TW)>(smem + g.o_w, g.ws, W + (size_t)kc0 * N + n0, N, kn, TN, kn, N - n0, vec);
+      stage<sizeof(TW)>(smem + g.o_w, g.ws, W + (size_t)kc0 * ldw + n0, ldw, kn, TN, kn, N - n0, vec);
       stage<2>(smem + g.o_b, g.bs, B + (size_t)kc0 * r, r, kn, g.rp, kn, r, vec);
       if (kc0 == k0) stage_a_and_lam();
       cp_async_wait_all();
@@ -494,13 +494,15 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 template <typename TX, typename TW, bool kRows>
 int launch_cluster(const void* x, const void* W, const float* w_scale, const void* B,
                    const void* A, const float* lam, const int* seg, void* y, int M, int K, int N,
-                   int r, int n_slots, float scale, cudaStream_t stream) {
+                   int r, int n_slots, int ldw, int lda, float scale, cudaStream_t stream) {
   if (M == 0 || N == 0) return 0;
-  if (r > R_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (r > R_MAX || ldw < N || lda < N) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int SZ = sizeof(TX), V = 16 / SZ, VW = std::max<int>(8, 16 / sizeof(TW));
   const Geo g = make_geo(M, K, r, SZ == 2, sizeof(TW) == 1);
-  const bool vec = K % V == 0 && N % VW == 0 && r % 8 == 0 && aligned16(x) && aligned16(W) &&
-                   aligned16(B) && aligned16(A);
+  // 16-byte copies need every staged row 16-byte aligned: W's and A's row
+  // strides (a column slice of a wider matrix reads its rows ldw/lda apart)
+  const bool vec = K % V == 0 && N % VW == 0 && ldw % VW == 0 && lda % 8 == 0 && r % 8 == 0 &&
+                   aligned16(x) && aligned16(W) && aligned16(B) && aligned16(A);
   auto* kernel = bgmv_cluster_kernel<TX, TW, kRows>;
   if (g.bytes > 48 * 1024) {  // on every such launch: the attribute holds for the current device only
     const cudaError_t attr =
@@ -510,8 +512,8 @@ int launch_cluster(const void* x, const void* W, const float* w_scale, const voi
   const dim3 grid(ceil_div(N, TN) * CS, ceil_div(M, TM));
   kernel<<<grid, THREADS, g.bytes, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(W), w_scale, static_cast<const bf16*>(B),
-      static_cast<const bf16*>(A), lam, seg, static_cast<TX*>(y), M, K, N, r, n_slots, scale, g,
-      vec);
+      static_cast<const bf16*>(A), lam, seg, static_cast<TX*>(y), M, K, N, r, n_slots, ldw, lda,
+      scale, g, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -519,39 +521,41 @@ int launch_cluster(const void* x, const void* W, const float* w_scale, const voi
 template <typename TX, bool kRows>
 int launch_kind(int w_kind, const void* x, const void* W, const float* w_scale, const void* B,
                 const void* A, const float* lam, const int* seg, void* y, int M, int K, int N,
-                int r, int n_slots, float scale, cudaStream_t stream) {
+                int r, int n_slots, int ldw, int lda, float scale, cudaStream_t stream) {
   if (w_kind == 1)
     return launch_cluster<TX, int8_t, kRows>(x, W, w_scale, B, A, lam, seg, y, M, K, N, r,
-                                             n_slots, scale, stream);
+                                             n_slots, ldw, lda, scale, stream);
   if (w_kind == 2)
     return launch_cluster<TX, fp8, kRows>(x, W, w_scale, B, A, lam, seg, y, M, K, N, r, n_slots,
-                                          scale, stream);
+                                          ldw, lda, scale, stream);
   return launch_cluster<TX, TX, kRows>(x, W, w_scale, B, A, lam, seg, y, M, K, N, r, n_slots,
-                                       scale, stream);
+                                       ldw, lda, scale, stream);
 }
 
 template <bool kRows>
 int launch(int x_bf16, int w_kind, const void* x, const void* W, const float* w_scale,
            const void* B, const void* A, const float* lam, const int* seg, void* y, int M, int K,
-           int N, int r, int n_slots, float scale, cudaStream_t stream) {
+           int N, int r, int n_slots, int ldw, int lda, float scale, cudaStream_t stream) {
   if (x_bf16)
     return launch_kind<bf16, kRows>(w_kind, x, W, w_scale, B, A, lam, seg, y, M, K, N, r,
-                                    n_slots, scale, stream);
+                                    n_slots, ldw, lda, scale, stream);
   return launch_kind<float, kRows>(w_kind, x, W, w_scale, B, A, lam, seg, y, M, K, N, r, n_slots,
-                                   scale, stream);
+                                   ldw, lda, scale, stream);
 }
 
 }  // namespace
 
 // x, W, y share one dtype (x_bf16 = 1 selects bfloat16, 0 float32); the
 // QR factors B, A are bfloat16 under either, as the reference keeps them;
-// r ≤ 256.  Returns the CUDA error code of the launch (0 on success).
+// r ≤ 256.  W (K, N) and A (r, N) are row-major with row strides ldw and
+// lda ≥ N (a column slice of a wider matrix).  Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int qrlora_bgmv_launch(const void* x, const void* W, const void* B, const void* A,
                                   const float* lam, const int* seg, void* y, int M, int K, int N,
-                                  int r, int n_slots, float scale, int x_bf16,
+                                  int r, int n_slots, int ldw, int lda, float scale, int x_bf16,
                                   cudaStream_t stream) {
-  return launch<false>(x_bf16, 0, x, W, nullptr, B, A, lam, seg, y, M, K, N, r, n_slots, scale,
-                       stream);
+  return launch<false>(x_bf16, 0, x, W, nullptr, B, A, lam, seg, y, M, K, N, r, n_slots, ldw, lda,
+                       scale, stream);
 }
 
 // The quantized base: q (K, N) int8 (q_fp8 = 0) or fp8-e4m3 (q_fp8 = 1)
@@ -563,20 +567,21 @@ extern "C" int qrlora_bgmv_quant_launch(const void* x, const void* q, const floa
                                         int n_slots, float scale, int x_bf16, int q_fp8,
                                         cudaStream_t stream) {
   return launch<false>(x_bf16, q_fp8 ? 2 : 1, x, q, w_scale, B, A, lam, seg, y, M, K, N, r,
-                       n_slots, scale, stream);
+                       n_slots, N, N, scale, stream);
 }
 
 // Pre-gathered λ: rows (M, r) float32 in place of Λ and seg; W (K, N) in
 // x's dtype (w_kind = 0; w_scale unused, may be null) or int8 (1) or
 // fp8-e4m3 (2) q with its w_scale (N,) float32; x and y bfloat16
-// (x_bf16 = 1) or float32, B and A bfloat16; r ≤ 256.  Returns the CUDA
-// error code (0 on success).
+// (x_bf16 = 1) or float32, B and A bfloat16; r ≤ 256; W's and A's row
+// strides ldw and lda as qrlora_bgmv_launch's.  Returns the CUDA error code
+// (0 on success).
 extern "C" int qrlora_bgmv_rows_launch(const void* x, const void* W, const float* w_scale,
                                        const void* B, const void* A, const float* rows, void* y,
-                                       int M, int K, int N, int r, float scale, int x_bf16,
-                                       int w_kind, cudaStream_t stream) {
-  return launch<true>(x_bf16, w_kind, x, W, w_scale, B, A, rows, nullptr, y, M, K, N, r, M, scale,
-                      stream);
+                                       int M, int K, int N, int r, int ldw, int lda, float scale,
+                                       int x_bf16, int w_kind, cudaStream_t stream) {
+  return launch<true>(x_bf16, w_kind, x, W, w_scale, B, A, rows, nullptr, y, M, K, N, r, M, ldw,
+                      lda, scale, stream);
 }
 
 // How a launch (x_bf16 and w_kind as above) splits its work, in the numbers

@@ -465,15 +465,16 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A row-major (rows × cols) matrix read in (box_rows × box_cols) boxes;
+// A row-major (rows × cols) matrix, rows `ld` elements apart (ld ≥ cols: a
+// column slice of a wider matrix), read in (box_rows × box_cols) boxes;
 // bf16 boxes of 64 columns in the 128-byte swizzle, 1-byte boxes as they lie.
 bool tensor_map(CUtensorMap* map, const void* base, bool bf16_elems, int rows, int cols,
-                int box_rows, int box_cols) {
+                int box_rows, int box_cols, int ld = 0) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return false;
   const int bytes = bf16_elems ? 2 : 1;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld > 0 ? ld : cols) * bytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   return enc(map, bf16_elems ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
@@ -545,19 +546,19 @@ int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // the main pass over W (bf16) or q (int8/fp8, with w_scale).
 template <typename TW>
 int launch_tc(const void* x, const void* W, const float* w_scale, const void* B, const void* A,
-              const float* lam, void* P, void* y, int M, int K, int N, int r, float scale,
-              cudaStream_t stream) {
+              const float* lam, void* P, void* y, int M, int K, int N, int r, int ldw, int lda,
+              float scale, cudaStream_t stream) {
   if (M == 0 || N == 0) return 0;
   if (K == 0) return static_cast<int>(cudaErrorInvalidValue);
   bf16* p_hi = static_cast<bf16*>(P);
   bf16* p_lo = p_hi + static_cast<size_t>(M) * r;
   CUtensorMap tx, tw, tb, tph, tpl, ta;
   bool ok = tensor_map(&tx, x, true, M, K, TM, 64) &&
-            (sizeof(TW) == 1 ? tensor_map(&tw, W, false, K, N, TK, BN)
-                             : tensor_map(&tw, W, true, K, N, TK, 64));
+            (sizeof(TW) == 1 ? tensor_map(&tw, W, false, K, N, TK, BN, ldw)
+                             : tensor_map(&tw, W, true, K, N, TK, 64, ldw));
   if (r > 0)
     ok = ok && tensor_map(&tb, B, true, K, r, TK, 64) && tensor_map(&tph, p_hi, true, M, r, TM, 64) &&
-         tensor_map(&tpl, p_lo, true, M, r, TM, 64) && tensor_map(&ta, A, true, r, N, TK, 64);
+         tensor_map(&tpl, p_lo, true, M, r, TM, 64) && tensor_map(&ta, A, true, r, N, TK, 64, lda);
   else
     tb = tph = tpl = ta = tx;  // never read
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -597,18 +598,18 @@ static_assert(BM * BK % THREADS == 0 && BK * BN32 % THREADS == 0 && BM * RC % TH
 // then the epilogue's P and A chunks.
 constexpr int SMEM_BYTES = cmax((BM * XLD32 + BK * BN32) * 4, (RC * PTLD + RC * BN32) * 4);
 
-// Stage a (ROWS × COLS) tile of a row-major (rows × cols) matrix starting
-// at (r0, c0) into dst (leading dimension LD) as float, zero-filled past the
-// edges.  The trip count is a constant, so a thread's loads are all in
-// flight at once.
+// Stage a (ROWS × COLS) tile of a row-major (rows × cols) matrix whose
+// rows lie `ld` elements apart, starting at (r0, c0), into dst (leading
+// dimension LD) as float, zero-filled past the edges.  The trip count is a
+// constant, so a thread's loads are all in flight at once.
 template <int ROWS, int COLS, int LD, typename T>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, int r0, int c0, int rows,
-                                      int cols) {
+                                      int cols, int ld) {
 #pragma unroll
   for (int t = 0; t < ROWS * COLS / THREADS; ++t) {
     const int i = t * THREADS + threadIdx.x;
     const int rr = i / COLS, cc = i % COLS, gr = r0 + rr, gc = c0 + cc;
-    dst[rr * LD + cc] = (gr < rows && gc < cols) ? to_f(src[(size_t)gr * cols + gc]) : 0.f;
+    dst[rr * LD + cc] = (gr < rows && gc < cols) ? to_f(src[(size_t)gr * ld + gc]) : 0.f;
   }
 }
 
@@ -633,7 +634,8 @@ enum Epilogue {
 };
 
 // C = x·W for one (BM × BN32) tile of the (M × N) output, x (M × K) fp32,
-// W (K × N) of TW widened to fp32, then the epilogue EPI.  `aux` is v (N,)
+// W (K × N, rows ldw apart) of TW widened to fp32, then the epilogue EPI
+// (A's rows lda apart).  `aux` is v (N,)
 // for kScaleColumns and P (M × r) for kAddLowRank.  A 1-byte W is
 // quantized: its kAddLowRank epilogue multiplies the x·q sum by w_scale[n]
 // before adding the adapter term.
@@ -641,7 +643,7 @@ template <typename TW, int EPI>
 __global__ void __launch_bounds__(THREADS)
 fp32_tile_kernel(const float* __restrict__ x, const TW* __restrict__ W, const float* __restrict__ aux,
                  const bf16* __restrict__ A, const float* __restrict__ w_scale, float* __restrict__ out,
-                 int M, int K, int N, int r, float scale) {
+                 int M, int K, int N, int r, int ldw, int lda, float scale) {
   constexpr bool kQuant = sizeof(TW) == 1;
   static_assert(!kQuant || EPI == kAddLowRank, "q only streams through the main pass");
   __shared__ __align__(16) float smem[SMEM_BYTES / 4];
@@ -653,8 +655,8 @@ fp32_tile_kernel(const float* __restrict__ x, const TW* __restrict__ W, const fl
     float* xs = smem;
     float* ws = xs + BM * XLD32;
     for (int k0 = 0; k0 < K; k0 += BK) {
-      stage<BM, BK, XLD32>(xs, x, m0, k0, M, K);
-      stage<BK, BN32, BN32>(ws, W, k0, n0, K, N);
+      stage<BM, BK, XLD32>(xs, x, m0, k0, M, K, K);
+      stage<BK, BN32, BN32>(ws, W, k0, n0, K, N, ldw);
       __syncthreads();
 #pragma unroll 8
       for (int kk = 0; kk < BK; ++kk) {
@@ -690,7 +692,7 @@ fp32_tile_kernel(const float* __restrict__ x, const TW* __restrict__ W, const fl
     float low[ROWS_PER_T][COLS_PER_T] = {};
     for (int j0 = 0; j0 < r; j0 += RC) {
       stage_transposed<BM, RC, PTLD>(pt, aux, m0, j0, M, r);
-      stage<RC, BN32, BN32>(as, A, j0, n0, r, N);
+      stage<RC, BN32, BN32>(as, A, j0, n0, r, N, lda);
       __syncthreads();
 #pragma unroll 8
       for (int jj = 0; jj < RC; ++jj) {
@@ -731,34 +733,39 @@ fp32_tile_kernel(const float* __restrict__ x, const TW* __restrict__ W, const fl
 // float32 x: W is float (K, N), or int8/fp8 q with its per-column w_scale.
 template <typename TW>
 int launch_fp32(const void* x, const void* W, const float* w_scale, const void* B, const void* A,
-                const float* lam, float* P, void* y, int M, int K, int N, int r, float scale,
-                cudaStream_t stream) {
+                const float* lam, float* P, void* y, int M, int K, int N, int r, int ldw, int lda,
+                float scale, cudaStream_t stream) {
   if (M == 0 || N == 0) return 0;
   const int row_tiles = (M + BM - 1) / BM;
   if (r > 0) {
     fp32_tile_kernel<bf16, kScaleColumns><<<dim3((r + BN32 - 1) / BN32, row_tiles), THREADS, 0, stream>>>(
         static_cast<const float*>(x), static_cast<const bf16*>(B), lam, nullptr, nullptr, P, M, K, r, r,
-        1.f);
+        r, r, 1.f);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   fp32_tile_kernel<TW, kAddLowRank><<<dim3((N + BN32 - 1) / BN32, row_tiles), THREADS, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const TW*>(W), P, static_cast<const bf16*>(A), w_scale,
-      static_cast<float*>(y), M, K, N, r, scale);
+      static_cast<float*>(y), M, K, N, r, ldw, lda, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x, W, y share one dtype (x_bf16 = 1 selects bfloat16, 0 float32); the QR
-// factors B, A are bfloat16 under either, λ float32.  P is (M, r) float32
-// scratch: fp32 P for float32 x, P_hi then P_lo ((M, r) bf16 each) for
-// bfloat16 x.  Returns the CUDA error code of the launches (0 on success).
+// factors B, A are bfloat16 under either, λ float32.  W (K, N) and A (r, N)
+// are row-major with row strides ldw and lda ≥ N (a column slice of a wider
+// matrix; for bfloat16 x multiples of 8, TMA's 16-byte strides).  P is
+// (M, r) float32 scratch: fp32 P for float32 x, P_hi then P_lo ((M, r) bf16
+// each) for bfloat16 x.  Returns the CUDA error code of the launches (0 on
+// success).
 extern "C" int qrlora_matmul_launch(const void* x, const void* W, const void* B, const void* A,
                                     const float* lam, float* P, void* y, int M, int K, int N, int r,
-                                    float scale, int x_bf16, cudaStream_t stream) {
-  if (x_bf16) return launch_tc<bf16>(x, W, nullptr, B, A, lam, P, y, M, K, N, r, scale, stream);
-  return launch_fp32<float>(x, W, nullptr, B, A, lam, P, y, M, K, N, r, scale, stream);
+                                    int ldw, int lda, float scale, int x_bf16, cudaStream_t stream) {
+  if (ldw < N || lda < N) return static_cast<int>(cudaErrorInvalidValue);
+  if (x_bf16)
+    return launch_tc<bf16>(x, W, nullptr, B, A, lam, P, y, M, K, N, r, ldw, lda, scale, stream);
+  return launch_fp32<float>(x, W, nullptr, B, A, lam, P, y, M, K, N, r, ldw, lda, scale, stream);
 }
 
 // The quantized base: q (K, N) int8 (q_fp8 = 0) or fp8-e4m3 (q_fp8 = 1)
@@ -768,10 +775,11 @@ extern "C" int qrlora_matmul_quant_launch(const void* x, const void* q, const fl
                                           const void* B, const void* A, const float* lam, float* P,
                                           void* y, int M, int K, int N, int r, float scale, int x_bf16,
                                           int q_fp8, cudaStream_t stream) {
-  if (x_bf16 && q_fp8) return launch_tc<fp8>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, scale, stream);
-  if (x_bf16) return launch_tc<int8_t>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, scale, stream);
-  if (q_fp8) return launch_fp32<fp8>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, scale, stream);
-  return launch_fp32<int8_t>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, scale, stream);
+  if (x_bf16 && q_fp8)
+    return launch_tc<fp8>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, N, N, scale, stream);
+  if (x_bf16) return launch_tc<int8_t>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, N, N, scale, stream);
+  if (q_fp8) return launch_fp32<fp8>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, N, N, scale, stream);
+  return launch_fp32<int8_t>(x, q, w_scale, B, A, lam, P, y, M, K, N, r, N, N, scale, stream);
 }
 
 // How the bf16 route splits K for an (M, K) × (K, N) product of rank r on

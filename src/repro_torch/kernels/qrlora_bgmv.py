@@ -76,7 +76,7 @@ def _library():
     if _lib is None:
         lib = _build.load("qrlora_bgmv")
         lib.qrlora_bgmv_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float]
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
             + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_bgmv_launch.restype = ctypes.c_int
@@ -86,7 +86,7 @@ def _library():
         )
         lib.qrlora_bgmv_quant_launch.restype = ctypes.c_int
         lib.qrlora_bgmv_rows_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float]
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_bgmv_rows_launch.restype = ctypes.c_int
@@ -98,29 +98,39 @@ def _library():
     return _lib
 
 
-def _check(name, t, dtypes, shape, device, kernel="qrlora_bgmv"):
+def _check(name, t, dtypes, shape, device, kernel="qrlora_bgmv", rows=False):
+    """Device, dtype and shape of an operand, and its layout: contiguous,
+    or with ``rows`` a row-major matrix whose rows may lie further apart
+    than its width (a column slice of a wider matrix, read by its row
+    stride)."""
     if t.device != device:
         raise ValueError(f"{kernel}: {name} on {t.device}, x on {device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{kernel}: {name} dtype {t.dtype} not in {dtypes}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{kernel}: {name} shape {tuple(t.shape)} != {shape}")
-    if not t.is_contiguous():
+    if rows:
+        if t.stride(1) != 1 or t.stride(0) < t.shape[1]:
+            raise ValueError(f"{kernel}: {name} must be row-major (strides {t.stride()})")
+    elif not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def qrlora_bgmv_cuda(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
     """Launch the BGMV kernel on CUDA tensors: x (M,K) and W (K,N) in one of
     float32/bfloat16, the QR factors B (K,r) and A (r,N) in bfloat16 (as
-    ``init_adapters`` makes them), Λ (n_slots,r) float32, seg (M,) int32.  Returns (M,N) in x's dtype.  Adds one to
-    ``qrlora_bgmv_cuda.launches`` per launch."""
+    ``init_adapters`` makes them), Λ (n_slots,r) float32, seg (M,) int32.
+    W and A may be column slices of wider matrices (the kernel reads their
+    rows by stride: the xLSTM v projection's last third of ``x_qkv``).
+    Returns (M,N) in x's dtype.  Adds one to ``qrlora_bgmv_cuda.launches``
+    per launch."""
     M, K = x.shape
     N, r, n_slots = W.shape[1], B.shape[1], lam_table.shape[0]
     dev = x.device
     _check("x", x, _DTYPES, (M, K), dev)
-    _check("W", W, (x.dtype,), (K, N), dev)
+    _check("W", W, (x.dtype,), (K, N), dev, rows=True)
     _check("B", B, (torch.bfloat16,), (K, r), dev)
-    _check("A", A, (torch.bfloat16,), (r, N), dev)
+    _check("A", A, (torch.bfloat16,), (r, N), dev, rows=True)
     _check("lam_table", lam_table, (torch.float32,), (n_slots, r), dev)
     _check("seg", seg, (torch.int32,), (M,), dev)
     if r > MAX_RANK:
@@ -129,7 +139,7 @@ def qrlora_bgmv_cuda(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Te
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     err = lib.qrlora_bgmv_launch(
         x.data_ptr(), W.data_ptr(), B.data_ptr(), A.data_ptr(), lam_table.data_ptr(),
-        seg.data_ptr(), y.data_ptr(), M, K, N, r, n_slots, float(scale),
+        seg.data_ptr(), y.data_ptr(), M, K, N, r, n_slots, W.stride(0), A.stride(0), float(scale),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
@@ -221,7 +231,8 @@ def qrlora_bgmv_rows_cuda(x, W, w_scale, B, A, lam_rows, scale: float = 1.0) -> 
     """Launch the rows kernel on CUDA tensors: x (M,K) float32/bfloat16, W
     (K,N) in x's dtype with ``w_scale`` None, or int8/float8_e4m3fn q with
     w_scale (N,) float32; B (K,r) and A (r,N) bfloat16, lam_rows (M,r)
-    float32; all contiguous.  Returns (M,N) in x's dtype.  Adds one to
+    float32; all contiguous but W and A, which may be column slices read by
+    row stride.  Returns (M,N) in x's dtype.  Adds one to
     ``qrlora_bgmv_rows_cuda.launches`` per launch."""
     M, K = x.shape
     N, r = W.shape[1], B.shape[1]
@@ -233,7 +244,7 @@ def qrlora_bgmv_rows_cuda(x, W, w_scale, B, A, lam_rows, scale: float = 1.0) -> 
         ("A", A, (torch.bfloat16,), (r, N)),
         ("lam_rows", lam_rows, (torch.float32,), (M, r)),
     ):
-        _check(arg, t, dtypes, shape, dev, kernel=name)
+        _check(arg, t, dtypes, shape, dev, kernel=name, rows=arg in ("W", "A"))
     quant = W.dtype in Q_DTYPES
     if w_scale is not None:
         _check("w_scale", w_scale, (torch.float32,), (N,), dev, kernel=name)
@@ -245,7 +256,8 @@ def qrlora_bgmv_rows_cuda(x, W, w_scale, B, A, lam_rows, scale: float = 1.0) -> 
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     err = lib.qrlora_bgmv_rows_launch(
         x.data_ptr(), W.data_ptr(), w_scale.data_ptr() if quant else None, B.data_ptr(),
-        A.data_ptr(), lam_rows.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
+        A.data_ptr(), lam_rows.data_ptr(), y.data_ptr(), M, K, N, r, W.stride(0), A.stride(0),
+        float(scale),
         int(x.dtype == torch.bfloat16), _W_KIND.get(W.dtype, 0),
         torch.cuda.current_stream(dev).cuda_stream,
     )

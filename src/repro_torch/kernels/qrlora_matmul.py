@@ -59,7 +59,7 @@ def _library():
     if _lib is None:
         lib = _build.load("qrlora_matmul")
         lib.qrlora_matmul_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float]
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
             + [ctypes.c_int, ctypes.c_void_p]
         )
         lib.qrlora_matmul_launch.restype = ctypes.c_int
@@ -79,10 +79,11 @@ def _library():
 def qrlora_matmul_cuda(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
     """Launch the kernel on CUDA tensors: x (M,K) and W (K,N) in one of
     float32/bfloat16, the QR factors B (K,r) and A (r,N) in bfloat16 (as
-    ``init_adapters`` makes them), λ (r,) float32; all contiguous, and for
-    bfloat16 x with K, N, r multiples of 8 and x, W, B, A 16-byte aligned
-    (TMA reads them).
-    Returns (M,N) in x's dtype.  Adds one to ``qrlora_matmul_cuda.launches``
+    ``init_adapters`` makes them), λ (r,) float32; all contiguous but W and
+    A, which may be column slices of wider matrices read by their row
+    stride (the xLSTM v projection's last third of ``x_qkv``); for bfloat16
+    x with K, N, r and those strides multiples of 8 and x, W, B, A 16-byte
+    aligned (TMA reads them).  Returns (M,N) in x's dtype.  Adds one to ``qrlora_matmul_cuda.launches``
     per launch."""
     M, K = x.shape
     N, r = W.shape[1], B.shape[1]
@@ -94,10 +95,11 @@ def qrlora_matmul_cuda(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
         ("A", A, (torch.bfloat16,), (r, N)),
         ("lam", lam, (torch.float32,), (r,)),
     ):
-        _check(name, t, dtypes, shape, dev, kernel="qrlora_matmul")
+        _check(name, t, dtypes, shape, dev, kernel="qrlora_matmul", rows=name in ("W", "A"))
     if x.dtype == torch.bfloat16:  # TMA: 16-byte row strides and bases
-        if K % 8 or N % 8 or r % 8:
-            raise ValueError(f"qrlora_matmul: bf16 needs K, N, r multiples of 8, got {K}, {N}, {r}")
+        if K % 8 or N % 8 or r % 8 or W.stride(0) % 8 or A.stride(0) % 8:
+            raise ValueError(f"qrlora_matmul: bf16 needs K, N, r and W's and A's row strides "
+                             f"multiples of 8, got {K}, {N}, {r}, {W.stride(0)}, {A.stride(0)}")
         if any(t.data_ptr() % 16 for t in (x, W, B, A)):
             raise ValueError("qrlora_matmul: bf16 x, W, B, A must be 16-byte aligned")
     lib = _library()
@@ -106,7 +108,7 @@ def qrlora_matmul_cuda(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
     y = torch.empty((M, N), dtype=x.dtype, device=dev)
     err = lib.qrlora_matmul_launch(
         x.data_ptr(), W.data_ptr(), B.data_ptr(), A.data_ptr(), lam.data_ptr(),
-        P.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
+        P.data_ptr(), y.data_ptr(), M, K, N, r, W.stride(0), A.stride(0), float(scale),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:

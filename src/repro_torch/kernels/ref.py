@@ -239,13 +239,16 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tbl, lengths):
     width = block_tbl.shape[1] * bs
     tbl = block_tbl.long()
     rep = H // KV
-    k = k_pool[tbl].reshape(B, width, KV, dh).repeat_interleave(rep, dim=2)
-    v = v_pool[tbl].reshape(B, width, KV, dh).repeat_interleave(rep, dim=2)
-    s = torch.einsum("bhd,bkhd->bhk", q.float(), k.float()) * dh**-0.5
+    # grouped: each KV head's rep query heads against it, as the dense
+    # cache's attend groups them (no repeated K/V)
+    k = k_pool[tbl].reshape(B, width, KV, dh)
+    v = v_pool[tbl].reshape(B, width, KV, dh)
+    qg = q.reshape(B, KV, rep, dh)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg.float(), k.float()) * dh**-0.5
     valid = torch.arange(width, device=q.device)[None, :] < lengths[:, None]
-    s = s.masked_fill(~valid[:, None, :], float("-inf"))
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    o = torch.einsum("bhk,bkhd->bhd", p.float(), v.float())
+    o = torch.einsum("bgrk,bkgd->bgrd", p.float(), v.float()).reshape(B, H, dh)
     o = torch.where((lengths > 0)[:, None, None], o, torch.zeros_like(o))
     return o.to(q.dtype)
 

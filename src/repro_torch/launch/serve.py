@@ -5,11 +5,14 @@ same printed lines).
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-11b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-11b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --reduced --device cpu
 
 The last form serves full-width llama-3.2-vision-11b on the card (random
 weights from ``--seed``): one lock-step dense cache, greedy decoding, every
 adapted projection through the one-λ kernel.  It works for every
-decoder family the port has; a vlm batch carries patch embeddings beside
+decoder family the port has (the recurrent families keep their lanes' state
+in the same cache); a vlm batch carries patch embeddings beside
 its prompts, zeros here as in the reference's launcher (the vision frontend is
 a stub).  The params keep their adapters (λ = 0 at init), as the
 reference's launcher serves them.  :func:`generate` is the loop itself, for

@@ -19,8 +19,22 @@ logit for logit.
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve_multi \
         --reduced --device cpu --shard-lam --shard-ba
 
+The recurrent families serve through the same loop: ``--arch xlstm-125m``
+(no KV cache, so the dense layout; ``--stream --quantum`` time-slices its
+lanes by snapshot) and ``--arch jamba-1.5-large-398b`` (paged attention KV
+beside dense Mamba state).  Full-width jamba needs four cards (ROADMAP item
+14c); its reduced config serves anywhere.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --device cpu --reduced \
+        --arch xlstm-125m --tenants 3 --lanes 2 --gen-len 6 --prompt-len 9 --stream --quantum 3
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --device cpu --reduced \
+        --arch jamba-1.5-large-398b --tenants 2 --lanes 2 --gen-len 4 --prompt-len 9 \
+        --max-len 32 --layout paged --block-size 8
+    PYTHONPATH=src python -m repro_torch.launch.serve_multi --arch xlstm-125m   # on the card
+
 ``--layout`` picks the KV layout (``auto``, the default, pages unless
-``--quantum`` is set; ``oracle_dense`` gives each lane a dense region).
+``--quantum`` is set or the family has no attention; ``oracle_dense`` gives
+each lane a dense region).
 ``--n-blocks``, ``--share-prefix``, ``--watermark`` and ``--prefill-chunk``
 configure the paged layout as the reference's driver takes them (the pool
 size, copy-on-write prefix sharing, admission headroom, chunked prefill);

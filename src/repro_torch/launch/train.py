@@ -8,6 +8,8 @@ trains), LoRA, SVD-LoRA (B and A train) or full fine-tuning (``--peft``).
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch musicgen-medium
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch moonshot-v1-16b-a3b
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch llama-3.2-vision-11b
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch xlstm-125m
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch jamba-1.5-large-398b
 
 The third form trains full-width smollm-135m on the card (random weights
 from ``--seed``), where every adapted projection's forward runs the one-λ
@@ -15,7 +17,10 @@ kernel.  ``--arch musicgen-medium`` trains the audio family on frame
 embeddings with code targets; a moe arch (``moonshot-v1-16b-a3b``,
 ``mixtral-8x22b``) adds its experts' load-balancing aux to the loss;
 ``--arch llama-3.2-vision-11b`` trains the vlm family on token batches
-beside stub patch embeddings.  It prints the trainable count, the loss every ``--log-every``
+beside stub patch embeddings; ``--arch xlstm-125m`` trains the ssm family's
+λ on ``x_qkv`` (its v third through the strided column slice) and
+``--arch jamba-1.5-large-398b`` the hybrid's (full width needs four cards:
+ROADMAP item 14c), its moe layers' aux in the loss.  It prints the trainable count, the loss every ``--log-every``
 steps, the median step time and the train tokens/s.  The reference
 launcher's checkpointing and fault tolerance (``--ckpt-dir``) are not
 ported yet and raise here (ROADMAP Queue 1 item 15).

@@ -32,7 +32,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter_api import adapted_matmul
 from repro_torch.kernels import ops
 from repro_torch.models.lane_state import NO_LANE
-from repro_torch.models.layers import apply_rope, rms_norm, stacked_dense_init
+from repro_torch.models.layers import apply_rope, rms_norm, rope_rotation, stacked_dense_init
 
 _NEG = -1e30
 
@@ -149,8 +149,9 @@ def attention(
     if cross_kv is not None:
         out = _softmax_attend(q, k, v, _cross_mask(S, k.shape[1], x.device), scale)
         return adapted_matmul(out.reshape(B, S, H * dh), p["wo"], (adp or {}).get("wo"))
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    rotation = rope_rotation(positions, dh, cfg.rope_theta, x.device)
+    q = apply_rope(q, positions, cfg.rope_theta, rotation)
+    k = apply_rope(k, positions, cfg.rope_theta, rotation)
     if cache is not None and "block_tbl" in cache:
         if n_valid is not None:
             out = _paged_verify(q, k, v, cache, scale, n_valid, attend_blocks)

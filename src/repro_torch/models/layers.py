@@ -24,17 +24,42 @@ def layer_norm(
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
-def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+def _rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, n_heads, d_head); positions: broadcastable to (..., S)."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions[..., None].float() * freqs  # (..., S, d/2)
-    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, d/2)
-    sin = torch.sin(angles)[..., None, :]
+_FREQS: dict = {}
+
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    """The (d_head/2,) inverse frequencies, made once per (d_head, theta,
+    device) and reused: a decode step would otherwise launch their kernels
+    again in every layer.  Made under CUDA graph capture they are not kept
+    (they would live in the graph's memory pool)."""
+    device = torch.device(device) if device is not None else torch.device("cpu")
+    key = (d_head, theta, device)
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        freqs = _rope_freqs(d_head, theta, device)
+        if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+            _FREQS[key] = freqs
+    return freqs
+
+
+def rope_rotation(positions: torch.Tensor, d_head: int, theta: float, device=None):
+    """(cos, sin), each (..., S, 1, d_head/2), for ``positions`` (..., S): the
+    rotation :func:`apply_rope` applies, made once for the q and k of a layer."""
+    angles = positions[..., None].float() * rope_freqs(d_head, theta, device)  # (..., S, d/2)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotation=None) -> torch.Tensor:
+    """x: (..., S, n_heads, d_head); positions: broadcastable to (..., S).
+    ``rotation``: :func:`rope_rotation` of the same positions, where the
+    caller has made it already."""
+    cos, sin = rotation or rope_rotation(positions, x.shape[-1], theta, x.device)
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 

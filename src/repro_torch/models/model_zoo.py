@@ -1,5 +1,6 @@
 """Public model API: :class:`Model` (port of ``repro/models/model_zoo.py``
-for the dense, audio, moe and vlm decoders and the RoBERTa-style encoder): init with adapters
+for the dense, audio, moe, vlm, hybrid and ssm decoders and the
+RoBERTa-style encoder): init with adapters
 (QR-LoRA, LoRA, SVD-LoRA), forward (decoder logits, or ``(logits, aux)``
 for the trainer; encoder task outputs), prefill and decode over the paged,
 per-lane dense or lock-step dense cache, the trainable mask and the
@@ -22,8 +23,16 @@ _ADAPTER_MODULES = {
     "dense": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")},
     "audio": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_gate", "w_up", "w_down")},
     "moe": {"attn": ("wq", "wk", "wv", "wo")},
+    "hybrid": {"attn": ("wq", "wk", "wv", "wo"), "mamba": ("m_in", "m_out")},
+    "ssm": {"mlstm": ("x_qkv", "x_up", "x_down"), "slstm": ("x_qkv", "x_up", "x_down")},
     "vlm": {"attn": ("wq", "wk", "wv", "wo"), "xattn": ("wq", "wk", "wv", "wo")},
     "encoder": {"attn": ("wq", "wk", "wv", "wo")},
+}
+
+# adapter-config target name → (module, weight) aliases
+_TARGET_ALIAS = {
+    "mamba_in": ("mamba", "m_in"),
+    "mamba_out": ("mamba", "m_out"),
 }
 
 # The encoder's task head trains beside the adapters outside ft (the paper's
@@ -54,14 +63,22 @@ class Model:
         return params
 
     def _adapter_targets(self) -> Dict[str, Tuple[str, ...]]:
-        """module → the weight names ``cfg.adapter.targets`` selects."""
+        """module → the weight names ``cfg.adapter.targets`` selects (in
+        the targets' order; ``mamba_in``/``mamba_out`` name the Mamba
+        layers' ``m_in``/``m_out``)."""
         family = "encoder" if self.cfg.is_encoder else self.cfg.family
+        modules = _ADAPTER_MODULES.get(family, {})
         sel = {}
-        for mod, weights in _ADAPTER_MODULES.get(family, {}).items():
-            picked = tuple(w for w in weights if w in self.cfg.adapter.targets)
-            if picked:
-                sel[mod] = picked
-        return sel
+        for t in self.cfg.adapter.targets:
+            if t in _TARGET_ALIAS:
+                mod, w = _TARGET_ALIAS[t]
+                if mod in modules:
+                    sel.setdefault(mod, []).append(w)
+                continue
+            for mod, weights in modules.items():
+                if t in weights:
+                    sel.setdefault(mod, []).append(t)
+        return {m: tuple(ws) for m, ws in sel.items()}
 
     def attach_adapters(self, gen: Optional[torch.Generator], params: Dict) -> Dict:
         """Factors of the current weights (pivoted QR, LoRA drawn from

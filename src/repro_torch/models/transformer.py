@@ -1,4 +1,4 @@
-"""Decoder LM, dense, audio, moe and vlm families (port of
+"""Decoder LM, dense, audio, moe, vlm, hybrid and ssm families (port of
 ``repro/models/transformer.py``).
 
 The audio family (musicgen-medium) is the dense stack over EnCodec frame
@@ -25,6 +25,21 @@ d_image) are cast to the model dtype and projected by ``img_proj``
 step projects the cross layers' K/V from them again, as the reference does.
 Only the self layers carry a KV cache, and it is dense (no paged layout).
 
+The hybrid family (jamba) stacks its layers in groups of
+``P = hybrid_period``: one attention layer at ``hybrid_attn_index`` and
+Mamba (``models/mamba.py``) at the other P-1 positions, each followed by
+its FFN — routed experts at the odd positions, a gated MLP at the even
+ones; the moe layers' load-balancing losses add up as the moe family's do.
+Its leaves: ``ln_mixer``/``ln_ffn`` (G, P, d), ``attn`` (G, …), ``mamba``
+(G, P-1, …), ``moe`` (G, P/2, …), ``mlp`` (G, P-P/2-1, …).  Its attention
+layers get the KV cache (dense or paged) and its Mamba layers a recurrent
+state, ``mamba`` {conv (G, P-1, B, dc-1, d_in), h (G, P-1, B, d_in, N)},
+in every layout.  The ssm family (xlstm) stacks ``xlstm_pattern`` blocks
+(mLSTM then sLSTM, ``models/xlstm.py``) a group: ``ln`` (G, 2, d),
+``mlstm`` (G, …), ``slstm`` (G, …); its cache is recurrent state only, so
+it has no paged layout.  A bucketed prefill's ``length`` reaches the
+recurrent mixers, which keep the padding out of the state they leave.
+
 Parameters keep the reference's stacked layout: every per-layer leaf under
 ``params["groups"]`` has a leading ``(n_layers,)`` axis, adapters included
 (``groups["adapters"][module][proj]``).  The reference scans over that axis;
@@ -41,7 +56,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter_api import adapted_matmul
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import lane_state
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import normal, rms_norm, stacked_dense_init
 
 Tree = Any
@@ -58,20 +76,23 @@ def _tslice(tree: Tree, i: int) -> Tree:
 
 
 #: decoder families the port has: the same layer stack (moe: routed experts
-#: in place of the MLP; vlm: groups of self layers and a gated cross layer)
-DECODER_FAMILIES = ("dense", "audio", "moe", "vlm")
+#: in place of the MLP; vlm: groups of self layers and a gated cross layer;
+#: hybrid: groups of Mamba layers and one attention layer; ssm: xLSTM blocks)
+DECODER_FAMILIES = ("dense", "audio", "moe", "vlm", "hybrid", "ssm")
 
 #: families whose attention layers the paged KV cache holds (vlm is served
-#: through the lock-step dense cache only, as in the reference)
-PAGED_FAMILIES = ("dense", "audio", "moe")
+#: through the lock-step dense cache only, as in the reference; ssm has no
+#: attention layers)
+PAGED_FAMILIES = ("dense", "audio", "moe", "hybrid")
+
+#: families whose decode cache holds recurrent state beside (or instead of)
+#: the KV cache
+RECURRENT_FAMILIES = ("hybrid", "ssm")
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in DECODER_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port has the {DECODER_FAMILIES} decoders so far "
-            "(ROADMAP Queue 1 item 12b)"
-        )
+        raise ValueError(f"unknown decoder family {cfg.family!r}")
 
 
 def _embed_input(params, cfg: ModelConfig, tokens, embeds) -> torch.Tensor:
@@ -122,6 +143,8 @@ def init_decoder_params(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> D
     down_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
     if cfg.family == "vlm":
         return _init_vlm_params(gen, cfg, dtype, ones, down_scale)
+    if cfg.family in RECURRENT_FAMILIES:
+        return _init_recurrent_params(gen, cfg, dtype, ones, down_scale)
     groups = {
         "ln1": ones(G, d),
         "ln2": ones(G, d),
@@ -176,6 +199,42 @@ def _init_vlm_params(gen: torch.Generator, cfg: ModelConfig, dtype, ones, down_s
     }
 
 
+def _init_recurrent_params(gen: torch.Generator, cfg: ModelConfig, dtype, ones,
+                           down_scale) -> Dict:
+    """The hybrid and ssm trees (``repro/models/transformer.py:95-125``)."""
+    d, V, P = cfg.d_model, cfg.vocab_size, cfg.group_size
+    G = cfg.n_layers // P
+    if cfg.family == "hybrid":
+        n_mamba, n_moe, n_dense = P - 1, P // 2, P - P // 2 - 1
+        groups = {
+            "ln_mixer": ones(G, P, d),
+            "ln_ffn": ones(G, P, d),
+            "attn": attn_lib.init_attn_params(gen, cfg, G, dtype),
+            "mamba": _lead(mamba_lib.init_mamba_params(gen, cfg, G * n_mamba, dtype),
+                           G, n_mamba),
+            "moe": _lead(moe_lib.init_moe_params(gen, cfg, G * n_moe, dtype), G, n_moe),
+            "mlp": _lead({
+                "w_gate": stacked_dense_init(gen, G * n_dense, d, cfg.d_ff, dtype),
+                "w_up": stacked_dense_init(gen, G * n_dense, d, cfg.d_ff, dtype),
+                "w_down": stacked_dense_init(gen, G * n_dense, cfg.d_ff, d, dtype,
+                                             scale=down_scale),
+            }, G, n_dense),
+        }
+    else:
+        pat = cfg.xlstm_pattern
+        groups = {"ln": ones(G, len(pat), d)}
+        if "m" in pat:
+            groups["mlstm"] = xlstm_lib.init_mlstm_params(gen, cfg, G, dtype)
+        if "s" in pat:
+            groups["slstm"] = xlstm_lib.init_slstm_params(gen, cfg, G, dtype)
+    return {
+        "embed": normal(gen, (V, d), 0.02, dtype),
+        "final_norm": ones(d),
+        "unembed": normal(gen, (d, V), d**-0.5, dtype),
+        "groups": groups,
+    }
+
+
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
@@ -223,13 +282,98 @@ def _run_vlm_groups(params, cfg: ModelConfig, x, positions, cache_layers, img):
     return x, None
 
 
+def _store(state: Dict, new: Dict) -> None:
+    """Write a mixer's new recurrent state into its cache slice, in place."""
+    for k, t in new.items():
+        state[k].copy_(t)
+
+
+def _run_hybrid_groups(params, cfg: ModelConfig, x, positions, cache_layers, seg_ids,
+                       attend_blocks, length):
+    """The hybrid group body (``repro/models/transformer.py:216-268``) over
+    the G groups: at each of the P positions the attention layer (adapters
+    ``attn`` at [g]; no ``n_valid``, as the reference passes none) or the
+    next Mamba layer (adapters ``mamba`` at [g, i]), then the moe FFN at the
+    odd positions and the gated MLP at the even ones (neither carries
+    adapters in this family).  A group holds P-P/2-1 dense FFNs for its P/2 even positions: the last
+    even position reads the last dense FFN again, as the reference's index
+    past the end does (JAX clamps it).  Returns (x, the moe layers' summed
+    aux loss)."""
+    groups = params["groups"]
+    P = cfg.hybrid_period
+    n_dense = P - P // 2 - 1
+    adapters = groups.get("adapters") or {}
+    aux = None
+    for g in range(cfg.n_layers // P):
+        p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, g)
+        adp = _tslice(adapters, g) if adapters else None
+        mam_adp = _adp_for(adp, "mamba", seg_ids)
+        mi = di = oi = 0
+        for i in range(P):
+            h = rms_norm(x, p["ln_mixer"][i], cfg.norm_eps)
+            if i == cfg.hybrid_attn_index:
+                out = attn_lib.attention(
+                    p["attn"], h, cfg, positions=positions, adp=_adp_for(adp, "attn", seg_ids),
+                    cache=_tslice(cache_layers["attn"], g) if cache_layers else None,
+                    attend_blocks=attend_blocks)
+            else:
+                st = _tslice(_tslice(cache_layers["mamba"], g), mi) if cache_layers else None
+                a_i = ({w: {k: (t if k == "seg" else t[mi]) for k, t in leaf.items()}
+                        for w, leaf in mam_adp.items()} if mam_adp else None)
+                out, ns = mamba_lib.mamba_mixer(_tslice(p["mamba"], mi), h, cfg, state=st,
+                                                adp=a_i, length=length)
+                if ns is not None:
+                    _store(st, ns)
+                mi += 1
+            x = x + out
+            h = rms_norm(x, p["ln_ffn"][i], cfg.norm_eps)
+            if i % 2 == 1:
+                y, a = moe_lib.moe_ffn(_tslice(p["moe"], oi), h, cfg)
+                aux = a if aux is None else aux + a
+                oi += 1
+            else:
+                y = gated_mlp(_tslice(p["mlp"], min(di, n_dense - 1)), h)
+                di += 1
+            x = x + y
+    return x, aux
+
+
+def _run_ssm_groups(params, cfg: ModelConfig, x, cache_layers, seg_ids, length):
+    """The ssm group body (``repro/models/transformer.py:270-297``) over the
+    G groups: each block of ``xlstm_pattern`` (adapters ``mlstm``/``slstm``
+    at [g]) as a pre-norm residual."""
+    groups = params["groups"]
+    adapters = groups.get("adapters") or {}
+    mixers = {"m": ("mlstm", xlstm_lib.mlstm_mixer), "s": ("slstm", xlstm_lib.slstm_mixer)}
+    for g in range(cfg.n_layers // cfg.group_size):
+        p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, g)
+        adp = _tslice(adapters, g) if adapters else None
+        for j, kind in enumerate(cfg.xlstm_pattern):
+            key, mixer = mixers[kind]
+            h = rms_norm(x, p["ln"][j], cfg.norm_eps)
+            st = _tslice(cache_layers[key], g) if cache_layers else None
+            out, ns = mixer(p[key], h, cfg, state=st, adp=_adp_for(adp, key, seg_ids),
+                            length=length)
+            if ns is not None:
+                _store(st, ns)
+            x = x + out
+    return x, None
+
+
 def _run_layers(params, cfg, x, positions, cache_layers, seg_ids=None, attend_blocks=None,
-                n_valid=None, img=None):
+                n_valid=None, img=None, length=None):
     """The layer stack over ``x`` → ``(x, aux)``: ``aux`` sums the moe
-    layers' load-balancing losses (None for the other families).  ``img``:
-    the vlm family's projected image rows (:func:`_run_vlm_groups`)."""
+    layers' load-balancing losses (None for the families without).
+    ``img``: the vlm family's projected image rows (:func:`_run_vlm_groups`);
+    ``length``: a bucketed prefill's true lengths, for the recurrent
+    mixers."""
     if cfg.family == "vlm":
         return _run_vlm_groups(params, cfg, x, positions, cache_layers, img)
+    if cfg.family == "hybrid":
+        return _run_hybrid_groups(params, cfg, x, positions, cache_layers, seg_ids,
+                                  attend_blocks, length)
+    if cfg.family == "ssm":
+        return _run_ssm_groups(params, cfg, x, cache_layers, seg_ids, length)
     groups = params["groups"]
     aux = None
     adapters = groups.get("adapters")
@@ -290,26 +434,34 @@ def init_decode_state(
     ``(n_layers, batch, max_len / block_size)`` int32 in place of the dense
     region; block 0 is the reserved trash block (``serving/paging.py``).
     The vlm family's dense cache holds its self layers only, under two lead
-    axes (G, P-1); it has no paged layout.
+    axes (G, P-1); it has no paged layout.  The hybrid family's KV cache
+    holds its G attention layers, beside the Mamba layers' recurrent state;
+    the ssm family's cache is recurrent state only, and it refuses
+    ``paged=True`` (there is none to page).
     """
     _check_family(cfg)
     KV, dh = cfg.n_kv_heads, cfg.d_head
     zeros = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
     if paged and cfg.family not in PAGED_FAMILIES:
+        if cfg.family == "ssm":
+            raise NotImplementedError(
+                f"paged KV cache needs attention layers; family {cfg.family!r} has none to "
+                "page (its per-lane state is already O(1) — use per_lane=True)")
         raise NotImplementedError(
             f"paged KV cache: family {cfg.family!r} is served through the dense cache "
             "only, as in the reference")
     lead = _kv_lead(cfg)
+    recurrent = _recurrent_layer_states(cfg, batch, dtype, device)
     if not paged:
         lanes = (batch,) if per_lane else ()
-        return {
-            "pos": zeros(*lanes, dt=torch.int32),
-            "layers": {"attn": {
+        layers = dict(recurrent)
+        if cfg.family != "ssm":
+            layers["attn"] = {
                 "k": zeros(*lead, batch, max_len, KV, dh),
                 "v": zeros(*lead, batch, max_len, KV, dh),
                 "idx": zeros(*lead, *lanes, dt=torch.int32),
-            }},
-        }
+            }
+        return {"pos": zeros(*lanes, dt=torch.int32), "layers": layers}
     if max_len % block_size:
         raise ValueError(f"max_len={max_len} must be a multiple of block_size={block_size}")
     max_blocks = max_len // block_size
@@ -322,29 +474,58 @@ def init_decode_state(
             "v": zeros(*lead, n_blocks, block_size, KV, dh),
             "block_tbl": zeros(*lead, batch, max_blocks, dt=torch.int32),
             "idx": zeros(*lead, batch, dt=torch.int32),
-        }},
+        }, **recurrent},
     }
 
 
+def _recurrent_layer_states(cfg: ModelConfig, batch: int, dtype, device=None) -> Dict:
+    """The recurrent per-layer decode states of a family
+    (``repro/models/transformer.py:398-416``): Mamba ``{conv, h}`` (G, P-1,
+    batch, …) for hybrid, the mLSTM and sLSTM states (G, batch, …) for ssm,
+    none for the others.  O(1) a lane, the same in every cache layout."""
+    G = cfg.n_layers // cfg.group_size
+    if cfg.family == "hybrid":
+        return {"mamba": mamba_lib.init_mamba_state(cfg, batch, (G, cfg.hybrid_period - 1),
+                                                    dtype, device)}
+    layers = {}
+    if cfg.family == "ssm":
+        if "m" in cfg.xlstm_pattern:
+            layers["mlstm"] = xlstm_lib.init_mlstm_state(cfg, batch, (G,), dtype, device)
+        if "s" in cfg.xlstm_pattern:
+            layers["slstm"] = xlstm_lib.init_slstm_state(cfg, batch, (G,), dtype, device)
+    return layers
+
+
 def _kv_lead(cfg: ModelConfig) -> tuple:
-    """Lead axes of the dense KV cache: (n_layers,), or the vlm family's
-    (G, P-1) self layers."""
+    """Lead axes of the KV cache: (n_layers,), the vlm family's (G, P-1)
+    self layers, or the hybrid family's G attention layers."""
     if cfg.family == "vlm":
         P = cfg.cross_attn_every
         return (cfg.n_layers // P, P - 1)
-    return (cfg.n_layers,)
+    return (cfg.n_layers // cfg.group_size,)
 
 
 def decode_state_lane_axes(cfg: ModelConfig, paged: bool = False) -> Dict:
     """LaneState protocol: the lane axis of each leaf of the per-lane cache
     (``init_decode_state(..., per_lane=True, paged=paged)``): after the
-    lead axes, one for most families, two (G, P-1) for vlm."""
+    lead axes, one for most families, two (G, P-1) for vlm and for the
+    hybrid's Mamba states."""
     _check_family(cfg)
+    layers = {}
+    if cfg.family == "hybrid":
+        layers["mamba"] = mamba_lib.state_lane_axes(2)
+    elif cfg.family == "ssm":
+        if "m" in cfg.xlstm_pattern:
+            layers["mlstm"] = xlstm_lib.mlstm_state_lane_axes(1)
+        if "s" in cfg.xlstm_pattern:
+            layers["slstm"] = xlstm_lib.slstm_state_lane_axes(1)
     if paged:
         if cfg.family not in PAGED_FAMILIES:
-            raise NotImplementedError(f"family {cfg.family!r} has no paged KV cache")
-        return {"pos": 0, "layers": {"attn": attn_lib.paged_kv_lane_axes()}}
-    return {"pos": 0, "layers": {"attn": attn_lib.kv_lane_axes(len(_kv_lead(cfg)))}}
+            raise NotImplementedError(f"family {cfg.family!r} has no attention layers to page")
+        layers["attn"] = attn_lib.paged_kv_lane_axes()
+    elif cfg.family != "ssm":
+        layers["attn"] = attn_lib.kv_lane_axes(len(_kv_lead(cfg)))
+    return {"pos": 0, "layers": layers}
 
 
 def paged_prefill_view(cfg: ModelConfig, cache, write_ids: torch.Tensor,
@@ -369,19 +550,31 @@ def paged_prefill_view(cfg: ModelConfig, cache, write_ids: torch.Tensor,
     }
     if read_ids is not None:
         attn["read_tbl"] = read_ids.to(torch.int32).expand(G, 1, -1)
-    return {"pos": torch.zeros((1,), dtype=torch.int32, device=dev), "layers": {"attn": attn}}
+    # recurrent layers (hybrid's Mamba) get a fresh 1-lane state, which the
+    # prefill fills with the prompt's
+    return {"pos": torch.zeros((1,), dtype=torch.int32, device=dev),
+            "layers": {"attn": attn,
+                       **_recurrent_layer_states(cfg, 1, a["k"].dtype, dev)}}
 
 
 def commit_paged_prefill(cfg: ModelConfig, cache, filled, lane: int,
                          table_row: torch.Tensor, length: int) -> Dict:
     """Adopt a block-aligned prefill into lane ``lane``: the view already
     wrote the pools in place; point the lane's block-table row at its blocks
-    (``table_row`` (max_blocks,), tail entries trash block 0) and set its
-    offsets to the true prompt ``length``."""
+    (``table_row`` (max_blocks,), tail entries trash block 0), set its
+    offsets to the true prompt ``length`` and splice the recurrent layers'
+    states (hybrid's Mamba) from the 1-lane view into the lane
+    (``lane_state.restore_lane``).  ``filled`` is None where no prefill ran
+    (a shipped prefill of a family without recurrent layers)."""
     a = cache["layers"]["attn"]
     cache["pos"][lane] = length
     a["block_tbl"][:, lane, :] = table_row.to(torch.int32)
     a["idx"][:, lane] = length
+    axes = decode_state_lane_axes(cfg, paged=True)["layers"]
+    for key in cache["layers"]:
+        if key != "attn":
+            lane_state.restore_lane(cache["layers"][key], axes[key], lane,
+                                    filled["layers"][key])
     return cache
 
 
@@ -404,21 +597,24 @@ def decoder_prefill(params, cfg: ModelConfig, cache, tokens=None, seg_ids=None, 
     positions = torch.arange(S, device=x.device)
     if start is not None:
         positions = positions + int(start)
+    if length is not None:
+        length = torch.as_tensor(length, dtype=torch.int32, device=x.device)
     x, _ = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids,
-                       img=_image_rows(params, cfg, x, image_embeds))
-    attn = cache["layers"]["attn"]
+                       img=_image_rows(params, cfg, x, image_embeds), length=length)
+    attn = cache["layers"].get("attn")
     if length is None:
         x_last = x[:, -1:]
         cache["pos"].fill_(S)
-        attn["idx"].fill_(S)
+        if attn is not None:
+            attn["idx"].fill_(S)
     else:
-        length = torch.as_tensor(length, dtype=torch.int32, device=x.device)
         row = length.long() - 1
         if start is not None:
             row = torch.clamp(row - int(start), 0, S - 1)
         x_last = torch.gather(x, 1, row[:, None, None].expand(-1, 1, x.shape[-1]))
         cache["pos"][...] = length
-        attn["idx"][...] = length
+        if attn is not None:
+            attn["idx"][...] = length
     return _logits(params, cfg, x_last)[:, 0], cache
 
 
@@ -434,7 +630,8 @@ def decoder_decode(params, cfg: ModelConfig, cache, token=None, seg_ids=None,
     x, _ = _run_layers(params, cfg, x, positions, cache["layers"], seg_ids, attend_blocks,
                        img=_image_rows(params, cfg, x, image_embeds))
     cache["pos"] += 1
-    cache["layers"]["attn"]["idx"] += 1
+    if "attn" in cache["layers"]:
+        cache["layers"]["attn"]["idx"] += 1
     return _logits(params, cfg, x)[:, 0], cache
 
 

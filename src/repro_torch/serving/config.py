@@ -7,8 +7,10 @@ Layouts, as the reference defines them:
   test oracle the paged engine is held against, and the layout of
   time-sliced (``quantum``) serving, whose lane snapshots are dense lane
   state.
-* ``"auto"`` (the default) — paged for the dense family unless ``quantum``
-  is set, then oracle-dense.
+* ``"auto"`` (the default) — paged for the families with attention layers
+  to page (:data:`~repro_torch.models.transformer.PAGED_FAMILIES`) unless
+  ``quantum`` is set, else oracle-dense (the only layout of the ssm family,
+  whose lanes hold recurrent state alone).
 
 ``EngineConfig.serving()`` is the reference's production posture: paged KV,
 copy-on-write prefix sharing, one watermark block of decode headroom and
@@ -27,6 +29,7 @@ from typing import Optional
 
 from repro_torch.configs.base import BASE_DTYPES
 from repro_torch.core.quantize import FP8_SUPPORTED
+from repro_torch.models.transformer import PAGED_FAMILIES
 
 LAYOUTS = ("auto", "paged", "oracle_dense")
 
@@ -34,13 +37,8 @@ LAYOUTS = ("auto", "paged", "oracle_dense")
 #: pure KV rewind — offsets advance, rejected positions stay masked until
 #: overwritten — which only attention state allows.  Hybrid's Mamba scan
 #: state advances irreversibly per token and ssm has no KV cache at all, so
-#: neither can roll back a rejected draft.  (The port serves the dense and
-#: audio families so far; the list is the reference's.)
+#: neither can roll back a rejected draft.
 SPECULATIVE_FAMILIES = ("dense", "audio", "moe")
-
-#: Families with attention layers to page (the reference's list; the model
-#: refuses the families the port does not have yet).
-PAGED_FAMILIES = ("dense", "audio", "moe", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)

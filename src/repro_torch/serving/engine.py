@@ -1,5 +1,16 @@
-"""Multi-tenant serving engine of the dense, audio and moe decoders (port
-of ``repro/serving/engine.py``), paged and oracle-dense layouts.
+"""Multi-tenant serving engine of the dense, audio, moe, hybrid and ssm
+decoders (port of ``repro/serving/engine.py``), paged and oracle-dense
+layouts.
+
+The recurrent families join the same loop through the LaneState protocol:
+an xlstm lane holds its mLSTM and sLSTM states (O(1) a lane, no KV region,
+so the oracle-dense layout only), a jamba lane its Mamba states beside its
+attention layers' KV (paged or dense).  Admission prefills a fresh 1-lane
+state (the bucket's padding masked out of it) and splices it into the
+lane; retirement, preemption and time-slicing reset, snapshot and restore
+it like any other leaf (the reset restores the mLSTM/sLSTM ``m`` to -1e30).
+Their prompts prefill in one pass, whatever ``prefill_chunk`` says, and
+their prefills do not ship between engines (``_chunkable``).
 
 Every dispatch sends the reference's rows — a prefill's whole padded
 bucket, a decode step's every lane (idle ones too), a chunk's rows, a
@@ -151,6 +162,14 @@ from repro_torch.sharding.rules import axis_rules, default_group, rank_divides, 
 
 _MIN_PREFILL_BUCKET = 8
 
+#: Families whose prompt forward is position-local outside attention (a
+#: token-table embedding, no recurrent mixer), so a prompt can prefill in
+#: block-aligned chunks that attend back through the pool, and a prefill
+#: can ship between engines block by block.  The hybrid's Mamba scan
+#: carries state across the whole prompt: it prefills in one pass, and its
+#: prompt state does not ship as blocks.
+_CHUNKABLE_FAMILIES = ("dense", "audio", "moe")
+
 
 @dataclasses.dataclass(frozen=True)
 class TokenEvent:
@@ -273,6 +292,9 @@ class MultiTenantEngine:
         # a tenant LRU pressure drops takes its prefix-cache family with it
         self.lam_store.on_drop = lambda tenant, dg: self._drop_stale_family(dg)
         self.prefill_chunk = config.prefill_chunk
+        # chunked prefill and shipped prefills: chunk-safe families only (a
+        # hybrid prompt prefills in one pass even when prefill_chunk is set)
+        self._chunkable = cfg.family in _CHUNKABLE_FAMILIES
         # paged buckets are floored at block_size: block-aligned shapes
         self._prefill_floor = max(_MIN_PREFILL_BUCKET, bs) if paged else _MIN_PREFILL_BUCKET
         self._lane_blocks: Dict[int, List[int]] = {}
@@ -605,6 +627,10 @@ class MultiTenantEngine:
         (:meth:`_adopt_prefilled`) instead of running the prompt forward."""
         if not self.paged:
             raise ValueError("inject_prefilled needs a paged layout")
+        if not self._chunkable:
+            raise ValueError(
+                f"family {self.cfg.family!r} carries recurrent prompt state — its prefill "
+                "cannot be disaggregated")
         if payload["block_size"] != self.block_size:
             raise ValueError("the prefill engine's block geometry differs")
         req = self.submit(tenant, prompt, max_new_tokens)
@@ -1021,7 +1047,8 @@ class MultiTenantEngine:
                 continue
             self.prefill_buckets.add(Pb)
             C = self.prefill_chunk
-            if C is not None and Pb > C and (P > 2 * C or self._gate_matches.get(req.uid)):
+            if (C is not None and self._chunkable and Pb > C
+                    and (P > 2 * C or self._gate_matches.get(req.uid))):
                 # a long prompt streams through the following steps' chunk
                 # budget; a short one (≤ 2 chunks of work) prefills in one
                 # pass, unless a cached prefix lets the chunks skip its blocks
@@ -1383,10 +1410,14 @@ class MultiTenantEngine:
     # -- accounting ---------------------------------------------------------
 
     def kv_cache_bytes(self) -> int:
-        """Device bytes held by the decode KV cache (pools and block tables,
-        or the dense regions; offsets)."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.cache["pos"], *self.cache["layers"]["attn"].values()))
+        """Device bytes held by the decode cache: pools and block tables, or
+        the dense regions; offsets; the recurrent families' lane states."""
+        def nbytes(tree):
+            if isinstance(tree, dict):
+                return sum(nbytes(v) for v in tree.values())
+            return tree.numel() * tree.element_size()
+
+        return nbytes(self.cache)
 
     def blocks_in_use(self) -> int:
         """Blocks out of the free list (held by lanes or the prefix cache)."""

@@ -324,13 +324,13 @@ class Router:
 
     def _disagg_eligible(self, prompt: np.ndarray, max_new_tokens: int) -> bool:
         """Prefill replicas export paged blocks, so only a paged prefill
-        replica takes the prompt, and the export needs a few tokens of
-        prefill-side lane headroom."""
+        replica of a pure-KV (chunkable) family takes the prompt, and the
+        export needs a few tokens of prefill-side lane headroom."""
         prefills = self._live("prefill")
         if not prefills:
             return False
         eng = prefills[0].engine
-        return eng.paged and prompt.size + _PREFILL_BUDGET <= eng.max_len
+        return eng.paged and eng._chunkable and prompt.size + _PREFILL_BUDGET <= eng.max_len
 
     def _submit_prefill(self, routed: RoutedRequest) -> None:
         prefills = self._live("prefill")

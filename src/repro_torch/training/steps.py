@@ -1,5 +1,6 @@
 """The PEFT-aware train step and the serving prefill/decode steps (port of
-``repro/training/steps.py`` for the dense, audio, moe and vlm families).
+``repro/training/steps.py`` for the dense, audio, moe, vlm, hybrid and ssm
+families).
 
 Parameters are partitioned into (trainable, frozen) by the model's mask:
 only the trainable leaves require grad (λ for QR-LoRA, a few thousand
@@ -9,8 +10,10 @@ accumulation (``cfg.microbatches``) is a Python loop over microbatch slices
 whose fp32 gradients add up in each leaf's ``.grad``; each microbatch is
 its own forward, so a moe layer routes that microbatch's rows alone, as the
 reference's scan does.  The loss carries ``MOE_AUX_COEF`` times the moe
-layers' load-balancing aux (0 for the other families), and the metrics
-report ``aux``.
+layers' load-balancing aux (the moe family's, and the hybrid's moe layers';
+0 for the other families), and the metrics report ``aux``.  The recurrent
+families' mixers are plain autograd: the gradient reaches λ through their
+sequential steps.
 
 A batch is ``{"tokens"}`` (B, S) for the dense family: each position
 predicts the next token.  The audio family trains on frame embeddings:

@@ -188,3 +188,24 @@ def test_attention_kernel_wrappers_validate_before_launching():
         kc_off = torch.zeros(kc.numel() + 1)[1:].view(kc.shape)
         tdecode.decode_attention_cuda(qd, kc_off, kc_off, 4)
     assert all(v == 0 for v in kernels.launch_counts().values())
+
+
+def test_rope_frequencies_are_kept_and_the_rotation_shared_bitwise():
+    """``rope_freqs`` makes a (d_head, theta, device) table once; q and k
+    rotated with one ``rope_rotation`` equal each rotated on its own, bit for
+    bit, and both equal the formula of the reference's ``apply_rope``."""
+    from repro.models import layers as jlayers
+    from repro_torch.models import layers
+
+    assert layers.rope_freqs(64, 10000.0, "cpu") is layers.rope_freqs(64, 10000.0, "cpu")
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((2, 5, 4, 64)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((2, 5, 2, 64)).astype(np.float32))
+    pos = torch.arange(3, 8)[None, :].expand(2, 5)
+    rotation = layers.rope_rotation(pos, 64, 10000.0, q.device)
+    for x in (q, k, q.to(torch.bfloat16)):
+        shared = layers.apply_rope(x, pos, 10000.0, rotation)
+        assert torch.equal(shared, layers.apply_rope(x, pos, 10000.0))
+    want = np.asarray(jlayers.apply_rope(jnp.asarray(q.numpy()), jnp.asarray(pos.numpy()), 10000.0))
+    np.testing.assert_allclose(layers.apply_rope(q, pos, 10000.0, rotation).numpy(), want,
+                               rtol=1e-5, atol=1e-5)

@@ -1,8 +1,8 @@
 """The port's kernel bench (``python -m repro_torch.benchmarks.run --only
 kernel``) on the CPU, in process: the reference bench's row names in its
 order, every kernel-vs-plain row within its stated tolerance, the
-``--json-out`` file, the refusal of sub-benches that are not ported yet or
-of a missing card, and the exit code when a row is over tolerance.  On the CPU
+``--json-out`` file, the sub-bench the port once refused (now run), the
+refusal of an unknown bench or a missing card, and the exit code when a row is over tolerance.  On the CPU
 the wrappers run the plain versions; the card run is ``chip_smoke.py``'s."""
 import contextlib
 import io
@@ -102,16 +102,32 @@ def test_json_out_holds_every_row(bench):
     assert all(times[name] == round(float(us), 1) for name, us, _ in bench["rows"])
 
 
-# the reference serving bench's sub-benches the port refuses, and the item
-# that ports what each needs
+# the reference serving bench's sub-benches the port once refused, and the
+# item that ported what each needed
 _REFUSED = {"serve_multitenant:recurrent_families": "12b"}
 
 
 @pytest.mark.parametrize("name", sorted(_REFUSED))
-def test_unported_bench_raises_naming_its_roadmap_item(name):
-    assert set(run.NOT_PORTED) == set(_REFUSED)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP Queue 1 item {_REFUSED[name]}\)"):
-        run.main(["--only", f"kernel,{name}", "--device", "cpu"])
+def test_unported_bench_raises_naming_its_roadmap_item(name, monkeypatch):
+    """``NOT_PORTED`` is empty: the recurrent-families sub-bench, once
+    refused naming item 12b, runs at the smoke scale (an xlstm batch and a
+    jamba hybrid batch, each row with its whole decode cache's bytes, the
+    hybrid's pool peak beside its capacity)."""
+    from repro_torch.benchmarks import serve_multitenant
+
+    assert run.NOT_PORTED == {}
+    monkeypatch.setenv("REPRO_BENCH_SCALE", "smoke")
+    common.reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_multitenant.BENCHES[name.split(":")[1]](torch.device("cpu"))
+    rows = [ln.split(",", 2) for ln in buf.getvalue().splitlines()
+            if ln.startswith("serve_multitenant:engine:family=")]
+    assert [r[0] for r in rows] == [f"serve_multitenant:engine:family={f}"
+                                    for f in ("ssm", "hybrid")]
+    fields = [dict(kv.split("=", 1) for kv in r[2].split(";")) for r in rows]
+    assert all(int(f["state_bytes"]) > 0 and int(f["lanes"]) == 4 for f in fields)
+    assert "pool_peak" not in fields[0] and "pool_peak" in fields[1]
 
 
 def test_adapter_churn_runs_at_the_smoke_scale(monkeypatch):

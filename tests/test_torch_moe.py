@@ -198,10 +198,27 @@ def test_the_adapted_layers_check_holds_a_sound_serve_and_rejects_the_faults():
 
 
 def test_moe_every_other_than_one_is_refused():
-    """``moe_every`` > 1 interleaves dense and moe layers, as the hybrid
-    family does; the port routes every layer, so the config refuses it."""
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        get_config(ARCHS[0]).replace(moe_every=2)
+    """``moe_every`` parity with the reference: the config takes any value
+    (the hybrid family's groups put their moe layers at the odd positions;
+    jamba sets 2), ``param_count`` counts moe layers at ``i % moe_every ==
+    moe_every - 1`` as the reference does, and the moe family routes every
+    layer whatever it says — its forward is the ``moe_every=1`` forward, in
+    both packages."""
+    for every in (1, 2, 3):
+        mine, ref = get_config(ARCHS[0]).replace(moe_every=every), jax_config(ARCHS[0]).replace(
+            moe_every=every)
+        assert mine.param_count() == ref.param_count()
+        assert mine.param_count(active_only=True) == ref.param_count(active_only=True)
+    for arch in ("jamba-1.5-large-398b",):
+        assert get_config(arch).moe_every == jax_config(arch).moe_every == 2
+        assert get_config(arch).param_count() == jax_config(arch).param_count()
+    cfg = get_reduced(ARCHS[0]).replace(dtype="float32")
+    m = build_model(cfg, "cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 9)).astype(np.int32))
+    a = m.apply(params, toks)
+    b = build_model(cfg.replace(moe_every=2), "cpu").apply(params, toks)
+    assert torch.equal(a, b)
 
 
 def test_combine_is_deterministic_and_independent_of_slot_order():

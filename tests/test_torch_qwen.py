@@ -83,8 +83,12 @@ def test_names_resolve_as_the_reference_registry(name):
 
 
 def test_unknown_arch_is_refused():
+    """Every arch of the reference's registry is ported; a name that no
+    registry knows is refused, listing the ones the port has."""
     with pytest.raises(NotImplementedError, match="the port has"):
-        get_config("xlstm-125m")
+        get_config("xlstm-350m")
+    with pytest.raises(NotImplementedError, match="the port has"):
+        get_reduced("jamba-1.5-mini")
 
 
 @pytest.mark.parametrize("arch", QWEN)

@@ -1,10 +1,10 @@
 """The port's serving bench (``python -m repro_torch.benchmarks.run --only
-serve_multitenant``) on the CPU at the smoke scale, in process: the ten
+serve_multitenant``) on the CPU at the smoke scale, in process: the eleven
 sub-benches' rows under the reference's names and in its order, each speed
 ordering the reference asserts carried as a ``held`` reading with both
 sides' numbers, the correctness bounds it keeps hard (and a planted fault
 that one of them rejects), every kernel row within its stated tolerance,
-and the refusal of sub-benches the port lacks.  On the CPU the kernel
+and the refusal of a sub-bench's name as a bench.  On the CPU the kernel
 wrappers run their plain versions, so the errors read 0 and every time is a
 CPU time."""
 import contextlib
@@ -25,6 +25,7 @@ ROWS = {
     "adapter_churn": [f"churn:{op}" for op in ("register", "promote", "evict")],
     "bgmv_overhead": ["bgmv_vs_single"],
     "engine_throughput": [f"engine:tenants={n}" for n in (1, 4, 8)],
+    "recurrent_families": [f"engine:family={f}" for f in ("ssm", "hybrid")],
     "chunked_prefill": ["chunked_prefill:off", "chunked_prefill:on"],
     "speculative": [f"speculative:k={k}" for k in (0, 2, 4)] + ["speculative:saving"],
     "telemetry_overhead": ["engine:telemetry=off", "engine:telemetry=on"],
@@ -86,14 +87,10 @@ def test_the_nine_sub_benches_run_in_the_reference_order(bench):
 
 def _reference_templates():
     """The row names ``benchmarks/serve_multitenant.py`` emits, as regular
-    expressions (each ``{…}`` of its f-strings matches one field), apart
-    from the sub-bench the port refuses (``engine:family=*``)."""
+    expressions (each ``{…}`` of its f-strings matches one field)."""
     source = (ROOT / "benchmarks" / "serve_multitenant.py").read_text()
-    out = []
-    for t in re.findall(r'emit\(\s*f?"serve_multitenant:([^"]*)"', source):
-        if not t.startswith("engine:family="):
-            out.append(re.compile(re.sub(r"\\\{[^}]*\\\}", "[^:]+", re.escape(t)) + "$"))
-    return out
+    return [re.compile(re.sub(r"\\\{[^}]*\\\}", "[^:]+", re.escape(t)) + "$")
+            for t in re.findall(r'emit\(\s*f?"serve_multitenant:([^"]*)"', source)]
 
 
 @pytest.mark.parametrize("sub", list(ROWS))
@@ -161,13 +158,20 @@ def test_one_sub_bench_runs_alone():
     assert all(common.errors()[row]["ok"] for row in rows if row in common.errors())
 
 
-def test_an_unknown_sub_bench_raises():
-    """``run.py`` names whole benches; a sub-bench's name is refused (the
-    one the port lacks with its ROADMAP item, any other as unknown)."""
+def test_an_unknown_sub_bench_raises(bench):
+    """``run.py`` names whole benches; a sub-bench's name is refused as
+    unknown, the recurrent families' too (the port lacks none of the
+    reference's: they run inside ``serve_multitenant``, an xlstm and a jamba
+    hybrid row, each with its decode cache's bytes)."""
     with pytest.raises(ValueError, match="unknown bench"):
         run.main(["--only", "serve_multitenant:churn", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    assert run.NOT_PORTED == {}
+    with pytest.raises(ValueError, match="unknown bench"):
         run.main(["--only", "serve_multitenant:recurrent_families", "--device", "cpu"])
+    for fam in ("ssm", "hybrid"):
+        us, fields = bench["rows"][f"engine:family={fam}"]
+        assert us > 0.0 and int(fields["state_bytes"]) > 0 and int(fields["tok_s"]) >= 0
+    assert "pool_peak" in bench["rows"]["engine:family=hybrid"][1]
 
 
 def test_adapter_churn_spill_promote_is_bitwise(monkeypatch):

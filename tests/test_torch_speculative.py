@@ -209,10 +209,8 @@ def test_speculative_telemetry_counts_exactly_once():
 
 def test_speculation_rejected_for_recurrent_families():
     """The family gate (``tests/test_speculative.py:201``): the config-level
-    check in both packages, and engine construction.  The reference's
-    engine case (xlstm-125m) becomes the port's refusal of that arch until
-    its family is ported (ROADMAP Queue 1 item 12b); a dense config marked
-    ssm takes the gate itself."""
+    check in both packages, and engine construction on xlstm-125m (the
+    reference's engine case) and on a dense config marked ssm."""
     assert SPECULATIVE_FAMILIES == J_SPECULATIVE_FAMILIES
     for cls in (EngineConfig, JEngineConfig):
         cfg = cls(n_lanes=1, n_slots=2, max_len=16, speculate_k=2)
@@ -221,8 +219,10 @@ def test_speculation_rejected_for_recurrent_families():
         for family in ("ssm", "hybrid"):
             with pytest.raises(ValueError, match="cannot rewind"):
                 cfg.validate_speculation(family)
-    with pytest.raises(NotImplementedError, match="the port has"):
-        get_reduced("xlstm_125m")
+    with pytest.raises(ValueError, match="cannot rewind"):
+        MultiTenantEngine(get_reduced("xlstm_125m"),
+                          EngineConfig(n_lanes=1, n_slots=2, max_len=16, speculate_k=2),
+                          device="cpu")
     with pytest.raises(ValueError, match="cannot rewind"):
         MultiTenantEngine(_cfg().replace(family="ssm"),
                           EngineConfig(n_lanes=1, n_slots=2, max_len=16, speculate_k=2),
