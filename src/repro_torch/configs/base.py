@@ -107,6 +107,10 @@ class ModelConfig:
     norm_eps: float = 1e-5
     adapter: AdapterConfig = field(default_factory=AdapterConfig)
     microbatches: int = 1  # gradient accumulation steps per train step
+    # Train forwards recompute each layer group (and each position of a
+    # multi-layer group) in the backward instead of keeping its activations
+    # (models/transformer.py); no number changes
+    remat: bool = True
     # Frozen-base weight dtype: "bf16" keeps W in the model dtype; "int8"/
     # "fp8" replace every adapted base projection with a per-output-channel
     # symmetric {q, scale} pair at install time (core/quantize.py).

@@ -10,6 +10,7 @@ trains), LoRA, SVD-LoRA (B and A train) or full fine-tuning (``--peft``).
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch llama-3.2-vision-11b
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch xlstm-125m
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --arch jamba-1.5-large-398b
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 40 --ckpt-dir /tmp/run1 --save-every 10
 
 The third form trains full-width smollm-135m on the card (random weights
 from ``--seed``), where every adapted projection's forward runs the one-λ
@@ -21,27 +22,42 @@ beside stub patch embeddings; ``--arch xlstm-125m`` trains the ssm family's
 λ on ``x_qkv`` (its v third through the strided column slice) and
 ``--arch jamba-1.5-large-398b`` the hybrid's (full width needs four cards:
 ROADMAP item 14c), its moe layers' aux in the loss.  It prints the trainable count, the loss every ``--log-every``
-steps, the median step time and the train tokens/s.  The reference
-launcher's checkpointing and fault tolerance (``--ckpt-dir``) are not
-ported yet and raise here (ROADMAP Queue 1 item 15).
+steps, the median step time and the train tokens/s.
+
+Fault tolerance is on by default, as in the reference launcher: the steps
+run through :class:`repro_torch.runtime.TrainLoopRunner` over a
+:class:`repro_torch.checkpoint.CheckpointManager` (``keep=3``) under
+``--ckpt-dir``, so a run restores the newest checkpoint there, saves every
+``--save-every`` steps in the background, checkpoints and exits at the
+step boundary on SIGTERM, replays from the last checkpoint after a failed
+step, and saves at its end.  A run that stopped at step s and is started
+again with the same flags goes on from s, and each step's batch is the
+one an uninterrupted run takes there (:func:`batches`).  The default
+directory is ``repro_torch_ckpt_<arch>`` under the temporary directory
+(``/tmp`` unless ``TMPDIR`` says otherwise): the port's own, never the
+reference's ``repro_ckpt_<arch>``.  Train forwards remat (``cfg.remat``).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import sys
+import tempfile
 import time
 from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import lm_batches
 from repro_torch.models import build_model
 from repro_torch.models.model_zoo import Model
 from repro_torch.optim import AdamWConfig, make_schedule
+from repro_torch.runtime import TrainLoopRunner
 from repro_torch.training import init_train_state, make_train_step
 
 
@@ -69,44 +85,74 @@ def make_step(model: Model, lr: float, steps: int):
 
 
 def batches(cfg: ModelConfig, batch: int, seq: int, seed: int,
-            device) -> Iterator[Dict[str, torch.Tensor]]:
-    """The synthetic LM stream's token batches; for the audio family the
-    tokens are the code targets and the frames beside them are normal draws
-    (scale 0.1) from ``seed``, the stub EnCodec frontend's stand-in; for the
-    vlm family each row gets its own image, standard normal patch embeddings
-    (n_image_tokens × d_image) from ``seed``, the stub vision frontend's."""
+            device, start_step: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+    """The synthetic LM stream's token batches from step ``start_step`` on;
+    for the audio family the tokens are the code targets and the frames
+    beside them are normal draws (scale 0.1) from ``seed``, the stub EnCodec
+    frontend's stand-in; for the vlm family each row gets its own image,
+    standard normal patch embeddings (n_image_tokens × d_image) from
+    ``seed``, the stub vision frontend's.  The frames and images are one
+    stream of draws, so a later start draws and drops the batches before it:
+    batch s is the same whatever the start."""
     rng = np.random.default_rng(seed)
-    for b in lm_batches(cfg.vocab_size, batch, seq, seed=seed):
+    shape = {"vlm": (batch, cfg.n_image_tokens, cfg.d_image),
+             "audio": (batch, seq, cfg.d_model)}.get(cfg.family)
+    for _ in range(start_step if shape else 0):
+        rng.standard_normal(shape, np.float32)
+    for b in lm_batches(cfg.vocab_size, batch, seq, seed=seed, start_step=start_step):
         tokens = torch.from_numpy(b["tokens"][:, :seq]).to(device)
         if cfg.family == "vlm":
-            img = rng.standard_normal((batch, cfg.n_image_tokens, cfg.d_image), np.float32)
+            img = rng.standard_normal(shape, np.float32)
             yield {"tokens": tokens, "image_embeds": torch.from_numpy(img).to(device)}
             continue
         if cfg.family != "audio":
             yield {"tokens": tokens}
             continue
-        frames = rng.standard_normal((batch, seq, cfg.d_model), np.float32) * 0.1
+        frames = rng.standard_normal(shape, np.float32) * 0.1
         yield {"embeds": torch.from_numpy(frames).to(device), "targets": tokens}
+
+
+def _timed_step(step_fn: Callable, state, batch):
+    """One step → (state, metrics, its ``{"loss", "ce", "aux", "grad_norm",
+    "lr", "ms"}`` row).  The time ends when the loss reaches the host, so it
+    covers all of the step's device work."""
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch)
+    loss = float(m["loss"])
+    ms = (time.perf_counter() - t0) * 1e3
+    return state, m, {"loss": loss, "ce": float(m["ce"]), "aux": float(m["aux"]),
+                      "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]), "ms": ms}
 
 
 def train(step_fn: Callable, state, data: Iterator, steps: int, log_every: int = 0,
           log: Callable[[str], None] = _say):
     """Run ``steps`` steps; returns (state, history of per-step
-    ``{"loss", "ce", "aux", "grad_norm", "lr", "ms"}``).  A step's time ends when
-    its loss reaches the host, so it covers all of the step's device work."""
+    ``{"loss", "ce", "aux", "grad_norm", "lr", "ms"}``)."""
     hist: List[Dict[str, float]] = []
     for i in range(steps):
-        batch = next(data)
-        t0 = time.perf_counter()
-        state, m = step_fn(state, batch)
-        loss = float(m["loss"])
-        ms = (time.perf_counter() - t0) * 1e3
-        hist.append({"loss": loss, "ce": float(m["ce"]), "aux": float(m["aux"]),
-                     "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]), "ms": ms})
+        state, _, row = _timed_step(step_fn, state, next(data))
+        hist.append(row)
         if log_every and (i % log_every == 0 or i == steps - 1):
-            log(f"step {i:4d}  loss {loss:.4f}  |grad| {hist[-1]['grad_norm']:.2e}  "
-                f"lr {hist[-1]['lr']:.2e}  {ms:.1f} ms")
+            log(f"step {i:4d}  loss {row['loss']:.4f}  |grad| {row['grad_norm']:.2e}  "
+                f"lr {row['lr']:.2e}  {row['ms']:.1f} ms")
     return state, hist
+
+
+def recorded(step_fn: Callable, hist: Dict[int, Dict[str, float]]) -> Callable:
+    """``step_fn`` that files each step's row (:func:`_timed_step`) in
+    ``hist`` under the optimizer step it reached, so a replayed step
+    overwrites its first run's row."""
+
+    def step(state, batch):
+        state, m, row = _timed_step(step_fn, state, batch)
+        hist[int(state["opt"]["step"])] = row
+        return state, m
+
+    return step
+
+
+def default_ckpt_dir(cfg: ModelConfig) -> str:
+    return os.path.join(tempfile.gettempdir(), f"repro_torch_ckpt_{cfg.name}")
 
 
 def summary(hist: List[Dict[str, float]], tokens_per_step: int) -> Dict[str, float]:
@@ -126,15 +172,14 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (default: repro_torch_ckpt_<arch> under the "
+                         "temporary directory)")
+    ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpointing and fault tolerance come with ROADMAP Queue 1 item 15"
-        )
 
     model = build(args.arch, args.reduced, args.device, peft=args.peft)
     cfg = model.cfg
@@ -144,12 +189,23 @@ def main(argv=None):
     n_train = model.count_trainable({"groups": state["trainable"]["groups"]})
     _say(f"init {time.perf_counter() - t0:.1f}s; trainable params: {n_train}")
 
-    step_fn = make_step(model, args.lr, args.steps)
-    data = batches(cfg, args.batch, args.seq, args.seed, model.device)
-    state, hist = train(step_fn, state, data, args.steps, args.log_every)
+    rows: Dict[int, Dict[str, float]] = {}
+    step_fn = recorded(make_step(model, args.lr, args.steps), rows)
+    ckpt = CheckpointManager(args.ckpt_dir or default_ckpt_dir(cfg), keep=3)
+    runner = TrainLoopRunner(
+        step_fn, lambda start: batches(cfg, args.batch, args.seq, args.seed, model.device, start),
+        ckpt, save_every=args.save_every, log_every=args.log_every or args.steps + 1,
+        log_fn=lambda line: print(line, flush=True),
+    )
+    state, step, _ = runner.run(state, args.steps)
+    hist = [rows[s] for s in sorted(rows)]
+    if not hist:
+        _say(f"done at step {step}: nothing left to run under {ckpt.root}")
+        return state, hist
     s = summary(hist, args.batch * args.seq)
-    _say(f"done: {args.steps} steps; final loss {hist[-1]['loss']:.4f}; median step "
-         f"{s['median_step_ms']:.1f} ms; {s['tokens_per_s']:.0f} train tokens/s")
+    _say(f"done at step {step}: {len(hist)} steps run; final loss {hist[-1]['loss']:.4f}; "
+         f"median step {s['median_step_ms']:.1f} ms; {s['tokens_per_s']:.0f} train tokens/s; "
+         f"restarts {runner.restarts}; stragglers observed: {len(runner.monitor.events)}")
     return state, hist
 
 

@@ -116,13 +116,15 @@ class Model:
         encoder: the fp32 task output (B, n_classes), ``attn_mask`` (B, S)
         marking the keys to attend to.  With ``train=True`` ``(out, aux)`` as the
         reference's trainer takes them (``aux``: the moe layers' summed
-        load-balancing loss, 0 for the other families)."""
+        load-balancing loss, 0 for the other families); a decoder's train
+        forward remats its layer groups when ``cfg.remat``."""
         if self.cfg.is_encoder:
             out = enc_lib.encoder_apply(params, self.cfg, tokens, attn_mask)
             aux = torch.zeros((), dtype=torch.float32, device=out.device)
         else:
             out, aux = tfm_lib.decoder_apply(params, self.cfg, tokens, seg_ids=seg_ids,
-                                             embeds=embeds, image_embeds=image_embeds)
+                                             embeds=embeds, image_embeds=image_embeds,
+                                             train=train)
         return (out, aux) if train else out
 
     def init_decode_state(self, batch: int, max_len: int, dtype=torch.bfloat16,

@@ -45,13 +45,24 @@ Parameters keep the reference's stacked layout: every per-layer leaf under
 (``groups["adapters"][module][proj]``).  The reference scans over that axis;
 here a Python loop takes layer ``l``'s slice of every leaf (views, no
 copies).  Decode caches are written in place.
+
+Remat (``cfg.remat``, on by default as in the reference): a train forward
+(``decoder_apply(train=True)`` with grad enabled) runs each group's body
+under ``torch.utils.checkpoint`` (non-reentrant), and inside the vlm,
+hybrid and ssm groups each position's mixer and FFN too, so the backward
+keeps each group's input and recomputes the rest, one layer live at a time.
+The recompute runs the same operations on the same inputs, so the loss and
+every gradient are bitwise those without remat.  The vlm's gated cross layer
+is left unwrapped inside its group, as in the reference.  Prefill, decode
+and verify never checkpoint.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter_api import adapted_matmul
@@ -252,7 +263,17 @@ def _image_rows(params, cfg: ModelConfig, x: torch.Tensor, image_embeds) -> Opti
     return (image_embeds.to(x.dtype) @ params["img_proj"]).to(x.dtype)
 
 
-def _run_vlm_groups(params, cfg: ModelConfig, x, positions, cache_layers, img):
+def _ckpt(fn: Callable, remat: bool) -> Callable:
+    """``fn`` run under non-reentrant ``torch.utils.checkpoint`` when
+    ``remat`` (the reference's ``_ckpt``, ``jax.checkpoint`` with nothing
+    saveable): its backward recomputes what ``fn`` computed from the
+    arguments it was given."""
+    if not remat:
+        return fn
+    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _run_vlm_groups(params, cfg: ModelConfig, x, positions, cache_layers, img, remat=False):
     """The vlm group body (``repro/models/transformer.py:284-318``) over the
     G groups: P-1 self layers (adapters ``attn`` at [g, i]), then the gated
     cross layer (adapters ``xattn`` at [g]), each followed by its MLP (no
@@ -264,21 +285,25 @@ def _run_vlm_groups(params, cfg: ModelConfig, x, positions, cache_layers, img):
         p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, g)
         adp = _tslice(adapters, g) if adapters else None
         self_adp = _adp_for(adp, "attn")
-        for i in range(P - 1):
-            h = rms_norm(x, p["ln1"][i], cfg.norm_eps)
-            x = x + attn_lib.attention(
-                _tslice(p["attn"], i), h, cfg, positions=positions,
-                adp=_tslice(self_adp, i) if self_adp else None,
-                cache=_tslice(_tslice(cache_layers["attn"], g), i) if cache_layers else None,
-            )
-            h = rms_norm(x, p["ln2"][i], cfg.norm_eps)
-            x = x + gated_mlp(_tslice(p["mlp"], i), h)
-        h = rms_norm(x, p["ln1"][P - 1], cfg.norm_eps)
-        out = attn_lib.attention(p["xattn"], h, cfg, positions=positions,
-                                 adp=_adp_for(adp, "xattn"), cross_kv=img)
-        x = x + torch.tanh(p["xattn"]["xa_gate"]).to(x.dtype) * out
-        h = rms_norm(x, p["ln2"][P - 1], cfg.norm_eps)
-        x = x + gated_mlp(_tslice(p["mlp"], P - 1), h)
+
+        def group(x, p=p, g=g, adp=adp, self_adp=self_adp):
+            for i in range(P - 1):
+                h = rms_norm(x, p["ln1"][i], cfg.norm_eps)
+                x = x + _ckpt(lambda h, i=i: attn_lib.attention(
+                    _tslice(p["attn"], i), h, cfg, positions=positions,
+                    adp=_tslice(self_adp, i) if self_adp else None,
+                    cache=_tslice(_tslice(cache_layers["attn"], g), i) if cache_layers else None,
+                ), remat)(h)
+                h = rms_norm(x, p["ln2"][i], cfg.norm_eps)
+                x = x + _ckpt(lambda h, i=i: gated_mlp(_tslice(p["mlp"], i), h), remat)(h)
+            h = rms_norm(x, p["ln1"][P - 1], cfg.norm_eps)
+            out = attn_lib.attention(p["xattn"], h, cfg, positions=positions,
+                                     adp=_adp_for(adp, "xattn"), cross_kv=img)
+            x = x + torch.tanh(p["xattn"]["xa_gate"]).to(x.dtype) * out
+            h = rms_norm(x, p["ln2"][P - 1], cfg.norm_eps)
+            return x + gated_mlp(_tslice(p["mlp"], P - 1), h)
+
+        x = _ckpt(group, remat)(x)
     return x, None
 
 
@@ -289,7 +314,7 @@ def _store(state: Dict, new: Dict) -> None:
 
 
 def _run_hybrid_groups(params, cfg: ModelConfig, x, positions, cache_layers, seg_ids,
-                       attend_blocks, length):
+                       attend_blocks, length, remat=False):
     """The hybrid group body (``repro/models/transformer.py:216-268``) over
     the G groups: at each of the P positions the attention layer (adapters
     ``attn`` at [g]; no ``n_valid``, as the reference passes none) or the
@@ -308,37 +333,48 @@ def _run_hybrid_groups(params, cfg: ModelConfig, x, positions, cache_layers, seg
         p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, g)
         adp = _tslice(adapters, g) if adapters else None
         mam_adp = _adp_for(adp, "mamba", seg_ids)
-        mi = di = oi = 0
-        for i in range(P):
-            h = rms_norm(x, p["ln_mixer"][i], cfg.norm_eps)
-            if i == cfg.hybrid_attn_index:
-                out = attn_lib.attention(
-                    p["attn"], h, cfg, positions=positions, adp=_adp_for(adp, "attn", seg_ids),
-                    cache=_tslice(cache_layers["attn"], g) if cache_layers else None,
-                    attend_blocks=attend_blocks)
-            else:
-                st = _tslice(_tslice(cache_layers["mamba"], g), mi) if cache_layers else None
-                a_i = ({w: {k: (t if k == "seg" else t[mi]) for k, t in leaf.items()}
-                        for w, leaf in mam_adp.items()} if mam_adp else None)
-                out, ns = mamba_lib.mamba_mixer(_tslice(p["mamba"], mi), h, cfg, state=st,
-                                                adp=a_i, length=length)
-                if ns is not None:
-                    _store(st, ns)
-                mi += 1
-            x = x + out
-            h = rms_norm(x, p["ln_ffn"][i], cfg.norm_eps)
-            if i % 2 == 1:
-                y, a = moe_lib.moe_ffn(_tslice(p["moe"], oi), h, cfg)
-                aux = a if aux is None else aux + a
-                oi += 1
-            else:
-                y = gated_mlp(_tslice(p["mlp"], min(di, n_dense - 1)), h)
-                di += 1
-            x = x + y
+
+        def group(x, p=p, g=g, adp=adp, mam_adp=mam_adp):
+            aux = None
+            mi = di = oi = 0
+            for i in range(P):
+                h = rms_norm(x, p["ln_mixer"][i], cfg.norm_eps)
+                if i == cfg.hybrid_attn_index:
+                    out = _ckpt(lambda h: attn_lib.attention(
+                        p["attn"], h, cfg, positions=positions,
+                        adp=_adp_for(adp, "attn", seg_ids),
+                        cache=_tslice(cache_layers["attn"], g) if cache_layers else None,
+                        attend_blocks=attend_blocks), remat)(h)
+                else:
+                    st = _tslice(_tslice(cache_layers["mamba"], g), mi) if cache_layers else None
+                    a_i = ({w: {k: (t if k == "seg" else t[mi]) for k, t in leaf.items()}
+                            for w, leaf in mam_adp.items()} if mam_adp else None)
+                    out, ns = _ckpt(lambda h, mi=mi, st=st, a_i=a_i: mamba_lib.mamba_mixer(
+                        _tslice(p["mamba"], mi), h, cfg, state=st, adp=a_i, length=length),
+                        remat)(h)
+                    if ns is not None:
+                        _store(st, ns)
+                    mi += 1
+                x = x + out
+                h = rms_norm(x, p["ln_ffn"][i], cfg.norm_eps)
+                if i % 2 == 1:
+                    y, a = _ckpt(lambda h, oi=oi: moe_lib.moe_ffn(_tslice(p["moe"], oi), h, cfg),
+                                 remat)(h)
+                    aux = a if aux is None else aux + a
+                    oi += 1
+                else:
+                    y = _ckpt(lambda h, di=di: gated_mlp(_tslice(p["mlp"], min(di, n_dense - 1)),
+                                                         h), remat)(h)
+                    di += 1
+                x = x + y
+            return x, aux
+
+        x, a = _ckpt(group, remat)(x)
+        aux = a if aux is None else aux + a
     return x, aux
 
 
-def _run_ssm_groups(params, cfg: ModelConfig, x, cache_layers, seg_ids, length):
+def _run_ssm_groups(params, cfg: ModelConfig, x, cache_layers, seg_ids, length, remat=False):
     """The ssm group body (``repro/models/transformer.py:270-297``) over the
     G groups: each block of ``xlstm_pattern`` (adapters ``mlstm``/``slstm``
     at [g]) as a pre-norm residual."""
@@ -348,52 +384,64 @@ def _run_ssm_groups(params, cfg: ModelConfig, x, cache_layers, seg_ids, length):
     for g in range(cfg.n_layers // cfg.group_size):
         p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, g)
         adp = _tslice(adapters, g) if adapters else None
-        for j, kind in enumerate(cfg.xlstm_pattern):
-            key, mixer = mixers[kind]
-            h = rms_norm(x, p["ln"][j], cfg.norm_eps)
-            st = _tslice(cache_layers[key], g) if cache_layers else None
-            out, ns = mixer(p[key], h, cfg, state=st, adp=_adp_for(adp, key, seg_ids),
-                            length=length)
-            if ns is not None:
-                _store(st, ns)
-            x = x + out
+
+        def group(x, p=p, g=g, adp=adp):
+            for j, kind in enumerate(cfg.xlstm_pattern):
+                key, mixer = mixers[kind]
+                h = rms_norm(x, p["ln"][j], cfg.norm_eps)
+                st = _tslice(cache_layers[key], g) if cache_layers else None
+                out, ns = _ckpt(lambda h, key=key, mixer=mixer, st=st: mixer(
+                    p[key], h, cfg, state=st, adp=_adp_for(adp, key, seg_ids), length=length),
+                    remat)(h)
+                if ns is not None:
+                    _store(st, ns)
+                x = x + out
+            return x
+
+        x = _ckpt(group, remat)(x)
     return x, None
 
 
 def _run_layers(params, cfg, x, positions, cache_layers, seg_ids=None, attend_blocks=None,
-                n_valid=None, img=None, length=None):
+                n_valid=None, img=None, length=None, remat=False):
     """The layer stack over ``x`` → ``(x, aux)``: ``aux`` sums the moe
     layers' load-balancing losses (None for the families without).
     ``img``: the vlm family's projected image rows (:func:`_run_vlm_groups`);
     ``length``: a bucketed prefill's true lengths, for the recurrent
-    mixers."""
+    mixers; ``remat``: checkpoint each group (module docstring)."""
     if cfg.family == "vlm":
-        return _run_vlm_groups(params, cfg, x, positions, cache_layers, img)
+        return _run_vlm_groups(params, cfg, x, positions, cache_layers, img, remat)
     if cfg.family == "hybrid":
         return _run_hybrid_groups(params, cfg, x, positions, cache_layers, seg_ids,
-                                  attend_blocks, length)
+                                  attend_blocks, length, remat)
     if cfg.family == "ssm":
-        return _run_ssm_groups(params, cfg, x, cache_layers, seg_ids, length)
+        return _run_ssm_groups(params, cfg, x, cache_layers, seg_ids, length, remat)
     groups = params["groups"]
     aux = None
     adapters = groups.get("adapters")
     for l in range(cfg.n_layers):
         p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, l)
         adp = _tslice(adapters, l) if adapters else None
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + attn_lib.attention(
-            p["attn"], h, cfg, positions=positions,
-            adp=_adp_for(adp, "attn", seg_ids),
-            cache=_tslice(cache_layers["attn"], l) if cache_layers else None,
-            attend_blocks=attend_blocks, n_valid=n_valid,
-        )
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        if cfg.is_moe:
-            y, a = moe_lib.moe_ffn(p["moe"], h, cfg)
+
+        def layer(x, p=p, l=l, adp=adp):
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            x = x + attn_lib.attention(
+                p["attn"], h, cfg, positions=positions,
+                adp=_adp_for(adp, "attn", seg_ids),
+                cache=_tslice(cache_layers["attn"], l) if cache_layers else None,
+                attend_blocks=attend_blocks, n_valid=n_valid,
+            )
+            h = rms_norm(x, p["ln2"], cfg.norm_eps)
+            a = None
+            if cfg.is_moe:
+                y, a = moe_lib.moe_ffn(p["moe"], h, cfg)
+            else:
+                y = gated_mlp(p["mlp"], h, _adp_for(adp, "mlp", seg_ids))
+            return x + y, a
+
+        x, a = _ckpt(layer, remat)(x)
+        if a is not None:
             aux = a if aux is None else aux + a
-        else:
-            y = gated_mlp(p["mlp"], h, _adp_for(adp, "mlp", seg_ids))
-        x = x + y
     return x, aux
 
 
@@ -403,15 +451,17 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def decoder_apply(params, cfg: ModelConfig, tokens=None, seg_ids=None, embeds=None,
-                  image_embeds=None):
+                  image_embeds=None, train: bool = False):
     """Full-sequence forward of ``tokens`` (B, S) or ``embeds`` (B, S, d) →
     ``(logits (B, S, V) fp32, aux)``: ``aux`` the layers' summed moe
     load-balancing loss, a float32 0 for the other families.  The vlm
-    family takes ``image_embeds`` (B, n_image_tokens, d_image)."""
+    family takes ``image_embeds`` (B, n_image_tokens, d_image).  A
+    ``train`` forward with grad enabled remats when ``cfg.remat``."""
     x = _embed_input(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
+    remat = train and cfg.remat and torch.is_grad_enabled()
     x, aux = _run_layers(params, cfg, x, positions, None, seg_ids,
-                         img=_image_rows(params, cfg, x, image_embeds))
+                         img=_image_rows(params, cfg, x, image_embeds), remat=remat)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, cfg, x), aux

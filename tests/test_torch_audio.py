@@ -206,11 +206,12 @@ def test_engine_serves_codes_as_the_jax_engine(models):
     assert teng.steps == jeng.steps
 
 
-def test_serve_and_train_launchers_take_the_audio_arch(capsys):
+def test_serve_and_train_launchers_take_the_audio_arch(capsys, tmp_path):
     done = serve_multi.main(["--reduced", "--device", "cpu", "--arch", ARCH, "--gen-len", "6"])
     assert len(done) == 4 and "all 4 tenants match" in capsys.readouterr().out
     _, hist = train_launch.main(["--reduced", "--device", "cpu", "--arch", ARCH, "--steps", "3",
-                                 "--batch", "2", "--seq", "16", "--log-every", "0"])
+                                 "--batch", "2", "--seq", "16", "--log-every", "0",
+                                 "--ckpt-dir", str(tmp_path / "ckpt")])
     assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
     batch = next(train_launch.batches(get_reduced(ARCH), 2, 16, 0, "cpu"))
     assert set(batch) == {"embeds", "targets"} and batch["embeds"].shape == (2, 16, 64)

@@ -51,6 +51,17 @@ def _clear_jax_caches():
     jax.clear_caches()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Torch's CPU ops on two threads in this module: under the suite's
+    parallel workers, larger OpenMP teams oversubscribe the cores and every
+    small op of an engine step stalls."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 _WEIGHTS = {}
 
 

@@ -195,7 +195,7 @@ def test_param_count_ordering_matches_paper():
 
 
 @pytest.mark.parametrize("peft", ["lora", "svd_lora", "ft"])
-def test_train_launcher_peft_matches_jax_trainer(peft, capsys):
+def test_train_launcher_peft_matches_jax_trainer(peft, capsys, tmp_path):
     """``launch/train.py --peft`` on reduced smollm-135m (float32): the
     launcher's own step, optimizer and data against the JAX trainer for 4
     steps from the same params (LoRA's B made nonzero so that A trains from
@@ -230,7 +230,8 @@ def test_train_launcher_peft_matches_jax_trainer(peft, capsys):
     n_train = tm.count_trainable({"groups": state["trainable"]["groups"]})
     assert n_train == jm.count_trainable({"groups": jstate["trainable"]["groups"]})
     _, hist = train_launch.main(["--reduced", "--device", "cpu", "--peft", peft, "--steps", "2",
-                                 "--batch", "2", "--seq", "8", "--log-every", "1"])
+                                 "--batch", "2", "--seq", "8", "--log-every", "1",
+                                 "--ckpt-dir", str(tmp_path / "ckpt")])
     out = capsys.readouterr().out
     assert f"peft={peft}" in out and f"trainable params: {n_train}" in out
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)

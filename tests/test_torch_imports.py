@@ -40,7 +40,10 @@ def test_importing_every_port_module_loads_no_jax():
     for module in ("repro_torch.sharding.rules", "repro_torch.obs.telemetry",
                    "repro_torch.serving.replica", "repro_torch.serving.router",
                    "repro_torch.benchmarks.multi_replica",
-                   "repro_torch.benchmarks.serve_multitenant"):
+                   "repro_torch.benchmarks.serve_multitenant",
+                   "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+                   "repro_torch.checkpoint.reshard", "repro_torch.runtime",
+                   "repro_torch.runtime.fault_tolerance", "repro_torch.optim.compression"):
         assert module in names.split(","), names
 
 

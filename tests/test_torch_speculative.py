@@ -14,6 +14,7 @@ associates float sums otherwise than the single-row decode; against the JAX
 engine, ``test_torch_serving.py``'s, measured ~5e-6); a verify row within
 2e-5 of the decode it stands for (``test_torch_models.py``'s bound for one
 forward); tokens, schedules and counters equal."""
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -32,6 +33,7 @@ from repro.serving.config import SPECULATIVE_FAMILIES as J_SPECULATIVE_FAMILIES
 from repro_torch.configs import get_reduced
 from repro_torch.interop import params_from_jax
 from repro_torch.launch import serve_multi
+from repro_torch.models import build_model
 from repro_torch.serving import (
     BASE_TENANT,
     EngineConfig,
@@ -54,8 +56,26 @@ def _clear_jax_caches():
     jax.clear_caches()
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Torch's CPU ops on two threads in this module: under the suite's
+    parallel workers, larger OpenMP teams oversubscribe the cores and every
+    small op of an engine step stalls."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg():
     return get_reduced("smollm-135m").replace(dtype="float32")
+
+
+@functools.cache
+def _params():
+    """The engines' weights, built once a module: the reduced model's init
+    from ``EngineConfig.seed``, the tree each engine would draw itself."""
+    return build_model(_cfg(), "cpu").init(torch.Generator().manual_seed(EngineConfig().seed))
 
 
 def _run_engine(specs, *, rng_seed=3, n_tenants=2, **config_kw):
@@ -66,7 +86,7 @@ def _run_engine(specs, *, rng_seed=3, n_tenants=2, **config_kw):
     config_kw.setdefault("n_slots", 4)
     config_kw.setdefault("max_len", 48)
     config_kw.setdefault("collect_logits", True)
-    eng = MultiTenantEngine(cfg, EngineConfig(**config_kw), device="cpu")
+    eng = MultiTenantEngine(cfg, EngineConfig(**config_kw), params=_params(), device="cpu")
     for i in range(1, n_tenants + 1):
         eng.add_tenant(f"t{i}", random_lambda(torch.Generator().manual_seed(i), eng.params, 0.3))
     rng = np.random.default_rng(rng_seed)
@@ -131,7 +151,8 @@ def test_speculative_share_prefix_matches_plain():
     def run(k):
         eng = MultiTenantEngine(cfg, EngineConfig(
             layout="paged", n_lanes=2, n_slots=2, max_len=48, block_size=8,
-            collect_logits=True, share_prefix=True, speculate_k=k), device="cpu")
+            collect_logits=True, share_prefix=True, speculate_k=k), params=_params(),
+            device="cpu")
         subs = [eng.submit(BASE_TENANT, pre, 6)]  # seeds the prefix cache
         eng.run()
         subs.append(eng.submit(BASE_TENANT, pre, 6))  # fully cached prompt
@@ -158,7 +179,7 @@ def test_speculative_tight_pool_preemption_recovers():
     def run(k, n_blocks):
         eng = MultiTenantEngine(cfg, EngineConfig(
             layout="paged", n_lanes=2, n_slots=2, max_len=32, block_size=8,
-            n_blocks=n_blocks, speculate_k=k), device="cpu")
+            n_blocks=n_blocks, speculate_k=k), params=_params(), device="cpu")
         a = eng.submit(BASE_TENANT, np.arange(2, 10, dtype=np.int32), 16)
         b = eng.submit(BASE_TENANT, np.arange(12, 20, dtype=np.int32), 16)
         done = eng.run()
@@ -244,7 +265,7 @@ def test_engine_speculative_rollback_conserves_blocks(k, n_blocks, seed):
     def run(speculate_k):
         eng = MultiTenantEngine(cfg, EngineConfig(
             layout="paged", n_lanes=2, n_slots=2, max_len=24, block_size=8,
-            n_blocks=n_blocks, speculate_k=speculate_k), device="cpu")
+            n_blocks=n_blocks, speculate_k=speculate_k), params=_params(), device="cpu")
         rng2 = np.random.default_rng(seed + 1)
         subs = [eng.submit(BASE_TENANT, rng2.integers(2, cfg.vocab_size, size=P).astype(np.int32),
                            G) for P, G in specs]
@@ -335,7 +356,7 @@ def test_verify_row_s_is_decode_after_s_tokens(layout):
     conf = dict(layout=layout, n_lanes=2, n_slots=4, max_len=48)
     if layout == "paged":
         conf["block_size"] = 8
-    eng = MultiTenantEngine(_cfg(), EngineConfig(**conf), device="cpu")
+    eng = MultiTenantEngine(_cfg(), EngineConfig(**conf), params=_params(), device="cpu")
     eng.add_tenant("t1", random_lambda(torch.Generator().manual_seed(1), eng.params, 0.3))
     rng = np.random.default_rng(0)
     reqs = [eng.submit(t, rng.integers(2, 256, size=P).astype(np.int32), 20)
@@ -396,7 +417,8 @@ def _rig_engine(speculate_k=4):
     (the four prompts share a 16-token prefix), watermark 1, monolithic."""
     eng = MultiTenantEngine(_cfg(), EngineConfig(
         layout="paged", n_lanes=2, n_slots=4, max_len=48, block_size=8, share_prefix=True,
-        watermark=1, collect_logits=True, speculate_k=speculate_k), device="cpu")
+        watermark=1, collect_logits=True, speculate_k=speculate_k), params=_params(),
+        device="cpu")
     for i in (1, 2):
         eng.add_tenant(f"t{i}", random_lambda(torch.Generator().manual_seed(i), eng.params, 0.3))
     rng = np.random.default_rng(7)

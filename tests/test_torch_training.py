@@ -7,6 +7,8 @@ lr 3e-3, ``lm_batches(vocab, 8, 32, seed=0)``) reads per-step losses within
 1.5e-6 and final λ within 8e-8 of JAX's; the bounds below leave ~10×
 margin for summation order.  λ gradients of one step (~1e-2) agree within
 1.7e-8; bound 1e-7 absolute."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,17 @@ from repro_torch.tree import tree_leaves
 LOSS_ATOL = 2e-5
 LAM_ATOL = 1e-6
 GRAD_ATOL = 1e-7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Torch's CPU ops on two threads in this module: under the suite's
+    parallel workers, larger OpenMP teams oversubscribe the cores and every
+    small op of a train step stalls."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -211,20 +224,47 @@ def test_grad_accumulation_equivalent(models):
     np.testing.assert_allclose(results[0][1].numpy(), results[1][1].numpy(), atol=1e-5)
 
 
-def test_train_launcher_runs_to_its_end_on_cpu(capsys):
+def test_train_launcher_runs_to_its_end_on_cpu(capsys, tmp_path):
     state, hist = train_launch.main(["--reduced", "--device", "cpu", "--steps", "4",
-                                     "--batch", "2", "--seq", "8", "--log-every", "2"])
+                                     "--batch", "2", "--seq", "8", "--log-every", "2",
+                                     "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert len(hist) == 4 and all(np.isfinite(h["loss"]) for h in hist)
     assert "trainable params: 48" in out and "train tokens/s" in out
     assert state["opt"]["step"] == 4
 
 
+_LAUNCH = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "8", "--log-every", "0"]
+
+
+def test_train_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
+    """A second run with more ``--steps`` in the same ``--ckpt-dir`` restores
+    the first run's last checkpoint and runs only the steps after it; the
+    LoRA factors (``--peft lora``) restore with their Adam moments."""
+    argv = [*_LAUNCH, "--peft", "lora", "--ckpt-dir", str(tmp_path)]
+    state, hist = train_launch.main([*argv, "--steps", "2"])
+    assert len(hist) == 2 and state["opt"]["step"] == 2
+    capsys.readouterr()
+    state, hist = train_launch.main([*argv, "--steps", "3"])
+    assert "[ft] restored checkpoint at step 2" in capsys.readouterr().out
+    assert len(hist) == 1 and state["opt"]["step"] == 3
+    assert all(p.requires_grad for p in tree_leaves(state["trainable"]))
+
+
+def test_train_launcher_save_every_keeps_the_newest_three(tmp_path):
+    """``--save-every 2`` over 9 steps saves at 2, 4, 6, 8 and the final
+    step 9; the manager keeps the newest three."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    train_launch.main([*_LAUNCH, "--steps", "9", "--save-every", "2", "--ckpt-dir",
+                       str(tmp_path)])
+    assert CheckpointManager(str(tmp_path)).all_steps() == [6, 8, 9]
+    assert sorted(os.listdir(tmp_path)) == ["step_6", "step_8", "step_9"]
+
+
 @pytest.mark.parametrize("argv,err", [
-    (["--peft", "lora", "--ckpt-dir", "ckpt"], NotImplementedError),  # every mode refuses it
-    (["--ckpt-dir", "ckpt"], NotImplementedError),
     ([], RuntimeError),  # the default device is the card, absent here
-], ids=["peft_lora", "ckpt_dir", "default_device_cuda"])
+], ids=["default_device_cuda"])
 def test_train_launcher_refuses(argv, err):
     if not argv and torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

@@ -417,12 +417,13 @@ def test_lane_axes_and_per_lane_cache(models):
         tm.init_decode_state(2, 32, torch.float32, paged=True)
 
 
-def test_train_launcher_batches_carry_one_image_a_row():
+def test_train_launcher_batches_carry_one_image_a_row(tmp_path):
     cfg = get_reduced(ARCH)
     batch = next(train_launch.batches(cfg, 2, 16, 0, "cpu"))
     assert set(batch) == {"tokens", "image_embeds"}
     assert batch["image_embeds"].shape == (2, 16, 32)
     assert not torch.equal(batch["image_embeds"][0], batch["image_embeds"][1])
     _, hist = train_launch.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--steps", "2",
-                                 "--batch", "2", "--seq", "8", "--log-every", "0"])
+                                 "--batch", "2", "--seq", "8", "--log-every", "0",
+                                 "--ckpt-dir", str(tmp_path / "ckpt")])
     assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
