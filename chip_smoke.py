@@ -176,7 +176,23 @@ from ``--seed``, QR-LoRA on ``wq``/``wv`` of the last 4 layers):
   ft at batch 16 × seq 128 (a few warm-up FT steps, a few adapter steps,
   two eval batches), every adapted projection through the one-λ kernel's
   float32 route, each mode held against the same run with the plain
-  version in place of the kernel.
+  version in place of the kernel;
+* the launch tooling: ``repro_torch.launch.dryrun --both-meshes`` over the
+  reference's grid at full width on the meta device (the eight archs
+  without a per-position scan in every shape, xlstm-125m and
+  jamba-1.5-large-398b in their decode cells; host processes that run
+  beside the card's work), every cell OK or SKIP(full-attn), its table
+  printed; full-width smollm-135m's params, train state and 4 × 2048
+  decode cache built on the card, their bytes equal to the meta tensors'
+  of ``dryrun_params``, ``train_state_shapes`` and ``decode_cache_shapes``;
+  the legacy engine keywords (``paged=True`` and ``paged=False``, 4
+  tenants, 16 tokens each, one shared params tree) bitwise the
+  ``EngineConfig`` engines with equal launches and one deprecation warning;
+  the port's examples (``train_lm_torch --full`` losses bitwise
+  ``repro_torch.launch.train`` on the same argv, quickstart, serve_lm and
+  the self-verifying serve_multi_tenant at their defaults; quickstart's
+  losses against its twin on #3's plain version, and #3 against its plain
+  version at every shape the examples ran it at).
 
 The BGMV and paged kernels are also checked at qwen2-0.5b's shapes (K 896,
 N 896 and 128, r 160, the BGMV at 2-256 rows; 14 heads over 2 with length-0
@@ -7458,6 +7474,389 @@ def check_recurrent(out: dict) -> None:
            f"{JAMBA} reduced paged vs dense: {j['paged_vs_dense']}")
 
 
+# ---------------------------------------------------------------------------
+# the launch tooling: the dry-run grid on the meta device, its bytes against
+# the card's, the legacy engine keywords and the examples
+# ---------------------------------------------------------------------------
+
+# The dry-run cells the card's phase traces.  The whole grid (ten archs × four
+# shapes) takes minutes of host time: xlstm's sLSTM and jamba's Mamba scans
+# trace their ops once a position, over 4096 (train) and 32768 (prefill)
+# positions, and a meta op costs ≈ 0.1 ms of Python.  So the phase runs the
+# eight other archs' every shape and xlstm's and jamba's decode cells
+# (PERF.md §4); the CPU test and the CLI run the rest.
+DRYRUN_GRID = (
+    ("moonshot_v1_16b_a3b,mixtral_8x22b,qwen2_0_5b,qwen3_14b,smollm_135m,qwen2_5_32b,"
+     "llama_3_2_vision_11b,musicgen_medium", None),
+    ("jamba_1_5_large_398b,xlstm_125m", "decode_32k,long_500k"),
+)
+LEGACY_TENANTS = 4
+LEGACY_GEN = 16
+
+
+def start_dryrun_grid(out_dir: str) -> list:
+    """The dry-run CLI over :data:`DRYRUN_GRID`, both meshes, one process a
+    row, started now (host work only: it runs while the card serves)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for i, (archs, shapes) in enumerate(DRYRUN_GRID):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--both-meshes",
+               "--arch", archs, "--out", os.path.join(out_dir, f"dryrun_{i}.json")]
+        if shapes:
+            cmd += ["--shape", shapes]
+        procs.append((subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      time.perf_counter()))
+    return procs
+
+
+def finish_dryrun_grid(procs, out_dir: str) -> dict:
+    """Wait for the grid's processes → exit codes, seconds, records and the
+    rendered table."""
+    from repro_torch.launch import report
+
+    out = {"rcs": [], "s": [], "records": [], "table": [], "logs": []}
+    for i, (p, t0) in enumerate(procs):
+        try:
+            log, _ = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q, _ in procs:
+                q.kill()
+                q.communicate()
+            raise
+        out["s"].append(round(time.perf_counter() - t0, 1))
+        out["rcs"].append(p.returncode)
+        out["logs"].append(log[-4000:])
+        path = os.path.join(out_dir, f"dryrun_{i}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                out["records"] += json.load(f)
+            out["table"].append(report.render(path))
+    return out
+
+
+def meta_bytes_check(seed: int) -> dict:
+    """Full-width smollm-135m in bf16 on the card: the summed ``nbytes`` of
+    ``init``'s params, ``init_train_state``'s state and
+    ``init_decode_state``'s cache at 4 × 2048, beside the meta tensors of
+    ``dryrun_params``, ``train_state_shapes`` and ``decode_cache_shapes``
+    (and the ``torch.cuda.memory_allocated`` delta of each build).  The
+    port keeps the optimizer step as a Python int; the reference's layout,
+    which ``train_state_shapes`` follows, makes it an int32 scalar: that
+    leaf is reported apart."""
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import specs as S
+    from repro_torch.models import build_model
+    from repro_torch.training import init_train_state
+    from repro_torch.tree import tree_leaves
+
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                              if torch.is_tensor(t))
+    model = build_model(get_config("smollm-135m"), "cuda")
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    a1 = torch.cuda.memory_allocated()
+    state = init_train_state(model, params=params)
+    torch.cuda.synchronize()
+    a2 = torch.cuda.memory_allocated()
+    cache = model.init_decode_state(4, 2048, torch.bfloat16)
+    torch.cuda.synchronize()
+    a3 = torch.cuda.memory_allocated()
+    shapes = S.train_state_shapes(model)
+    step = shapes["opt"].pop("step")
+    card_step = state["opt"]["step"]
+    rows = {
+        "params": {"card": nbytes(params), "meta": nbytes(model.dryrun_params()),
+                   "allocated_delta": a1 - a0},
+        "train_state": {"card": nbytes(state), "meta": nbytes(shapes),
+                        "allocated_delta": a2 - a1,
+                        "step": {"card": repr(card_step), "meta_int32_bytes": step.element_size()}},
+        "decode_cache_4x2048": {
+            "card": nbytes(cache), "allocated_delta": a3 - a2,
+            "meta": nbytes(S.decode_cache_shapes(model, ShapeConfig("decode_2k", 2048, 4,
+                                                                     "decode")))},
+    }
+    same_leaves = all(
+        (a.shape, a.dtype) == (b.shape, b.dtype)
+        for a, b in zip(tree_leaves(params), tree_leaves(model.dryrun_params()), strict=True))
+    rows["params"]["leaves_equal"] = same_leaves
+    del params, state, cache
+    torch.cuda.empty_cache()
+    return rows
+
+
+def legacy_serve(cfg, params, lams, seed: int, config=None, legacy=None) -> dict:
+    """One request per tenant (the same traffic for every engine) through
+    ``MultiTenantEngine(cfg, config, params=params)``, or, with ``legacy``,
+    the engine the legacy keywords build (the one place the script builds
+    one); launches counted."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serving import MultiTenantEngine
+
+    engine = MultiTenantEngine(cfg, config, params=params, **(legacy or {}))
+    for tenant, lam in lams.items():
+        engine.add_tenant(tenant, lam)
+    rng = np.random.default_rng(seed)
+    for tenant in lams:
+        engine.submit(tenant, rng.integers(2, cfg.vocab_size, size=int(rng.integers(16, 49))),
+                      LEGACY_GEN)
+    kernels.reset_launch_counts()
+    done = engine.run()
+    torch.cuda.synchronize()
+    out = {"done": done, "launches": kernels.launch_counts(), "layout": engine.layout}
+    del engine
+    return out
+
+
+def legacy_phase(seed: int) -> dict:
+    """Full-width smollm-135m in bf16, 4 tenants on one ``params`` tree:
+    the legacy keywords ``paged=True`` and ``paged=False`` against
+    ``EngineConfig(layout="paged", ...)`` and ``EngineConfig.oracle_dense(...)``
+    (streams and logits bitwise, launches equal), and the port's deprecation
+    warnings raised while building them."""
+    import warnings
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, random_lambda
+    from repro_torch.serving import engine as engine_mod
+
+    cfg = get_config("smollm-135m")
+    params = build_model(cfg, "cuda").init(torch.Generator(device="cuda").manual_seed(seed))
+    gen = torch.Generator(device="cuda")
+    lams = {f"tenant{i}": random_lambda(gen.manual_seed(seed + 1000 + i), params, 0.3)
+            for i in range(LEGACY_TENANTS)}
+    kw = dict(n_lanes=4, n_slots=8, max_len=128, collect_logits=True)
+    out = {}
+    engine_mod._reset_deprecation_warnings()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out["legacy_paged"] = legacy_serve(cfg, params, lams, seed, legacy=dict(paged=True, **kw))
+        out["legacy_dense"] = legacy_serve(cfg, params, lams, seed, legacy=dict(paged=False, **kw))
+    out["config_paged"] = legacy_serve(cfg, params, lams, seed, EngineConfig(layout="paged", **kw))
+    out["config_dense"] = legacy_serve(cfg, params, lams, seed, EngineConfig.oracle_dense(**kw))
+    out["deprecations"] = [str(w.message) for w in caught
+                           if issubclass(w.category, DeprecationWarning)
+                           and str(w.message).startswith(engine_mod._DEPRECATION)]
+    for layout in ("paged", "dense"):
+        a, b = out[f"legacy_{layout}"], out[f"config_{layout}"]
+        out[layout] = {"bitwise": same_streams_bitwise(a["done"], b["done"]),
+                       "layouts": (a["layout"], b["layout"]),
+                       "launches": (a["launches"], b["launches"]),
+                       "tokens": sum(len(r.tokens) for r in a["done"].values())}
+    for key in ("legacy_paged", "legacy_dense", "config_paged", "config_dense"):
+        out.pop(key)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _counted(fn, *args):
+    """``fn(*args)`` and the kernel launches it made."""
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    result = fn(*args)
+    return result, kernels.launch_counts()
+
+
+@contextlib.contextmanager
+def matmul_shapes_noted(seen: set):
+    """Run with the one-λ dispatcher adding the (M, K, N, r, x dtype) of
+    each call to ``seen``."""
+    from repro_torch.kernels import qrlora_matmul as mm
+
+    dispatch = mm.qrlora_matmul
+
+    def noted(x, W, B, A, lam, scale=1.0):
+        seen.add((*x.shape, W.shape[1], B.shape[1], x.dtype))
+        return dispatch(x, W, B, A, lam, scale)
+
+    with swapped(mm, "qrlora_matmul", noted):
+        yield seen
+
+
+def check_example_matmuls(gen, seen: set) -> list:
+    """#3 against its plain version at each shape the examples ran it at
+    (the reduced smollm-135m's K = 48 is one partial K step, which
+    :data:`MATMUL_SHAPES` does not cover), within the one-λ limit, bitwise
+    on a second call.  Returns the details rows."""
+    rows = []
+    for M, K, N, r, x_dt in sorted(seen, key=str):
+        row = _matmul_case(gen, "qrlora_matmul", x_dt, M, K, N, r)
+        rows.append(row)
+        _check(row["ok"], f"qrlora_matmul at an example's shape x={row['x']} M={M} K={K} "
+                          f"N={N} r={r}: max|Δ|={row['max_abs_err']:.3e} "
+                          f"({row['err_over_bound']:.3f} of the bound), bitwise on a second "
+                          f"call: {row['bitwise_repeat']}")
+    return rows
+
+
+def examples_phase(seed: int) -> dict:
+    """The port's examples on the card, launches counted: train_lm_torch
+    ``--full`` against ``repro_torch.launch.train`` with the argv it builds
+    (each in a fresh checkpoint directory), quickstart_torch (and again with
+    #3's plain version, its losses held within ``TRAIN_TOL``), serve_lm_torch
+    and serve_multi_tenant_torch at their defaults (the last verifies every
+    tenant against its merged-weight reference, or exits); then #3 against
+    its plain version at every shape the examples ran it at."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import qrlora_matmul as mm
+    from repro_torch.launch import train as train_launch
+
+    out, seen = {}, set()
+    with tempfile.TemporaryDirectory(prefix="train_lm_") as tmp:
+        argv = ["--full", "--arch", "smollm-135m", "--steps", "4",
+                "--ckpt-dir", os.path.join(tmp, "example")]
+        t0 = time.perf_counter()
+        with matmul_shapes_noted(seen):
+            (_, hist), launches = _counted(_example("train_lm_torch").main, argv)
+        (_, ref), _ = _counted(train_launch.main, [
+            "--arch", "smollm-135m", "--steps", "4", "--peft", "qr_lora",
+            "--ckpt-dir", os.path.join(tmp, "launcher"), "--batch", "8", "--seq", "64",
+            "--device", "cuda"])
+        out["train_lm"] = {"losses": [h["loss"] for h in hist],
+                           "launcher_losses": [h["loss"] for h in ref],
+                           "launches": launches, "s": round(time.perf_counter() - t0, 1)}
+    quickstart = _example("quickstart_torch").main
+    t0 = time.perf_counter()
+    with matmul_shapes_noted(seen):
+        (n, losses), launches = _counted(quickstart, [])
+    s_run = round(time.perf_counter() - t0, 1)
+    with swapped(mm, "qrlora_matmul", plain_forward):
+        (_, twin), twin_launches = _counted(quickstart, [])
+    out["quickstart"] = {"trainable": n, "losses": losses[::10], "final_loss": losses[-1],
+                         "launches": launches, "s": s_run,
+                         "twin": {"max_dloss": max(abs(a - b) for a, b in zip(losses, twin,
+                                                                              strict=True)),
+                                  "finite": all(map(math.isfinite, losses + twin)),
+                                  "launches_qrlora_matmul": twin_launches["qrlora_matmul"]}}
+    t0 = time.perf_counter()
+    with matmul_shapes_noted(seen):
+        gen, launches = _counted(_example("serve_lm_torch").main, [])
+    out["serve_lm"] = {"tokens": list(map(int, gen[0, :16])), "launches": launches,
+                       "s": round(time.perf_counter() - t0, 1)}
+    t0 = time.perf_counter()
+    done, launches = _counted(_example("serve_multi_tenant_torch").main, [])
+    out["serve_multi_tenant"] = {"requests": len(done), "launches": launches,
+                                 "s": round(time.perf_counter() - t0, 1)}
+    out["matmul_shapes"] = check_example_matmuls(
+        torch.Generator(device="cuda").manual_seed(seed), seen)
+    return out
+
+
+def launch_tools_phase(seed: int) -> dict:
+    """The dry-run grid (host processes, started first), the meta-device
+    bytes against the card's, the legacy keywords and the examples."""
+    import tempfile
+
+    out, t_phase = {}, time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
+        procs = start_dryrun_grid(tmp)
+        try:
+            out["meta_bytes"] = meta_bytes_check(seed)
+            out["legacy"] = legacy_phase(seed)
+            out["examples"] = examples_phase(seed)
+        finally:
+            out["grid"] = finish_dryrun_grid(procs, tmp)
+    out["s"] = round(time.perf_counter() - t_phase, 1)
+    return out
+
+
+def print_launch_tools(out: dict, smi: str) -> None:
+    grid = out["grid"]
+    recs = grid["records"]
+    print(f"dry-run grid ({len(recs)} records, both meshes, rows {[r[0] for r in DRYRUN_GRID]}):"
+          f" exit codes {grid['rcs']}, {grid['s']} s of host time, beside the card's work")
+    for table in grid["table"]:
+        print(table)
+    for r in recs:
+        if r["arch"] == "smollm_135m" and r["status"] == "OK":
+            print(f"  dry-run smollm_135m × {r['shape']} ({r['mesh']}): argument bytes/device "
+                  f"{r['memory']['argument_bytes']}")
+    for name, row in out["meta_bytes"].items():
+        print(f"meta vs card bytes, full-width smollm-135m bf16, {name}: {row} on {smi}")
+    leg = out["legacy"]
+    for layout in ("paged", "dense"):
+        print(f"legacy keywords ({layout}) vs EngineConfig: {leg[layout]}")
+    print(f"port deprecation warnings while building the two legacy engines: {leg['deprecations']}")
+    ex = dict(out["examples"])
+    for row in ex.pop("matmul_shapes"):
+        print(f"  qrlora_matmul at an example's shape vs its plain version: {row}")
+    for name, row in ex.items():
+        print(f"example {name}: {row}")
+    print(f"launch tooling phase: {out['s']} s on {smi}")
+
+
+def check_launch_tools(out: dict) -> None:
+    grid = out["grid"]
+    _check(all(rc == 0 for rc in grid["rcs"]),
+           f"the dry-run grid exited {grid['rcs']}: {grid['logs']}")
+    bad = [(r["arch"], r["shape"], r["mesh"], r["status"], r.get("error"))
+           for r in grid["records"] if r["status"] not in ("OK", "SKIP(full-attn)")]
+    _check(not bad and grid["records"], f"dry-run cells neither OK nor SKIP: {bad}")
+    for name, row in out["meta_bytes"].items():
+        _check(row["card"] == row["meta"], f"meta bytes differ from the card's ({name}): {row}")
+    _check(out["meta_bytes"]["params"]["leaves_equal"],
+           "dryrun_params' shapes or dtypes differ from init's")
+    leg = out["legacy"]
+    _check(len(leg["deprecations"]) == 1,
+           f"building the legacy engines raised {len(leg['deprecations'])} deprecation warnings "
+           f"of the port, not one: {leg['deprecations']}")
+    _check(leg["paged"]["layouts"] == ("paged", "paged")
+           and leg["dense"]["layouts"] == ("oracle_dense", "oracle_dense"),
+           f"the legacy keywords built another layout: {leg}")
+    for layout, kernels_on in (("paged", ("qrlora_bgmv", "paged_decode_attention")),
+                               ("dense", ("qrlora_bgmv",))):
+        row = leg[layout]
+        a, b = row["launches"]
+        _check(row["bitwise"], f"legacy {layout} streams differ from the EngineConfig engine's")
+        _check(a == b and all(a[k] > 0 for k in kernels_on),
+               f"legacy {layout} launches {a} vs {b}")
+    ex = out["examples"]
+    tl = ex["train_lm"]
+    _check(tl["losses"] == tl["launcher_losses"] and len(tl["losses"]) == 4,
+           f"train_lm_torch --full differs from launch.train: {tl}")
+    _check(tl["launches"]["qrlora_matmul"] > 0, f"train_lm_torch launched no #3: {tl}")
+    qs = ex["quickstart"]
+    _check(qs["launches"]["qrlora_matmul"] > 0, f"quickstart_torch launched no #3: {qs}")
+    _check(qs["twin"]["finite"] and qs["twin"]["launches_qrlora_matmul"] == 0
+           and qs["twin"]["max_dloss"] <= TRAIN_TOL["bfloat16"]["dloss"],
+           f"quickstart_torch's losses disagree with its plain-version twin's: {qs['twin']}")
+    _check({(r["M"], r["K"]) for r in ex["matmul_shapes"]} >= {(256, 48), (64, 48), (4, 48)},
+           f"the examples' #3 shapes held are {ex['matmul_shapes']}: the reduced smollm-135m's "
+           f"are missing")
+    _check(ex["serve_lm"]["launches"]["qrlora_matmul"] > 0,
+           f"serve_lm_torch launched no #3: {ex['serve_lm']}")
+    sm = ex["serve_multi_tenant"]
+    _check(sm["requests"] == 4 and sm["launches"]["qrlora_bgmv"] > 0
+           and sm["launches"]["paged_decode_attention"] > 0,
+           f"serve_multi_tenant_torch: {sm}")
+    for name, row in ex.items():
+        if name != "matmul_shapes":
+            _check(all(row["launches"][k] == 0 for k in ("flash_attention", "decode_attention")),
+                   f"example {name} reached a bench-only kernel: {row['launches']}")
+
+
 def kernel_bench_phase():
     """The port's kernel bench on the card, in process, launches counted
     around it; its rows go into the report."""
@@ -8029,6 +8428,13 @@ def main(argv=None) -> None:
     report["glue"], glue_launches = check_glue(glue_phase(args.seed), want_launches)
 
     mark("glue")
+    # -- the launch tooling: dry-run grid, meta bytes, legacy keywords, examples
+    tools = launch_tools_phase(args.seed)
+    report["launch_tools"] = tools
+    print_launch_tools(tools, smi)
+    check_launch_tools(tools)
+
+    mark("launch_tools")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
@@ -8172,6 +8578,26 @@ def main(argv=None) -> None:
          "src/repro_torch/kernels/csrc/paged_attention.cu",
          "src/repro/kernels/paged_attention.py:116",
          rec["jamba"]["paged"]["launches"]["paged_decode_attention"]),
+        # the launch tooling phase: #1 and #2 in the legacy-keyword serves
+        # (both layouts and their EngineConfig twins) and serve_multi_tenant_torch,
+        # #3 in train_lm_torch --full, quickstart_torch and serve_lm_torch (its
+        # error the worst at the examples' shapes)
+        ("qrlora_bgmv_launch_tools", "qrlora_bgmv_wq", bgmv_err["bfloat16"],
+         "src/repro_torch/kernels/csrc/qrlora_bgmv.cu", "src/repro/kernels/qrlora_bgmv.py:172",
+         sum(a["qrlora_bgmv"] + b["qrlora_bgmv"] for a, b in (
+             tools["legacy"]["paged"]["launches"], tools["legacy"]["dense"]["launches"]))
+         + tools["examples"]["serve_multi_tenant"]["launches"]["qrlora_bgmv"]),
+        ("paged_decode_attention_launch_tools", "paged_decode_attention",
+         paged_err["bfloat16"]["max_abs_err"], "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:116",
+         sum(tools["legacy"]["paged"]["launches"][i]["paged_decode_attention"] for i in (0, 1))
+         + tools["examples"]["serve_multi_tenant"]["launches"]["paged_decode_attention"]),
+        ("qrlora_matmul_launch_tools", "qrlora_matmul_wq",
+         max(r["max_abs_err"] for r in tools["examples"]["matmul_shapes"]),
+         "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:161",
+         sum(tools["examples"][k]["launches"]["qrlora_matmul"]
+             for k in ("train_lm", "quickstart", "serve_lm"))),
     ):
         t = timings[key]
         entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

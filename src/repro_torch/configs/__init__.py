@@ -14,7 +14,14 @@ from repro_torch.configs import (
     smollm_135m,
     xlstm_125m,
 )
-from repro_torch.configs.base import AdapterConfig, ModelConfig
+from repro_torch.configs.base import (  # noqa: F401
+    LONG_CONTEXT_FAMILIES,
+    SHAPES,
+    AdapterConfig,
+    ModelConfig,
+    ShapeConfig,
+    shape_applicable,
+)
 
 ARCHS = {
     "smollm-135m": smollm_135m,
@@ -29,6 +36,27 @@ ARCHS = {
     "jamba-1.5-large-398b": jamba_1_5_large_398b,
     "xlstm-125m": xlstm_125m,
 }
+
+
+# The reference registry's ten architectures, as its names and in its order
+# (the dry-run's grid and the ``arch`` of its records); roberta-base is the
+# paper's encoder and stays out, as it does there.
+_DRYRUN_ARCHS = (
+    "moonshot_v1_16b_a3b",
+    "mixtral_8x22b",
+    "qwen2_0_5b",
+    "qwen3_14b",
+    "smollm_135m",
+    "qwen2_5_32b",
+    "llama_3_2_vision_11b",
+    "jamba_1_5_large_398b",
+    "musicgen_medium",
+    "xlstm_125m",
+)
+
+
+def all_archs() -> list:
+    return list(_DRYRUN_ARCHS)
 
 
 def _norm(name: str) -> str:

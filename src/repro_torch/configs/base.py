@@ -107,6 +107,14 @@ class ModelConfig:
     norm_eps: float = 1e-5
     adapter: AdapterConfig = field(default_factory=AdapterConfig)
     microbatches: int = 1  # gradient accumulation steps per train step
+    # Distribution, read only by the dry-run's logical rule table
+    # (sharding/rules.py, launch/specs.py): ``fsdp`` also shards params and
+    # optimizer state over the data axes; ``dp_only`` puts the batch on every
+    # mesh axis and replicates the weights; ``decode_weight_stationary``
+    # replicates a decode step's activations
+    fsdp: bool = False
+    dp_only: bool = False
+    decode_weight_stationary: bool = False
     # Train forwards recompute each layer group (and each position of a
     # multi-layer group) in the backward instead of keeping its activations
     # (models/transformer.py); no number changes
@@ -209,3 +217,34 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells of the dry-run (the reference's four, verbatim)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# Families whose decode path is sub-quadratic in history (recurrent state, or
+# hybrid with O(S) attention reads in only 1/8 of the layers).
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k":
+        return cfg.family in LONG_CONTEXT_FAMILIES
+    return True

@@ -16,7 +16,7 @@ def config() -> ModelConfig:
         n_experts=16, experts_per_token=2, moe_every=2,
         hybrid_period=8, hybrid_attn_index=4,
         mamba_d_state=16, mamba_d_conv=4, mamba_expand=2,
-        microbatches=8,
+        fsdp=True, microbatches=8,
         adapter=AdapterConfig(mode="qr_lora", targets=("wq", "wv"), layers="last4",
                               tau=0.5, rank_cap=256),
     )
@@ -26,6 +26,6 @@ def reduced() -> ModelConfig:
     return config().replace(
         n_layers=8, d_model=64, n_heads=4, n_kv_heads=2, d_ff=96, vocab_size=256,
         n_experts=4, experts_per_token=2, hybrid_period=8, hybrid_attn_index=4,
-        mamba_d_state=4, microbatches=1, capacity_factor=float(4),
+        mamba_d_state=4, fsdp=False, microbatches=1, capacity_factor=float(4),
         adapter=config().adapter.replace(rank_cap=16, layers="all"),
     )

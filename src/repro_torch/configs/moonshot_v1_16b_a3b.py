@@ -13,7 +13,7 @@ def config() -> ModelConfig:
         n_layers=48, d_model=2048, n_heads=16, n_kv_heads=16,
         d_ff=1408, vocab_size=163840,
         n_experts=64, experts_per_token=6,
-        microbatches=8,
+        fsdp=True, microbatches=8,
         adapter=AdapterConfig(mode="qr_lora", targets=("wq", "wv"), layers="last4",
                               tau=0.5, rank_cap=160),
     )
@@ -23,6 +23,6 @@ def reduced() -> ModelConfig:
     # capacity_factor = n_experts: C = T·k, no copy ever drops
     return config().replace(
         n_layers=4, d_model=64, n_heads=4, n_kv_heads=4, d_ff=32, vocab_size=256,
-        n_experts=8, experts_per_token=2, microbatches=1, capacity_factor=float(8),
+        n_experts=8, experts_per_token=2, fsdp=False, microbatches=1, capacity_factor=float(8),
         adapter=config().adapter.replace(rank_cap=16, layers="last2"),
     )

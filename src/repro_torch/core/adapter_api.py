@@ -163,6 +163,30 @@ def init_adapters(
     return adapters, new_weights
 
 
+def dryrun_adapters(
+    cfg: ModelConfig, stacked_shapes: Dict[str, Tuple[int, int, int]], dtype=torch.bfloat16
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Meta-tensor stand-ins of :func:`init_adapters`' factors for
+    ``(n_layers, d_in, d_out)`` shapes, as the reference's dry-run gives
+    them (no QR, nothing allocated): B (n, d_in, cap) and A (n, cap, d_out)
+    in ``dtype``, λ (n, cap) float32, ranks (n,) int32, with ``cap =
+    min(rank_cap, d_in, d_out)`` for qr_lora and ``rank`` otherwise."""
+    acfg = cfg.adapter
+    if acfg.mode in ("none", "ft"):
+        return {}
+    meta = lambda *s, dt=dtype: torch.empty(s, dtype=dt, device="meta")
+    out = {}
+    for name, (n_layers, d_in, d_out) in stacked_shapes.items():
+        cap = min(acfg.rank_cap, d_in, d_out) if acfg.mode == "qr_lora" else acfg.rank
+        out[name] = {
+            "B": meta(n_layers, d_in, cap),
+            "A": meta(n_layers, cap, d_out),
+            "lam": meta(n_layers, cap, dt=torch.float32),
+            "ranks": meta(n_layers, dt=torch.int32),
+        }
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Trainability masks and partitioning
 # ---------------------------------------------------------------------------

@@ -47,8 +47,8 @@ backend (gloo for CPU tensors, NCCL for CUDA tensors).
 
 CPU tensors take the plain versions (:func:`repro_torch.kernels.ref.
 qrlora_bgmv_ref`, :func:`~repro_torch.kernels.ref.qrlora_bgmv_quant_ref`,
-:func:`~repro_torch.kernels.ref.qrlora_bgmv_rows_ref`); CUDA tensors launch
-the kernel or raise.
+:func:`~repro_torch.kernels.ref.qrlora_bgmv_rows_ref`), and so do the dry-run's
+meta tensors, for their shapes; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -170,9 +170,10 @@ def qrlora_bgmv_plan(M: int, K: int, N: int, r: int, dtype=torch.bfloat16,
 
 
 def qrlora_bgmv(x, W, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
-    """2-D BGMV: the plain version for CPU tensors, the kernel for CUDA
-    tensors (no fallback between the two)."""
-    if x.device.type == "cpu":
+    """2-D BGMV: the plain version for CPU tensors (and for meta tensors:
+    shape propagation), the kernel for CUDA tensors (no fallback between
+    the two)."""
+    if x.device.type in ("cpu", "meta"):
         return qrlora_bgmv_ref(x, W, B, A, lam_table, seg, scale)
     if x.device.type == "cuda":
         return qrlora_bgmv_cuda(x, W, B, A, lam_table, seg, scale)
@@ -218,9 +219,10 @@ qrlora_bgmv_quant_cuda.launches = 0
 
 
 def qrlora_bgmv_quant(x, q, w_scale, B, A, lam_table, seg, scale: float = 1.0) -> torch.Tensor:
-    """2-D quantized-base BGMV: the plain version for CPU tensors, the
-    kernel for CUDA tensors (no fallback between the two)."""
-    if x.device.type == "cpu":
+    """2-D quantized-base BGMV: the plain version for CPU tensors (and for
+    meta tensors: shape propagation), the kernel for CUDA tensors (no
+    fallback between the two)."""
+    if x.device.type in ("cpu", "meta"):
         return qrlora_bgmv_quant_ref(x, q, w_scale, B, A, lam_table, seg, scale)
     if x.device.type == "cuda":
         return qrlora_bgmv_quant_cuda(x, q, w_scale, B, A, lam_table, seg, scale)
@@ -271,9 +273,10 @@ qrlora_bgmv_rows_cuda.launches = 0
 
 
 def qrlora_bgmv_rows(x, W, w_scale, B, A, lam_rows, scale: float = 1.0) -> torch.Tensor:
-    """2-D BGMV over pre-gathered λ rows: the plain version for CPU tensors,
-    the kernel for CUDA tensors (no fallback between the two)."""
-    if x.device.type == "cpu":
+    """2-D BGMV over pre-gathered λ rows: the plain version for CPU tensors
+    (and for meta tensors: shape propagation), the kernel for CUDA tensors
+    (no fallback between the two)."""
+    if x.device.type in ("cpu", "meta"):
         return qrlora_bgmv_rows_ref(x, W, w_scale, B, A, lam_rows, scale)
     if x.device.type == "cuda":
         return qrlora_bgmv_rows_cuda(x, W, w_scale, B, A, lam_rows, scale)

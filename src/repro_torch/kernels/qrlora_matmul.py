@@ -35,8 +35,8 @@ product is added:
 It is forward only, as the reference's: training keeps the bf16 base.
 
 CPU tensors take the plain versions (:func:`repro_torch.kernels.ref.
-qrlora_matmul_ref`, :func:`~repro_torch.kernels.ref.qrlora_matmul_quant_ref`);
-CUDA tensors launch the kernel or raise.  The backward of the bf16/float32
+qrlora_matmul_ref`, :func:`~repro_torch.kernels.ref.qrlora_matmul_quant_ref`),
+and so do the dry-run's meta tensors, for their shapes; CUDA tensors launch the kernel or raise.  The backward of the bf16/float32
 kernel lives in :mod:`repro_torch.kernels.ops`.
 """
 from __future__ import annotations
@@ -139,9 +139,10 @@ def qrlora_matmul_plan(M: int, K: int, N: int, r: int) -> dict:
 
 
 def qrlora_matmul(x, W, B, A, lam, scale: float = 1.0) -> torch.Tensor:
-    """2-D one-λ adapter matmul: the plain version for CPU tensors, the
-    kernel for CUDA tensors (no fallback between the two)."""
-    if x.device.type == "cpu":
+    """2-D one-λ adapter matmul: the plain version for CPU tensors (and
+    for meta tensors, where it propagates the dry-run's shapes), the kernel
+    for CUDA tensors (no fallback between the two)."""
+    if x.device.type in ("cpu", "meta"):
         return qrlora_matmul_ref(x, W, B, A, lam, scale)
     if x.device.type == "cuda":
         return qrlora_matmul_cuda(x, W, B, A, lam, scale)
@@ -193,9 +194,10 @@ qrlora_matmul_quant_cuda.launches = 0
 
 
 def qrlora_matmul_quant(x, q, w_scale, B, A, lam, scale: float = 1.0) -> torch.Tensor:
-    """2-D quantized-base one-λ matmul: the plain version for CPU tensors,
-    the kernel for CUDA tensors (no fallback between the two)."""
-    if x.device.type == "cpu":
+    """2-D quantized-base one-λ matmul: the plain version for CPU tensors
+    (and for meta tensors: shape propagation), the kernel for CUDA tensors
+    (no fallback between the two)."""
+    if x.device.type in ("cpu", "meta"):
         return qrlora_matmul_quant_ref(x, q, w_scale, B, A, lam, scale)
     if x.device.type == "cuda":
         return qrlora_matmul_quant_cuda(x, q, w_scale, B, A, lam, scale)

@@ -167,9 +167,13 @@ def attention(
         else:
             out = _lane_decode(q, k, v, cache, scale)
     elif cache is not None:
-        idx = int(cache["idx"])  # lock-step offset (merged-weight reference only)
-        cache["k"][:, idx: idx + S] = k.to(cache["k"].dtype)
-        cache["v"][:, idx: idx + S] = v.to(cache["v"].dtype)
+        # lock-step offset (merged-weight reference only), read on the device:
+        # rows idx..idx+S-1, the start clamped as the reference's
+        # dynamic_update_slice clamps it
+        idx = cache["idx"].long()
+        rows = torch.clamp(idx, max=cache["k"].shape[1] - S) + torch.arange(S, device=x.device)
+        cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
         if S == 1:
             kpos = torch.arange(cache["k"].shape[1], device=x.device)
             mask = (kpos <= idx)[None, None, None, None, :]

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapter_api import adapted_matmul
 from repro_torch.models.layers import layer_norm, normal, stacked_dense_init
-from repro_torch.models.transformer import _tslice, torch_dtype
+from repro_torch.models.transformer import _layer_slices, torch_dtype
 
 
 def init_encoder_params(gen: torch.Generator, cfg: ModelConfig, dtype=None) -> Dict:
@@ -96,11 +96,7 @@ def encoder_apply(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         attn_mask = torch.ones((B, S), dtype=torch.bool, device=tokens.device)
     x = params["embed"][tokens.long()] + params["pos_embed"][:S][None]
     x = layer_norm(x, params["emb_ln_s"], params["emb_ln_b"], cfg.norm_eps)
-    groups = params["groups"]
-    adapters = groups.get("adapters")
-    layers = {k: v for k, v in groups.items() if k != "adapters"}
-    for l in range(cfg.n_layers):
-        x = _enc_layer(cfg, _tslice(layers, l), x, attn_mask,
-                       _tslice(adapters, l) if adapters else None)
+    for p, adp in _layer_slices(params["groups"], cfg.n_layers):
+        x = _enc_layer(cfg, p, x, attn_mask, adp)
     cls = torch.tanh(x[:, 0] @ params["pooler"])  # [CLS] pooling
     return cls.float() @ params["cls_w"] + params["cls_b"]

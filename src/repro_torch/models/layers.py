@@ -36,13 +36,15 @@ def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
     """The (d_head/2,) inverse frequencies, made once per (d_head, theta,
     device) and reused: a decode step would otherwise launch their kernels
     again in every layer.  Made under CUDA graph capture they are not kept
-    (they would live in the graph's memory pool)."""
+    (they would live in the graph's memory pool), nor on the meta device:
+    the dry-run counts each traced step whole, whatever ran before it."""
     device = torch.device(device) if device is not None else torch.device("cpu")
     key = (d_head, theta, device)
     freqs = _FREQS.get(key)
     if freqs is None:
         freqs = _rope_freqs(d_head, theta, device)
-        if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        if device.type == "cpu" or (device.type == "cuda"
+                                    and not torch.cuda.is_current_stream_capturing()):
             _FREQS[key] = freqs
     return freqs
 

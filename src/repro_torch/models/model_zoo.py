@@ -8,6 +8,7 @@ parameter count; the speculative verify step."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -105,6 +106,38 @@ class Model:
         groups["adapters"] = adapters
         return {**params, "groups": groups}
 
+    def dryrun_params(self) -> Dict:
+        """The params' exact shapes and dtypes as meta tensors, with no
+        allocation at any width (the dry-run's stand-in for :meth:`init`).
+
+        A meta-device walk of the init: the init draws every leaf on its
+        generator's device, and :class:`_MetaGenerator` reads ``meta``
+        there, so the init's own code runs and each draw is a shape with
+        no storage (a real draw of jamba-1.5-large-398b would be ≈ 800 GB
+        on the host).  ``torch._subclasses.FakeTensorMode`` would run the
+        same code, but through a dispatch mode on every op and with fake
+        CPU tensors still to turn into meta ones.  The adapters are
+        :func:`adapter_api.dryrun_adapters`' shapes: no QR runs."""
+        gen = _MetaGenerator()
+        cfg = self.cfg
+        if cfg.is_encoder:
+            params = enc_lib.init_encoder_params(gen, cfg)
+        else:
+            params = tfm_lib.init_decoder_params(gen, cfg)
+        if cfg.adapter.mode in ("none", "ft"):
+            return params
+        groups = dict(params["groups"])
+        adapters = {}
+        for mod, weights in self._adapter_targets().items():
+            lead = {w: groups[mod][w].shape[:-2] for w in weights}
+            sub = adapter_api.dryrun_adapters(
+                cfg, {w: (math.prod(lead[w]), *groups[mod][w].shape[-2:]) for w in weights})
+            adapters[mod] = {
+                w: {k: t.reshape(*lead[w], *t.shape[1:]) for k, t in adp.items()}
+                for w, adp in sub.items()}
+        groups["adapters"] = adapters
+        return {**params, "groups": groups}
+
     # ---- forward ---------------------------------------------------------
     # ``seg_ids`` (int32 (batch,)) selects a per-sequence adapter slot when
     # the params carry a packed multi-tenant λ table (see repro_torch.serving).
@@ -180,6 +213,15 @@ class Model:
     def count_trainable(self, params, include_head: bool = False) -> int:
         return adapter_api.count_trainable_params(
             params, self.cfg, _HEAD if include_head else ())
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads ``meta``: the init draws on
+    its generator's device, so its draws are meta tensors (shapes only)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
 
 
 def _to(tree, device):

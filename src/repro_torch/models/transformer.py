@@ -86,6 +86,26 @@ def _tslice(tree: Tree, i: int) -> Tree:
     return tree[i]
 
 
+def _unstack(tree: Tree, n: int) -> list:
+    """The ``n`` slices of ``tree`` along every leaf's leading axis, as ``n``
+    trees: one ``unbind`` a leaf, so a backward stacks the slices' gradients
+    once (indexing slice by slice would write the whole stack's gradient
+    once a slice: n² in bytes)."""
+    if tree is None:
+        return [None] * n
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _layer_slices(groups: Dict, n: int) -> list:
+    """``(params, adapters)`` of each of the ``n`` stacked layers (or groups)
+    of ``groups``; adapters None without any."""
+    return list(zip(_unstack({k: v for k, v in groups.items() if k != "adapters"}, n),
+                    _unstack(groups.get("adapters") or None, n)))
+
+
 #: decoder families the port has: the same layer stack (moe: routed experts
 #: in place of the MLP; vlm: groups of self layers and a gated cross layer;
 #: hybrid: groups of Mamba layers and one attention layer; ssm: xLSTM blocks)
@@ -278,12 +298,8 @@ def _run_vlm_groups(params, cfg: ModelConfig, x, positions, cache_layers, img, r
     G groups: P-1 self layers (adapters ``attn`` at [g, i]), then the gated
     cross layer (adapters ``xattn`` at [g]), each followed by its MLP (no
     adapters, as the reference's vlm body passes none)."""
-    groups = params["groups"]
     P = cfg.cross_attn_every
-    adapters = groups.get("adapters") or {}
-    for g in range(cfg.n_layers // P):
-        p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, g)
-        adp = _tslice(adapters, g) if adapters else None
+    for g, (p, adp) in enumerate(_layer_slices(params["groups"], cfg.n_layers // P)):
         self_adp = _adp_for(adp, "attn")
 
         def group(x, p=p, g=g, adp=adp, self_adp=self_adp):
@@ -324,14 +340,10 @@ def _run_hybrid_groups(params, cfg: ModelConfig, x, positions, cache_layers, seg
     even position reads the last dense FFN again, as the reference's index
     past the end does (JAX clamps it).  Returns (x, the moe layers' summed
     aux loss)."""
-    groups = params["groups"]
     P = cfg.hybrid_period
     n_dense = P - P // 2 - 1
-    adapters = groups.get("adapters") or {}
     aux = None
-    for g in range(cfg.n_layers // P):
-        p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, g)
-        adp = _tslice(adapters, g) if adapters else None
+    for g, (p, adp) in enumerate(_layer_slices(params["groups"], cfg.n_layers // P)):
         mam_adp = _adp_for(adp, "mamba", seg_ids)
 
         def group(x, p=p, g=g, adp=adp, mam_adp=mam_adp):
@@ -378,12 +390,9 @@ def _run_ssm_groups(params, cfg: ModelConfig, x, cache_layers, seg_ids, length, 
     """The ssm group body (``repro/models/transformer.py:270-297``) over the
     G groups: each block of ``xlstm_pattern`` (adapters ``mlstm``/``slstm``
     at [g]) as a pre-norm residual."""
-    groups = params["groups"]
-    adapters = groups.get("adapters") or {}
     mixers = {"m": ("mlstm", xlstm_lib.mlstm_mixer), "s": ("slstm", xlstm_lib.slstm_mixer)}
-    for g in range(cfg.n_layers // cfg.group_size):
-        p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, g)
-        adp = _tslice(adapters, g) if adapters else None
+    for g, (p, adp) in enumerate(_layer_slices(params["groups"],
+                                               cfg.n_layers // cfg.group_size)):
 
         def group(x, p=p, g=g, adp=adp):
             for j, kind in enumerate(cfg.xlstm_pattern):
@@ -416,12 +425,8 @@ def _run_layers(params, cfg, x, positions, cache_layers, seg_ids=None, attend_bl
                                   attend_blocks, length, remat)
     if cfg.family == "ssm":
         return _run_ssm_groups(params, cfg, x, cache_layers, seg_ids, length, remat)
-    groups = params["groups"]
     aux = None
-    adapters = groups.get("adapters")
-    for l in range(cfg.n_layers):
-        p = _tslice({k: v for k, v in groups.items() if k != "adapters"}, l)
-        adp = _tslice(adapters, l) if adapters else None
+    for l, (p, adp) in enumerate(_layer_slices(params["groups"], cfg.n_layers)):
 
         def layer(x, p=p, l=l, adp=adp):
             h = rms_norm(x, p["ln1"], cfg.norm_eps)

@@ -21,6 +21,10 @@ engine construction holds it to :data:`SPECULATIVE_FAMILIES`
 (:meth:`EngineConfig.validate_speculation`).  ``cold_slots`` adds the
 λ-store's host cold tier and ``cold_path`` backs it with an mmap file that
 survives a restart.
+
+:meth:`EngineConfig.from_legacy_kwargs` maps the engine keywords of before
+the config (:data:`LEGACY_KWARGS`) onto one, as the reference does; the
+engine takes them behind a deprecation warning.
 """
 from __future__ import annotations
 
@@ -39,6 +43,14 @@ LAYOUTS = ("auto", "paged", "oracle_dense")
 #: state advances irreversibly per token and ssm has no KV cache at all, so
 #: neither can roll back a rejected draft.
 SPECULATIVE_FAMILIES = ("dense", "audio", "moe")
+
+#: Engine keywords accepted before EngineConfig existed, in their historical
+#: order.  ``paged`` maps onto ``layout``; everything else is 1:1.
+LEGACY_KWARGS = (
+    "n_lanes", "n_slots", "max_len", "collect_logits", "seed", "paged",
+    "block_size", "n_blocks", "share_prefix", "watermark", "quantum",
+    "cold_slots", "shard_lam", "telemetry",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +192,17 @@ class EngineConfig:
         base = dict(layout="oracle_dense")
         base.update(overrides)
         return cls(**base)
+
+    @classmethod
+    def from_legacy_kwargs(cls, **kwargs) -> "EngineConfig":
+        """The config of the keywords of before it (:data:`LEGACY_KWARGS`).
+        The old default ``paged=False`` maps to the oracle layout, so a
+        legacy call site keeps its exact engine."""
+        unknown = sorted(set(kwargs) - set(LEGACY_KWARGS))
+        if unknown:
+            raise TypeError(f"unknown engine kwargs: {unknown}")
+        paged = kwargs.pop("paged", False)
+        return cls(layout="paged" if paged else "oracle_dense", **kwargs)
 
     def validate_speculation(self, family: str) -> None:
         """Reject ``speculate_k`` for families whose decode state cannot

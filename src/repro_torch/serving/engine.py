@@ -135,10 +135,16 @@ back to the pool.
 The engine is greedy and host-driven: ``step()`` = admit + advance chunked
 prefills + grow + one decode step (or a draft-and-verify pair) over the
 committed lanes; ``run()`` loops until queue and lanes drain.
+
+The engine keywords of before :class:`EngineConfig` (``MultiTenantEngine(cfg,
+n_lanes=4, paged=True)``) still build an engine, through
+:meth:`EngineConfig.from_legacy_kwargs`, with one ``DeprecationWarning`` a
+process; so does ``.registry``, the old name of ``.lam_store``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -193,6 +199,27 @@ def _bucket_len(n: int, max_len: int, floor: int = _MIN_PREFILL_BUCKET) -> int:
     return min(b, max_len)
 
 
+# -- deprecation shim --------------------------------------------------------
+# Every repro_torch.serving DeprecationWarning message carries this prefix, so
+# a warnings filter can pick out exactly the port's own deprecations.
+_DEPRECATION = "repro_torch.serving deprecation: "
+_warned: set = set()
+
+
+def _warn_once(topic: str, msg: str) -> None:
+    """One DeprecationWarning per process per topic, so a sweep over a
+    legacy call site warns once instead of once per construction."""
+    if topic in _warned:
+        return
+    _warned.add(topic)
+    warnings.warn(_DEPRECATION + msg, DeprecationWarning, stacklevel=3)
+
+
+def _reset_deprecation_warnings() -> None:
+    """Re-arm the once-per-process deprecation warnings (tests)."""
+    _warned.clear()
+
+
 class MultiTenantEngine:
     def __init__(
         self,
@@ -201,8 +228,21 @@ class MultiTenantEngine:
         *,
         params=None,
         device=None,
+        **legacy,
     ):
-        config = config or EngineConfig()
+        if legacy:
+            if config is not None:
+                raise TypeError("pass either an EngineConfig or legacy keywords, not both")
+            _warn_once(
+                "engine-kwargs",
+                "MultiTenantEngine(cfg, n_lanes=..., paged=..., ...) keyword "
+                "construction is deprecated; pass an EngineConfig "
+                "(repro_torch.serving.config), e.g. "
+                "MultiTenantEngine(cfg, EngineConfig.serving(), params=p)",
+            )
+            config = EngineConfig.from_legacy_kwargs(**legacy)
+        elif config is None:
+            config = EngineConfig()
         if cfg.is_encoder or cfg.family == "vlm":
             raise NotImplementedError(
                 f"continuous batching needs a token decode path (family "
@@ -379,6 +419,12 @@ class MultiTenantEngine:
                          help=f"distinct shapes the {name} step was dispatched at (this "
                               "engine compiles nothing; the reference compiles one "
                               "variant per shape)")
+
+    @property
+    def registry(self) -> LamStore:
+        """Deprecated alias of :attr:`lam_store`."""
+        _warn_once("engine-registry", "MultiTenantEngine.registry is deprecated; use .lam_store")
+        return self.lam_store
 
     # -- tenants ------------------------------------------------------------
 

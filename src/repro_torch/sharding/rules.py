@@ -17,14 +17,26 @@ two logical axes the engine can map onto it:
 
 With no rules installed (the default, and outside :func:`axis_rules`)
 nothing is sharded, so model code never branches on distribution.
+
+The reference's *logical rule table* lives here too (:func:`default_rules`,
+:func:`logical_spec`, :func:`param_sharding_rules`): pure functions over a
+mesh description (``.shape``, a dict of axis sizes, and ``.axis_names``,
+as :func:`repro_torch.launch.mesh.make_production_mesh` gives one), which
+the dry-run (``launch/specs.py``) reads to place params, optimizer state,
+caches and batches on the reference's production meshes.  A spec is one
+entry per dim, as a ``PartitionSpec`` holds them: ``None`` (replicated), an
+axis name, or a tuple of axis names.
 """
 from __future__ import annotations
 
+import math
 import threading
 from contextlib import contextmanager
-from typing import Dict
+from typing import Any, Dict, Sequence, Tuple
 
 import torch
+
+from repro_torch.tree import Tree
 
 _state = threading.local()
 
@@ -145,3 +157,144 @@ def replica_device_groups(n: int) -> list:
     if len(devices) < n:
         return [list(devices) for _ in range(n)]
     return [devices[i * len(devices) // n: (i + 1) * len(devices) // n] for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# The logical rule table (the dry-run's placement on a production mesh)
+# ---------------------------------------------------------------------------
+
+
+def default_rules(mesh, *, fsdp: bool = False, dp_only: bool = False,
+                  replicate_batch: bool = False) -> Dict[str, Any]:
+    """Logical axis → mesh axes, as the reference's table maps them: batch
+    over ("pod", "data"), heads/ff/vocab/expert_ff over "model", params also
+    over the data axes under ``fsdp``; ``dp_only`` puts the batch on every
+    axis and replicates the weights; ``replicate_batch`` (weight-stationary
+    decode) replicates the batch."""
+    axes = tuple(mesh.axis_names)
+    dp: Tuple[str, ...] = tuple(a for a in ("pod", "data") if a in axes)
+    model = "model" if "model" in axes else None
+    if dp_only:
+        return {"batch": axes, "heads": None, "ff": None, "vocab": None, "expert_ff": None,
+                "kv_seq": None, "fsdp": None, "lam_slots": None, "qr_rank": None,
+                "dp_axes": axes, "model_axis": None}
+    return {
+        "batch": None if replicate_batch else (dp or None),
+        "heads": model,
+        "ff": model,
+        "vocab": model,
+        "expert_ff": model,
+        "kv_seq": None,
+        "fsdp": (dp if fsdp else None),
+        "lam_slots": None,
+        "qr_rank": None,
+        "dp_axes": dp,
+        "model_axis": model,
+    }
+
+
+def logical_spec(rules: Dict[str, Any], *names) -> Tuple:
+    """The spec of a tensor whose dims carry the logical ``names`` (None:
+    replicated)."""
+    return tuple(None if n is None else rules.get(n) for n in names)
+
+
+def _axis_size(mesh, ax) -> int:
+    """Devices along ``ax``: an axis name, a tuple of them, or None (1)."""
+    if ax is None:
+        return 1
+    return math.prod(mesh.shape[a] for a in (ax if isinstance(ax, tuple) else (ax,)))
+
+
+# Path suffix → logical axes of each weight kind; a leading stacked-layer dim
+# ((G, ...) or (G, k, ...)) is replicated.
+_PARAM_LOGICAL: Dict[str, Tuple] = {
+    # token / position embeddings
+    "embed": ("vocab", None),
+    "pos_embed": (None, None),
+    "unembed": ("fsdp", "vocab"),
+    # attention (column-parallel qkv, row-parallel o)
+    "wq": ("fsdp", "heads"),
+    "wk": ("fsdp", "heads"),
+    "wv": ("fsdp", "heads"),
+    "wo": ("heads", "fsdp"),
+    "bq": ("heads",),
+    "bk": ("heads",),
+    "bv": ("heads",),
+    # mlp (column-parallel gate/up, row-parallel down)
+    "w_gate": ("fsdp", "ff"),
+    "w_up": ("fsdp", "ff"),
+    "w_down": ("ff", "fsdp"),
+    # MoE experts: (E, d, f) / (E, f, d); router replicated
+    "we_gate": (None, "fsdp", "expert_ff"),
+    "we_up": (None, "fsdp", "expert_ff"),
+    "we_down": (None, "expert_ff", "fsdp"),
+    "w_router": (None, None),
+    # mamba
+    "m_in": ("fsdp", "ff"),
+    "m_gate": ("fsdp", "ff"),
+    "m_conv": ("ff", None),
+    "m_xproj": ("ff", None),
+    "m_dt_w": (None, "ff"),
+    "m_dt_b": ("ff",),
+    "m_A_log": ("ff", None),
+    "m_D": ("ff",),
+    "m_out": ("ff", "fsdp"),
+    # xlstm
+    "x_qkv": ("fsdp", "heads"),
+    "x_gates": ("fsdp", "heads"),
+    "x_rec": (None, "heads", None),
+    "x_up": ("fsdp", "ff"),
+    "x_down": ("ff", "fsdp"),
+    # vlm
+    "img_proj": (None, None),
+    "xa_gate": (),
+    # norms / scalars / head
+    "scale": (None,),
+    "bias": (None,),
+    "cls_w": (None, None),
+    "cls_b": (None,),
+}
+
+
+def _spec_for_path(path: Sequence[str], shape: Tuple[int, ...], rules: Dict[str, Any],
+                   mesh) -> Tuple:
+    """The spec of the param at ``path`` (its keys) of ``shape``.  Adapter
+    leaves replicate (the rule table maps no ``qr_rank``: rank-dim sharding
+    of B/A is the serving engine's opt-in, above).  Other leaves take
+    :data:`_PARAM_LOGICAL`'s axes, each dropped where it does not divide
+    its dim (uneven shards of a contracting dim hurt more than
+    replication)."""
+    logical = _PARAM_LOGICAL.get(path[-1])
+    if "adapters" in path or logical is None:
+        return (None,) * len(shape)
+    mapped = [None] * (len(shape) - len(logical)) + [rules.get(a) if a else None
+                                                     for a in logical]
+    return tuple(ax if ax is None or dim % _axis_size(mesh, ax) == 0 else None
+                 for dim, ax in zip(shape, mapped))
+
+
+def param_sharding_rules(params: Tree, mesh, rules: Dict[str, Any]) -> Tree:
+    """The tree of specs beside ``params`` (a ``None`` leaf stays
+    ``None``)."""
+
+    def walk(node, path):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in node.items()}
+        return _spec_for_path(path, tuple(node.shape), rules, mesh)
+
+    return walk(params, ())
+
+
+def shard_shape(shape: Sequence[int], spec: Sequence, mesh) -> Tuple[int, ...]:
+    """One device's block of a tensor of ``shape`` placed by ``spec``; every
+    sharded dim must divide evenly, as the rule table makes them."""
+    out = []
+    for dim, ax in zip(shape, spec):
+        n = _axis_size(mesh, ax)
+        if dim % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide over {ax} ({n})")
+        out.append(dim // n)
+    return tuple(out)

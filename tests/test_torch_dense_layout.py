@@ -242,8 +242,10 @@ class _NoHostRead(TorchFunctionMode):
 
 def test_per_lane_decode_reads_no_offset_on_the_host():
     """The per-lane decode writes through an index scatter: no offset is
-    read on the host.  Control: the lock-step cache's decode (the
-    merged-weight reference's) reads its offset and is caught."""
+    read on the host, and neither is the lock-step cache's (the
+    merged-weight reference's: an index copy at its offset, which the
+    dry-run traces on meta tensors).  Control: reading an offset is
+    caught."""
     jm, jp, tm, tp = _models("smollm-135m")
     _, tc, _ = _spliced_lanes(jm, jp, tm, tp, (5, 11))
     tok = torch.tensor([[7], [9]], dtype=torch.int32)
@@ -251,8 +253,10 @@ def test_per_lane_decode_reads_no_offset_on_the_host():
         tm.decode_step(tp, tc, tok)
     lock = tm.init_decode_state(2, 48, torch.float32)
     tm.prefill(tp, lock, torch.from_numpy(np.full((2, 4), 5, np.int32)))
-    with pytest.raises(RuntimeError, match="host read"), _NoHostRead():
+    with _NoHostRead():
         tm.decode_step(tp, lock, tok)
+    with pytest.raises(RuntimeError, match="host read"), _NoHostRead():
+        int(lock["layers"]["attn"]["idx"][0])
 
 
 def test_extract_lane_to_host_and_restore_round_trip():

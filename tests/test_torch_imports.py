@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing ``repro_torch`` and every module
 under it, or running ``chip_smoke.py``, loads neither ``jax`` nor anything of
-the JAX package ``repro`` or the reference's ``benchmarks``; and
+the JAX package ``repro`` or the reference's ``benchmarks`` (nor do the
+port's examples, ``examples/*_torch.py``, import them); and
 ``chip_smoke.py`` refuses to report without a card."""
 import ast
 import os
@@ -43,7 +44,10 @@ def test_importing_every_port_module_loads_no_jax():
                    "repro_torch.benchmarks.serve_multitenant",
                    "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
                    "repro_torch.checkpoint.reshard", "repro_torch.runtime",
-                   "repro_torch.runtime.fault_tolerance", "repro_torch.optim.compression"):
+                   "repro_torch.runtime.fault_tolerance", "repro_torch.optim.compression",
+                   "repro_torch.launch.dryrun", "repro_torch.launch.specs",
+                   "repro_torch.launch.roofline", "repro_torch.launch.hillclimb",
+                   "repro_torch.launch.report", "repro_torch.launch.mesh"):
         assert module in names.split(","), names
 
 
@@ -57,7 +61,8 @@ def _imported_roots(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(
-    [ROOT / "chip_smoke.py"] + list((SRC / "repro_torch").rglob("*.py"))),
+    [ROOT / "chip_smoke.py"] + list((SRC / "repro_torch").rglob("*.py"))
+    + list((ROOT / "examples").glob("*_torch.py"))),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_names_jax_or_the_reference(path):
     roots = set(_imported_roots(path))

@@ -4,6 +4,8 @@ the one-λ matmul's autograd rule in ``kernels/ops.py`` (against ``jax.grad``
 through the reference's custom VJP), and the rule that a wrapper never falls back between
 kernel and plain version.  The CUDA kernels themselves are held against the
 plain versions on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,11 @@ from repro_torch.kernels import ref as tref
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=2e-2, rtol=2**-7)}
 J_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 T_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# x on a device that is neither the CPU, a card nor meta (the dispatchers
+# read x's device first and refuse it before touching anything else)
+_ELSEWHERE = types.SimpleNamespace(device=torch.device("xpu"))
 
 
 def _bgmv_np(M, K=48, N=16, r=8, n_slots=4, seed=0):
@@ -134,10 +141,16 @@ def test_paged_plain_zero_length_lane_is_zeros_and_ops_keeps_rank():
 
 def test_wrappers_never_fall_back_off_cpu():
     """A tensor that is neither on the CPU nor on a card is refused — the
-    wrappers pick kernel or plain version by device, never by failure."""
-    x, W, B, A, lam, seg = (t.to("meta") for t in _to_torch(_bgmv_np(4), torch.float32))
+    wrappers pick kernel or plain version by device, never by failure.  The
+    BGMV dispatcher, on the dry-run's path, takes meta tensors to the plain
+    version (shape propagation); the paged one is on no dry-run path and
+    refuses them."""
+    ops = _to_torch(_bgmv_np(4), torch.float32)
+    meta = tbgmv.qrlora_bgmv(*(t.to("meta") for t in ops))
+    want = tbgmv.qrlora_bgmv(*ops)
+    assert meta.device.type == "meta" and (meta.shape, meta.dtype) == (want.shape, want.dtype)
     with pytest.raises(NotImplementedError):
-        tbgmv.qrlora_bgmv(x, W, B, A, lam, seg)
+        tbgmv.qrlora_bgmv(_ELSEWHERE, *ops[1:])
     q, kp, vp, tbl, lens = (torch.from_numpy(a).to("meta") for a in _paged_np((1, 2)))
     with pytest.raises(NotImplementedError):
         tpaged.paged_decode_attention(q, kp, vp, tbl, lens)
@@ -320,8 +333,10 @@ def test_qrlora_matmul_wrapper_validates_and_never_falls_back():
     with pytest.raises(ValueError):  # ... from 16-byte aligned addresses
         shifted = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16)[1:].view(4, 64)
         tmm.qrlora_matmul_cuda(shifted, Wb, B, A, lam)
+    meta = tmm.qrlora_matmul(*(t.to("meta") for t in (x, W, B, A, lam)))  # shape propagation
+    assert meta.device.type == "meta" and meta.shape == (x.shape[0], W.shape[1])
     with pytest.raises(NotImplementedError):
-        tmm.qrlora_matmul(*(t.to("meta") for t in (x, W, B, A, lam)))
+        tmm.qrlora_matmul(_ELSEWHERE, W, B, A, lam)
     kernels.reset_launch_counts()
     tmm.qrlora_matmul(x, W, B, A, lam)  # CPU tensors: the plain version, no launch
     assert kernels.launch_counts()["qrlora_matmul"] == 0

@@ -14,6 +14,8 @@
   (identical streams, schedule and preemptions; logits 1e-4), and the
   reference's documented int8 ε contract.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -269,7 +271,8 @@ def test_quant_epilogue_scales_only_the_base_term():
 
 def test_ops_quant_dispatch_seg_rows_and_no_fallback():
     """Per-sequence seg ids repeat to per-row ids; CPU tensors take the
-    plain versions (no launch), a tensor on another device is refused."""
+    plain versions (no launch), and so do meta tensors (the dry-run's shape
+    propagation); a tensor on another device is refused."""
     _, t = _operands("fp8", "float32")
     x3 = t["x"].reshape(2, 4, K)
     seg = torch.tensor([1, 3], dtype=torch.int32)
@@ -282,12 +285,16 @@ def test_ops_quant_dispatch_seg_rows_and_no_fallback():
     assert y3.shape == (2, 4, N)
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNEL_WRAPPERS}
     meta = {k: v.to("meta") for k, v in t.items()}
+    got = (tbgmv.qrlora_bgmv_quant(meta["x"], meta["q"], meta["ws"], meta["B"], meta["A"],
+                                   meta["tab"], meta["seg"]),
+           tmm.qrlora_matmul_quant(meta["x"], meta["q"], meta["ws"], meta["B"], meta["A"],
+                                   meta["lam"]))
+    assert all(y.device.type == "meta" and y.shape == (M, N) for y in got)
+    elsewhere = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(NotImplementedError):
-        tbgmv.qrlora_bgmv_quant(meta["x"], meta["q"], meta["ws"], meta["B"], meta["A"],
-                                meta["tab"], meta["seg"])
+        tbgmv.qrlora_bgmv_quant(elsewhere, t["q"], t["ws"], t["B"], t["A"], t["tab"], t["seg"])
     with pytest.raises(NotImplementedError):
-        tmm.qrlora_matmul_quant(meta["x"], meta["q"], meta["ws"], meta["B"], meta["A"],
-                                meta["lam"])
+        tmm.qrlora_matmul_quant(elsewhere, t["q"], t["ws"], t["B"], t["A"], t["lam"])
 
 
 def test_quant_kernel_wrappers_validate_before_launching():

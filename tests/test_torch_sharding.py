@@ -12,6 +12,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 from pathlib import Path
 
 import jax
@@ -117,8 +118,9 @@ def test_rows_plain_equals_bgmv_plain_with_gathered_rows(x_dtype, w_kind):
 
 def test_rows_wrapper_validates_and_never_falls_back():
     """Bad dtypes, shapes and layouts are refused before any library is
-    loaded; a tensor neither on the CPU nor on a card is refused; the CPU
-    path launches nothing."""
+    loaded; a tensor neither on the CPU, on a card nor on the meta device
+    (the dry-run's shape propagation, through the plain version) is
+    refused; the CPU path launches nothing."""
     _, (x, W, ws, B, A, tab, seg) = _operands(2, "float32", "plain")
     rows = tab[seg.long()]
     kernels.reset_launch_counts()
@@ -134,8 +136,11 @@ def test_rows_wrapper_validates_and_never_falls_back():
     ):
         with pytest.raises(exc):
             tbgmv.qrlora_bgmv_rows_cuda(*bad)
+    meta = tbgmv.qrlora_bgmv_rows(*(t.to("meta") for t in (x, W, ws, B, A, rows)))
+    assert meta.device.type == "meta" and meta.shape == (x.shape[0], W.shape[1])
     with pytest.raises(NotImplementedError):
-        tbgmv.qrlora_bgmv_rows(*(t.to("meta") for t in (x, W, ws, B, A, rows)))
+        tbgmv.qrlora_bgmv_rows(types.SimpleNamespace(device=torch.device("xpu")),
+                               W, ws, B, A, rows)
     assert tbgmv.qrlora_bgmv_rows_cuda.launches == 0
 
 
