@@ -1441,19 +1441,19 @@ def time_matmul(gen, N: int, M: int = 2048, K: int = 576, r: int = 128, ld: int 
     return res
 
 
-def time_matmul_f32(gen, M: int, r: int):
+def time_matmul_f32(gen, M: int, r: int, K: int = 768):
     """The one-λ kernel's float32 route at an encoder projection: M rows
     (2048 = batch 16 × seq 128, or 768), K = N = 768, rank r (256, QR-LoRA's
-    cap; 2, LoRA) with every rank column live.  Library: ``x@W +
-    ((x@B)*λ)@A`` in fp32 (TF32 off) on fp32 copies of the factors made
-    outside the timed call.  Bound: fp32 operations over the card's
-    non-tensor fp32 peak against the bytes."""
+    cap; 2, LoRA) with every rank column live (or K = N given: moonshot's
+    2048).  Library: ``x@W + ((x@B)*λ)@A`` in fp32 (TF32 off) on fp32
+    copies of the factors made outside the timed call.  Bound: fp32
+    operations over the card's non-tensor fp32 peak against the bytes."""
     import torch
     from repro_torch.benchmarks.common import eager_ms, graph_ms, launch_us
     from repro_torch.kernels.qrlora_matmul import qrlora_matmul_cuda
     from repro_torch.kernels.ref import qrlora_matmul_ref
 
-    K = N = 768
+    N = K
     x, W, B, A, lam = _matmul_inputs(gen, M, N, torch.float32, K, r, rank=r)
     B32, A32 = B.float(), A.float()
     kernel = lambda: qrlora_matmul_cuda(x, W, B, A, lam)
@@ -6076,24 +6076,207 @@ def moe_train(model, params, seed: int, runs, steps: int = MOE_TRAIN_STEPS) -> d
     out["n_layers"] = model.cfg.n_layers
     out["microbatches"] = model.cfg.microbatches
     out["steps"] = steps
+    out["trainable"] = done[runs[0][0]][0]["trainable"]  # the kernel run's final λ
     return out
 
 
 def moe_kernel_timings(gen) -> dict:
-    """#1, #2, #3 at moonshot's shapes and #1, #2 at mixtral's, by CUDA-graph
-    replay beside their plain versions and library calls."""
+    """#1, #2, #3 (bf16 and float32) at moonshot's shapes and #1, #2 at
+    mixtral's, by CUDA-graph replay beside their plain versions and library
+    calls."""
     return {
         "qrlora_bgmv_moonshot_wq": time_bgmv(gen, 2048, 4, K=2048, r=160),
         "qrlora_bgmv_moonshot_wq_M64": time_bgmv(gen, 2048, 64, K=2048, r=160),
         "paged_decode_attention_moonshot": time_paged(gen, (40, 33, 57, 21), H=16, KV=16,
                                                       cols=4, max_blocks=8, dh=128),
         "qrlora_matmul_moonshot_wq": time_matmul(gen, 2048, M=256, K=2048, r=160),
+        # the float32 route at the float32 train's microbatch (moe_sharded)
+        "qrlora_matmul_f32_moonshot_wq": time_matmul_f32(gen, 256, 160, K=2048),
         "qrlora_bgmv_mixtral_wq": time_bgmv(gen, 6144, 4, K=6144, r=256),
         "qrlora_bgmv_mixtral_wv": time_bgmv(gen, 1024, 4, K=6144, r=256),
         "qrlora_bgmv_mixtral_wq_M64": time_bgmv(gen, 6144, 64, K=6144, r=256),
         "paged_decode_attention_mixtral": time_paged(gen, (40, 33, 57, 21), H=48, KV=8, cols=4,
                                                      max_blocks=8, dh=128),
     }
+
+
+# the moe_sharded sub-phase: moe_ffn's sharded branch (the training mesh of
+# launch/train.py --model-parallel) on the one card.  NCCL takes one rank a
+# card, so the mesh runs as a world of one, and the splits of a larger mesh
+# as the per-rank body run once a rank in one process.  (b): one moe layer
+# over 2048 rows at the shipped cf 1.25 (C 240), the experts' f (1408) cut
+# into 2 and 4 model-rank slices (704, 352); (c): the same rows in 2 data
+# shards, C over each shard's 1024 rows (120)
+MOE_SHARD_ROWS = 2048
+MOE_SHARD_MODEL = (2, 4)
+MOE_SHARD_DATA = 2
+# the float32 partials summed against the whole layer, over max|y|
+MOE_SHARD_FP32_RTOL = 1e-5
+# its card time
+MOE_SHARD_SECONDS = 30.0
+
+
+def moe_sharded_world_of_one(model, params, seed: int, ref: dict, lam_ref) -> dict:
+    """(a) The float32 train of :func:`moe_train`'s kernel run (``ref``,
+    its final λ ``lam_ref``) again, through the data-parallel step on a 1×1
+    ("data", "model") mesh under fsdp in a world of one (NCCL): the expert
+    stacks enter the moe branch d-split and are all-gathered there, the
+    partial outputs summed over "model", the aux averaged over both axes,
+    the loss's weight sum and every λ gradient summed over "data".  Each
+    is a collective over one rank, so the losses and λ must be bitwise the
+    unsharded run's, with the same #3 launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import train as tl
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.serve_multi import process_group
+    from repro_torch.sharding import collectives as coll
+    from repro_torch.sharding import rules as shrules
+    from repro_torch.training import init_train_state
+    from repro_torch.tree import tree_leaves
+
+    steps = ref["steps"]
+    with process_group(str(model.device)):
+        mesh = make_local_mesh(1)
+        with shrules.axis_rules(mesh, fsdp=True):
+            state = init_train_state(model, params=params)
+            state = shrules.local_blocks(state, shrules.mesh_specs(state))
+            step_fn = tl.make_step(model, TRAIN_LR, steps)
+            data = tl.batches(model.cfg, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, seed, model.device)
+            coll.reset_collective_counts()
+            kernels.reset_launch_counts()
+            state, hist = tl.train(step_fn, state, data, steps)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+            collectives = dict(coll.COLLECTIVES)
+    losses = [h["loss"] for h in hist]
+    mine, theirs = tree_leaves(state["trainable"]), tree_leaves(lam_ref)
+    return {"mesh": mesh.shape, "losses": losses, "launches": launches,
+            "ref_launches": ref["launches_kernel"], "collectives": collectives,
+            "losses_bitwise": losses == ref["losses"],
+            "lam_bitwise": len(mine) == len(theirs) and all(
+                torch.equal(a, b) for a, b in zip(mine, theirs)),
+            "leaves": len(mine)}
+
+
+def _bf16_ulp(a, b):
+    """One bf16 ulp of the larger of |a| and |b|, elementwise: 2^(e−8) for
+    a magnitude in [2^(e−1), 2^e)."""
+    import torch
+
+    m = torch.maximum(a.float().abs(), b.float().abs())
+    return torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
+
+
+def moe_model_split(p, cfg, x32) -> list:
+    """(b) The sharded branch's per-rank body (``moe._moe_partial`` on one
+    model rank's contiguous f-slices of every expert) for each of m ∈
+    ``MOE_SHARD_MODEL`` ranks, the partials summed in rank order in float32
+    and cast, against the whole layer (``moe._local_moe``) on the same rows
+    ``x32`` (T, d): float32 within ``MOE_SHARD_FP32_RTOL`` of max|y|; bf16
+    (x and the experts; the router float32, as the model holds it) within
+    one bf16 ulp of each output past that float32 bound (the cast of two
+    float32 sums that differ by their order); a planted fault, the last
+    slice left out, rejected by both."""
+    import functools
+
+    import torch
+    from repro_torch.models import moe
+
+    T, k, f = x32.shape[0], cfg.experts_per_token, cfg.d_ff
+    C = moe.capacity(cfg, T)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+        wr = p["w_router"]
+        wg, wu, wd = (p[n].to(dt) for n in ("we_gate", "we_up", "we_down"))
+        with torch.no_grad():
+            whole, _ = moe._local_moe(x, wr, wg, wu, wd, k=k, capacity=C)
+        scale = float(whole.float().abs().max())
+        bound = MOE_SHARD_FP32_RTOL * scale
+
+        def within(y) -> bool:
+            d = (y.float() - whole.float()).abs()
+            if dt == torch.float32:
+                return bool(d.max() <= bound)
+            return bool((d - bound <= _bf16_ulp(y, whole)).all())
+
+        for m in MOE_SHARD_MODEL:
+            fs = f // m
+            cut = lambda w, j, dim: w.narrow(dim, j * fs, fs).contiguous()
+            with torch.no_grad():
+                parts = [moe._moe_partial(x, wr, cut(wg, j, 2), cut(wu, j, 2), cut(wd, j, 1),
+                                          k=k, capacity=C)[0] for j in range(m)]
+            y = functools.reduce(torch.add, parts).to(dt)
+            fault = functools.reduce(torch.add, parts[:-1]).to(dt)
+            row = {"dtype": str(dt).split(".")[1], "m": m, "f_slice": fs, "T": T, "C": C,
+                   "max_abs_y": scale, "dy_over_max_y": _max_err(y, whole) / scale,
+                   "fault_dy_over_max_y": _max_err(fault, whole) / scale,
+                   "ok": within(y), "fault_rejected": not within(fault)}
+            if dt == torch.bfloat16:
+                ulps = (y.float() - whole.float()).abs() / _bf16_ulp(y, whole)
+                row["max_ulps"] = float(ulps.max())
+                row["outputs_over_one_ulp"] = int((ulps > 1).sum())
+            rows.append(row)
+    return rows
+
+
+def moe_data_split(p, cfg, x32) -> dict:
+    """(c) The rows ``x32`` in ``MOE_SHARD_DATA`` contiguous data shards, each
+    routed with C over its own rows, on the card and on the CPU: the same
+    slot for every copy; the copies dropped in all differ from one dispatch
+    over every row (C over all of them), and so does y."""
+    import torch
+    from repro_torch.models import moe
+
+    T, k, E = x32.shape[0], cfg.experts_per_token, cfg.n_experts
+    n = T // MOE_SHARD_DATA
+    C_local, C = moe.capacity(cfg, n), moe.capacity(cfg, T)
+    wr, wr_cpu = p["w_router"], p["w_router"].cpu()
+    same, dropped = [], 0
+    with torch.no_grad():
+        for i in range(MOE_SHARD_DATA):
+            xs = x32[i * n:(i + 1) * n]
+            r = moe.route(xs, wr, k, C_local)
+            rc = moe.route(xs.cpu(), wr_cpu, k, C_local)
+            same.append(torch.equal(r.copy_slot.cpu(), rc.copy_slot))
+            dropped += int((rc.copy_slot == E * C_local).sum())
+        whole = moe.route(x32, wr, k, C)
+        dropped_whole = int((whole.copy_slot == E * C).sum())
+        ws = (p["w_router"], p["we_gate"], p["we_up"], p["we_down"])
+        y_split = torch.cat([moe._local_moe(x32[i * n:(i + 1) * n], *ws, k=k,
+                                            capacity=C_local)[0] for i in range(MOE_SHARD_DATA)])
+        y_whole = moe._local_moe(x32, *ws, k=k, capacity=C)[0]
+    return {"shards": MOE_SHARD_DATA, "rows_a_shard": n, "C_local": C_local, "C": C,
+            "same_slots": same, "dropped_split": dropped, "dropped_whole": dropped_whole,
+            "max_abs_dy_split_vs_whole": _max_err(y_split, y_whole),
+            "ok": all(same) and dropped != dropped_whole}
+
+
+def moe_sharded_phase(model, params, seed: int, ref: dict, lam_ref) -> dict:
+    """The moe_sharded sub-phase: (a) :func:`moe_sharded_world_of_one` on
+    ``params`` (moonshot's last layers in float32, as the float32 train
+    ran them), (b) :func:`moe_model_split` and (c) :func:`moe_data_split`
+    on the last of those layers' moe weights at ``MOE_SHARD_ROWS`` rows
+    from ``seed``, and #3's float32 route against its plain version at the
+    train's microbatch shape; its seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    out = {"world_of_one": moe_sharded_world_of_one(model, params, seed, ref, lam_ref)}
+    p = {k: v[-1] for k, v in params["groups"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9200)
+    x32 = torch.randn((MOE_SHARD_ROWS, cfg.d_model), generator=gen, device="cuda")
+    out["model_split"] = moe_model_split(p, cfg, x32)
+    out["data_split"] = moe_data_split(p, cfg, x32)
+    # #3 at the float32 train's microbatch: 256 rows × K = N = 2048, r 160
+    out["matmul_f32"] = _matmul_case(gen, "qrlora_matmul", torch.float32, MOE_TRAIN_BATCH
+                                     // cfg.microbatches * MOE_TRAIN_SEQ, cfg.d_model,
+                                     cfg.d_model, 160)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def moe_phase(seed: int) -> dict:
@@ -6109,7 +6292,8 @@ def moe_phase(seed: int) -> dict:
     bf16 train beside its plain twin; then, the bf16 tree freed, the
     drop-free twin in float32 at 8 of 48 layers against the merged
     reference, and a float32 train on the last of those layers beside its
-    plain twin and a planted fault.  Returns every reading."""
+    plain twin and a planted fault; last, on those layers, moe_ffn's
+    sharded branch (:func:`moe_sharded_phase`).  Returns every reading."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -6180,6 +6364,7 @@ def moe_phase(seed: int) -> dict:
     out["train"] = moe_train(build_model(get_config(MOE)), params, seed,  # bf16, microbatches 8
                              (("kernel", None), ("plain_twin", plain_forward)),
                              steps=MOE_BF16_TRAIN_STEPS)
+    del out["train"]["trainable"]
     lap("train")
     # -- the drop-free twin in float32 at 8 of 48 layers -----------------------
     host, dev = last_layers_on_host(params, MOE_FP32_LAYERS), params["embed"].device
@@ -6210,14 +6395,19 @@ def moe_phase(seed: int) -> dict:
     # -- λ through the moe backward: a float32 train on the last layers --------
     n = MOE_FP32_TRAIN_LAYERS
     cfg_t = get_config(MOE).replace(dtype="float32", n_layers=n)
+    p_t = {**p32, "groups": tree_map(lambda t: t[-n:], p32["groups"])}
     out["train_fp32"] = moe_train(
-        build_model(cfg_t), {**p32, "groups": tree_map(lambda t: t[-n:], p32["groups"])}, seed,
+        build_model(cfg_t), p_t, seed,
         (("kernel", None), ("plain_twin", plain_forward),
          ("fault_last_wq_lam_dropped", last_wq_lam_dropped(cfg_t))))
-    del p32
+    lam_t = out["train_fp32"].pop("trainable")
+    lap("train_fp32")
+    # -- moe_ffn's sharded branch: a world of one, the model and data splits --
+    out["sharded"] = moe_sharded_phase(build_model(cfg_t), p_t, seed, out["train_fp32"], lam_t)
+    del p32, p_t, lam_t
     gc.collect()
     torch.cuda.empty_cache()
-    lap("train_fp32")
+    lap("moe_sharded")
     return out
 
 
@@ -6286,6 +6476,20 @@ def print_moe(out: dict, smi: str) -> None:
           f"fault (λ of the last layer's wq dropped) {tf['fault_last_wq_lam_dropped']} (bounds "
           f"{TRAIN_TOL['float32']}); twin routing flips {tf['routing_flips']} of "
           f"{tf['routed_pairs']}; launches {tf['launches_kernel']}")
+    sh = out["sharded"]
+    a = sh["world_of_one"]
+    print(f"{MOE} moe_sharded (a) the float32 train through the data-parallel step on a "
+          f"{a['mesh']} mesh under fsdp (a world of one, NCCL): losses {a['losses']}, bitwise the "
+          f"unsharded run's {a['losses_bitwise']}, its {a['leaves']} λ leaves bitwise "
+          f"{a['lam_bitwise']}; launches {a['launches']} (unsharded {a['ref_launches']}); "
+          f"collectives {a['collectives']}")
+    for row in sh["model_split"]:
+        print(f"{MOE} moe_sharded (b) the model split, per-rank partials summed in rank order "
+              f"against the whole layer (bounds: float32 {MOE_SHARD_FP32_RTOL} of max|y|, bf16 "
+              f"one ulp of each output past it): {row}")
+    print(f"{MOE} moe_sharded (c) the data split, card vs CPU: {sh['data_split']}")
+    print(f"{MOE} moe_sharded #3 float32 route at the train's microbatch: {sh['matmul_f32']}")
+    print(f"{MOE} moe_sharded seconds {sh['seconds']:.2f} (cap {MOE_SHARD_SECONDS})")
     print(f"{MOE} seconds {out['seconds']}")
 
 
@@ -6355,6 +6559,27 @@ def check_moe(out: dict) -> None:
     _check(not within_train_tol(tf["fault_last_wq_lam_dropped"], "float32"),
            f"{MOE} float32 train: the check let λ of the last layer's wq dropped through: "
            f"{tf['fault_last_wq_lam_dropped']}")
+    sh = out["sharded"]
+    a = sh["world_of_one"]
+    _check(a["losses_bitwise"] and a["lam_bitwise"],
+           f"{MOE} moe_sharded (a): the sharded step in a world of one differs from the "
+           f"unsharded run: {a}")
+    _check(a["launches"]["qrlora_matmul"] == a["ref_launches"]["qrlora_matmul"] > 0,
+           f"{MOE} moe_sharded (a): #3 launches {a['launches']} against the unsharded run's "
+           f"{a['ref_launches']}")
+    _check(a["collectives"].get("all_gather", 0) > 0 and a["collectives"].get("all_reduce", 0) > 0,
+           f"{MOE} moe_sharded (a): the step issued no collective: {a['collectives']}")
+    for row in sh["model_split"]:
+        _check(row["ok"] and row["fault_rejected"],
+               f"{MOE} moe_sharded (b): the model split disagrees with the whole layer, or its "
+               f"check let a slice left out through: {row}")
+    _check(sh["data_split"]["ok"], f"{MOE} moe_sharded (c): the per-shard slots differ from the "
+                                   f"CPU's, or the split dropped as many copies as the whole "
+                                   f"call: {sh['data_split']}")
+    _check(sh["matmul_f32"]["ok"], f"{MOE} moe_sharded: #3's float32 route at the train's "
+                                   f"microbatch: {sh['matmul_f32']}")
+    _check(sh["seconds"] <= MOE_SHARD_SECONDS,
+           f"{MOE} moe_sharded took {sh['seconds']:.1f} s, over its {MOE_SHARD_SECONDS} s")
 
 
 # ---------------------------------------------------------------------------
@@ -8541,6 +8766,13 @@ def main(argv=None) -> None:
          "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
          "src/repro/kernels/qrlora_matmul.py:161",
          moe_out["train"]["launches_kernel"]["qrlora_matmul"]),
+        # the float32 route in moonshot's float32 train through the
+        # data-parallel step on a 1×1 mesh (moe_sharded (a))
+        ("qrlora_matmul_moe_sharded", "qrlora_matmul_f32_moonshot_wq",
+         moe_out["sharded"]["matmul_f32"]["max_abs_err"],
+         "src/repro_torch/kernels/csrc/qrlora_matmul.cu",
+         "src/repro/kernels/qrlora_matmul.py:161",
+         moe_out["sharded"]["world_of_one"]["launches"]["qrlora_matmul"]),
         # llama-3.2-vision-11b: the bf16 serve through launch/serve.py (#3 at
         # K 4096, r 256; a cross layer's wv over 6400 image rows) and the
         # same weights on an int8 base (#4)

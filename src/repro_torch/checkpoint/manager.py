@@ -116,9 +116,10 @@ def _restore_leaf(arr: np.ndarray, info: Dict, like):
     return t.requires_grad_(True) if like.requires_grad else t
 
 
-def restore_pytree(target: Tree, directory: str) -> Tree:
-    """Restore into the structure of ``target``."""
-    proc = _process_index()
+def restore_pytree(target: Tree, directory: str, proc: Optional[int] = None) -> Tree:
+    """Restore into the structure of ``target`` from ``proc<proc>.npz``
+    (default: this process's)."""
+    proc = _process_index() if proc is None else proc
     with np.load(os.path.join(directory, f"proc{proc}.npz")) as data:
         with open(os.path.join(directory, "manifest.json")) as f:
             manifest = json.load(f)
@@ -206,3 +207,43 @@ class CheckpointManager:
             if self.keep_every and s % self.keep_every == 0:
                 continue
             shutil.rmtree(self.path(s), ignore_errors=True)
+
+
+class MeshCheckpointManager(CheckpointManager):
+    """Checkpoints of a run on a runtime mesh, in the reference's format of
+    the global tree, so that either package restores them on any mesh or on
+    one device.  :meth:`save` gathers every rank's blocks of the leaves
+    ``specs`` shards (a collective: every rank saves at the same steps) and
+    rank 0 writes the whole tree as ``proc0``; :meth:`latest_step` is rank
+    0's, once its saves have landed; :meth:`restore` reads ``proc0`` on
+    every rank and cuts it to the rank's blocks."""
+
+    def __init__(self, root: str, specs: Tree, keep: int = 3, keep_every: int = 0):
+        super().__init__(root, keep, keep_every)
+        self.specs = specs
+
+    def save(self, step: int, tree: Tree, metadata: Optional[Dict] = None,
+             blocking: bool = True):
+        from repro_torch.sharding import collectives as coll
+
+        whole = coll.gather_blocks(tree, self.specs)
+        if _process_index() == 0:
+            super().save(step, whole, metadata, blocking)
+
+    def latest_step(self) -> Optional[int]:
+        import torch.distributed as dist
+
+        if _process_index() == 0:
+            self.wait()
+        box = [super().latest_step()]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def restore(self, target: Tree, step: Optional[int] = None) -> Tuple[Tree, Dict]:
+        from repro_torch.sharding import rules as shrules
+
+        step = step if step is not None else self.latest_step()
+        assert step is not None, f"no checkpoint under {self.root}"
+        d = self.path(step)
+        return shrules.local_blocks(restore_pytree(target, d, proc=0), self.specs), \
+            load_metadata(d)

@@ -14,9 +14,12 @@ reads XLA's memory and cost analyses.  Here there is no compiler: the
 record's bytes are what the rule table places on one device (params, train
 state, cache and batch), its roofline terms are the trace's global counts
 split evenly over the mesh, and whatever only a compiler knows (temporary
-and aliased buffers, the peak, collective bytes) is ``None``.  A cell's
-global counts do not depend on the mesh, so each (arch × shape) is traced
-once and split per mesh.
+and aliased buffers, the peak, collective bytes) is ``None``.  Each step runs
+under the mesh's rule table, as the reference lowers it: a moe layer
+counts the work of its sharded branch, each data shard's dispatch with C
+over the shard's own rows.  A dense cell's global counts do not depend on
+the mesh, so each (arch × shape) is traced once and split per mesh; a cell
+with moe layers is traced once per mesh.
 
 Usage:
   python -m repro_torch.launch.dryrun                       # all cells, 16×16
@@ -40,6 +43,7 @@ from repro_torch.launch import specs as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.model_zoo import build_model
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.sharding import rules as shrules
 from repro_torch.training.steps import (
     init_train_state,
     make_decode_step,
@@ -48,43 +52,55 @@ from repro_torch.training.steps import (
 )
 
 PROBE = "meta-affine, even split"
-# The reference's moe layers dispatch through shard_map on a mesh; the port
-# has the local dispatch alone, so the trace counts that
-PROBE_MOE = PROBE + "; moe: _local_moe (no shard_map dispatch)"
+# The moe layers trace the sharded branch's work: the dispatch of each data
+# shard with C over the shard's rows (a decode shard's few rows hit C's floor
+# of 8, so the count is the padded per-device work the mesh does)
+PROBE_MOE = PROBE + "; moe: per-data-shard dispatch (C over the shard's rows, floor 8)"
 
 
 def probe_name(cfg) -> str:
-    return PROBE_MOE if cfg.family == "moe" else PROBE
+    return PROBE_MOE if cfg.is_moe else PROBE
 
 
-def _trace_cell(cfg, shape):
+def _trace_cell(cfg, shape, mesh):
     """``(flops, bytes accessed)`` of the cell's step, run once on meta
-    tensors (global counts: one program, no mesh)."""
+    tensors under ``mesh``'s rule table (the reference's ``axis_rules(mesh,
+    fsdp=, dp_only=, replicate_batch=)`` of the cell): global counts of one
+    program, the moe layers' dispatch split over the data shards."""
     model = build_model(cfg, "meta")
     batch = S.input_specs(cfg, shape)
-    if shape.kind == "train":
-        state = init_train_state(model, params=model.dryrun_params())
-        return RL.count_costs(make_train_step(model, AdamWConfig()), state, batch)
-    params = model.dryrun_params()
-    cache = S.decode_cache_shapes(model, shape)
-    step = make_prefill_step(model) if shape.kind == "prefill" else make_decode_step(model)
-    return RL.count_costs(step, params, cache, batch)
+    ws = cfg.decode_weight_stationary and shape.kind == "decode"
+    with shrules.axis_rules(mesh, fsdp=cfg.fsdp, dp_only=cfg.dp_only, replicate_batch=ws):
+        if shape.kind == "train":
+            state = init_train_state(model, params=model.dryrun_params())
+            return RL.count_costs(make_train_step(model, AdamWConfig()), state, batch)
+        params = model.dryrun_params()
+        cache = S.decode_cache_shapes(model, shape)
+        step = make_prefill_step(model) if shape.kind == "prefill" else make_decode_step(model)
+        return RL.count_costs(step, params, cache, batch)
+
+
+def trace_mesh(cfg, mesh):
+    """The mesh a cell is traced on: ``mesh`` for a config with moe layers,
+    whose counts depend on the data shards, else the single-pod mesh, so a
+    dense cell is traced once for every mesh."""
+    return mesh if cfg.is_moe else make_production_mesh()
 
 
 @functools.lru_cache(maxsize=None)
-def _probe_costs(cfg, shape):
+def _probe_costs(cfg, shape, mesh):
     """Counts over 1 and 2 layer groups, one microbatch, then the
     reference's affine extrapolation to G groups, ``c1 + (c2 - c1)·(G - 1)``
     → ``(flops, bytes accessed, seconds)``.  Exact where every group is
     adapted (the port's layer loop repeats one group's ops G times).  The
     shipped configs adapt only their last few layers, but the 1- and 2-group
     probes adapt every group they trace, so the adapters' flops and bytes are
-    charged to all G groups, as the reference's probe charges them.  Cached:
-    a cell's counts are the same on every mesh."""
+    charged to all G groups, as the reference's probe charges them.
+    Cached."""
     t0 = time.time()
     G = cfg.n_layers // cfg.group_size
     (f1, b1), (f2, b2) = (
-        _trace_cell(cfg.replace(n_layers=g * cfg.group_size, microbatches=1), shape)
+        _trace_cell(cfg.replace(n_layers=g * cfg.group_size, microbatches=1), shape, mesh)
         for g in (1, 2))
     return f1 + (f2 - f1) * (G - 1), b1 + (b2 - b1) * (G - 1), time.time() - t0
 
@@ -107,7 +123,7 @@ def argument_bytes(cfg, shape, mesh) -> int:
 
 
 def roofline_for(cfg, shape, mesh) -> RL.Roofline:
-    flops, hbm, _ = _probe_costs(cfg, shape)
+    flops, hbm, _ = _probe_costs(cfg, shape, trace_mesh(cfg, mesh))
     return RL.from_terms(flops / mesh.size, hbm / mesh.size, None,
                          model_flops=RL.model_flops_for(cfg, shape), chips=mesh.size)
 
@@ -124,7 +140,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, verbose: bool = True) 
     mesh = make_production_mesh(multi_pod=multi_pod)
     try:
         rl = roofline_for(cfg, shape, mesh)
-        rec["lower_s"] = round(_probe_costs(cfg, shape)[2], 1)
+        rec["lower_s"] = round(_probe_costs(cfg, shape, trace_mesh(cfg, mesh))[2], 1)
         rec["compile_s"] = None
         rec["memory"] = {
             "argument_bytes": argument_bytes(cfg, shape, mesh),

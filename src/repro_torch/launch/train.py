@@ -20,9 +20,23 @@ embeddings with code targets; a moe arch (``moonshot-v1-16b-a3b``,
 ``--arch llama-3.2-vision-11b`` trains the vlm family on token batches
 beside stub patch embeddings; ``--arch xlstm-125m`` trains the ssm family's
 λ on ``x_qkv`` (its v third through the strided column slice) and
-``--arch jamba-1.5-large-398b`` the hybrid's (full width needs four cards:
-ROADMAP item 14c), its moe layers' aux in the loss.  It prints the trainable count, the loss every ``--log-every``
-steps, the median step time and the train tokens/s.
+``--arch jamba-1.5-large-398b`` the hybrid's, its moe layers' aux in the
+loss (its full width needs more than one card).  It prints the trainable
+count, the loss every ``--log-every`` steps, the median step time and the
+train tokens/s.
+
+Under ``torchrun`` with more than one rank, the ranks form the reference's
+("data", "model") training mesh, ``--model-parallel`` ranks along "model"
+(:func:`repro_torch.launch.mesh.make_local_mesh`), and train inside
+``axis_rules(mesh, fsdp=cfg.fsdp)``: each rank holds its blocks of the moe
+expert stacks (f over "model", d over "data" under fsdp) and every other
+leaf whole, runs its rows of each microbatch through the data-parallel
+step, and rank 0 prints and writes the checkpoints (the global tree)::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch mixtral-8x22b --reduced --model-parallel 2
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch mixtral-8x22b --reduced --model-parallel 2 --device cpu   # gloo
 
 Fault tolerance is on by default, as in the reference launcher: the steps
 run through :class:`repro_torch.runtime.TrainLoopRunner` over a
@@ -40,6 +54,7 @@ reference's ``repro_ckpt_<arch>``.  Train forwards remat (``cfg.remat``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import statistics
 import sys
@@ -50,7 +65,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import CheckpointManager
+from repro_torch.checkpoint import CheckpointManager, MeshCheckpointManager
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data import lm_batches
@@ -163,6 +178,25 @@ def summary(hist: List[Dict[str, float]], tokens_per_step: int) -> Dict[str, flo
             "tokens_per_s": tokens_per_step * len(timed) / (sum(timed) / 1e3)}
 
 
+@contextlib.contextmanager
+def _world(device: str):
+    """This rank's device and the training mesh's world: the caller's
+    default process group when one is up, torchrun's (``WORLD_SIZE`` > 1:
+    NCCL on ``cuda``, rank i on ``cuda:i``; gloo on ``cpu``), else none and
+    a world of one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        yield device, dist.get_world_size()
+    elif int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from repro_torch.launch.serve_multi import process_group
+
+        with process_group(device) as dev:
+            yield dev, dist.get_world_size()
+    else:
+        yield device, 1
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
@@ -177,35 +211,67 @@ def main(argv=None):
                          "temporary directory)")
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="the training mesh's model axis, in a world of more than one rank")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    model = build(args.arch, args.reduced, args.device, peft=args.peft)
+    with _world(args.device) as (device, world):
+        model = build(args.arch, args.reduced, device, peft=args.peft)
+        if world == 1:
+            return _run(args, model, None)
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.sharding import rules as shrules
+
+        mesh = make_local_mesh(args.model_parallel)
+        with shrules.axis_rules(mesh, fsdp=model.cfg.fsdp):
+            return _run(args, model, mesh, quiet=dist.get_rank() != 0)
+
+
+def _run(args, model: Model, mesh, quiet: bool = False):
+    """Train under the installed rules.  On ``mesh`` (the reference's
+    ``axis_rules(mesh, fsdp=cfg.fsdp)``) each rank holds its blocks of the
+    state (the moe expert stacks cut) and steps through the data-parallel
+    step, and rank 0 alone prints and writes the checkpoints: the global
+    tree, in the reference's format (:class:`~repro_torch.checkpoint.
+    MeshCheckpointManager`)."""
+    say = (lambda msg: None) if quiet else _say
     cfg = model.cfg
-    _say(f"arch={cfg.name} peft={cfg.adapter.mode} device={model.device} dtype={cfg.dtype}")
+    where = f" mesh={mesh.shape} fsdp={cfg.fsdp}" if mesh is not None else ""
+    say(f"arch={cfg.name} peft={cfg.adapter.mode} device={model.device} dtype={cfg.dtype}{where}")
     t0 = time.perf_counter()
     state = init_train_state(model, torch.Generator(device=model.device).manual_seed(args.seed))
     n_train = model.count_trainable({"groups": state["trainable"]["groups"]})
-    _say(f"init {time.perf_counter() - t0:.1f}s; trainable params: {n_train}")
+    say(f"init {time.perf_counter() - t0:.1f}s; trainable params: {n_train}")
 
+    root = args.ckpt_dir or default_ckpt_dir(cfg)
+    if mesh is None:
+        ckpt = CheckpointManager(root, keep=3)
+    else:
+        from repro_torch.sharding import rules as shrules
+
+        specs = shrules.mesh_specs(state)
+        state = shrules.local_blocks(state, specs)
+        ckpt = MeshCheckpointManager(root, specs, keep=3)
     rows: Dict[int, Dict[str, float]] = {}
     step_fn = recorded(make_step(model, args.lr, args.steps), rows)
-    ckpt = CheckpointManager(args.ckpt_dir or default_ckpt_dir(cfg), keep=3)
     runner = TrainLoopRunner(
         step_fn, lambda start: batches(cfg, args.batch, args.seq, args.seed, model.device, start),
         ckpt, save_every=args.save_every, log_every=args.log_every or args.steps + 1,
-        log_fn=lambda line: print(line, flush=True),
+        log_fn=(lambda line: None) if quiet else (lambda line: print(line, flush=True)),
     )
     state, step, _ = runner.run(state, args.steps)
     hist = [rows[s] for s in sorted(rows)]
     if not hist:
-        _say(f"done at step {step}: nothing left to run under {ckpt.root}")
+        say(f"done at step {step}: nothing left to run under {ckpt.root}")
         return state, hist
     s = summary(hist, args.batch * args.seq)
-    _say(f"done at step {step}: {len(hist)} steps run; final loss {hist[-1]['loss']:.4f}; "
-         f"median step {s['median_step_ms']:.1f} ms; {s['tokens_per_s']:.0f} train tokens/s; "
-         f"restarts {runner.restarts}; stragglers observed: {len(runner.monitor.events)}")
+    say(f"done at step {step}: {len(hist)} steps run; final loss {hist[-1]['loss']:.4f}; "
+        f"median step {s['median_step_ms']:.1f} ms; {s['tokens_per_s']:.0f} train tokens/s; "
+        f"restarts {runner.restarts}; stragglers observed: {len(runner.monitor.events)}")
     return state, hist
 
 

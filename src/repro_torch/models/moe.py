@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``, its
-single-device branch).
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``: its
+single-device branch, and its ``shard_map`` branch on a runtime mesh).
 
 Token-choice top-k routing with capacity-bounded, sort-based dispatch, step
 for step as the reference:
@@ -15,7 +15,10 @@ for step as the reference:
      and the Switch load-balancing aux loss ``E·Σ_e frac_e·mean_p_e``.
 
 C is ``min(max(8, ⌈cf·T·k/E⌉), T·k)`` over the T rows of the call, so a
-token's output depends on the batch it rides in once copies drop.
+token's output depends on the batch it rides in once copies drop.  On a
+mesh (:func:`_sharded_moe`) the rows of a call are the data shard's, so
+the data split changes which copies drop, and each model rank runs its
+f-slice of every expert (the partial outputs summed over "model").
 
 The reference's combine is a scatter-add; here each token gathers its k
 weighted slots (a zero row for a dropped copy) and sums them in ``j``
@@ -24,6 +27,7 @@ differs from the reference only in float32 summation order.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -31,6 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import normal, stacked_normal
+from repro_torch.sharding import collectives as coll
+from repro_torch.sharding import rules as shrules
 
 
 def init_moe_params(gen: torch.Generator, cfg: ModelConfig, n: int, dtype) -> Dict:
@@ -144,9 +150,12 @@ def combine(y_slots: torch.Tensor, copy_slot: torch.Tensor, T: int, k: int) -> t
     return y
 
 
-def _local_moe(x, wr, wg, wu, wd, *, k: int, capacity: int):
+def _moe_partial(x, wr, wg, wu, wd, *, k: int, capacity: int, enter=None):
     """``x`` (T, d), router ``wr`` (d, E), experts ``wg``/``wu`` (E, d, f)
-    and ``wd`` (E, f, d) → ``(y (T, d) in x's dtype, aux)``."""
+    and ``wd`` (E, f, d), or one model rank's f-slices of them → ``(y (T, d)
+    float32, aux)``: steps 1-4 over these experts (a slice's part of y).
+    ``enter`` (the model-split region's entry, identity forward) takes the
+    token rows the expert matmuls read and each slot's gate."""
     T, d = x.shape
     E, C = wr.shape[-1], capacity
     r = route(x, wr, k, C)
@@ -155,7 +164,10 @@ def _local_moe(x, wr, wg, wu, wd, *, k: int, capacity: int):
     token_of_slot = torch.where(live, r.slot_copy // k, T)  # T → the zero row
     gate_of_slot = torch.where(live, r.gates.reshape(-1)[torch.clamp(r.slot_copy, max=n - 1)],
                                0.0)
-    x_pad = torch.cat([x, x.new_zeros((1, d))])
+    xe = x
+    if enter is not None:
+        xe, gate_of_slot = enter(x), enter(gate_of_slot)
+    x_pad = torch.cat([xe, xe.new_zeros((1, d))])
     gathered = x_pad[token_of_slot].reshape(E, C, d)
     h = F.silu(_bmm_f32(gathered, wg)) * _bmm_f32(gathered, wu)
     y_part = _bmm_f32(h.to(x.dtype), wd)  # (E, C, d) float32
@@ -163,13 +175,32 @@ def _local_moe(x, wr, wg, wu, wd, *, k: int, capacity: int):
     # load-balancing aux loss (Switch): E · Σ_e frac_tokens_e · mean_prob_e
     frac = r.counts.float() / T / k
     aux = E * torch.sum(frac * r.probs.mean(dim=0))
+    return y, aux
+
+
+def _local_moe(x, wr, wg, wu, wd, *, k: int, capacity: int):
+    """``x`` (T, d), router ``wr`` (d, E), experts ``wg``/``wu`` (E, d, f)
+    and ``wd`` (E, f, d) → ``(y (T, d) in x's dtype, aux)``."""
+    y, aux = _moe_partial(x, wr, wg, wu, wd, k=k, capacity=capacity)
     return y.to(x.dtype), aux
 
 
 def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) → (y (B, S, d), aux loss scalar): the reference's
-    single-device branch (``moe.py:121-136``) over the B·S rows of the
-    call."""
+    """x (B, S, d) → (y (B, S, d), aux loss scalar).
+
+    With no mesh installed, the reference's single-device branch
+    (``moe.py:121-136``) over the B·S rows of the call.  Under a runtime
+    mesh, its ``shard_map`` branch (:func:`_sharded_moe`).  Under a mesh
+    description (the dry-run's :class:`~repro_torch.launch.mesh.MeshSpec`)
+    with the batch mapped, the same branch's work in one program
+    (:func:`data_split_moe`); with the batch unmapped (weight-stationary
+    decode), the single-device branch, as the reference takes it then."""
+    mesh = shrules.get_mesh()
+    if hasattr(mesh, "group"):
+        return _sharded_moe(p, x, cfg, mesh, shrules._rules())
+    if mesh is not None and shrules._rules().get("batch") is not None:
+        n = math.prod(mesh.shape[a] for a in shrules.dp_axes())
+        return data_split_moe(p, x, cfg, n, shrules.batch_splits(x.shape[0]))
     B, S, d = x.shape
     T = B * S
     y, aux = _local_moe(
@@ -177,3 +208,72 @@ def moe_ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, t
         k=cfg.experts_per_token, capacity=capacity(cfg, T),
     )
     return y.reshape(B, S, d), aux
+
+
+def _sharded_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig, mesh, rules):
+    """The reference's ``shard_map`` branch (``moe.py:138-197``) on this
+    rank: ``x`` holds the rank's rows of the batch when it splits over the
+    data axes (:func:`~repro_torch.sharding.rules.data_shard`), else every
+    row, and ``p`` its expert blocks (:func:`~repro_torch.sharding.rules.
+    mesh_specs`).  The dispatch is local to the rows held, with C over them;
+    each model rank runs its f-slice of every expert, the partial outputs
+    summed over "model" in float32 before the cast; under ``fsdp`` the
+    stacks arrive split on d over the data axes and are all-gathered here;
+    the aux is the mean over the data axes, then over "model".  With the
+    batch unmapped (``replicate_batch``) every rank runs every row and the
+    aux is its own, as the reference's single-device branch on a mesh."""
+    B, S, d = x.shape
+    k, E, f = cfg.experts_per_token, cfg.n_experts, cfg.d_ff
+    dp = tuple(rules.get("dp_axes") or ())
+    model_ax = rules.get("model_axis")
+    fsdp_axes = tuple(rules.get("fsdp") or ())
+    batch_mapped = rules.get("batch") is not None
+    batch_shardable = batch_mapped and bool(dp) and shrules.rows_split()
+    T = B * S
+    C = capacity(cfg, T)
+    f_ok = model_ax is not None and f % mesh.shape[model_ax] == 0
+    d_ok = bool(fsdp_axes) and all(d % mesh.shape[a] == 0 for a in fsdp_axes)
+    d_here = d // math.prod(mesh.shape[a] for a in fsdp_axes) if d_ok else d
+    f_here = f // mesh.shape[model_ax] if f_ok else f
+    wr, wg, wu, wd = p["w_router"], p["we_gate"], p["we_up"], p["we_down"]
+    if (tuple(wg.shape), tuple(wu.shape), tuple(wd.shape)) != (
+            (E, d_here, f_here), (E, d_here, f_here), (E, f_here, d_here)):
+        raise ValueError(
+            f"the expert stacks on this rank are {tuple(wg.shape)}/{tuple(wd.shape)}; the rules "
+            f"place ({E}, {d_here}, {f_here})/({E}, {f_here}, {d_here}) here: cut them with "
+            f"shrules.local_blocks(tree, shrules.mesh_specs(tree)) under the same rules")
+    if d_ok:
+        wg = coll.all_gather(wg, fsdp_axes, 1)
+        wu = coll.all_gather(wu, fsdp_axes, 1)
+        wd = coll.all_gather(wd, fsdp_axes, 2)
+    enter = (lambda t: coll.enter(t, model_ax)) if f_ok else None
+    y, aux = _moe_partial(x.reshape(T, d), wr, wg, wu, wd, k=k, capacity=C, enter=enter)
+    if f_ok:
+        y = coll.psum_out(y, model_ax)
+    if batch_mapped:
+        axes = dp if batch_shardable else ()
+        aux = coll.pmean(aux, axes) if axes else aux
+        if not batch_shardable and dp:
+            aux = coll.pmean(aux, dp)
+        if model_ax is not None:
+            aux = coll.pmean(aux, model_ax)
+    return y.to(x.dtype).reshape(B, S, d), aux
+
+
+def data_split_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig, n: int, split: bool):
+    """The work of the sharded branch over ``n`` data shards in one program
+    (every expert whole).  ``split``: x (B, S, d) cut into ``n`` contiguous
+    blocks of rows, each dispatched with its own capacity, the outputs
+    concatenated; else every shard runs every row (the output is the
+    first's).  The aux is the shards' mean.  The dry-run's trace of a
+    mesh's moe layers (so it counts each shard's capacity, which the floor
+    of 8 inflates at decode), and the data split a check holds against the
+    mesh's."""
+    B, S, d = x.shape
+    k = cfg.experts_per_token
+    rows = (x.reshape(n, B // n * S, d) if split
+            else x.reshape(1, B * S, d).expand(n, -1, -1))
+    ys, auxes = zip(*(_local_moe(r, p["w_router"], p["we_gate"], p["we_up"], p["we_down"], k=k,
+                                 capacity=capacity(cfg, r.shape[0])) for r in rows))
+    y = torch.cat(ys) if split else ys[0]
+    return y.reshape(B, S, d), torch.stack(auxes).mean()

@@ -72,6 +72,7 @@ from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import normal, rms_norm, stacked_dense_init
+from repro_torch.sharding import rules as shrules
 
 Tree = Any
 
@@ -287,10 +288,21 @@ def _ckpt(fn: Callable, remat: bool) -> Callable:
     """``fn`` run under non-reentrant ``torch.utils.checkpoint`` when
     ``remat`` (the reference's ``_ckpt``, ``jax.checkpoint`` with nothing
     saveable): its backward recomputes what ``fn`` computed from the
-    arguments it was given."""
+    arguments it was given, under the sharding rules of the forward (the
+    recompute may run on the autograd engine's thread, which has none)."""
     if not remat:
         return fn
-    return lambda *args: torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    def run(*args):
+        snap = shrules.snapshot()
+
+        def again(*a):
+            with shrules.installed(snap):
+                return fn(*a)
+
+        return torch.utils.checkpoint.checkpoint(again, *args, use_reentrant=False)
+
+    return run
 
 
 def _run_vlm_groups(params, cfg: ModelConfig, x, positions, cache_layers, img, remat=False):

@@ -42,10 +42,15 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads: Tree, state: Tree, params: Tree, cfg: AdamWConfig) -> Tuple[Tree, Tree, dict]:
-    """One AdamW step → ``(new_params, new_state, {"grad_norm", "lr"})``."""
+def adamw_update(grads: Tree, state: Tree, params: Tree, cfg: AdamWConfig,
+                 gnorm: Optional[torch.Tensor] = None) -> Tuple[Tree, Tree, dict]:
+    """One AdamW step → ``(new_params, new_state, {"grad_norm", "lr"})``;
+    ``gnorm`` (default: :func:`global_norm` of ``grads``) is the norm it
+    clips by, given where ``grads`` holds one rank's blocks of sharded
+    leaves."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     if cfg.clip_norm:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         # in fp32, as the reference's promotion gives it for a bf16 leaf

@@ -1,11 +1,13 @@
-"""Logical-axis sharding rules of the multi-tenant serve (port of
-``repro/sharding/rules.py``, cut to what the sharded serve reads, and
-the per-replica device groups of multi-replica serving).
+"""Logical-axis sharding rules (port of ``repro/sharding/rules.py``): the
+serve's sharded λ tables and QR factors, the training mesh, the logical
+rule table, and the per-replica device groups of multi-replica serving.
 
 The reference maps *logical* axis names onto mesh axes through a rule table
-installed by the launcher.  The port's serve has one axis, a
-``torch.distributed`` process group (every rank runs the whole engine), and
-two logical axes the engine can map onto it:
+installed by the launcher (:func:`axis_rules`).  The port installs one of
+two things.
+
+A process group (the multi-tenant serve, every rank running the whole
+engine), with the logical axes the engine maps onto it:
 
     lam_slots → the slot axis of the packed λ tables (``shard_lam``): each
                 rank holds n_slots / world rows, and the adapted
@@ -15,24 +17,33 @@ two logical axes the engine can map onto it:
                 A (..., r, N) (``shard_ba``), reassembled by an exact
                 all-gather before the contraction
 
-With no rules installed (the default, and outside :func:`axis_rules`)
+A mesh (``launch/mesh.py``: a runtime :class:`~repro_torch.launch.mesh.Mesh`
+of process groups, or a :class:`~repro_torch.launch.mesh.MeshSpec`
+description) with the reference's rule table (:func:`default_rules`): the
+batch over the data axes, each moe expert's hidden dim over "model", and
+under ``fsdp`` the expert stacks' d over the data axes.  On a runtime mesh
+each rank computes the rows of its data shard (:func:`data_shard`), every
+non-expert leaf whole (:func:`mesh_specs`), and ``moe_ffn`` runs the
+reference's ``shard_map`` branch on its expert slices with the collectives
+of :mod:`repro_torch.sharding.collectives`.
+
+With nothing installed (the default, and outside :func:`axis_rules`)
 nothing is sharded, so model code never branches on distribution.
 
-The reference's *logical rule table* lives here too (:func:`default_rules`,
-:func:`logical_spec`, :func:`param_sharding_rules`): pure functions over a
-mesh description (``.shape``, a dict of axis sizes, and ``.axis_names``,
-as :func:`repro_torch.launch.mesh.make_production_mesh` gives one), which
-the dry-run (``launch/specs.py``) reads to place params, optimizer state,
-caches and batches on the reference's production meshes.  A spec is one
-entry per dim, as a ``PartitionSpec`` holds them: ``None`` (replicated), an
-axis name, or a tuple of axis names.
+The rule table's pure functions (:func:`default_rules`,
+:func:`logical_spec`, :func:`param_sharding_rules`) also take a mesh
+description alone (``.shape``, a dict of axis sizes, and ``.axis_names``),
+which the dry-run (``launch/specs.py``) reads to place params, optimizer
+state, caches and batches on the reference's production meshes.  A spec is
+one entry per dim, as a ``PartitionSpec`` holds them: ``None``
+(replicated), an axis name, or a tuple of axis names.
 """
 from __future__ import annotations
 
 import math
 import threading
 from contextlib import contextmanager
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,26 +53,127 @@ _state = threading.local()
 
 
 def get_group():
-    """The process group of the installed rules, or None."""
+    """The process group of the installed serve rules, or None."""
     return getattr(_state, "group", None)
 
 
-def _rules() -> Dict[str, str]:
+def get_mesh():
+    """The installed mesh, or None."""
+    return getattr(_state, "mesh", None)
+
+
+def _rules() -> Dict[str, Any]:
     return getattr(_state, "rules", {})
 
 
 @contextmanager
-def axis_rules(group, rules: Dict[str, str]):
-    """Shard the logical axes named in ``rules`` (``{"lam_slots": "model",
-    "qr_rank": "model"}``, any subset) over ``group`` inside the block; a
-    None group shards nothing.  Restores the previous rules on exit."""
-    prev = get_group(), _rules()
-    _state.group = group
-    _state.rules = dict(rules) if group is not None else {}
+def axis_rules(where, rules: Optional[Dict[str, Any]] = None, *, fsdp: bool = False,
+               dp_only: bool = False, replicate_batch: bool = False):
+    """Install sharding rules inside the block; the previous ones come back
+    on exit.
+
+    ``where`` a mesh (anything with ``.axis_names``): the rule table
+    ``rules``, or :func:`default_rules` of the mesh with ``fsdp``,
+    ``dp_only`` and ``replicate_batch`` (the reference's ``axis_rules(mesh,
+    fsdp=...)``).  ``where`` a process group: shard the serve's logical axes
+    named in ``rules`` (``{"lam_slots": "model", "qr_rank": "model"}``, any
+    subset) over it; a None group shards nothing."""
+    prev = snapshot()
+    if hasattr(where, "axis_names"):
+        _state.group, _state.mesh = None, where
+        _state.rules = dict(rules) if rules is not None else default_rules(
+            where, fsdp=fsdp, dp_only=dp_only, replicate_batch=replicate_batch)
+    else:
+        _state.group, _state.mesh = where, None
+        _state.rules = dict(rules or {}) if where is not None else {}
+    _state.split = None
     try:
         yield
     finally:
-        _state.group, _state.rules = prev
+        _state.group, _state.mesh, _state.rules, _state.split = prev
+
+
+def snapshot() -> Tuple:
+    """The installed rules, mesh, group and data-shard flag as one value
+    (the state is per thread: a remat recompute may run on the autograd
+    engine's thread, and re-installs it with :func:`installed`)."""
+    return get_group(), get_mesh(), _rules(), getattr(_state, "split", None)
+
+
+@contextmanager
+def installed(snap: Tuple):
+    """Inside the block, the state of :func:`snapshot` ``snap``."""
+    prev = snapshot()
+    _state.group, _state.mesh, _state.rules, _state.split = snap
+    try:
+        yield
+    finally:
+        _state.group, _state.mesh, _state.rules, _state.split = prev
+
+
+def _runtime_mesh():
+    """The installed mesh when it is a runtime one (process groups), else
+    None."""
+    mesh = get_mesh()
+    return mesh if hasattr(mesh, "group") else None
+
+
+def _as_axes(ax) -> Tuple[str, ...]:
+    return () if ax is None else ((ax,) if isinstance(ax, str) else tuple(ax))
+
+
+def dp_axes() -> Tuple[str, ...]:
+    """The installed rules' data axes (the reference's ``dp_axes``; the
+    batch's, and the expert stacks' d under ``fsdp``); () with no mesh."""
+    return _as_axes(_rules().get("dp_axes")) if get_mesh() is not None else ()
+
+
+def batch_splits(rows: int) -> bool:
+    """Whether a batch of ``rows`` splits over the data axes under the
+    installed rules (the reference's ``batch_shardable``): the batch mapped
+    onto them and the rows dividing."""
+    mesh = get_mesh()
+    if mesh is None or _rules().get("batch") is None or not dp_axes():
+        return False
+    if _as_axes(_rules()["batch"]) != dp_axes():
+        raise ValueError(f"the batch on {_rules()['batch']} and the data axes {dp_axes()} "
+                         f"differ: the data-parallel steps split the batch over the data axes")
+    return rows % _axis_size(mesh, dp_axes()) == 0
+
+
+@contextmanager
+def data_shard(split: bool):
+    """Inside the block the activations of each rank of the installed
+    runtime mesh hold its own rows of the batch (``split``: the contiguous
+    block at its index over the data axes, :func:`rank_rows`) or every row
+    (the batch does not divide).  The data-parallel steps set it;
+    ``moe_ffn``'s sharded branch reads it (:func:`rows_split`)."""
+    prev = getattr(_state, "split", None)
+    _state.split = bool(split)
+    try:
+        yield
+    finally:
+        _state.split = prev
+
+
+def rows_split() -> bool:
+    """Whether this rank holds its data shard's rows (:func:`data_shard`);
+    raises outside a data-parallel step, where no one has said."""
+    split = getattr(_state, "split", None)
+    if split is None:
+        raise RuntimeError("under a runtime mesh that shards the batch, say whose rows the "
+                           "activations hold: run inside shrules.data_shard(split) (the "
+                           "data-parallel steps of training/steps.py do)")
+    return split
+
+
+def rank_rows(x: torch.Tensor, split: bool) -> torch.Tensor:
+    """This rank's rows of ``x`` (dim 0) when ``split``, else all of them."""
+    if not split:
+        return x
+    mesh, axes = get_mesh(), dp_axes()
+    n = x.shape[0] // _axis_size(mesh, axes)
+    return x.narrow(0, mesh.index(axes) * n, n)
 
 
 def _axis_group(name: str):
@@ -298,3 +410,68 @@ def shard_shape(shape: Sequence[int], spec: Sequence, mesh) -> Tuple[int, ...]:
             raise ValueError(f"dim {dim} of {tuple(shape)} does not divide over {ax} ({n})")
         out.append(dim // n)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Placement on a runtime mesh
+# ---------------------------------------------------------------------------
+
+# the leaves a runtime mesh shards: the moe expert stacks
+_EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
+
+
+def mesh_specs(tree: Tree) -> Tree:
+    """The spec of each leaf of ``tree`` (whole leaves) on the installed mesh:
+    the rule table's for the moe expert stacks (f over "model", and d over
+    the data axes under ``fsdp``, each where it divides), replicated for
+    every other leaf, since each rank computes every other op whole;
+    ``None`` for a leaf that is not a tensor.  Optimizer moments take their
+    leaf's spec (the same path ends in the same name)."""
+    mesh, rules = get_mesh(), _rules()
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in node.items()}
+        if not isinstance(node, torch.Tensor):
+            return None
+        if path and path[-1] in _EXPERT_LEAVES and mesh is not None:
+            return _spec_for_path(path, tuple(node.shape), rules, mesh)
+        return (None,) * node.ndim
+
+    return walk(tree, ())
+
+
+def sharded_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes a spec shards over, in mesh order of first use."""
+    out = []
+    for ax in spec or ():
+        out += [a for a in _as_axes(ax) if a not in out]
+    return tuple(out)
+
+
+def local_blocks(tree: Tree, specs: Tree) -> Tree:
+    """``tree`` (whole leaves) with each leaf cut to this rank's block of its
+    spec on the installed runtime mesh: along each sharded dim the block at
+    the rank's index over that dim's axes.  A cut leaf is a new tensor
+    (requiring grad where the leaf does); a whole one is the leaf itself."""
+    mesh = _runtime_mesh()
+    if mesh is None:
+        raise RuntimeError("local_blocks places a tree on a runtime mesh: install one with "
+                           "axis_rules(make_local_mesh(...))")
+
+    def cut(x, spec):
+        if spec is None or not sharded_axes(spec):
+            return x
+        out = x.detach()
+        for dim, ax in enumerate(spec):
+            if ax is not None:
+                n = out.shape[dim] // mesh.axis_size(ax)
+                out = out.narrow(dim, mesh.index(ax) * n, n)
+        return out.clone(memory_format=torch.contiguous_format).requires_grad_(x.requires_grad)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        return cut(node, spec)
+
+    return walk(tree, specs)

@@ -36,6 +36,7 @@ from repro.launch import roofline as JRL
 from repro_torch.configs import SHAPES, ShapeConfig, get_config, get_reduced
 from repro_torch.launch import dryrun, hillclimb, report
 from repro_torch.launch import roofline as RL
+from repro_torch.launch.mesh import MeshSpec, make_production_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-12
@@ -146,13 +147,33 @@ PROBE_SHAPES = [ShapeConfig("train_s", 8, 2, "train"), ShapeConfig("prefill_s", 
 @pytest.mark.parametrize("arch,overrides", PROBED, ids=[a for a, _ in PROBED])
 def test_affine_probe_equals_a_direct_count(arch, overrides):
     """1 and 2 groups extrapolated to 3 against the 3 groups traced whole
-    (every layer adapted, so every group repeats the same ops)."""
+    (every layer adapted, so every group repeats the same ops), on a 2×2
+    mesh (the moe layers' dispatch split over its 2 data shards)."""
     cfg = get_reduced(arch)
     cfg = cfg.replace(adapter=cfg.adapter.replace(layers="all"), **overrides)
+    mesh = MeshSpec((2, 2), ("data", "model"))
     for shape in PROBE_SHAPES:
-        flops, hbm, _ = dryrun._probe_costs(cfg, shape)
-        assert (flops, hbm) == dryrun._trace_cell(cfg.replace(microbatches=1), shape), shape.name
+        flops, hbm, _ = dryrun._probe_costs(cfg, shape, mesh)
+        assert (flops, hbm) == dryrun._trace_cell(cfg.replace(microbatches=1), shape,
+                                                  mesh), shape.name
         assert flops > 0 and hbm > 0
+
+
+@pytest.mark.parametrize("decode_weight_stationary", [False, True])
+def test_moe_trace_counts_each_data_shards_dispatch(decode_weight_stationary):
+    """A moe cell traces the sharded branch's work: at decode (the full
+    config's capacity factor 1.25), each of 4 data shards dispatches its 8
+    lanes into C = 8 slots an expert (the floor of 8 pads ⌈2.5⌉), more
+    than one dispatch over the 32 lanes (a 1×8 mesh, one data shard: C =
+    10); the same as the single-device dispatch with the batch replicated
+    (weight-stationary decode)."""
+    cfg = get_reduced("moonshot_v1_16b_a3b").replace(
+        n_layers=1, capacity_factor=1.25, decode_weight_stationary=decode_weight_stationary)
+    shape = ShapeConfig("decode_s", 64, 32, "decode")
+    split = dryrun._trace_cell(cfg, shape, MeshSpec((4, 2), ("data", "model")))
+    whole = dryrun._trace_cell(cfg, shape, MeshSpec((1, 8), ("data", "model")))
+    assert (split[0] > whole[0]) != decode_weight_stationary, (split, whole)
+    assert (split == whole) == decode_weight_stationary
 
 
 def _check_ok_record(rec, arch, shape, mesh, probe):
@@ -179,7 +200,8 @@ def test_run_cell_records_each_shape_kind(arch, reduced_grid):
             cfg = get_reduced(arch)
             rl = rec["roofline"]
             assert rl["model_flops"] == RL.model_flops_for(cfg, SHAPES[shape])
-            flops, hbm, _ = dryrun._probe_costs(cfg, SHAPES[shape])
+            flops, hbm, _ = dryrun._probe_costs(
+                cfg, SHAPES[shape], dryrun.trace_mesh(cfg, make_production_mesh(multi_pod=mp)))
             n = 512 if mp else 256
             assert (rl["flops_per_device"], rl["hbm_bytes_per_device"]) == (flops / n, hbm / n)
         assert dryrun.run_cell(arch, "long_500k", mp, verbose=False) == {
@@ -187,7 +209,7 @@ def test_run_cell_records_each_shape_kind(arch, reduced_grid):
 
 
 def test_a_failing_trace_is_a_fail_record_and_exit_1(reduced_grid, monkeypatch, tmp_path):
-    def broken(cfg, shape):
+    def broken(cfg, shape, mesh):
         raise RuntimeError("planted")
 
     monkeypatch.setattr(dryrun, "_trace_cell", broken)
@@ -205,7 +227,8 @@ def test_cli_traces_each_cell_once_over_both_meshes(reduced_grid, monkeypatch, t
     traced = []
     sound = dryrun._trace_cell
     monkeypatch.setattr(dryrun, "_trace_cell",
-                        lambda cfg, shape: traced.append((cfg.name, shape.name)) or sound(cfg, shape))
+                        lambda cfg, shape, mesh: traced.append((cfg.name, shape.name))
+                        or sound(cfg, shape, mesh))
     dryrun._probe_costs.cache_clear()
     try:
         out = tmp_path / "dry.json"
